@@ -1,0 +1,262 @@
+"""Model configuration dataclasses and the EVA-CLIP config registry.
+
+PyTorch counterpart of `mico_tpu/config.py`: the same field names, defaults
+and registry entries, with torch dtypes in `MiCoConfig.dtypes()`. Only the
+towers this package implements (EVA01 ViTs with the shared audio route) are
+buildable; asking for another tower raises `NotImplementedError` naming the
+ROADMAP queue that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 11: other encoders)"
+
+
+@dataclass(frozen=True)
+class EvaVitConfig:
+    """EVA Vision Transformer hyperparameters (reference `CLIPVisionCfg`
+    defaults, so registry entries only state overrides)."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    layers: int = 12
+    width: int = 768
+    head_width: int = 64
+    mlp_ratio: float = 4.0
+    embed_dim: int = 512
+    qkv_bias: bool = True
+    ls_init_value: Optional[float] = None
+    drop_path_rate: float = 0.0
+    patch_dropout: float = 0.0
+    global_average_pool: bool = False
+    postnorm: bool = False
+    rope: bool = False
+    pt_hw_seq_len: int = 16
+    intp_freq: bool = False
+    naiveswiglu: bool = False
+    subln: bool = False
+    ln_eps: float = 1e-6
+    use_shared_rel_pos_bias: bool = False
+    use_rel_pos_bias: bool = False
+
+    @property
+    def num_heads(self) -> int:
+        return self.width // self.head_width
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_width
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.width * self.mlp_ratio)
+
+    @property
+    def grid_size(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid_size * self.grid_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1
+
+    def with_image_size(self, image_size: int) -> "EvaVitConfig":
+        return dataclasses.replace(self, image_size=image_size)
+
+
+EVA_VIT_CONFIGS = {
+    "EVA01-CLIP-B-16": EvaVitConfig(
+        patch_size=16, layers=12, width=768, head_width=64, embed_dim=512,
+        ls_init_value=0.1,
+    ),
+    "EVA01-CLIP-g-14": EvaVitConfig(
+        patch_size=14, layers=40, width=1408, head_width=88,
+        mlp_ratio=4.3637, embed_dim=1024, drop_path_rate=0.4,
+    ),
+    "EVA01-CLIP-g-14-plus": EvaVitConfig(
+        patch_size=14, layers=40, width=1408, head_width=88,
+        mlp_ratio=4.3637, embed_dim=1024,
+    ),
+    "EVA02-CLIP-B-16": EvaVitConfig(
+        patch_size=16, layers=12, width=768, head_width=64,
+        mlp_ratio=2.6667, embed_dim=512, rope=True, intp_freq=True,
+        naiveswiglu=True, subln=True,
+    ),
+    "EVA02-CLIP-L-14": EvaVitConfig(
+        patch_size=14, layers=24, width=1024, head_width=64,
+        mlp_ratio=2.6667, embed_dim=768, rope=True, intp_freq=True,
+        naiveswiglu=True, subln=True,
+    ),
+    "EVA02-CLIP-L-14-336": EvaVitConfig(
+        image_size=336, patch_size=14, layers=24, width=1024, head_width=64,
+        mlp_ratio=2.6667, embed_dim=768, rope=True, intp_freq=True,
+        naiveswiglu=True, subln=True,
+    ),
+    "EVA02-CLIP-bigE-14": EvaVitConfig(
+        patch_size=14, layers=64, width=1792, head_width=112,
+        mlp_ratio=8.571428571428571, embed_dim=1024, postnorm=True,
+    ),
+    "EVA02-CLIP-bigE-14-plus": EvaVitConfig(
+        patch_size=14, layers=64, width=1792, head_width=112,
+        mlp_ratio=8.571428571428571, embed_dim=1024, postnorm=True,
+    ),
+}
+
+# vision_encoder_type → (EVA config name, vision_dim)
+VISION_ENCODER_TYPES = {
+    "evaclip02_base": ("EVA02-CLIP-B-16", 768),
+    "evaclip02_base_self": ("EVA02-CLIP-B-16", 768),
+    "evaclip02_large": ("EVA02-CLIP-L-14", 1024),
+    "evaclip02_bige": ("EVA02-CLIP-bigE-14-plus", 1792),
+    "evaclip01_giant": ("EVA01-CLIP-g-14", 1408),
+}
+
+
+def eva_config_for_encoder_type(
+    vision_encoder_type: str, image_size: Optional[int] = None
+) -> EvaVitConfig:
+    if vision_encoder_type not in VISION_ENCODER_TYPES:
+        raise NotImplementedError(
+            f"vision tower {vision_encoder_type!r}: {_NOT_PORTED}"
+        )
+    name, _ = VISION_ENCODER_TYPES[vision_encoder_type]
+    cfg = EVA_VIT_CONFIGS[name]
+    if image_size is not None:
+        cfg = cfg.with_image_size(image_size)
+    return cfg
+
+
+@dataclass(frozen=True)
+class BertConfig:
+    """BERT-base with cross-attention."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    pad_token_id: int = 0
+    add_cross_attention: bool = True
+    encoder_width: int = 768
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+@dataclass(frozen=True)
+class MiCoConfig:
+    """Top-level omni-modal model config; field names match the reference
+    `model_cfg` keys and `mico_tpu.config.MiCoConfig`."""
+
+    vision_encoder_type: str = "evaclip01_giant"
+    vision_resolution: int = 224
+    contra_dim: int = 512
+    frame_embedding_type: str = "adaptive"
+    max_vision_sample_num: int = 4
+    max_audio_sample_num: int = 4
+    max_depth_sample_num: int = 4
+    pool_video: bool = False
+    beam_size: int = 3
+    itm_ratio: float = 1.0
+    max_caption_len: int = 40
+    max_omni_caption_len: int = 70
+    max_subtitle_len: int = 70
+    checkpointing: bool = False
+    bert_checkpointing: Optional[bool] = None
+    remat_policy: Optional[str] = None
+    unroll_blocks: bool = False
+    pipeline_stages: int = 1
+    pipeline_microbatches: Optional[int] = None
+    itm_rerank_num: int = 50
+    ret_bidirection_evaluation: bool = False
+    audio_encoder_type: str = "shared"
+    audio_melbins: int = 64
+    audio_target_length: int = 1024
+    compute_dtype: str = "bfloat16"
+    shard_condition_sequence: bool = False
+    param_dtype: str = "float32"
+    use_flash_attention: bool = True
+    eva_override: Optional[EvaVitConfig] = None
+    bert_override: Optional[BertConfig] = None
+    vision_override: Optional[object] = None
+    audio_override: Optional[object] = None
+
+    @property
+    def vision_dim(self) -> int:
+        return self.eva_config.width
+
+    @property
+    def multimodal_dim(self) -> int:
+        if self.bert_override is not None:
+            return self.bert_override.hidden_size
+        return 768
+
+    @property
+    def audio_dim(self) -> int:
+        if self.audio_encoder_type != "shared":
+            raise NotImplementedError(
+                f"audio tower {self.audio_encoder_type!r}: {_NOT_PORTED}"
+            )
+        return self.vision_dim
+
+    @property
+    def eva_config(self) -> EvaVitConfig:
+        if self.vision_override is not None:
+            raise NotImplementedError(f"vision_override: {_NOT_PORTED}")
+        if self.eva_override is not None:
+            return self.eva_override
+        return eva_config_for_encoder_type(
+            self.vision_encoder_type, self.vision_resolution
+        )
+
+    @property
+    def vision_tower_config(self) -> EvaVitConfig:
+        return self.eva_config
+
+    @property
+    def audio_tower_config(self):
+        if self.audio_encoder_type == "shared":
+            return None
+        raise NotImplementedError(
+            f"audio tower {self.audio_encoder_type!r}: {_NOT_PORTED}"
+        )
+
+    @property
+    def bert_config(self) -> BertConfig:
+        if self.bert_override is not None:
+            return self.bert_override
+        return BertConfig()
+
+    def dtypes(self) -> Tuple[torch.dtype, torch.dtype]:
+        return (
+            getattr(torch, self.param_dtype),
+            getattr(torch, self.compute_dtype),
+        )
+
+
+def mico_config_from_dict(d: dict) -> MiCoConfig:
+    """MiCoConfig from a (possibly larger) reference-style model_cfg dict,
+    ignoring keys it does not model; `eva_override`/`bert_override` given as
+    dicts are lifted into their dataclasses."""
+    names = {f.name for f in dataclasses.fields(MiCoConfig)}
+    kw = {k: v for k, v in d.items() if k in names}
+    if isinstance(kw.get("eva_override"), dict):
+        kw["eva_override"] = EvaVitConfig(**kw["eva_override"])
+    if isinstance(kw.get("bert_override"), dict):
+        kw["bert_override"] = BertConfig(**kw["bert_override"])
+    return MiCoConfig(**kw)

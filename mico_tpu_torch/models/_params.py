@@ -1,0 +1,81 @@
+"""Parameter containers and seeded init shared by the model modules.
+
+Parameters keep the JAX package's names and layouts (linears (in, out)), so
+a state_dict key is the JAX param path with the stacked depth axis written
+out as a ModuleList index (`vision_encoder.blocks.3.qkv_w`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+class ParamGroup(nn.Module):
+    """A named group of inference parameters (no gradients)."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, t in tensors.items():
+            self.put(name, t)
+
+    def get(self, name: str) -> Optional[torch.Tensor]:
+        """The parameter, or None when the group does not hold it (e.g. the
+        LN affines a folded block no longer has)."""
+        return self._parameters.get(name)
+
+    def put(self, name: str, t: torch.Tensor) -> None:
+        if name in self._parameters:
+            del self._parameters[name]
+        self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+
+    def drop(self, name: str) -> torch.Tensor:
+        return self._parameters.pop(name)
+
+
+class Init:
+    """Seeded draws for a fresh model: trunc-normal and normal 0.02 from one
+    `torch.Generator`, in fp32 on the CPU (so the same seed gives the same
+    weights whatever device the model then moves to). On the meta device it
+    only allocates shapes."""
+
+    def __init__(self, generator: Optional[torch.Generator], meta: bool = False):
+        self.gen = generator
+        self.device = torch.device("meta" if meta else "cpu")
+
+    def _empty(self, shape) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=self.device)
+
+    def trunc(self, shape, std: float = 0.02) -> torch.Tensor:
+        """std * standard normal truncated to [-2, 2] (JAX
+        `truncated_normal`), by redrawing the out-of-range values — several
+        times faster than inverse-CDF sampling at ViT-g's 1e9 values."""
+        t = self._empty(shape)
+        if self.device.type == "meta":
+            return t
+        flat = t.view(-1)
+        flat.normal_(0.0, 1.0, generator=self.gen)
+        idx = (flat.abs() > 2.0).nonzero().squeeze(1)
+        while idx.numel():
+            redraw = torch.empty(idx.numel()).normal_(0.0, 1.0,
+                                                      generator=self.gen)
+            flat[idx] = redraw
+            idx = idx[redraw.abs() > 2.0]
+        return t.mul_(std)
+
+    def normal(self, shape, std: float = 0.02) -> torch.Tensor:
+        t = self._empty(shape)
+        if self.device.type != "meta":
+            t.normal_(0.0, std, generator=self.gen)
+        return t
+
+    def zeros(self, shape) -> torch.Tensor:
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def full(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, dtype=torch.float32, device=self.device)
+
+    def ones(self, shape) -> torch.Tensor:
+        return self.full(shape, 1.0)

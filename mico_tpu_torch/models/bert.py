@@ -1,0 +1,205 @@
+"""BERT-base interface branch with cross-attention (counterpart of
+`mico_tpu/models/bert.py`).
+
+Embeddings (word + position + token type, LN eps 1e-12), then per layer:
+self-attention → optional cross-attention over `encoder_hidden_states` →
+FFN-GELU, each sublayer residual + LN. 2D padding masks stay bidirectional
+and become additive (1 - m) * -10000. Layers are a ModuleList; attention
+routes through `multi_head_attention`, so the cross-attention over the
+257·n condition tokens takes kernel K2 and the 30-token self-attention stays
+plain. The MLM head's parameters are held (so the JAX params load whole);
+its forward waits for the generation port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mico_tpu_torch.config import BertConfig
+from mico_tpu_torch.models._params import Init, ParamGroup
+from mico_tpu_torch.ops.attention import multi_head_attention
+from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+
+MASK_VALUE = -10000.0
+
+
+class BertLayer(ParamGroup):
+    """One layer; parameter names as in the JAX `layers/*` tree."""
+
+    def __init__(self, cfg: BertConfig, init: Init):
+        h, inter, enc = cfg.hidden_size, cfg.intermediate_size, cfg.encoder_width
+        tensors = dict(
+            q_w=init.normal((h, h)), q_b=init.zeros((h,)),
+            k_w=init.normal((h, h)), k_b=init.zeros((h,)),
+            v_w=init.normal((h, h)), v_b=init.zeros((h,)),
+            attn_out_w=init.normal((h, h)), attn_out_b=init.zeros((h,)),
+            attn_ln_w=init.ones((h,)), attn_ln_b=init.zeros((h,)),
+            inter_w=init.normal((h, inter)), inter_b=init.zeros((inter,)),
+            out_w=init.normal((inter, h)), out_b=init.zeros((h,)),
+            out_ln_w=init.ones((h,)), out_ln_b=init.zeros((h,)),
+        )
+        if cfg.add_cross_attention:
+            tensors.update(
+                xq_w=init.normal((h, h)), xq_b=init.zeros((h,)),
+                xk_w=init.normal((enc, h)), xk_b=init.zeros((h,)),
+                xv_w=init.normal((enc, h)), xv_b=init.zeros((h,)),
+                x_out_w=init.normal((h, h)), x_out_b=init.zeros((h,)),
+                x_ln_w=init.ones((h,)), x_ln_b=init.zeros((h,)),
+            )
+        super().__init__(**tensors)
+
+
+class Bert(nn.Module):
+    """Parameter tree: embeddings/*, layers[i]/*, mlm_head/*."""
+
+    def __init__(self, cfg: BertConfig, init: Init):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.embeddings = ParamGroup(
+            word=init.normal((cfg.vocab_size, h)),
+            position=init.normal((cfg.max_position_embeddings, h)),
+            token_type=init.normal((cfg.type_vocab_size, h)),
+            ln_w=init.ones((h,)), ln_b=init.zeros((h,)),
+        )
+        self.layers = nn.ModuleList(
+            [BertLayer(cfg, init) for _ in range(cfg.num_hidden_layers)]
+        )
+        self.mlm_head = ParamGroup(
+            dense_w=init.normal((h, h)), dense_b=init.zeros((h,)),
+            ln_w=init.ones((h,)), ln_b=init.zeros((h,)),
+            decoder_w=init.normal((h, cfg.vocab_size)),
+            decoder_b=init.zeros((cfg.vocab_size,)),
+        )
+
+
+def extended_attention_mask(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(b, L) or (b, Lq, Lk) 1/0 mask → additive (b, 1, Lq|1, Lk) fp32."""
+    if attention_mask.dim() == 2:
+        ext = attention_mask[:, None, None, :]
+    elif attention_mask.dim() == 3:
+        ext = attention_mask[:, None, :, :]
+    else:
+        raise ValueError(f"bad mask rank {attention_mask.dim()}")
+    return (1.0 - ext.float()) * MASK_VALUE
+
+
+def bert_embeddings(
+    emb: ParamGroup,
+    cfg: BertConfig,
+    input_ids: torch.Tensor,
+    position_ids: Optional[torch.Tensor] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Sum in the parameters' dtype and LN with fp32 statistics, then the
+    compute dtype (bert.py:99-120). token_type_ids=None adds row 0 of the
+    table."""
+    l = input_ids.shape[1]
+    if position_ids is None:
+        position_ids = torch.arange(l, device=input_ids.device)[None, :]
+    x = emb.get("word")[input_ids.long()]
+    x = x + emb.get("position")[position_ids.long()]
+    if token_type_ids is None:
+        x = x + emb.get("token_type")[0]
+    else:
+        x = x + emb.get("token_type")[token_type_ids.long()]
+    x = layer_norm(x, emb.get("ln_w"), emb.get("ln_b"), cfg.layer_norm_eps)
+    return x.to(compute_dtype)
+
+
+def _attn_sublayer(
+    x: torch.Tensor,
+    kv: torch.Tensor,
+    lp: BertLayer,
+    cfg: BertConfig,
+    bias: Optional[torch.Tensor],
+    prefix: str,
+    out_prefix: str,
+    ln_prefix: str,
+    attn_impl: str,
+    kv_index: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention sublayer with residual + LN. kv may hold only the unique
+    condition rows (u < b) with kv_index mapping each query row to its row:
+    K/V are projected once per unique row and gathered (bert.py:143-156)."""
+    b, lq, h = x.shape
+    u, lk = kv.shape[0], kv.shape[1]
+    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    q = linear(x, lp.get(f"{prefix}q_w"), lp.get(f"{prefix}q_b"))
+    k = linear(kv, lp.get(f"{prefix}k_w"), lp.get(f"{prefix}k_b"))
+    v = linear(kv, lp.get(f"{prefix}v_w"), lp.get(f"{prefix}v_b"))
+    q = q.reshape(b, lq, nh, hd).transpose(1, 2)
+    k = k.reshape(u, lk, nh, hd).transpose(1, 2)
+    v = v.reshape(u, lk, nh, hd).transpose(1, 2)
+    if kv_index is not None:
+        k = k[kv_index]
+        v = v[kv_index]
+    o = multi_head_attention(q, k, v, bias=bias, scale=hd ** -0.5,
+                             impl=attn_impl)
+    o = o.transpose(1, 2).reshape(b, lq, h)
+    o = linear(o, lp.get(f"{out_prefix}_w"), lp.get(f"{out_prefix}_b"))
+    return layer_norm(x + o, lp.get(f"{ln_prefix}_w"), lp.get(f"{ln_prefix}_b"),
+                      cfg.layer_norm_eps)
+
+
+def bert_encoder(
+    model: Bert,
+    hidden: torch.Tensor,
+    self_bias: Optional[torch.Tensor],
+    encoder_hidden_states: Optional[torch.Tensor] = None,
+    cross_bias: Optional[torch.Tensor] = None,
+    attn_impl: str = "flash",
+    cross_kv_index: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    cfg = model.cfg
+    x = hidden
+    for lp in model.layers:
+        x = _attn_sublayer(x, x, lp, cfg, self_bias, "", "attn_out", "attn_ln",
+                           attn_impl)
+        if encoder_hidden_states is not None:
+            x = _attn_sublayer(
+                x, encoder_hidden_states.to(x.dtype), lp, cfg, cross_bias,
+                "x", "x_out", "x_ln", attn_impl, kv_index=cross_kv_index,
+            )
+        y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
+        y = linear(y, lp.get("out_w"), lp.get("out_b"))
+        x = layer_norm(x + y, lp.get("out_ln_w"), lp.get("out_ln_b"),
+                       cfg.layer_norm_eps)
+    return x
+
+
+def bert_forward(
+    model: Bert,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    encoder_hidden_states: Optional[torch.Tensor] = None,
+    encoder_attention_mask: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    token_type_ids: Optional[torch.Tensor] = None,
+    compute_dtype: torch.dtype = torch.float32,
+    attn_impl: str = "flash",
+    encoder_row_index: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`BertForMaskedLM.forward` without the MLM head: returns the
+    sequence_output (bert.py:254-313, eval mode)."""
+    self_bias = extended_attention_mask(attention_mask)
+    cross_bias = None
+    if encoder_hidden_states is not None and encoder_attention_mask is not None:
+        enc_mask = encoder_attention_mask
+        if encoder_row_index is not None:
+            if enc_mask.shape[0] != encoder_hidden_states.shape[0]:
+                raise ValueError(
+                    "encoder_attention_mask must be per unique row "
+                    f"({encoder_hidden_states.shape[0]}) when "
+                    f"encoder_row_index is given, got {enc_mask.shape[0]}"
+                )
+            enc_mask = enc_mask[encoder_row_index]
+        cross_bias = extended_attention_mask(enc_mask)
+    hidden = bert_embeddings(model.embeddings, model.cfg, input_ids,
+                             position_ids, token_type_ids, compute_dtype)
+    return bert_encoder(model, hidden, self_bias, encoder_hidden_states,
+                        cross_bias, attn_impl, cross_kv_index=encoder_row_index)

@@ -1,0 +1,195 @@
+"""EVA Vision Transformer (counterpart of `mico_tpu/models/eva_vit.py`).
+
+The EVA01 family: conv patch embed as reshape + one matmul in (c, dy, dx)
+order, CLS token + absolute pos embed, pre-norm blocks with a packed qkv
+projection and q/v-only bias, optional LayerScale, MLP-GELU, the final LN
+over all tokens and `return_all_features`. Blocks are a ModuleList.
+
+Routing of a block's attention (eva_vit.py:438-461 with the bf16 gate of
+flash_attention.py:1693):
+  - flash attention asked for, bf16 on the card → kernel K1
+    (`fused_ln_qkv_self_attention`; affine off when the params are folded);
+  - flash on the CPU → K1's plain twin, through the same wrapper;
+  - flash on the card in another dtype → the unfused LN → qkv → packed
+    attention composition (`fused_ln_qkv_plain`), as the JAX gate does;
+  - plain attention asked for → LN → linear → `multi_head_attention`.
+EVA02's RoPE, SwiGLU and sub-LN, post-norm and relative-position bias are
+not ported yet (ROADMAP.md, queue 1 item 2).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from mico_tpu_torch.config import EvaVitConfig
+from mico_tpu_torch.models._params import Init, ParamGroup
+from mico_tpu_torch.ops import flash_attention as fa
+from mico_tpu_torch.ops.attention import multi_head_attention
+from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+
+_EVA02 = "not ported yet (ROADMAP.md, queue 1 item 2: EVA02 / bigE features)"
+
+
+def check_supported(cfg: EvaVitConfig) -> None:
+    unsupported = [name for name in ("rope", "naiveswiglu", "subln",
+                                     "postnorm", "use_rel_pos_bias",
+                                     "use_shared_rel_pos_bias")
+                   if getattr(cfg, name)]
+    if unsupported:
+        raise NotImplementedError(f"EVA {', '.join(unsupported)}: {_EVA02}")
+
+
+class EvaBlock(ParamGroup):
+    """One pre-norm block; parameter names as in the JAX `blocks/*` tree."""
+
+    def __init__(self, cfg: EvaVitConfig, init: Init, layer_id: int):
+        w, h = cfg.width, cfg.mlp_hidden
+        rescale = math.sqrt(2.0 * (layer_id + 1))   # fix_init_weight
+        tensors = dict(
+            norm1_w=init.ones((w,)), norm1_b=init.zeros((w,)),
+            norm2_w=init.ones((w,)), norm2_b=init.zeros((w,)),
+            qkv_w=init.trunc((w, 3 * w)),
+            q_bias=init.zeros((w,)), v_bias=init.zeros((w,)),
+            proj_w=init.trunc((w, w)) / rescale,
+            proj_b=init.zeros((w,)),
+            fc1_w=init.trunc((w, h)), fc1_b=init.zeros((h,)),
+            fc2_w=init.trunc((h, w)) / rescale, fc2_b=init.zeros((w,)),
+        )
+        if cfg.ls_init_value is not None:
+            tensors["gamma_1"] = init.full((w,), cfg.ls_init_value)
+            tensors["gamma_2"] = init.full((w,), cfg.ls_init_value)
+        super().__init__(**tensors)
+
+    def packed_qkv_bias(self) -> torch.Tensor:
+        folded = self.get("qkv_bias")
+        if folded is not None:
+            return folded
+        q_b = self.get("q_bias")
+        return torch.cat([q_b, torch.zeros_like(q_b), self.get("v_bias")])
+
+    def forward(self, x: torch.Tensor, cfg: EvaVitConfig,
+                attn_impl: str) -> torch.Tensor:
+        nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.ln_eps
+        g, b0 = self.get("norm1_w"), self.get("norm1_b")
+        if attn_impl == "flash":
+            args = (x, g, b0, self.get("qkv_w").to(x.dtype),
+                    self.packed_qkv_bias(), nh,
+                    hd ** -0.5, eps, g is not None)
+            if x.is_cuda and x.dtype != torch.bfloat16:
+                o = fa.fused_ln_qkv_plain(*args)
+            else:
+                o = fa.fused_ln_qkv_self_attention(*args)
+        else:
+            b, l, w = x.shape
+            qkv = linear(layer_norm(x, g, b0, eps), self.get("qkv_w"),
+                         self.packed_qkv_bias())
+            q, k, v = qkv.reshape(b, l, 3, nh, hd).permute(2, 0, 3, 1, 4)
+            o = multi_head_attention(q, k, v, scale=hd ** -0.5, impl=attn_impl)
+            o = o.transpose(1, 2).reshape(b, l, w)
+        x = x + self._scaled(linear(o, self.get("proj_w"), self.get("proj_b")),
+                             "gamma_1")
+        h = layer_norm(x, self.get("norm2_w"), self.get("norm2_b"), eps)
+        y = linear(gelu(linear(h, self.get("fc1_w"), self.get("fc1_b"))),
+                   self.get("fc2_w"), self.get("fc2_b"))
+        return x + self._scaled(y, "gamma_2")
+
+    def _scaled(self, y: torch.Tensor, key: str) -> torch.Tensor:
+        gamma = self.get(key)
+        return y if gamma is None else y * gamma.to(y.dtype)
+
+    def fold_inference_params(self) -> None:
+        """In place: LN affines into the matmuls they feed, LayerScale into
+        the matmul that produces it (eva_vit.py:159-213), computed in fp32
+        and stored back in the parameters' dtype."""
+        dt = self.get("qkv_w").dtype
+
+        def f32(name):
+            return self.drop(name).float()
+
+        n1w, n1b = f32("norm1_w"), f32("norm1_b")
+        q_b, v_b = f32("q_bias"), f32("v_bias")
+        qkv_w = f32("qkv_w")
+        qkv_bias = torch.cat([q_b, torch.zeros_like(q_b), v_b]) + n1b @ qkv_w
+        self.put("qkv_bias", qkv_bias.to(dt))
+        self.put("qkv_w", (qkv_w * n1w[:, None]).to(dt))
+        n2w, n2b = f32("norm2_w"), f32("norm2_b")
+        fc1_w, fc1_b = f32("fc1_w"), f32("fc1_b")
+        self.put("fc1_b", (fc1_b + n2b @ fc1_w).to(dt))
+        self.put("fc1_w", (fc1_w * n2w[:, None]).to(dt))
+        for gamma_key, stem in (("gamma_1", "proj"), ("gamma_2", "fc2")):
+            if self.get(gamma_key) is not None:
+                gam = f32(gamma_key)
+                self.put(f"{stem}_w", (f32(f"{stem}_w") * gam[None, :]).to(dt))
+                self.put(f"{stem}_b", (f32(f"{stem}_b") * gam).to(dt))
+
+
+class EvaVisionTransformer(nn.Module):
+    """Parameter tree: patch_embed/{kernel,bias}, cls_token, pos_embed,
+    blocks[i]/*, norm_w, norm_b, head/{kernel,bias}."""
+
+    def __init__(self, cfg: EvaVitConfig, init: Init):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        w = cfg.width
+        self.patch_embed = ParamGroup(
+            kernel=init.trunc((3 * cfg.patch_size ** 2, w)),
+            bias=init.zeros((w,)),
+        )
+        self.cls_token = nn.Parameter(init.trunc((1, 1, w)), requires_grad=False)
+        self.pos_embed = nn.Parameter(init.trunc((1, cfg.seq_len, w)),
+                                      requires_grad=False)
+        self.blocks = nn.ModuleList(
+            [EvaBlock(cfg, init, i) for i in range(cfg.layers)]
+        )
+        self.norm_w = nn.Parameter(init.ones((w,)), requires_grad=False)
+        self.norm_b = nn.Parameter(init.zeros((w,)), requires_grad=False)
+        self.head = ParamGroup(kernel=init.trunc((w, cfg.embed_dim)),
+                               bias=init.zeros((cfg.embed_dim,)))
+
+    def fold_inference_params(self) -> None:
+        """In place, every block (eva_vit.fold_inference_params); the final
+        norm stays (its output is the model output)."""
+        for blk in self.blocks:
+            blk.fold_inference_params()
+
+
+def patch_embed(pe: ParamGroup, cfg: EvaVitConfig,
+                pixels: torch.Tensor) -> torch.Tensor:
+    """pixels (B, 3, H, W) → tokens (B, num_patches, width): the conv with
+    kernel = stride = patch as one matmul over patches flattened in
+    (c, dy, dx) order (no cuDNN, whose fp32 convolutions run in TF32)."""
+    b = pixels.shape[0]
+    p, g = cfg.patch_size, cfg.grid_size
+    x = pixels.reshape(b, 3, g, p, g, p).permute(0, 2, 4, 1, 3, 5)
+    x = x.reshape(b, g * g, 3 * p * p)
+    return linear(x, pe.get("kernel"), pe.get("bias"))
+
+
+def eva_vit_forward(
+    model: EvaVisionTransformer,
+    pixels: torch.Tensor,
+    *,
+    return_all_features: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    attn_impl: str = "flash",
+) -> torch.Tensor:
+    """pixels (B, 3, H, W) → (B, seq_len, width) when return_all_features,
+    else the pooled (B, width) (eva_vit.py:484-646, inference only)."""
+    cfg = model.cfg
+    x = patch_embed(model.patch_embed, cfg, pixels.to(compute_dtype))
+    b = x.shape[0]
+    cls = model.cls_token.to(compute_dtype).expand(b, 1, cfg.width)
+    x = torch.cat([cls, x], dim=1) + model.pos_embed.to(compute_dtype)
+    for blk in model.blocks:
+        x = blk(x, cfg, attn_impl)
+    if not cfg.global_average_pool:
+        x = layer_norm(x, model.norm_w, model.norm_b, cfg.ln_eps)
+        return x if return_all_features else x[:, 0]
+    if return_all_features:
+        return x
+    return layer_norm(x.mean(dim=1), model.norm_w, model.norm_b, cfg.ln_eps)
+

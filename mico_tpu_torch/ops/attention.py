@@ -1,0 +1,59 @@
+"""Multi-head attention entry point (counterpart of `mico_tpu/ops/attention.py`).
+
+Two implementations with the JAX package's routing:
+  - `plain`: `plain_attention`, the twin of `xla_attention` — fp32 scores and
+    softmax, probabilities cast to v's dtype, fp32 accumulation.
+  - `flash`: `flash_attention` (`ops/flash_attention.py`), the resident-KV
+    kernel K2 on the card and its plain twin on the CPU.
+
+Shapes: q (B, H, Lq, D); k, v (B, H, Lk, D); additive bias broadcastable to
+(B, H, Lq, Lk). Attention-probability dropout waits for the training port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mico_tpu_torch.ops import flash_attention as fa
+
+# 'flash' routes to the plain path when lq·lk is at or below this (the
+# ≤64-token text self-attention), as attention.py:95 does
+SMALL_ATTN_PLAIN_MAX = 64 * 64
+
+
+def plain_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.matmul(probs.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "flash",
+) -> torch.Tensor:
+    """impl: 'flash' | 'plain'. Tiny self-attention (lq·lk ≤ 4096) stays
+    plain under 'flash'."""
+    if impl == "flash" and q.shape[2] * k.shape[2] <= SMALL_ATTN_PLAIN_MAX:
+        impl = "plain"
+    if impl == "flash":
+        return fa.flash_attention(q, k, v, bias=bias, scale=scale)
+    if impl != "plain":
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return plain_attention(q, k, v, bias=bias, scale=scale)

@@ -1,0 +1,102 @@
+"""The port's serving pipeline (`mico_tpu_torch/serve.py`) against
+`mico_tpu.serve.EmbeddingPipeline` on the CPU: text embeddings through the
+tokenizer, and `_run`'s fixed-size padded batches with failed items as zero
+rows, fed decoded arrays (the media processors are not ported yet)."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from mico_tpu.serve import EmbeddingPipeline as JaxPipeline
+from mico_tpu.text import BertWordPieceTokenizer as JaxTokenizer
+from mico_tpu_torch.serve import EmbeddingPipeline
+from mico_tpu_torch.text import BertWordPieceTokenizer
+
+from torch_port_common import MODEL_TOL, close, configs, perturbed_params, \
+    port_model
+
+JAX_VOCAB = (Path(__file__).resolve().parent.parent / "mico_tpu" / "assets"
+             / "vocab.txt")
+TEXTS = ["a dog barks", "music plays loudly in the hall", "silence",
+         "two cats, one hat!"]
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    jcfg, tcfg = configs()
+    params = perturbed_params(jcfg)
+    jpipe = JaxPipeline(params, jcfg, JaxTokenizer(JAX_VOCAB), batch_size=3,
+                        io_workers=2, melbins=28, target_length=28,
+                        resize_melbin_num=28)
+    model = port_model(params, tcfg)
+    tpipe = EmbeddingPipeline(model, tcfg, BertWordPieceTokenizer(),
+                              batch_size=3, io_workers=2, device="cpu")
+    yield jpipe, tpipe, model
+    tpipe.close()
+
+
+def test_embed_texts(pipes):
+    jpipe, tpipe, _ = pipes
+    want = jpipe.embed_texts(TEXTS)
+    got = tpipe.embed_texts(TEXTS)
+    assert got.shape == (4, 32)
+    close(got, want, MODEL_TOL)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, rtol=1e-5)
+    sims = tpipe.similarity(got, got)
+    close(sims, jpipe.similarity(want, want), MODEL_TOL)
+
+
+def test_run_pads_and_reports_failures(pipes, rng):
+    """7 items in batches of 3 (the last padded), items 1 and 5 failed:
+    zero rows at their indices, unit rows elsewhere, as JAX's `_run`."""
+    jpipe, tpipe, _ = pipes
+    items = [rng.standard_normal((1, 3, 28, 28)).astype(np.float32)
+             for _ in range(7)]
+    items[1] = items[5] = None
+    seen = []
+
+    def device_fn(model, x):
+        seen.append(tuple(x.shape))
+        return tpipe._embed_pixels(model, x, head="v")
+
+    got = tpipe._run(items, lambda a: a, device_fn)
+    want = jpipe._run(items, lambda a: a,
+                      lambda p, x: jpipe._embed_pixels(p, x, head="v"))
+    assert seen == [(3, 1, 3, 28, 28)] * 3
+    assert tpipe.last_failures == jpipe.last_failures == [1, 5]
+    assert got.shape == (7, 32)
+    np.testing.assert_array_equal(got[[1, 5]], 0.0)
+    np.testing.assert_allclose(
+        np.linalg.norm(np.delete(got, [1, 5], axis=0), axis=-1), 1.0,
+        rtol=1e-5)
+    close(got, want, MODEL_TOL)
+
+
+def test_run_all_failed_chunk(pipes, rng):
+    """A leading batch with no decodable item yields zero rows and the
+    shape is taken from a later batch."""
+    _, tpipe, _ = pipes
+    items = [None, None, None,
+             rng.standard_normal((1, 3, 28, 28)).astype(np.float32)]
+    got = tpipe._run(items, lambda a: a,
+                     lambda m, x: tpipe._embed_pixels(m, x, head="v"))
+    assert tpipe.last_failures == [0, 1, 2]
+    np.testing.assert_array_equal(got[:3], 0.0)
+    assert abs(np.linalg.norm(got[3]) - 1.0) < 1e-5
+
+
+def test_folds_a_copy(pipes):
+    """fold_constants (default) serves a folded copy; the caller's model
+    keeps its LN affines."""
+    _, tpipe, model = pipes
+    assert model.vision_encoder.blocks[0].get("norm1_w") is not None
+    assert tpipe.model.vision_encoder.blocks[0].get("norm1_w") is None
+
+
+@pytest.mark.parametrize("method", ["embed_images", "embed_videos",
+                                    "embed_depth", "embed_audio"])
+def test_media_entry_points_raise(pipes, method):
+    _, tpipe, _ = pipes
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(tpipe, method)(["x.jpg"])
