@@ -6,20 +6,37 @@
 Phases, run in order (any failure exits non-zero):
   1. device: the card's name and power limit, and the kernels' build time
      (nvcc over `mico_tpu_torch/csrc/*.cu`, at first use, into `build/`);
-  2. kernels: K1 and K2 against their plain PyTorch versions on the card in
-     bf16, at the main path's shapes and layouts (the tensors that are then
-     timed) and at smaller and biased cases, with their times beside the
-     plain version, a one-call PyTorch yardstick and the card's bound;
+  2. kernels: K1, K2 and K7 against their plain PyTorch versions on the card
+     in bf16, at the main paths' shapes and layouts (the tensors that are
+     then timed) and at smaller and biased cases, with their times beside
+     the plain version, a PyTorch yardstick and the card's bound;
   3. main: the full-width MiCo-ViT-g omni step (S = 16: 1 image + 4 video
      frames + 2 audio slices in one 112-frame ViT pass, BERT over (16, 30)
      tokens, heads, similarity), ITM for 1 image x 3 captions, and
      `EmbeddingPipeline.embed_texts` and `_run`, with random weights from
      seed 0; each path runs with the launch counts set to 0 just before it,
      and its own counts are held to it (K1 40 per ViT pass, K2 12 per ITM
-     pass);
+     pass, K7 0);
   4. cosine: the same one-sample inputs through the port on the CPU in fp32
      (the plain versions) against the card's bf16 output: each embedding at
-     cosine >= 0.999, ITM probabilities within 1e-2.
+     cosine >= 0.999, ITM probabilities within 1e-2;
+  5. caption: one image and one 4-frame video through the ViT and
+     `get_multimodal_forward_input_vision`, then beam-3 captions (40 new
+     tokens, length penalty 0.6) on the bf16 and the int8 (K7) routes, a
+     beam-3 answer to a tokenised question on the int8 route, and a
+     recompute greedy caption of the video (K2, Lq·Lk = 10 x 1028), each
+     path counted from 0 and held to its counts (K7 480 per int8 caption,
+     120 per int8 answer; K2 96 for the 8-token recompute; 0 on the bf16
+     cached beam); the captions are decoded and printed. Then the card's
+     bf16 greedy caption of the image step by step against the CPU fp32
+     port teacher-forced on the card's tokens (logits cosine >= 0.999 at
+     every step, the same token wherever the fp32 top-1 margin is >= 0.05),
+     the int8 route's teacher-forced logits against the bf16 route's
+     (cosine >= 0.999) with the two routes' free-running token agreement,
+     and the decode times at the captioner deployment shape (B 64, a
+     (64, 2056, 768) condition, 40 new tokens): beam-3 and top-k-10
+     sampling on the bf16 route (packed and split-heads cross K/V) and the
+     int8 route, median of 5 after a warm-up.
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -39,7 +56,8 @@ import numpy as np
 import torch
 
 # the path whose own launch count the kernels line reports for each kernel
-KERNEL_PATH = {"K1": "omni step", "K2": "ITM"}
+KERNEL_PATH = {"K1": "omni step", "K2": "ITM",
+               "K7": "int8 beam caption (image)"}
 # published H100 SXM peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -49,6 +67,10 @@ COSINE_MIN = 0.999          # the repo's embedding gate (BASELINE.md:23)
 ITM_PROB_TOL = 1e-2
 S = 16                      # omni samples per step, as bench.py
 TEXT_LEN = 30
+NEW_TOKENS = 40             # caption length (MiCoConfig.max_caption_len)
+MARGIN_MIN = 0.05           # fp32 top-1 margin above which tokens must agree
+# the captioner deployment shape (scripts/decode_bench.py, preset vision)
+DEPLOY_B, DEPLOY_COND = 64, 2056
 
 
 def log(msg: str) -> None:
@@ -122,31 +144,66 @@ def k1_library(x, g, b0, w, bias, nh, scale, eps, affine):
     return o.transpose(1, 2).reshape(b, l, wd)
 
 
-def itm_cross_qkv(gen, n=3, width=768, heads=12, enc_width=1408):
-    """K2's inputs as the ITM cross-attention makes them: q from the text
-    rows and k/v from one image's condition tokens expanded to the n
-    captions, each a (B, L, H, D) linear output viewed as (B, H, L, D)."""
+def itm_cross_qkv(gen, n=3, width=768, heads=12, enc_width=1408,
+                  lq=TEXT_LEN, lk=257):
+    """K2's inputs as BERT's cross-attention makes them: q from the text
+    rows and k/v from one condition expanded to the n rows, each a
+    (B, L, H, D) linear output viewed as (B, H, L, D). The defaults are
+    ITM's (1 image x 3 captions over one ViT frame's 257 tokens)."""
     from mico_tpu_torch.ops.layers import linear
 
     def r(*s, scale=1.0):
         return (scale * torch.randn(*s, generator=gen)).to("cuda",
                                                             torch.bfloat16)
 
-    text, cond = r(n, TEXT_LEN, width), r(1, 257, enc_width).expand(n, -1, -1)
+    text, cond = r(n, lq, width), r(1, lk, enc_width).expand(n, -1, -1)
     wq = r(width, width, scale=width ** -0.5)
     wk, wv = (r(enc_width, width, scale=enc_width ** -0.5) for _ in range(2))
     d = width // heads
-    q = linear(text, wq).reshape(n, TEXT_LEN, heads, d).transpose(1, 2)
-    k, v = (linear(cond, w).reshape(n, 257, heads, d).transpose(1, 2)
+    q = linear(text, wq).reshape(n, lq, heads, d).transpose(1, 2)
+    k, v = (linear(cond, w).reshape(n, lk, heads, d).transpose(1, 2)
             for w in (wk, wv))
     return q, k, v
+
+
+def k7_inputs(gen, b, lq, lk, heads=12, width=768):
+    """K7's inputs at a decode step: q (B, Lq, H) bf16 and cross K/V
+    quantised by `quantize_kv`, K at twice V's spread (scores of std ~2)."""
+    from mico_tpu_torch.ops.int8_attention import quantize_kv
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=gen)).cuda()
+
+    q = r(b, lq, width).to(torch.bfloat16)
+    k8, ks = quantize_kv(r(b, lk, width, scale=2.0), heads)
+    v8, vs = quantize_kv(r(b, lk, width), heads)
+    return q, k8, ks, v8, vs, heads
+
+
+def k7_library(q, k8, ks, v8, vs, heads):
+    """Dequantisation to bf16, then one SDPA call."""
+    import torch.nn.functional as F
+
+    b, lq, h = q.shape
+    lk, d = k8.shape[1], h // heads
+
+    def dq(x8, s):
+        x = x8.view(b, lk, heads, d) * s[..., None]
+        return x.to(torch.bfloat16).transpose(1, 2)
+
+    o = F.scaled_dot_product_attention(
+        q.view(b, lq, heads, d).transpose(1, 2), dq(k8, ks), dq(v8, vs),
+        scale=d ** -0.5)
+    return o.transpose(1, 2).reshape(b, lq, h)
 
 
 def phase_kernels(fa) -> list:
     import torch.nn.functional as F
 
+    from mico_tpu_torch.ops import int8_attention as i8
+
     gen = torch.Generator().manual_seed(1)
-    errs = {"K1": [], "K2": []}
+    errs = {"K1": [], "K2": [], "K7": []}
     log("phase kernels: K1 fused_ln_qkv_self_attention vs fused_ln_qkv_plain")
     # B = 8 and the bench ViT pass (16 samples x 7 frames); the B = 112
     # tensors are the ones timed below
@@ -168,8 +225,13 @@ def phase_kernels(fa) -> list:
         return r(b, h, lq, d), r(b, h, lk, d), r(b, h, lk, d)
 
     itm_qkv = itm_cross_qkv(gen)
+    # the recompute caption decode of a 4-frame video: the 10-row buffer
+    # (8 new tokens) over 4 x 257 condition tokens of width 768
+    dec_qkv = itm_cross_qkv(gen, n=1, enc_width=768, lq=10, lk=1028)
     cases = [("no bias, ITM layout: q (3,12,30,64), k/v (3,12,257,64) "
-              "strided views of (3,L,12,64)", itm_qkv, None)]
+              "strided views of (3,L,12,64)", itm_qkv, None),
+             ("no bias, recompute decode layout: q (1,12,10,64), k/v "
+              "(1,12,1028,64) strided views of (1,L,12,64)", dec_qkv, None)]
     for lk in (257, 1028):
         cases.append((f"no bias q (4,12,30,64) kv (4,12,{lk},64)",
                       qkv(4, 12, 30, lk), None))
@@ -186,6 +248,22 @@ def phase_kernels(fa) -> list:
         got = fa.flash_attention(q, k, v, bias=bias)
         want = fa.flash_attention_plain(q, k, v, bias, q.shape[-1] ** -0.5)
         errs["K2"].append(compare(f"K2 {name}", got, want))
+
+    log("phase kernels: K7 int8_cross_attention vs int8_cross_attention_plain")
+    # beam vision (64 x 3 beams over 8 frames), greedy vision, audio beam
+    # (128 x 2 slices), one caption of a 4-frame video; the first is timed
+    for b, lq, lk, what in ((64, 6, 2056, "beam vision"),
+                            (64, 2, 2056, "greedy vision"),
+                            (128, 6, 514, "audio beam"),
+                            (1, 6, 1028, "one 4-frame video caption")):
+        args = k7_inputs(gen, b, lq, lk)
+        got = i8.int8_cross_attention(*args)
+        want = i8.int8_cross_attention_plain(*args, 0.125)
+        errs["K7"].append(compare(f"K7 {what}: q ({b}, {lq}, 768), "
+                                  f"K/V ({b}, {lk}, 768) int8", got, want))
+        if b == 64 and lq == 6:
+            k7_args = args
+        del got, want
 
     log("phase kernels: times at the main path's shapes")
     rows = []
@@ -229,6 +307,41 @@ def phase_kernels(fa) -> list:
             lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
     ))
+    # ... and at the recompute caption decode's cross-attention
+    q, k, v = dec_qkv
+    dbms, _ = bound_ms(4 * 12 * 10 * 1028 * 64,
+                       2 * (2 * q.numel() + k.numel() + v.numel()))
+    rows[-1].update(
+        decode_shape="q (1, 12, 10, 64), k/v (1, 12, 1028, 64) bf16 strided "
+                     "views of (1, L, 12, 64), no bias",
+        decode_ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v)),
+        decode_plain_ms=cuda_time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, None, 0.125)),
+        decode_library_ms=cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
+        decode_bound_ms=dbms)
+    # K7 at the beam vision decode step: bytes are the int8 K/V, the scales,
+    # q and the output; operations the two products
+    q, k8, ks, v8, vs, heads = k7_args
+    b, lq, h = q.shape
+    lk = k8.shape[1]
+    flops = 4 * b * lq * lk * h
+    nbytes = (k8.numel() + v8.numel() + 4 * (ks.numel() + vs.numel())
+              + 2 * 2 * q.numel())
+    bms, by = bound_ms(flops, nbytes)
+    rows.append(dict(
+        name="K7 int8_cross_attention", route="cuda",
+        source="mico_tpu_torch/csrc/int8_cross_attn.cu",
+        replaces="mico_tpu/ops/int8_attention.py:86",
+        shape=f"q ({b}, {lq}, {h}) bf16, K/V ({b}, {lk}, {h}) int8, "
+              f"scales ({b}, {lk}, {heads}) fp32",
+        ms=cuda_time_ms(lambda: i8.int8_cross_attention(*k7_args)),
+        plain_ms=cuda_time_ms(
+            lambda: i8.int8_cross_attention_plain(*k7_args, 0.125),
+            iters=5, warmup=1),
+        library_ms=cuda_time_ms(lambda: k7_library(*k7_args)),
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+    ))
     for row in rows:
         key = row["name"].split()[0]
         row["max_abs_err"] = max(e["max_abs_err"] for e in errs[key])
@@ -239,6 +352,12 @@ def phase_kernels(fa) -> list:
         log(f"  {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
             f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
             f"by {row['bound_by']})")
+        if "decode_ms" in row:
+            log(f"  {row['name']} at the recompute decode: "
+                f"{row['decode_ms']:.4f} ms (plain "
+                f"{row['decode_plain_ms']:.4f}, library "
+                f"{row['decode_library_ms']:.4f}, bound "
+                f"{row['decode_bound_ms']:.4f})")
     return rows
 
 
@@ -296,6 +415,20 @@ CAPTIONS = ["a man is skiing in a snowy day.", "it's a hot day",
             "two dogs play with a red ball on the grass"]
 
 
+def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K7=0):
+    """Run one path with every launch count set to 0 just before it, keep
+    its own counts in `paths[what]` and hold them to the path's."""
+    fa.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = fa.launch_counts()
+    paths[what] = got
+    want = {"K1": K1, "K2": K2, "K7": K7}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return out
+
+
 def check_unit(name, feats):
     if not torch.isfinite(feats).all():
         raise AssertionError(f"{name}: non-finite values")
@@ -326,20 +459,8 @@ def phase_main(fa, card: str) -> dict:
 
     paths = {}
 
-    def counted(fn, k1, k2, what):
-        """Run one path with every count set to 0 just before it; keep its
-        own counts and hold them to the path."""
-        fa.reset_launch_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        got = fa.launch_counts()
-        paths[what] = got
-        if (got["K1"], got["K2"]) != (k1, k2):
-            raise AssertionError(f"{what}: launches {got}, expected "
-                                 f"K1 {k1}, K2 {k2}")
-        return out
-
-    out = counted(lambda: omni_step(model, **dev), nlayers, 0, "omni step")
+    out = run_counted(fa, paths, "omni step",
+                      lambda: omni_step(model, **dev), K1=nlayers)
     for name in ("image", "video", "audio", "text"):
         check_unit(f"omni {name}", out[name])
     if out["sims"].shape != (S, 3 * S) or not torch.isfinite(out["sims"]).all():
@@ -355,22 +476,26 @@ def phase_main(fa, card: str) -> dict:
         f"({[round(t, 2) for t in times]}), {1e3 * S / step_ms:.2f} samples/s "
         f"[{card}]")
 
-    itm = counted(lambda: itm_probs(model, dev["image"][:1], cap_ids, cap_mask),
-                  nlayers, nbert, "ITM")
+    itm = run_counted(
+        fa, paths, "ITM",
+        lambda: itm_probs(model, dev["image"][:1], cap_ids, cap_mask),
+        K1=nlayers, K2=nbert)
     if itm.shape != (3,) or not torch.isfinite(itm).all():
         raise AssertionError(f"ITM probabilities {itm}")
     log(f"  ITM 1 image x 3 captions: {[round(p, 5) for p in itm.tolist()]}")
 
     pipe = EmbeddingPipeline(model, cfg, tok, batch_size=8, io_workers=4)
     try:
-        tf = counted(lambda: pipe.embed_texts(CAPTIONS), 0, 0, "embed_texts")
+        tf = run_counted(fa, paths, "embed_texts",
+                         lambda: pipe.embed_texts(CAPTIONS))
         check_unit("embed_texts", torch.from_numpy(tf))
         images = [inp["image"][i % S] for i in range(20)]
         images[5] = None
-        feats = counted(
+        feats = run_counted(
+            fa, paths, "_run 20 images",
             lambda: pipe._run(images, lambda a: a,
                               lambda m, x: pipe._embed_pixels(m, x, head="v")),
-            3 * nlayers, 0, "_run 20 images")
+            K1=3 * nlayers)
     finally:
         pipe.close()
     if pipe.last_failures != [5] or feats.shape != (20, cfg.contra_dim):
@@ -387,9 +512,9 @@ def phase_main(fa, card: str) -> dict:
     if not folded_cos >= COSINE_MIN:
         raise AssertionError(f"folded pipeline cosine {folded_cos}")
     log(f"  launches by path (each counted from 0): {paths}")
-    return dict(cfg=cfg, out=out, itm=itm, inp=inp, cap_ids=cap_ids.cpu(),
-                cap_mask=cap_mask.cpu(), step_ms=step_ms, step_times=times,
-                paths=paths)
+    return dict(cfg=cfg, model=model, tok=tok, out=out, itm=itm, inp=inp,
+                cap_ids=cap_ids.cpu(), cap_mask=cap_mask.cpu(),
+                step_ms=step_ms, step_times=times, paths=paths)
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +522,7 @@ def phase_main(fa, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_cosine(main: dict) -> dict:
+def phase_cosine(main: dict):
     from mico_tpu_torch.models.mico import MiCo
 
     cfg = dataclasses.replace(main["cfg"], compute_dtype="float32")
@@ -423,7 +548,178 @@ def phase_cosine(main: dict) -> dict:
         f"{itm_want.tolist()}, max |d| {gap:.3e}")
     if not gap <= ITM_PROB_TOL:
         raise AssertionError(f"ITM probability gap {gap} > {ITM_PROB_TOL}")
-    return result
+    return result, ref
+
+
+# ---------------------------------------------------------------------------
+# phase 5: caption and QA generation
+# ---------------------------------------------------------------------------
+
+QUESTION = "what is the man doing in the snow?"
+QUESTION_LEN = 25           # the VQA prefix of scripts/decode_bench.py
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(
+        a.double().flatten(), b.double().flatten(), dim=0).item()
+
+
+def check_tokens(name: str, tokens: torch.Tensor, n: int, vocab: int):
+    from mico_tpu_torch.config import BERT_CLS_ID
+
+    if (tuple(tokens.shape) != (tokens.shape[0], n + 1)
+            or not (tokens[:, 0] == BERT_CLS_ID).all()
+            or tokens.min() < 0 or tokens.max() >= vocab):
+        raise AssertionError(f"{name}: bad tokens {tokens.tolist()}")
+
+
+def timed_runs(fn, runs: int) -> list:
+    """Host-clock ms of `runs` calls after one warm-up, each ending in a
+    synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+@torch.no_grad()
+def phase_caption(fa, main: dict, ref, card: str) -> dict:
+    from mico_tpu_torch import generation as gen
+    from mico_tpu_torch.config import BERT_MASK_ID, BERT_PAD_ID
+
+    model, tok, inp = main["model"], main["tok"], main["inp"]
+    bert, vocab = model.bert, model.cfg.bert_config.vocab_size
+    nbert = model.cfg.bert_config.num_hidden_layers
+    paths, captions = {}, {}
+    conds = {}
+    for name in ("image", "video"):
+        px = torch.from_numpy(inp[name][:1]).cuda()
+        conds[name] = model.get_multimodal_forward_input_vision(
+            model.forward_vision_encoder(px))
+    log(f"phase caption: conditions image {tuple(conds['image'].shape)}, "
+        f"video {tuple(conds['video'].shape)} {conds['image'].dtype}")
+
+    # 1. end to end, each path counted from 0
+    for name, cond in conds.items():
+        for route, i8 in (("bf16", False), ("int8", True)):
+            what = f"{route} beam caption ({name})"
+            out = run_counted(
+                fa, paths, what,
+                lambda: gen.generate(bert, cond, mode="beam", num_beams=3,
+                                     length_penalty=0.6,
+                                     max_new_tokens=NEW_TOKENS,
+                                     int8_cross_kv=i8),
+                K7=nbert * NEW_TOKENS if i8 else 0)
+            check_tokens(what, out, NEW_TOKENS, vocab)
+            captions[what] = tok.batch_decode(out[:, 1:].tolist())[0]
+    enc = tok([QUESTION], max_length=QUESTION_LEN)
+    qids = torch.from_numpy(enc["input_ids"]).long().cuda()
+    qmask = torch.from_numpy(enc["attention_mask"]).long().cuda()
+    what = "int8 QA beam (image)"
+    ans = run_counted(
+        fa, paths, what,
+        lambda: gen.generate_answers(bert, qids, qmask, conds["image"],
+                                     mode="beam", num_beams=3,
+                                     max_new_tokens=10, int8_cross_kv=True),
+        K7=nbert * 10)
+    check_tokens(what, ans, 10, vocab)
+    captions[what] = tok.batch_decode(ans[:, 1:].tolist())[0]
+    what = "recompute greedy caption (video)"
+    rec = run_counted(
+        fa, paths, what,
+        lambda: gen.generate(bert, conds["video"], mode="greedy",
+                             use_cache=False, max_new_tokens=8),
+        K2=nbert * 8)
+    check_tokens(what, rec, 8, vocab)
+    captions[what] = tok.batch_decode(rec[:, 1:].tolist())[0]
+    for what, text in captions.items():
+        log(f"  {what}: {text!r}")
+    log(f"  launches by path (each counted from 0): {paths}")
+
+    # 2. the card's bf16 greedy caption of the image against the CPU fp32
+    # port, step by step on the card's tokens; the int8 route's logits on
+    # the same tokens against the bf16 route's
+    cond = conds["image"]
+    toks, logits = gen.cached_generate(
+        bert, cond, max_new_tokens=NEW_TOKENS, compute_dtype=torch.bfloat16,
+        return_logits=True)
+    _, logits8 = gen.cached_generate(
+        bert, cond, max_new_tokens=NEW_TOKENS, compute_dtype=torch.bfloat16,
+        int8_cross_kv=True, teacher_tokens=toks[:, 1:], return_logits=True)
+    toks8 = gen.cached_generate(bert, cond, max_new_tokens=NEW_TOKENS,
+                                compute_dtype=torch.bfloat16,
+                                int8_cross_kv=True)
+    t0 = time.perf_counter()
+    ref_cond = ref.get_multimodal_forward_input_vision(
+        ref.forward_vision_encoder(torch.from_numpy(inp["image"][:1])))
+    toks_cpu, logits_cpu = toks.cpu(), logits.cpu()
+    buf = torch.full((1, NEW_TOKENS + 2), BERT_PAD_ID, dtype=torch.long)
+    cos_cpu, cos_i8, checked = [], [], 0
+    for step in range(NEW_TOKENS):
+        buf[:, :step + 1] = toks_cpu[:, :step + 1]
+        buf[:, step + 1] = BERT_MASK_ID
+        want = gen._decode_logits(ref.bert, buf, step + 1, ref_cond, None,
+                                  torch.float32)[0]
+        cos_cpu.append(cosine(logits_cpu[0, step], want))
+        cos_i8.append(cosine(logits8[0, step], logits[0, step]))
+        top2 = want.topk(2).values
+        if (top2[0] - top2[1]).item() >= MARGIN_MIN:
+            checked += 1
+            if toks_cpu[0, step + 1].item() != want.argmax().item():
+                raise AssertionError(
+                    f"step {step}: card token {toks_cpu[0, step + 1].item()} "
+                    f"!= fp32 argmax {want.argmax().item()} at margin "
+                    f"{(top2[0] - top2[1]).item():.4f}")
+    agree = (toks8 == toks).float().mean().item()
+    log(f"  greedy caption of the image, card bf16 vs CPU fp32 over "
+        f"{NEW_TOKENS} steps ({time.perf_counter() - t0:.1f} s on the CPU): "
+        f"min logits cosine {min(cos_cpu):.6f}; tokens equal at all "
+        f"{checked} steps with fp32 margin >= {MARGIN_MIN}")
+    log(f"  int8 vs bf16 route on the same tokens: min logits cosine "
+        f"{min(cos_i8):.6f}; free-running greedy token agreement {agree:.4f}")
+    if not min(cos_cpu) >= COSINE_MIN:
+        raise AssertionError(f"card vs CPU logits cosine {min(cos_cpu)}")
+    if not min(cos_i8) >= COSINE_MIN:
+        raise AssertionError(f"int8 vs bf16 logits cosine {min(cos_i8)}")
+
+    # 3. times at the captioner deployment shape
+    g = torch.Generator(device="cuda").manual_seed(1)
+    width = bert.cfg.encoder_width
+    cond = torch.randn((DEPLOY_B, DEPLOY_COND, width), generator=g,
+                       device="cuda", dtype=torch.bfloat16)
+    times = {}
+    for mode in ("beam", "sample"):
+        for route, i8, split in (("bf16", False, False),
+                                 ("bf16 split heads", False, True),
+                                 ("int8", True, False)):
+            gen.CROSS_KV_SPLIT_HEADS = split
+            try:
+                runs = timed_runs(lambda: gen.generate(
+                    bert, cond, mode=mode, num_beams=3, top_k=10,
+                    max_new_tokens=NEW_TOKENS, int8_cross_kv=i8), runs=5)
+            finally:
+                gen.CROSS_KV_SPLIT_HEADS = False
+            ms = statistics.median(runs)
+            times[f"{mode} {route}"] = dict(
+                ms_per_batch=ms, runs_ms=runs,
+                captions_per_s=1e3 * DEPLOY_B / ms,
+                ms_per_step=ms / NEW_TOKENS)
+            log(f"  decode {mode} {route}: B={DEPLOY_B}, condition "
+                f"({DEPLOY_B}, {DEPLOY_COND}, {width}), {NEW_TOKENS} new "
+                f"tokens: "
+                f"{ms:.2f} ms/batch (median of {runs}), "
+                f"{1e3 * DEPLOY_B / ms:.2f} captions/s, "
+                f"{ms / NEW_TOKENS:.3f} ms/step [{card}]")
+    return dict(paths=paths, captions=captions,
+                logits_cosine_cpu_min=min(cos_cpu),
+                logits_cosine_int8_min=min(cos_i8),
+                margin_checked_steps=checked, int8_token_agreement=agree,
+                deploy=times)
 
 
 def main() -> int:
@@ -448,8 +744,9 @@ def main() -> int:
 
     rows = phase_kernels(fa)
     main_out = phase_main(fa, card)
-    cosine = phase_cosine(main_out)
-    paths = main_out["paths"]
+    cosines, ref = phase_cosine(main_out)
+    caption = phase_caption(fa, main_out, ref, card)
+    paths = {**main_out["paths"], **caption["paths"]}
     for row in rows:
         key = row["name"].split()[0]
         path = KERNEL_PATH[key]
@@ -459,7 +756,9 @@ def main() -> int:
                       "omni_step_ms": main_out["step_ms"],
                       "omni_step_times_ms": main_out["step_times"],
                       "samples_per_s": 1e3 * S / main_out["step_ms"],
-                      "launches_by_path": paths, "cosine": cosine}))
+                      "launches_by_path": paths, "cosine": cosines,
+                      "caption": {k: v for k, v in caption.items()
+                                  if k != "paths"}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -158,6 +158,14 @@ class BertConfig:
         return self.hidden_size // self.num_attention_heads
 
 
+# Special token ids of the bert-base-uncased WordPiece vocab, bound as
+# bos/eos/pad/mask by the decoder (the reference's model/mico.py:109-113)
+BERT_CLS_ID = 101   # [CLS] -> bos
+BERT_SEP_ID = 102   # [SEP] -> eos
+BERT_PAD_ID = 0     # [PAD]
+BERT_MASK_ID = 103  # [MASK]
+
+
 @dataclass(frozen=True)
 class MiCoConfig:
     """Top-level omni-modal model config; field names match the reference

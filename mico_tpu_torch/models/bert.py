@@ -7,8 +7,8 @@ FFN-GELU, each sublayer residual + LN. 2D padding masks stay bidirectional
 and become additive (1 - m) * -10000. Layers are a ModuleList; attention
 routes through `multi_head_attention`, so the cross-attention over the
 257·n condition tokens takes kernel K2 and the 30-token self-attention stays
-plain. The MLM head's parameters are held (so the JAX params load whole);
-its forward waits for the generation port.
+plain. `mlm_logits` is the MLM head the decoder (`generation.py`) reads its
+next-token logits from.
 """
 
 from __future__ import annotations
@@ -170,6 +170,15 @@ def bert_encoder(
         x = layer_norm(x + y, lp.get("out_ln_w"), lp.get("out_ln_b"),
                        cfg.layer_norm_eps)
     return x
+
+
+def mlm_logits(model: Bert, sequence_output: torch.Tensor) -> torch.Tensor:
+    """MLM head: dense → GELU → LN(eps 1e-12) → decoder (bert.py:237-241);
+    logits in the input's dtype."""
+    hp = model.mlm_head
+    x = gelu(linear(sequence_output, hp.get("dense_w"), hp.get("dense_b")))
+    x = layer_norm(x, hp.get("ln_w"), hp.get("ln_b"), model.cfg.layer_norm_eps)
+    return linear(x, hp.get("decoder_w"), hp.get("decoder_b"))
 
 
 def bert_forward(

@@ -269,10 +269,17 @@ KERNELS = {
 }
 
 
+def _all_kernels() -> dict:
+    """K1, K2 and K7 (`ops/int8_attention.py`, which imports this module)."""
+    from mico_tpu_torch.ops.int8_attention import int8_cross_attention
+
+    return {**KERNELS, "K7": int8_cross_attention}
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in _all_kernels().values():
         fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in _all_kernels().items()}

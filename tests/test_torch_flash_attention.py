@@ -13,6 +13,7 @@ from mico_tpu.ops import flash_attention as jfa
 from mico_tpu.ops.attention import xla_attention
 from mico_tpu_torch.ops import attention as tattn
 from mico_tpu_torch.ops import flash_attention as tfa
+from mico_tpu_torch.ops.int8_attention import int8_cross_attention
 
 from torch_port_common import OP_TOL, close, t
 
@@ -153,6 +154,7 @@ def test_unknown_impl_raises():
 def test_launch_counters_reset():
     tfa.fused_ln_qkv_self_attention.launches = 3
     tfa.flash_attention.launches = 5
-    assert tfa.launch_counts() == {"K1": 3, "K2": 5}
+    int8_cross_attention.launches = 7
+    assert tfa.launch_counts() == {"K1": 3, "K2": 5, "K7": 7}
     tfa.reset_launch_counts()
-    assert tfa.launch_counts() == {"K1": 0, "K2": 0}
+    assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K7": 0}

@@ -35,7 +35,8 @@ def imported_modules(path: Path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"mico.py", "flash_attention.py", "serve.py",
+    assert {"mico.py", "flash_attention.py", "serve.py", "generation.py",
+            "int8_attention.py", "torch_decode_bench.py",
             "chip_smoke.py"} <= names
 
 

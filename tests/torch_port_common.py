@@ -70,6 +70,40 @@ def port_model(params: dict, tcfg):
     return mico_from_jax(to_numpy(params), tcfg, device="cpu")
 
 
+# added to [SEP]'s MLM bias in the decoder tests, so that some rows finish
+# mid-decode (at the perturbed init no row ever emits [SEP])
+SEP_BIAS = 1.8
+
+
+def decoder_setup(seed: int = 0):
+    """(JAX bert params, JAX BertConfig, the port's `Bert` holding the same
+    weights, a (4, 9, 64) condition) for the generation tests."""
+    jcfg, tcfg = configs()
+    params = perturbed_params(jcfg, seed)
+    head = params["bert"]["mlm_head"]
+    head["decoder_b"] = head["decoder_b"].at[jax_config.BERT_SEP_ID].add(
+        SEP_BIAS)
+    model = port_model(params, tcfg).bert
+    cond = (3.0 * np.random.default_rng(seed + 7).standard_normal(
+        (4, 9, 64))).astype(np.float32)
+    return params["bert"], jcfg.bert_config, model, cond
+
+
+def question_batch(b: int = 4, lq: int = 7, seed: int = 3):
+    """(ids, mask) (b, lq) int32 questions [CLS] ... [SEP] of varied
+    lengths, zero-padded."""
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((b, lq), np.int32)
+    mask = np.zeros((b, lq), np.int32)
+    for i in range(b):
+        n = lq - (i % 3)
+        ids[i, 0] = jax_config.BERT_CLS_ID
+        ids[i, 1:n - 1] = rng.integers(1000, 20000, n - 2)
+        ids[i, n - 1] = jax_config.BERT_SEP_ID
+        mask[i, :n] = 1
+    return ids, mask
+
+
 def replace(cfg, **kw):
     return dataclasses.replace(cfg, **kw)
 
