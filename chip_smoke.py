@@ -36,7 +36,22 @@ Phases, run in order (any failure exits non-zero):
      and the decode times at the captioner deployment shape (B 64, a
      (64, 2056, 768) condition, 40 new tokens): beam-3 and top-k-10
      sampling on the bf16 route (packed and split-heads cross K/V) and the
-     int8 route, median of 5 after a warm-up.
+     int8 route, median of 5 after a warm-up;
+  6. train: K3 and K4 against their plain versions on the card in bf16 at
+     the train step's vision pass (32, 257, 16 x 88) and at (3, 50, 4 x 64),
+     timed beside the plain versions, SDPA (forward; its autograd backward
+     alone) and the bound; then six full-width pretraining steps of
+     `configs/pretrain-omni.json`'s task ret%tva_cap%tva (B = 8 samples of
+     4 frames, 2 audio slices and a 40-token caption; fp32 master weights
+     and AdamW moments from seed 0, bf16 compute, dropout and drop-path on,
+     the same draws every step), each counted from 0 (K3 80 and K4 80 per
+     step, K1/K2/K7 0), finite losses, the last step's total below the
+     second's (the first with a non-zero learning rate), ms/step,
+     samples/s, model TFLOP/s and peak memory; then the gradient check: at
+     B = 2 with every rate 0 and the draws injected, the card in bf16 (K3,
+     K4, K2 and its backward) against the card in fp32 on the plain routes,
+     each loss within 2e-2 relative and the gradient cosine >= 0.99 for
+     each optimizer group and the first and last block's qkv_w.
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -46,6 +61,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -56,13 +72,16 @@ import numpy as np
 import torch
 
 # the path whose own launch count the kernels line reports for each kernel
-KERNEL_PATH = {"K1": "omni step", "K2": "ITM",
-               "K7": "int8 beam caption (image)"}
+KERNEL_PATH = {"K1": "omni step", "K2": "ITM", "K3": "train step",
+               "K4": "train step", "K7": "int8 beam caption (image)"}
 # published H100 SXM peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 RTOL = ATOL = 2e-2          # bf16 ulp is 2^-8; fp32 sums run in other orders
 MEAN_ERR_MAX = 2e-3
+# K3/K4: mean |d| against the reference's own mean magnitude (their outputs
+# and gradients are far below the absolute gates at the train shape)
+REL_MEAN_ERR_MAX = 1e-2
 COSINE_MIN = 0.999          # the repo's embedding gate (BASELINE.md:23)
 ITM_PROB_TOL = 1e-2
 S = 16                      # omni samples per step, as bench.py
@@ -98,16 +117,25 @@ def bound_ms(flops: float, nbytes: float):
                                        else "bytes")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor,
+            rel_mean: float = 0.0) -> dict:
+    """Holds got to want at RTOL/ATOL and mean |d| <= MEAN_ERR_MAX; with
+    rel_mean also mean |d| <= rel_mean * mean |want|."""
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = {"max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item()}
+    ref = want.float().abs()
     log(f"  {name}: max|d| {err['max_abs_err']:.3e}  "
-        f"mean|d| {err['mean_abs_err']:.3e}")
+        f"mean|d| {err['mean_abs_err']:.3e}  (|ref| max {ref.max().item():.3e}"
+        f", mean {ref.mean().item():.3e})")
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     if err["mean_abs_err"] > MEAN_ERR_MAX:
         raise AssertionError(f"{name}: mean |d| {err['mean_abs_err']:.3e} "
                              f"> {MEAN_ERR_MAX}")
+    if rel_mean and err["mean_abs_err"] > rel_mean * ref.mean().item():
+        raise AssertionError(f"{name}: mean |d| {err['mean_abs_err']:.3e} "
+                             f"> {rel_mean} * mean |ref| "
+                             f"{ref.mean().item():.3e}")
     return err
 
 
@@ -415,7 +443,8 @@ CAPTIONS = ["a man is skiing in a snowy day.", "it's a hot day",
             "two dogs play with a red ball on the grass"]
 
 
-def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K7=0):
+def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K3=0, K4=0,
+                K7=0):
     """Run one path with every launch count set to 0 just before it, keep
     its own counts in `paths[what]` and hold them to the path's."""
     fa.reset_launch_counts()
@@ -423,7 +452,7 @@ def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K7=0):
     torch.cuda.synchronize()
     got = fa.launch_counts()
     paths[what] = got
-    want = {"K1": K1, "K2": K2, "K7": K7}
+    want = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "K7": K7}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
     return out
@@ -722,6 +751,259 @@ def phase_caption(fa, main: dict, ref, card: str) -> dict:
                 deploy=times)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the pretraining step
+# ---------------------------------------------------------------------------
+
+TRAIN_B = 8                 # samples per step (4 frames + 2 audio slices each)
+TRAIN_STEPS = 6
+GRAD_B = 2
+LOSS_RTOL = 2e-2            # card bf16 vs card fp32, per loss
+GRAD_COSINE_MIN = 0.99
+
+
+def k34_library(qkv, g, nh, scale):
+    """SDPA on the split (B, H, L, D) views of the fused qkv: the forward,
+    and a closure that runs its autograd backward alone."""
+    import torch.nn.functional as F
+
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    q, k, v = (x.detach().view(b, l, nh, w // nh).transpose(1, 2)
+               .requires_grad_(True) for x in qkv.split(w, dim=-1))
+    out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    go = g.view(b, l, nh, w // nh).transpose(1, 2)
+    return (lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+            lambda: torch.autograd.grad(out, (q, k, v), go,
+                                        retain_graph=True))
+
+
+def phase_train_kernels(fa) -> list:
+    gen = torch.Generator().manual_seed(3)
+    errs = {"K3": [], "K4": []}
+    timed = None
+    log("phase train: K3 packed_attention / K4 packed_attention_bwd vs "
+        "their plain versions")
+    for b, l, nh, d in ((4 * TRAIN_B, 257, 16, 88), (3, 50, 4, 64)):
+        w = nh * d
+        # unit std: q.k sums D products of unit variance, so the scaled
+        # scores (times D^-0.5) have std ~1 and the softmax is far from flat
+        qkv = torch.randn(b, l, 3 * w, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        g = torch.randn(b, l, w, generator=gen).to("cuda", torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        scale = d ** -0.5
+        errs["K3"].append(compare(
+            f"K3 qkv ({b}, {l}, {3 * w}) H={nh} D={d}",
+            fa.packed_attention(q, k, v, nh, scale),
+            fa.packed_attention_plain(q, k, v, nh, scale),
+            rel_mean=REL_MEAN_ERR_MAX))
+        got = fa.packed_attention_bwd(q, k, v, g, nh, scale)
+        want = fa.packed_attention_bwd_plain(q, k, v, g, nh, scale)
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            errs["K4"].append(compare(f"K4 {name} ({b}, {l}, {w})", x, y,
+                                      rel_mean=REL_MEAN_ERR_MAX))
+        del got, want
+        if timed is None:
+            timed = (qkv, g, nh, d)
+    qkv, g, nh, d = timed
+    b, l, w3 = qkv.shape
+    w, scale = w3 // 3, d ** -0.5
+    q, k, v = qkv.chunk(3, dim=-1)
+    sdpa_fwd, sdpa_bwd = k34_library(qkv, g, nh, scale)
+    att_flops = 4 * b * nh * l * l * d
+    rows = []
+    bms, by = bound_ms(att_flops, 2 * (qkv.numel() + b * l * w))
+    rows.append(dict(
+        name="K3 packed_attention", route="cuda",
+        source="mico_tpu_torch/csrc/packed_attn.cu",
+        replaces="mico_tpu/ops/flash_attention.py:1135",
+        shape=f"qkv ({b}, {l}, {w3}) bf16 column slices, H={nh}, D={d}",
+        ms=cuda_time_ms(lambda: fa.packed_attention(q, k, v, nh, scale)),
+        plain_ms=cuda_time_ms(
+            lambda: fa.packed_attention_plain(q, k, v, nh, scale),
+            iters=5, warmup=1),
+        library_ms=cuda_time_ms(sdpa_fwd),
+        bound_ms=bms, bound_by=by, flops=att_flops,
+        bytes=2 * (qkv.numel() + b * l * w)))
+    nbytes = 2 * (qkv.numel() + g.numel()) + 2 * qkv.numel()
+    bms, by = bound_ms(2.5 * att_flops, nbytes)
+    rows.append(dict(
+        name="K4 packed_attention_bwd", route="cuda",
+        source="mico_tpu_torch/csrc/packed_attn_bwd.cu",
+        replaces="mico_tpu/ops/flash_attention.py:1059",
+        shape=f"qkv ({b}, {l}, {w3}), g ({b}, {l}, {w}) bf16 -> dqkv",
+        ms=cuda_time_ms(lambda: fa.packed_attention_bwd(q, k, v, g, nh,
+                                                        scale)),
+        plain_ms=cuda_time_ms(
+            lambda: fa.packed_attention_bwd_plain(q, k, v, g, nh, scale),
+            iters=5, warmup=1),
+        library_ms=cuda_time_ms(sdpa_bwd),
+        bound_ms=bms, bound_by=by, flops=2.5 * att_flops, bytes=nbytes))
+    for row in rows:
+        key = row["name"].split()[0]
+        row["max_abs_err"] = max(e["max_abs_err"] for e in errs[key])
+        row["mean_abs_err"] = max(e["mean_abs_err"] for e in errs[key])
+        row["kernel_ms"] = row["ms"]
+        log(f"  {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+            f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"by {row['bound_by']})")
+    return rows
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_steps(fa, card: str) -> dict:
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mico_tpu_torch.train.train_step import make_train_step
+    from mico_tpu_torch.train.workload import (PRETRAIN_TASK,
+                                               pretrain_step_flops,
+                                               synthetic_batch)
+
+    cfg = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    t0 = time.perf_counter()
+    model = MiCo(cfg, device="cuda", seed=0)
+    opt = build_optimizer(model, OptimConfig(num_train_steps=10))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase train: MiCo-ViT-g fp32 master weights ({n_params / 1e9:.3f} B "
+        f"parameters), bf16 compute, drop-path {cfg.eva_config.drop_path_rate}, "
+        f"BERT dropout {cfg.bert_config.hidden_dropout_prob}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step = make_train_step(cfg, opt, PRETRAIN_TASK)
+    batch = synthetic_batch(TRAIN_B, seed=0)
+    nlayers = cfg.eva_config.layers
+    paths, losses, times = {}, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        # the same draws every step: a fixed batch and fixed masks, so the
+        # loss must fall as the weights fit them
+        out = run_counted(
+            fa, paths, f"train step {i + 1}",
+            lambda: step(model, batch, torch.Generator().manual_seed(1)),
+            K3=2 * nlayers, K4=2 * nlayers)
+        times.append(1e3 * (time.perf_counter() - t0))
+        vals = {k: v.item() for k, v in out.items()}
+        losses.append(vals)
+        log(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5f}"
+                                            for k, v in vals.items())
+            + f"; {times[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    for i, vals in enumerate(losses):
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"step {i + 1}: non-finite {bad}")
+    if not losses[-1]["loss_total"] < losses[1]["loss_total"]:
+        raise AssertionError(
+            f"loss_total at step {TRAIN_STEPS} {losses[-1]['loss_total']} is "
+            f"not below step 2's {losses[1]['loss_total']}")
+    step_ms = statistics.median(times[-4:])
+    flops = pretrain_step_flops(cfg, TRAIN_B)
+    result = dict(
+        task=PRETRAIN_TASK, batch=TRAIN_B, losses=losses, step_times_ms=times,
+        step_ms=step_ms, samples_per_s=1e3 * TRAIN_B / step_ms,
+        model_flops_per_step=flops,
+        model_tflops_per_s=flops / (step_ms * 1e-3) / 1e12,
+        peak_memory_bytes=peak, n_params=n_params,
+        launches_per_step=paths[f"train step {TRAIN_STEPS}"], paths=paths)
+    log(f"  train step B={TRAIN_B}: median {step_ms:.2f} ms of the last 4 "
+        f"({[round(x, 2) for x in times]}), {result['samples_per_s']:.3f} "
+        f"samples/s, {result['model_tflops_per_s']:.2f} model TFLOP/s "
+        f"({flops / 1e12:.3f} TFLOP/step), peak memory {peak / 2 ** 30:.2f} GiB "
+        f"[{card}]")
+    del model, opt, step, batch
+    free_cuda()
+    return result
+
+
+def phase_train_grads(fa) -> dict:
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.train.masker import mask_tokens
+    from mico_tpu_torch.train.objectives import Draws, task_losses
+    from mico_tpu_torch.train.optim import param_group_labels
+    from mico_tpu_torch.train.workload import PRETRAIN_TASK, synthetic_batch
+
+    base = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    eva = dataclasses.replace(base.eva_config, drop_path_rate=0.0)
+    bert = dataclasses.replace(base.bert_config, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    cfg16 = dataclasses.replace(base, eva_override=eva, bert_override=bert)
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32",
+                                use_flash_attention=False)
+    model = MiCo(cfg16, device="cuda", seed=0).requires_grad_(True)
+    batch = synthetic_batch(GRAD_B, seed=1)
+    masked = mask_tokens(batch["caption_ids"], 0.6,
+                         torch.Generator().manual_seed(2))
+    flip = torch.arange(GRAD_B, device="cuda").roll(1)
+    names = [n for n, _ in model.named_parameters()]
+    runs = {}
+    for label, cfg in (("bf16", cfg16), ("fp32", cfg32)):
+        model.cfg = cfg
+        model.zero_grad(set_to_none=True)
+        fa.reset_launch_counts()
+        losses = task_losses(model, cfg, batch, PRETRAIN_TASK,
+                             torch.Generator().manual_seed(0),
+                             draws=Draws(masks=[masked],
+                                         negatives=[(flip, flip)]))
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        runs[label] = dict(
+            losses={k: v.item() for k, v in losses.items()},
+            launches=fa.launch_counts(),
+            grads={n: p.grad.detach().float().clone()
+                   for n, p in model.named_parameters()
+                   if p.grad is not None})
+        model.zero_grad(set_to_none=True)
+        log(f"  gradient check, card {label}: losses {runs[label]['losses']}, "
+            f"launches {runs[label]['launches']}")
+    a, b = runs["bf16"], runs["fp32"]
+    if a["launches"]["K3"] == 0 or a["launches"]["K4"] == 0 \
+            or a["launches"]["K2"] == 0:
+        raise AssertionError(f"bf16 run missed a kernel: {a['launches']}")
+    if any(v for v in b["launches"].values()):
+        raise AssertionError(f"fp32 run launched kernels: {b['launches']}")
+    for k, v in b["losses"].items():
+        if not abs(a["losses"][k] - v) <= LOSS_RTOL * abs(v):
+            raise AssertionError(f"{k}: bf16 {a['losses'][k]} vs fp32 {v}")
+
+    def cos(x, y):
+        return torch.nn.functional.cosine_similarity(
+            x.double().flatten(), y.double().flatten(), dim=0).item()
+
+    labels = param_group_labels(model)
+    groups = {}
+    for n in names:
+        if n in a["grads"]:
+            groups.setdefault(labels[n], []).append(n)
+    group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
+                        torch.cat([b["grads"][n].flatten() for n in ns]))
+                 for g, ns in groups.items()}
+    last = base.eva_config.layers - 1
+    held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
+        "vision_encoder.blocks.0.qkv_w", f"vision_encoder.blocks.{last}.qkv_w")}
+    per_tensor = {n: cos(a["grads"][n], b["grads"][n]) for n in a["grads"]
+                  if b["grads"][n].abs().max() > 0}
+    worst = min(per_tensor, key=per_tensor.get)
+    log(f"  gradient cosine bf16 vs fp32 by group {group_cos}; {held}; lowest "
+        f"per tensor {worst} {per_tensor[worst]:.6f}")
+    for name, c in {**group_cos, **held}.items():
+        if not c >= GRAD_COSINE_MIN:
+            raise AssertionError(f"gradient cosine {name} {c} < "
+                                 f"{GRAD_COSINE_MIN}")
+    del model, runs
+    free_cuda()
+    return dict(losses_bf16=a["losses"], losses_fp32=b["losses"],
+                launches_bf16=a["launches"], group_cosine=group_cos,
+                qkv_w_cosine=held, lowest_tensor=worst,
+                lowest_tensor_cosine=per_tensor[worst])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -746,19 +1028,28 @@ def main() -> int:
     main_out = phase_main(fa, card)
     cosines, ref = phase_cosine(main_out)
     caption = phase_caption(fa, main_out, ref, card)
-    paths = {**main_out["paths"], **caption["paths"]}
+    omni = {k: main_out[k] for k in ("step_ms", "step_times", "paths")}
+    del main_out, ref
+    free_cuda()
+    rows += phase_train_kernels(fa)
+    train = phase_train_steps(fa, card)
+    train["gradient_check"] = phase_train_grads(fa)
+    paths = {**omni["paths"], **caption["paths"],
+             "train step": train["launches_per_step"]}
     for row in rows:
         key = row["name"].split()[0]
         path = KERNEL_PATH[key]
         row.update(launches=paths[path][key], launches_path=path,
                    launches_by_path={p: c[key] for p, c in paths.items()})
     print(json.dumps({"card": card, "build_s": build_s,
-                      "omni_step_ms": main_out["step_ms"],
-                      "omni_step_times_ms": main_out["step_times"],
-                      "samples_per_s": 1e3 * S / main_out["step_ms"],
+                      "omni_step_ms": omni["step_ms"],
+                      "omni_step_times_ms": omni["step_times"],
+                      "samples_per_s": 1e3 * S / omni["step_ms"],
                       "launches_by_path": paths, "cosine": cosines,
                       "caption": {k: v for k, v in caption.items()
-                                  if k != "paths"}}))
+                                  if k != "paths"},
+                      "train": {k: v for k, v in train.items()
+                                if k != "paths"}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -30,19 +30,15 @@
 //       fp32 accumulators; the bias is added in fp32 in the epilogue. The
 //       grid walks the column tiles fastest so the 33 blocks sharing a row
 //       tile read x from L2 and W stays L2-resident (11.9 MB of 50 MB).
-//   (c) packed_attn: grid (q-tiles of 96 rows, H, B), 6 warps of 16 query
-//       rows. q/k/v of one head are read by column offset from the packed
-//       qkv rows (no transposes). The block stages K (zero-padded from D to a
-//       multiple of 16 for the QK^T contraction) and V of its head in shared
-//       memory; the Q tile passes through the V region first and stays in
-//       registers as mma fragments. Two passes over 16-key blocks: the first
-//       takes the exact row maximum, the second exponentiates against it and
-//       feeds p (re-packed from the accumulator layout as the A operand) to
-//       the PV product over D/8 output tiles of 8 (88 = 11 * 8). Keys past L
-//       are masked with the finite -1e30.
+//   (c) packed_attn (packed_attn.cuh, shared with K3): grid (q-tiles of 96
+//       rows, H, B), 6 warps of 16 query rows; q/k/v of one head are read by
+//       column offset from the packed qkv rows (row stride 3W, no
+//       transposes), K and V staged in shared memory, two passes over
+//       16-key blocks (exact row maximum, then exp2 and the PV product).
 // wgmma, TMA and warp specialisation are left to later work.
 
 #include "common.cuh"
+#include "packed_attn.cuh"
 
 namespace {
 using namespace mico;
@@ -224,173 +220,6 @@ ln_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
   }
 }
 
-// ------------------------------------------------------- (c) packed attention
-constexpr int AW = 6;          // warps per block
-constexpr int AT = AW * 32;
-constexpr int AR = AW * 16;    // query rows per block
-
-// KS = D rounded up to 16, in 16-wide contraction steps
-template <int KS>
-__global__ void __launch_bounds__(AT)
-packed_attn_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                   int L, int H, int D, float qk_scale) {
-  constexpr int DP = KS * 16;
-  constexpr int KST = DP + 8;            // Q/K row stride: conflict-free
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Lp = (L + 15) & ~15;
-  const int VST = ((D >> 3) & 1) ? D : D + 8;   // odd multiple of 8
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + Lp * KST;
-  bf16* Qs = Vs;                          // the Q tile passes through V's room
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * AR;
-  const int W = H * D, W3 = 3 * W;
-  const bf16* base = qkv + (size_t)b * L * W3;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int dv = DP / 8, dreal = D / 8;  // 16-byte vectors per padded/real row
-
-  for (int v = tid; v < AR * dv; v += AT) {
-    const int r = v / dv, c = v % dv, row = q0 + r;
-    const bool ok = row < L && c < dreal;
-    cp_async_16(Qs + r * KST + c * 8,
-                ok ? base + (size_t)row * W3 + h * D + c * 8 : base, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane & 15)) * KST + ks * 16 +
-                            (lane >> 4) * 8);
-  __syncthreads();   // Q's room is V's from here on
-
-  for (int v = tid; v < Lp * dv; v += AT) {
-    const int r = v / dv, c = v % dv;
-    const bool ok = r < L && c < dreal;
-    cp_async_16(Ks + r * KST + c * 8,
-                ok ? base + (size_t)r * W3 + W + h * D + c * 8 : base, ok);
-  }
-  for (int v = tid; v < Lp * dreal; v += AT) {
-    const int r = v / dreal, c = v % dreal;
-    const bool ok = r < L;
-    cp_async_16(Vs + r * VST + c * 8,
-                ok ? base + (size_t)r * W3 + 2 * W + h * D + c * 8 : base, ok);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  if (q0 + warp * 16 >= L) return;   // all 16 rows are padding; no barrier follows
-
-  const int g = lane >> 2, t = lane & 3;
-  const int nkb = Lp / 16;
-  const int NT = D / 8;
-
-  // scores of this warp's 16 rows against keys kb*16 .. kb*16+15, scaled
-  // after the product and masked past L
-  auto scores = [&](int kb, float (&s)[2][4]) {
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t r[4];
-      ldmatrix_x4(r, Ks + (kb * 16 + (lane & 7) + ((lane >> 4) << 3)) * KST +
-                         ks * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(s[0], qf[ks], r[0], r[1]);
-      mma_bf16(s[1], qf[ks], r[2], r[3]);
-    }
-#pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kb * 16 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = key < L ? s[n][e] * qk_scale : NEG_BIG;
-      }
-  };
-
-  float m0 = NEG_BIG, m1 = NEG_BIG;   // rows g and g+8
-  for (int kb = 0; kb < nkb; ++kb) {
-    float s[2][4];
-    scores(kb, s);
-    m0 = fmaxf(m0, fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
-    m1 = fmaxf(m1, fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-
-  float o[2 * KS][4];
-#pragma unroll
-  for (int n = 0; n < 2 * KS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-  for (int kb = 0; kb < nkb; ++kb) {
-    float s[2][4];
-    scores(kb, s);
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      s[n][0] = fast_exp2(s[n][0] - m0);
-      s[n][1] = fast_exp2(s[n][1] - m0);
-      s[n][2] = fast_exp2(s[n][2] - m1);
-      s[n][3] = fast_exp2(s[n][3] - m1);
-      l0 += s[n][0] + s[n][1];
-      l1 += s[n][2] + s[n][3];
-    }
-    // accumulator layout of the two 8-key tiles == A fragment of one k16 step
-    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-    const bf16* vrow = Vs + (kb * 16 + (lane & 15)) * VST;
-#pragma unroll
-    for (int n = 0; n < 2 * KS; n += 2) {
-      uint32_t r[4];
-      if (n + 1 < NT) {
-        ldmatrix_x4_trans(r, vrow + n * 8 + (lane >> 4) * 8);
-        mma_bf16(o[n], pa, r[0], r[1]);
-        mma_bf16(o[n + 1], pa, r[2], r[3]);
-      } else if (n < NT) {
-        ldmatrix_x2_trans(r, vrow + n * 8);
-        mma_bf16(o[n], pa, r[0], r[1]);
-      }
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  bf16* ob = out + (size_t)b * L * W + h * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < 2 * KS; ++n) {
-    if (n < NT) {
-      if (r0 < L)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * W + n * 8) =
-            pack_bf16(o[n][0] / l0, o[n][1] / l0);
-      if (r1 < L)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)r1 * W + n * 8) =
-            pack_bf16(o[n][2] / l1, o[n][3] / l1);
-    }
-  }
-}
-
-template <int KS>
-cudaError_t launch_attn(const bf16* qkv, bf16* out, int B, int L, int H, int D,
-                        float qk_scale, cudaStream_t stream) {
-  constexpr int KST = KS * 16 + 8;
-  const int Lp = (L + 15) & ~15;
-  const int VST = ((D >> 3) & 1) ? D : D + 8;
-  const int vroom = Lp * VST > AR * KST ? Lp * VST : AR * KST;
-  const size_t smem = sizeof(bf16) * (size_t)(Lp * KST + vroom);
-  cudaError_t e = cudaFuncSetAttribute(
-      packed_attn_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((L + AR - 1) / AR, H, B);
-  packed_attn_kernel<KS><<<grid, AT, smem, stream>>>(qkv, out, L, H, D, qk_scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // x (B*L, W) bf16; gamma/beta (W) fp32 (read when affine); w (W, 3W) bf16;
@@ -418,16 +247,7 @@ extern "C" int mico_fused_ln_qkv_attn(const void* x, const void* gamma,
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(qkv);
-  bf16* o = static_cast<bf16*>(out);
-  switch ((D + 15) / 16) {
-    case 1: return launch_attn<1>(q, o, B, L, H, D, qk_scale, s);
-    case 2: return launch_attn<2>(q, o, B, L, H, D, qk_scale, s);
-    case 3: return launch_attn<3>(q, o, B, L, H, D, qk_scale, s);
-    case 4: return launch_attn<4>(q, o, B, L, H, D, qk_scale, s);
-    case 5: return launch_attn<5>(q, o, B, L, H, D, qk_scale, s);
-    case 6: return launch_attn<6>(q, o, B, L, H, D, qk_scale, s);
-    case 7: return launch_attn<7>(q, o, B, L, H, D, qk_scale, s);
-    case 8: return launch_attn<8>(q, o, B, L, H, D, qk_scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return mico::packed::launch_attn(q, q + W, q + 2 * W, N,
+                                   static_cast<bf16*>(out), B, L, H, D,
+                                   qk_scale, s);
 }

@@ -14,7 +14,9 @@ from torch import nn
 
 
 class ParamGroup(nn.Module):
-    """A named group of inference parameters (no gradients)."""
+    """A named group of parameters. They are made without gradients, for
+    inference; the training entry turns `requires_grad` on
+    (`mico_tpu_torch.train.optim.build_optimizer`)."""
 
     def __init__(self, **tensors: torch.Tensor):
         super().__init__()

@@ -9,21 +9,44 @@ routes through `multi_head_attention`, so the cross-attention over the
 257·n condition tokens takes kernel K2 and the 30-token self-attention stays
 plain. `mlm_logits` is the MLM head the decoder (`generation.py`) reads its
 next-token logits from.
+
+Training (`train_rng`, a CPU `torch.Generator`): hidden dropout on the
+embeddings after their LN, on each attention output and on the FFN output,
+and attention-probability dropout, which takes the plain route
+(bert.py:118-119, 139-168, 206-209); `labels` give `mlm_loss`, and `remat`
+runs each layer under `torch.utils.checkpoint`. Each layer draws its masks
+from a device generator seeded inside the layer from a per-layer seed, so a
+recomputed layer draws the same masks.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mico_tpu_torch.config import BertConfig
 from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops.attention import multi_head_attention
-from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+from mico_tpu_torch.ops.layers import (
+    draw_seeds,
+    dropout,
+    gelu,
+    layer_norm,
+    linear,
+    seeded_generator,
+)
 
 MASK_VALUE = -10000.0
+
+
+class BertOutput(NamedTuple):
+    loss: Optional[torch.Tensor]
+    logits: Optional[torch.Tensor]
+    sequence_output: torch.Tensor
 
 
 class BertLayer(ParamGroup):
@@ -94,8 +117,10 @@ def bert_embeddings(
     position_ids: Optional[torch.Tensor] = None,
     token_type_ids: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.float32,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Sum in the parameters' dtype and LN with fp32 statistics, then the
+    """Sum in the parameters' dtype and LN with fp32 statistics, then (in
+    training, with a generator on the ids' device) hidden dropout, then the
     compute dtype (bert.py:99-120). token_type_ids=None adds row 0 of the
     table."""
     l = input_ids.shape[1]
@@ -108,6 +133,7 @@ def bert_embeddings(
     else:
         x = x + emb.get("token_type")[token_type_ids.long()]
     x = layer_norm(x, emb.get("ln_w"), emb.get("ln_b"), cfg.layer_norm_eps)
+    x = dropout(x, cfg.hidden_dropout_prob, generator)
     return x.to(compute_dtype)
 
 
@@ -122,10 +148,13 @@ def _attn_sublayer(
     ln_prefix: str,
     attn_impl: str,
     kv_index: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Attention sublayer with residual + LN. kv may hold only the unique
     condition rows (u < b) with kv_index mapping each query row to its row:
-    K/V are projected once per unique row and gathered (bert.py:143-156)."""
+    K/V are projected once per unique row and gathered (bert.py:143-156).
+    With a generator: probability dropout, then output dropout before the
+    residual."""
     b, lq, h = x.shape
     u, lk = kv.shape[0], kv.shape[1]
     nh, hd = cfg.num_attention_heads, cfg.head_dim
@@ -139,10 +168,34 @@ def _attn_sublayer(
         k = k[kv_index]
         v = v[kv_index]
     o = multi_head_attention(q, k, v, bias=bias, scale=hd ** -0.5,
-                             impl=attn_impl)
+                             impl=attn_impl, dropout_generator=generator,
+                             dropout_rate=cfg.attention_probs_dropout_prob)
     o = o.transpose(1, 2).reshape(b, lq, h)
     o = linear(o, lp.get(f"{out_prefix}_w"), lp.get(f"{out_prefix}_b"))
+    o = dropout(o, cfg.hidden_dropout_prob, generator)
     return layer_norm(x + o, lp.get(f"{ln_prefix}_w"), lp.get(f"{ln_prefix}_b"),
+                      cfg.layer_norm_eps)
+
+
+def _layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
+           self_bias: Optional[torch.Tensor],
+           encoder_hidden_states: Optional[torch.Tensor],
+           cross_bias: Optional[torch.Tensor], attn_impl: str,
+           cross_kv_index: Optional[torch.Tensor],
+           seed: Optional[int]) -> torch.Tensor:
+    gen = None if seed is None else seeded_generator(seed, x.device)
+    x = _attn_sublayer(x, x, lp, cfg, self_bias, "", "attn_out", "attn_ln",
+                       attn_impl, generator=gen)
+    if encoder_hidden_states is not None:
+        x = _attn_sublayer(
+            x, encoder_hidden_states.to(x.dtype), lp, cfg, cross_bias,
+            "x", "x_out", "x_ln", attn_impl, kv_index=cross_kv_index,
+            generator=gen,
+        )
+    y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
+    y = linear(y, lp.get("out_w"), lp.get("out_b"))
+    y = dropout(y, cfg.hidden_dropout_prob, gen)
+    return layer_norm(x + y, lp.get("out_ln_w"), lp.get("out_ln_b"),
                       cfg.layer_norm_eps)
 
 
@@ -154,21 +207,22 @@ def bert_encoder(
     cross_bias: Optional[torch.Tensor] = None,
     attn_impl: str = "flash",
     cross_kv_index: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    layer_seeds: Optional[List[int]] = None,
 ) -> torch.Tensor:
+    """The layer march; `layer_seeds` (one per layer) turn training dropout
+    on, `remat` checkpoints each layer."""
     cfg = model.cfg
     x = hidden
-    for lp in model.layers:
-        x = _attn_sublayer(x, x, lp, cfg, self_bias, "", "attn_out", "attn_ln",
-                           attn_impl)
-        if encoder_hidden_states is not None:
-            x = _attn_sublayer(
-                x, encoder_hidden_states.to(x.dtype), lp, cfg, cross_bias,
-                "x", "x_out", "x_ln", attn_impl, kv_index=cross_kv_index,
-            )
-        y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
-        y = linear(y, lp.get("out_w"), lp.get("out_b"))
-        x = layer_norm(x + y, lp.get("out_ln_w"), lp.get("out_ln_b"),
-                       cfg.layer_norm_eps)
+    for i, lp in enumerate(model.layers):
+        args = (x, lp, cfg, self_bias, encoder_hidden_states, cross_bias,
+                attn_impl, cross_kv_index,
+                None if layer_seeds is None else layer_seeds[i])
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_layer, *args,
+                                                  use_reentrant=False)
+        else:
+            x = _layer(*args)
     return x
 
 
@@ -179,6 +233,16 @@ def mlm_logits(model: Bert, sequence_output: torch.Tensor) -> torch.Tensor:
     x = gelu(linear(sequence_output, hp.get("dense_w"), hp.get("dense_b")))
     x = layer_norm(x, hp.get("ln_w"), hp.get("ln_b"), model.cfg.layer_norm_eps)
     return linear(x, hp.get("decoder_w"), hp.get("decoder_b"))
+
+
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in fp32 over labels != -100, 0 when none
+    (bert.py:244-251; torch's ignore_index)."""
+    valid = labels != -100
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])
+    nll = torch.where(valid, nll[..., 0], 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
 
 
 def bert_forward(
@@ -192,9 +256,14 @@ def bert_forward(
     compute_dtype: torch.dtype = torch.float32,
     attn_impl: str = "flash",
     encoder_row_index: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """`BertForMaskedLM.forward` without the MLM head: returns the
-    sequence_output (bert.py:254-313, eval mode)."""
+    labels: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    with_logits: bool = False,
+    train_rng: Optional[torch.Generator] = None,
+) -> BertOutput:
+    """`BertForMaskedLM.forward` (bert.py:254-313): (loss, logits,
+    sequence_output); the MLM head runs when labels are given or
+    with_logits. train_rng (a CPU generator) turns training dropout on."""
     self_bias = extended_attention_mask(attention_mask)
     cross_bias = None
     if encoder_hidden_states is not None and encoder_attention_mask is not None:
@@ -208,7 +277,19 @@ def bert_forward(
                 )
             enc_mask = enc_mask[encoder_row_index]
         cross_bias = extended_attention_mask(enc_mask)
-    hidden = bert_embeddings(model.embeddings, model.cfg, input_ids,
-                             position_ids, token_type_ids, compute_dtype)
-    return bert_encoder(model, hidden, self_bias, encoder_hidden_states,
-                        cross_bias, attn_impl, cross_kv_index=encoder_row_index)
+    seeds = None
+    if train_rng is not None:
+        seeds = draw_seeds(train_rng, 1 + model.cfg.num_hidden_layers)
+    hidden = bert_embeddings(
+        model.embeddings, model.cfg, input_ids, position_ids, token_type_ids,
+        compute_dtype,
+        None if seeds is None else seeded_generator(seeds[0], input_ids.device))
+    seq = bert_encoder(model, hidden, self_bias, encoder_hidden_states,
+                       cross_bias, attn_impl, cross_kv_index=encoder_row_index,
+                       remat=remat, layer_seeds=None if seeds is None else seeds[1:])
+    logits = loss = None
+    if labels is not None or with_logits:
+        logits = mlm_logits(model, seq)
+        if labels is not None:
+            loss = mlm_loss(logits, labels)
+    return BertOutput(loss=loss, logits=logits, sequence_output=seq)

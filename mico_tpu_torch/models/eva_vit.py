@@ -5,14 +5,22 @@ order, CLS token + absolute pos embed, pre-norm blocks with a packed qkv
 projection and q/v-only bias, optional LayerScale, MLP-GELU, the final LN
 over all tokens and `return_all_features`. Blocks are a ModuleList.
 
-Routing of a block's attention (eva_vit.py:438-461 with the bf16 gate of
-flash_attention.py:1693):
+Routing of a block's attention (eva_vit.py:298-369, 438-461 with the bf16
+gates of flash_attention.py:1186-1192, 1693):
+  - training (a `train_rng` is given) with flash attention → LN → `linear`
+    qkv → `packed_qkv_self_attention`: K3 forward and K4 backward in bf16 on
+    the card, their plain twins on the CPU and for other dtypes; never K1
+    (the `is_train` gate of `_ln_fusable`, eva_vit.py:448);
   - flash attention asked for, bf16 on the card → kernel K1
     (`fused_ln_qkv_self_attention`; affine off when the params are folded);
   - flash on the CPU → K1's plain twin, through the same wrapper;
   - flash on the card in another dtype → the unfused LN → qkv → packed
     attention composition (`fused_ln_qkv_plain`), as the JAX gate does;
   - plain attention asked for → LN → linear → `multi_head_attention`.
+Training also runs PatchDropout (top-k of uniform scores, CLS exempt) and
+per-sample DropPath on the linear 0 → `drop_path_rate` schedule, drawn up
+front from a device generator forked from `train_rng`, so a block under
+`torch.utils.checkpoint` (`remat`) recomputes with the same masks.
 EVA02's RoPE, SwiGLU and sub-LN, post-norm and relative-position bias are
 not ported yet (ROADMAP.md, queue 1 item 2).
 """
@@ -20,15 +28,17 @@ not ported yet (ROADMAP.md, queue 1 item 2).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from mico_tpu_torch.config import EvaVitConfig
 from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops import flash_attention as fa
 from mico_tpu_torch.ops.attention import multi_head_attention
-from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+from mico_tpu_torch.ops.layers import fork_generator, gelu, layer_norm, linear
 
 _EVA02 = "not ported yet (ROADMAP.md, queue 1 item 2: EVA02 / bigE features)"
 
@@ -70,11 +80,21 @@ class EvaBlock(ParamGroup):
         q_b = self.get("q_bias")
         return torch.cat([q_b, torch.zeros_like(q_b), self.get("v_bias")])
 
-    def forward(self, x: torch.Tensor, cfg: EvaVitConfig,
-                attn_impl: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
+                is_train: bool = False,
+                keep: Optional[tuple] = None) -> torch.Tensor:
+        """keep: DropPath's (mask, keep_prob) for this block: the per-sample
+        draws of the two residual branches, (2, B) bool, and the 0-d keep
+        probability they were drawn against (None: no DropPath)."""
         nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.ln_eps
+        if keep is not None:
+            masks, keep_prob = keep
         g, b0 = self.get("norm1_w"), self.get("norm1_b")
-        if attn_impl == "flash":
+        if attn_impl == "flash" and is_train:
+            qkv = linear(layer_norm(x, g, b0, eps), self.get("qkv_w"),
+                         self.packed_qkv_bias())
+            o = fa.packed_qkv_self_attention(qkv, nh, hd ** -0.5)
+        elif attn_impl == "flash":
             args = (x, g, b0, self.get("qkv_w").to(x.dtype),
                     self.packed_qkv_bias(), nh,
                     hd ** -0.5, eps, g is not None)
@@ -89,12 +109,14 @@ class EvaBlock(ParamGroup):
             q, k, v = qkv.reshape(b, l, 3, nh, hd).permute(2, 0, 3, 1, 4)
             o = multi_head_attention(q, k, v, scale=hd ** -0.5, impl=attn_impl)
             o = o.transpose(1, 2).reshape(b, l, w)
-        x = x + self._scaled(linear(o, self.get("proj_w"), self.get("proj_b")),
-                             "gamma_1")
+        y = self._scaled(linear(o, self.get("proj_w"), self.get("proj_b")),
+                         "gamma_1")
+        x = x + (y if keep is None else drop_path(y, masks[0], keep_prob))
         h = layer_norm(x, self.get("norm2_w"), self.get("norm2_b"), eps)
         y = linear(gelu(linear(h, self.get("fc1_w"), self.get("fc1_b"))),
                    self.get("fc2_w"), self.get("fc2_b"))
-        return x + self._scaled(y, "gamma_2")
+        y = self._scaled(y, "gamma_2")
+        return x + (y if keep is None else drop_path(y, masks[1], keep_prob))
 
     def _scaled(self, y: torch.Tensor, key: str) -> torch.Tensor:
         gamma = self.get(key)
@@ -139,6 +161,7 @@ class EvaVisionTransformer(nn.Module):
             kernel=init.trunc((3 * cfg.patch_size ** 2, w)),
             bias=init.zeros((w,)),
         )
+        # made without gradients; the training entry turns them on
         self.cls_token = nn.Parameter(init.trunc((1, 1, w)), requires_grad=False)
         self.pos_embed = nn.Parameter(init.trunc((1, cfg.seq_len, w)),
                                       requires_grad=False)
@@ -169,6 +192,34 @@ def patch_embed(pe: ParamGroup, cfg: EvaVitConfig,
     return linear(x, pe.get("kernel"), pe.get("bias"))
 
 
+def drop_path_rates(cfg: EvaVitConfig, device=None) -> torch.Tensor:
+    """The per-block DropPath rates, linear from 0 to `drop_path_rate` over
+    the blocks, in fp32 as `jnp.linspace` gives them (eva_vit.py:542)."""
+    return torch.linspace(0.0, cfg.drop_path_rate, cfg.layers,
+                          dtype=torch.float32, device=device)
+
+
+def drop_path(y: torch.Tensor, keep: torch.Tensor,
+              keep_prob: torch.Tensor) -> torch.Tensor:
+    """Stochastic depth on a residual branch (eva_vit.py:270-278): sample b
+    of y (B, L, W) is scaled by 1 / keep_prob (rounded to y's dtype, as JAX
+    divides in it) where keep[b], else zeroed."""
+    return torch.where(keep[:, None, None], y / keep_prob.to(y.dtype), 0.0)
+
+
+def patch_dropout(x: torch.Tensor, rate: float,
+                  generator: torch.Generator) -> torch.Tensor:
+    """PatchDropout (eva_vit.py:525-533): keep the CLS token and, per
+    sample, the n_keep = max(1, int(n·(1 - rate))) patches with the largest
+    uniform scores, in descending score order."""
+    n = x.shape[1] - 1
+    n_keep = max(1, int(n * (1.0 - rate)))
+    scores = torch.rand((x.shape[0], n), generator=generator, device=x.device)
+    keep = scores.topk(n_keep, dim=1).indices
+    patches = x[:, 1:].gather(1, keep[:, :, None].expand(-1, -1, x.shape[2]))
+    return torch.cat([x[:, :1], patches], dim=1)
+
+
 def eva_vit_forward(
     model: EvaVisionTransformer,
     pixels: torch.Tensor,
@@ -176,20 +227,47 @@ def eva_vit_forward(
     return_all_features: bool = True,
     compute_dtype: torch.dtype = torch.float32,
     attn_impl: str = "flash",
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
+    unroll_blocks: bool = False,
+    train_rng: Optional[torch.Generator] = None,
+    pipeline_stages: int = 1,
 ) -> torch.Tensor:
     """pixels (B, 3, H, W) → (B, seq_len, width) when return_all_features,
-    else the pooled (B, width) (eva_vit.py:484-646, inference only)."""
+    else the pooled (B, width) (eva_vit.py:484-646). With `train_rng` (a CPU
+    generator) the training route runs: PatchDropout, DropPath and the
+    K3/K4 attention. `remat` checkpoints each block."""
+    if (remat and remat_policy) or unroll_blocks:
+        raise NotImplementedError(
+            "remat_policy / unroll_blocks: not ported yet (ROADMAP.md, "
+            "queue 1 item 8); `checkpointing` remats whole blocks")
+    if pipeline_stages > 1:
+        raise NotImplementedError(
+            "pipeline stages: not ported yet (ROADMAP.md, queue 1 item 10)")
     cfg = model.cfg
     x = patch_embed(model.patch_embed, cfg, pixels.to(compute_dtype))
     b = x.shape[0]
     cls = model.cls_token.to(compute_dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + model.pos_embed.to(compute_dtype)
-    for blk in model.blocks:
-        x = blk(x, cfg, attn_impl)
+    is_train = train_rng is not None
+    keeps = [None] * cfg.layers
+    if is_train:
+        gen = fork_generator(train_rng, x.device)
+        if cfg.patch_dropout > 0.0:
+            x = patch_dropout(x, cfg.patch_dropout, gen)
+        if cfg.drop_path_rate > 0.0:
+            u = torch.rand((cfg.layers, 2, b), generator=gen, device=x.device)
+            keep_prob = 1.0 - drop_path_rates(cfg, x.device)
+            keeps = list(zip(u < keep_prob[:, None, None], keep_prob))
+    for blk, keep in zip(model.blocks, keeps):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                blk, x, cfg, attn_impl, is_train, keep, use_reentrant=False)
+        else:
+            x = blk(x, cfg, attn_impl, is_train, keep)
     if not cfg.global_average_pool:
         x = layer_norm(x, model.norm_w, model.norm_b, cfg.ln_eps)
         return x if return_all_features else x[:, 0]
     if return_all_features:
         return x
     return layer_norm(x.mean(dim=1), model.norm_w, model.norm_b, cfg.ln_eps)
-

@@ -6,6 +6,14 @@ BERT with cross-attention is the language interface for contrastive
 retrieval and ITM. `MiCo` is an `nn.Module` holding the parameters under the
 JAX package's names (see `mico_tpu_torch.convert.params_from_jax`), with the
 reference method surface of `MiCoModel` (mico.py:481-581).
+
+The forwards are module-level functions of the model, as in the JAX module
+(`forward_vision_encoder`, `forward_multimodal_encoder`, `contra_head`,
+`itm_head`, the condition-token functions), differentiable and taking
+`train_rng` for the training regularizers; training
+(`mico_tpu_torch.train`) calls them. `MiCo`'s methods of the same names are the inference entry points:
+each runs its function under `torch.no_grad()`. Parameters are made without
+gradients; the training entry turns `requires_grad` on.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.models import bert as bert_mod
 from mico_tpu_torch.models import eva_vit as vit_mod
 from mico_tpu_torch.models._params import Init, ParamGroup
+from mico_tpu_torch.models.bert import BertOutput
 from mico_tpu_torch.ops.interpolate import interp_nearest_1d
 from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
 
@@ -60,7 +69,7 @@ class MiCo(nn.Module):
                               bias=init.zeros((md,)),
                               ln_w=init.ones((md,)), ln_b=init.zeros((md,)))
 
-        def param(t):
+        def param(t):   # made without gradients; training turns them on
             return nn.Parameter(t, requires_grad=False)
 
         self.vision_encoder = vit_mod.EvaVisionTransformer(cfg.eva_config, init)
@@ -106,28 +115,20 @@ class MiCo(nn.Module):
         self.vision_encoder.fold_inference_params()
         return self
 
-    # -- encoders ------------------------------------------------------------
+    # -- inference entry points (no autograd) -------------------------------
 
     @torch.no_grad()
     def forward_vision_encoder(self, pixels: torch.Tensor) -> torch.Tensor:
-        """(b, n, 3, h, w) → (b, n, seq, vision_dim): frames folded into the
-        batch for one ViT pass (mico.py:139-196)."""
-        b, n = pixels.shape[:2]
-        flat = pixels.reshape(b * n, *pixels.shape[2:])
-        tokens = vit_mod.eva_vit_forward(
-            self.vision_encoder, flat, return_all_features=True,
-            compute_dtype=self.compute_dtype, attn_impl=self.attn_impl,
-        )
-        return tokens.reshape(b, n, *tokens.shape[1:])
+        """(b, n, 3, h, w) → (b, n, seq, vision_dim)."""
+        return forward_vision_encoder(self, pixels)
 
+    @torch.no_grad()
     def forward_audio_encoder(self, spectrograms: torch.Tensor) -> torch.Tensor:
-        """(b, n, T, M) fbank slices → (b, n, seq, C) through the shared ViT,
-        tiled to 3 channels (mico.py:199-210)."""
-        x = spectrograms[:, :, None].expand(-1, -1, 3, -1, -1)
-        return self.forward_vision_encoder(x)
+        return forward_audio_encoder(self, spectrograms)
 
+    @torch.no_grad()
     def forward_depth_encoder(self, depth_pixels: torch.Tensor) -> torch.Tensor:
-        return self.forward_vision_encoder(depth_pixels)
+        return forward_depth_encoder(self, depth_pixels)
 
     @torch.no_grad()
     def forward_multimodal_encoder(
@@ -139,18 +140,11 @@ class MiCo(nn.Module):
         condition_row_index: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """BERT over the text, with cross-attention over `condition_feat`
-        when given (no encoder mask, as mico.py:252-266); returns the
-        sequence output."""
-        return bert_mod.bert_forward(
-            self.bert, input_ids, attention_mask,
-            encoder_hidden_states=condition_feat,
+        when given; returns the sequence output."""
+        return forward_multimodal_encoder(
+            self, input_ids, attention_mask, condition_feat,
             position_ids=position_ids,
-            compute_dtype=self.compute_dtype,
-            attn_impl=self.attn_impl,
-            encoder_row_index=condition_row_index,
-        )
-
-    # -- pooling & heads -----------------------------------------------------
+            condition_row_index=condition_row_index).sequence_output
 
     def pool_vision_for_contra(self, feature: torch.Tensor) -> torch.Tensor:
         return pool_frames_for_contra(feature)
@@ -167,48 +161,136 @@ class MiCo(nn.Module):
 
     @torch.no_grad()
     def contra_head(self, name: str, feature: torch.Tensor) -> torch.Tensor:
-        hp = getattr(self, f"contra_head_{name}")
-        return linear(feature, hp.get("kernel"), hp.get("bias"))
+        return contra_head(self, name, feature)
 
     @torch.no_grad()
     def itm_head(self, cls_token: torch.Tensor) -> torch.Tensor:
-        """Linear → GELU → LN(1e-12) → Linear(2) (mico.py:311-317)."""
-        hp = self._modules["itm_head"]   # the attribute name is this method's
-        x = gelu(linear(cls_token, hp.get("fc1_w"), hp.get("fc1_b")))
-        x = layer_norm(x, hp.get("ln_w"), hp.get("ln_b"), 1e-12)
-        return linear(x, hp.get("fc2_w"), hp.get("fc2_b"))
+        return itm_head(self, cls_token)
 
     @torch.no_grad()
-    def _condition_input(self, output: torch.Tensor, modality: str
-                         ) -> torch.Tensor:
-        """(b, n, x, c) encoder tokens → (b, n·x, multimodal_dim) condition
-        tokens: hidden_trans (linear + LN), the adaptive frame embedding and
-        the modality type embedding (mico.py:329-350)."""
-        cfg = self.cfg
-        b, n = output.shape[:2]
-        if cfg.pool_video:
-            output = torch.cat(
-                [output[:, :, :1], output[:, :, 1:].mean(dim=2, keepdim=True)],
-                dim=2,
-            )
-        tp = getattr(self, f"hidden_trans_{modality}")
-        output = linear(output, tp.get("kernel"), tp.get("bias"))
-        output = layer_norm(output, tp.get("ln_w"), tp.get("ln_b"), 1e-12)
-        if cfg.frame_embedding_type == "adaptive":
-            fe = frame_embedding(getattr(self, f"{modality}_frame_embedding"), n)
-            output = output + fe.to(output.dtype)[:, :, None, :]
-        output = output.reshape(b, -1, cfg.multimodal_dim)
-        type_emb = getattr(self, f"{modality}_type_embeddings")
-        return output + type_emb.to(output.dtype)
-
     def get_multimodal_forward_input_vision(self, vision_output):
-        return self._condition_input(vision_output, "vision")
+        return condition_input(self, vision_output, "vision")
 
+    @torch.no_grad()
     def get_multimodal_forward_input_audio(self, audio_output):
-        return self._condition_input(audio_output, "audio")
+        return condition_input(self, audio_output, "audio")
 
+    @torch.no_grad()
     def get_multimodal_forward_input_depth(self, depth_output):
-        return self._condition_input(depth_output, "depth")
+        return condition_input(self, depth_output, "depth")
+
+
+# ---------------------------------------------------------------------------
+# forwards shared by inference and training (mico.py:139-350)
+# ---------------------------------------------------------------------------
+
+
+def forward_vision_encoder(model: MiCo, pixels: torch.Tensor,
+                           train_rng: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """(b, n, 3, h, w) → (b, n, seq, vision_dim): frames folded into the
+    batch for one ViT pass (mico.py:139-196); train_rng (a CPU generator)
+    runs the ViT's training route."""
+    cfg = model.cfg
+    b, n = pixels.shape[:2]
+    flat = pixels.reshape(b * n, *pixels.shape[2:])
+    tokens = vit_mod.eva_vit_forward(
+        model.vision_encoder, flat, return_all_features=True,
+        compute_dtype=model.compute_dtype, attn_impl=model.attn_impl,
+        remat=cfg.checkpointing,
+        remat_policy=cfg.remat_policy,
+        unroll_blocks=cfg.unroll_blocks and train_rng is not None,
+        train_rng=train_rng, pipeline_stages=cfg.pipeline_stages,
+    )
+    return tokens.reshape(b, n, *tokens.shape[1:])
+
+
+def forward_audio_encoder(model: MiCo, spectrograms: torch.Tensor,
+                          train_rng: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """(b, n, T, M) fbank slices → (b, n, seq, C) through the shared ViT,
+    tiled to 3 channels (mico.py:199-210)."""
+    x = spectrograms[:, :, None].expand(-1, -1, 3, -1, -1)
+    return forward_vision_encoder(model, x, train_rng=train_rng)
+
+
+def forward_depth_encoder(model: MiCo, depth_pixels: torch.Tensor,
+                          train_rng: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    return forward_vision_encoder(model, depth_pixels, train_rng=train_rng)
+
+
+def forward_multimodal_encoder(
+    model: MiCo,
+    input_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    condition_feat: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
+    train_rng: Optional[torch.Generator] = None,
+    condition_row_index: Optional[torch.Tensor] = None,
+) -> BertOutput:
+    """BERT over the text with cross-attention over `condition_feat` (no
+    encoder mask) and the MLM loss for `labels` (mico.py:240-266); BERT is
+    checkpointed per layer by `bert_checkpointing`, else `checkpointing`."""
+    cfg = model.cfg
+    return bert_mod.bert_forward(
+        model.bert, input_ids, attention_mask,
+        encoder_hidden_states=condition_feat,
+        position_ids=position_ids,
+        compute_dtype=model.compute_dtype,
+        attn_impl=model.attn_impl,
+        encoder_row_index=condition_row_index,
+        labels=labels,
+        remat=(cfg.checkpointing if cfg.bert_checkpointing is None
+               else cfg.bert_checkpointing),
+        train_rng=train_rng,
+    )
+
+
+def contra_head(model: MiCo, name: str, feature: torch.Tensor) -> torch.Tensor:
+    hp = getattr(model, f"contra_head_{name}")
+    return linear(feature, hp.get("kernel"), hp.get("bias"))
+
+
+def itm_head(model: MiCo, cls_token: torch.Tensor) -> torch.Tensor:
+    """Linear → GELU → LN(1e-12) → Linear(2) (mico.py:311-317)."""
+    hp = model._modules["itm_head"]   # the attribute's name is a method's
+    x = gelu(linear(cls_token, hp.get("fc1_w"), hp.get("fc1_b")))
+    x = layer_norm(x, hp.get("ln_w"), hp.get("ln_b"), 1e-12)
+    return linear(x, hp.get("fc2_w"), hp.get("fc2_b"))
+
+
+def condition_input(model: MiCo, output: torch.Tensor,
+                    modality: str) -> torch.Tensor:
+    """(b, n, x, c) encoder tokens → (b, n·x, multimodal_dim) condition
+    tokens: hidden_trans (linear + LN), the adaptive frame embedding and
+    the modality type embedding (mico.py:329-350)."""
+    cfg = model.cfg
+    b, n = output.shape[:2]
+    if cfg.pool_video:
+        output = torch.cat(
+            [output[:, :, :1], output[:, :, 1:].mean(dim=2, keepdim=True)],
+            dim=2,
+        )
+    tp = getattr(model, f"hidden_trans_{modality}")
+    output = linear(output, tp.get("kernel"), tp.get("bias"))
+    output = layer_norm(output, tp.get("ln_w"), tp.get("ln_b"), 1e-12)
+    if cfg.frame_embedding_type == "adaptive":
+        fe = frame_embedding(getattr(model, f"{modality}_frame_embedding"), n)
+        output = output + fe.to(output.dtype)[:, :, None, :]
+    output = output.reshape(b, -1, cfg.multimodal_dim)
+    type_emb = getattr(model, f"{modality}_type_embeddings")
+    return output + type_emb.to(output.dtype)
+
+
+def subtitle_condition_input(model: MiCo,
+                             subtitle_output: torch.Tensor) -> torch.Tensor:
+    """BERT subtitle tokens → condition tokens (mico.py:374-378)."""
+    tp = model.hidden_trans_subtitle
+    out = linear(subtitle_output, tp.get("kernel"), tp.get("bias"))
+    out = layer_norm(out, tp.get("ln_w"), tp.get("ln_b"), 1e-12)
+    return out + model.subtitle_type_embeddings.to(out.dtype)
 
 
 def pool_frames_for_contra(feature: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ Two implementations with the JAX package's routing:
     kernel K2 on the card and its plain twin on the CPU.
 
 Shapes: q (B, H, Lq, D); k, v (B, H, Lk, D); additive bias broadcastable to
-(B, H, Lq, Lk). Attention-probability dropout waits for the training port.
+(B, H, Lq, Lk). Attention-probability dropout (training) is drawn after the
+softmax on the plain route, and a positive rate forces that route, as
+`mico_tpu/ops/attention.py:39-58, 82-86` do: no kernel keeps the
+probabilities to drop.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Optional
 import torch
 
 from mico_tpu_torch.ops import flash_attention as fa
+from mico_tpu_torch.ops.layers import dropout
 
 # 'flash' routes to the plain path when lq·lk is at or below this (the
 # ≤64-token text self-attention), as attention.py:95 does
@@ -29,13 +33,18 @@ def plain_attention(
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    dropout_generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
 ) -> torch.Tensor:
+    """Twin of `xla_attention`; probabilities dropped after the softmax
+    (torch semantics) when a generator and a rate are given."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.float()
-    probs = torch.softmax(scores, dim=-1)
+    probs = dropout(torch.softmax(scores, dim=-1), dropout_rate,
+                    dropout_generator)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
@@ -47,9 +56,15 @@ def multi_head_attention(
     bias: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     impl: str = "flash",
+    dropout_generator: Optional[torch.Generator] = None,
+    dropout_rate: float = 0.0,
 ) -> torch.Tensor:
     """impl: 'flash' | 'plain'. Tiny self-attention (lq·lk ≤ 4096) stays
-    plain under 'flash'."""
+    plain under 'flash'; active probability dropout takes the plain route."""
+    if dropout_generator is not None and dropout_rate > 0.0:
+        return plain_attention(q, k, v, bias=bias, scale=scale,
+                               dropout_generator=dropout_generator,
+                               dropout_rate=dropout_rate)
     if impl == "flash" and q.shape[2] * k.shape[2] <= SMALL_ATTN_PLAIN_MAX:
         impl = "plain"
     if impl == "flash":

@@ -7,11 +7,25 @@ packed (B, L, H·D). Source: `csrc/fused_ln_qkv_attn.cu`.
 
 K2 `flash_attention` replaces the resident-KV `_flash` (:93, call :127) with
 both bodies, `_kernel` (no bias, exp2) and `_kernel_bias` (additive bias,
-exp), on (B, H, Lq, D). Source: `csrc/flash_attn.cu`.
+exp), on (B, H, Lq, D). Source: `csrc/flash_attn.cu`. It is differentiable
+as `_flash_diff` is on the resident route (:686-697): the backward
+recomputes attention in plain torch.
+
+K3 `packed_attention` replaces `_packed_qkv_fwd` (:1135, call :1155) and
+`_packed_fwd` (:885, call :897), body `_packed_body` (:757): self-attention
+on projection-layout (B, L, H·D) rows read by column offset. K4
+`packed_attention_bwd` replaces `_packed_qkv_bwd` (:1059, call :1070) and
+`_packed_bwd` (:1032, call :1040), body `_packed_bwd_body` (:954), its
+gradient. Sources: `csrc/packed_attn.cu` (K1's attention launch, shared
+through `csrc/packed_attn.cuh`) and `csrc/packed_attn_bwd.cu`. The ViT's
+training route reaches them through the autograd Functions
+`packed_qkv_self_attention` and `packed_self_attention`.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; only a tensor on the CPU goes to the plain twin. Each
-carries a `launches` count that grows by one per kernel launch.
+carries a `launches` count that grows by one per kernel launch. K1 has no
+backward: its wrapper raises when autograd records a call whose inputs
+require a gradient, on any device, rather than drop the gradient.
 """
 
 from __future__ import annotations
@@ -51,6 +65,17 @@ def _check(rc: int, what: str) -> None:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd records this call and an input requires a
+    gradient: the kernel has no backward, and its output would carry none."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: call it under torch.no_grad(), or "
+            "take the training route (a train generator selects the "
+            "differentiable kernels)")
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +139,9 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _k1_smem_bytes(l: int, d: int) -> int:
-    """Dynamic shared memory of K1's attention launch (mirrors the C side):
+def _packed_smem_bytes(l: int, d: int) -> int:
+    """Dynamic shared memory of the packed attention launch of K1 and K3
+    (mirrors csrc/packed_attn.cuh):
     K rows at stride DP+8, V rows (which first stage the Q tile) at stride
     D or D+8, DP = D rounded up to 16."""
     dp = -(-d // 16) * 16
@@ -139,7 +165,9 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
     """LN + qkv projection + packed self-attention on the raw residual stream
     x (B, L, W); w (W, 3W) and bias (3W,) the packed projection; g/b0 the LN
     affine (ignored, and may be None, when affine is False). Returns
-    (B, L, W). The kernel takes bf16 x and w; the vectors go in as fp32."""
+    (B, L, W). The kernel takes bf16 x and w; the vectors go in as fp32.
+    Inference only: raises under autograd when an input requires a grad."""
+    refuse_grad("K1 (fused_ln_qkv_self_attention)", x, g, b0, w, bias)
     if not x.is_cuda:
         return fused_ln_qkv_plain(x, g, b0, w, bias, num_heads, scale, eps,
                                   affine)
@@ -155,7 +183,7 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
              f"head dim {d} must divide W and be a multiple of 8 up to 128")
     _require(wd % 32 == 0 and (3 * wd) % 128 == 0 and wd <= 2048,
              f"width {wd}: K1 needs W % 32 == 0, 3W % 128 == 0, W <= 2048")
-    _require(_k1_smem_bytes(l, d) <= _MAX_SMEM,
+    _require(_packed_smem_bytes(l, d) <= _MAX_SMEM,
              f"L={l} with head dim {d} does not fit K1's shared memory")
     dev = x.device
     for t in (w, bias) + ((g, b0) if affine else ()):
@@ -238,12 +266,52 @@ def _flash_cuda(q, k, v, bias, scale) -> torch.Tensor:
     return out
 
 
+def _flash_forward(q, k, v, bias, scale) -> torch.Tensor:
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, bias, scale)
+    return _flash_cuda(q, k, v, bias, scale)
+
+
+class _Flash(torch.autograd.Function):
+    """K2 (or its plain twin on the CPU) forward; the backward recomputes
+    attention in plain torch from the saved q, k, v and bias and takes its
+    gradient, as `_flash_diff_bwd` does on the resident route
+    (flash_attention.py:686-697): no probability matrix is kept between the
+    passes, and the bias gets its gradient by the same rule."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias)
+        return _flash_forward(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        from mico_tpu_torch.ops.attention import plain_attention
+
+        saved = ctx.saved_tensors
+        want = [i for i, t in enumerate(saved)
+                if t is not None and ctx.needs_input_grad[i]]
+        if not want:
+            return None, None, None, None, None
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(i in want)
+                    if t is not None else None for i, t in enumerate(saved)]
+            out = plain_attention(*args[:3], bias=args[3], scale=ctx.scale)
+            got = torch.autograd.grad(out, [args[i] for i in want], g)
+        grads = [None] * 5
+        for i, gi in zip(want, got):
+            grads[i] = gi
+        return tuple(grads)
+
+
 def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B, H, Lq, D); k, v (B, H, Lk, D); bias broadcastable
     (B|1, H|1, Lq|1, Lk). Routes as `_flash_diff` does: past 8192 KV rows,
     fewer than 128 query rows take plain math and more need K6, which is not
-    ported yet."""
+    ported yet. Differentiable (`_Flash`); a call that records no gradient
+    skips the autograd Function and its host cost."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if k.shape[2] > MAX_RESIDENT_KV:
@@ -256,21 +324,272 @@ def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
             "218) is not ported yet: Lk > 8192 with Lq >= 128 "
             "(ROADMAP.md, kernel queue)"
         )
-    if not q.is_cuda:
-        return flash_attention_plain(q, k, v, bias, float(scale))
-    return _flash_cuda(q, k, v, bias, float(scale))
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return _Flash.apply(q, k, v, bias, float(scale))
+    return _flash_forward(q, k, v, bias, float(scale))
 
 
 flash_attention.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# K3 / K4: packed self-attention forward and backward (ViT training)
+# ---------------------------------------------------------------------------
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, H·D) → (B, H, L, D) fp32."""
+    b, l, w = x.shape
+    return x.reshape(b, l, num_heads, w // num_heads).transpose(1, 2).float()
+
+
+def _unheads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    b, h, l, d = x.shape
+    return x.to(dtype).transpose(1, 2).reshape(b, l, h * d)
+
+
+def packed_attention_plain(q, k, v, num_heads: int,
+                           scale: float) -> torch.Tensor:
+    """K3's plain twin, the rounding points of `_packed_body`
+    (flash_attention.py:757-796): fp32 scores times scale·log2(e), p =
+    exp2(s − row max) unnormalised, p rounded to v's dtype for an
+    fp32-accumulated PV product, then o / row sum(p) in q's dtype. q, k, v
+    (B, L, H·D) → (B, L, H·D)."""
+    s = torch.matmul(_heads(q, num_heads),
+                     _heads(k, num_heads).transpose(-1, -2)) * (scale * LOG2E)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(v.dtype).float(), _heads(v, num_heads))
+    return _unheads(o / p.sum(dim=-1, keepdim=True), q.dtype)
+
+
+def packed_attention_bwd_plain(q, k, v, g, num_heads: int, scale: float):
+    """K4's plain twin, the explicit formula of `_packed_bwd_body`
+    (flash_attention.py:954-1014), not autograd of the forward: p
+    normalised in fp32 before it is rounded; dv = bf16(p)ᵀ g; dp = g vᵀ;
+    δ = rowsum(dp ∘ p) over the unrounded p; ds = bf16(p ∘ (dp − δ) ·
+    scale) with the true scale; dq = ds k, dk = dsᵀ q; fp32 accumulation,
+    results in q's dtype. → (dq, dk, dv), each (B, L, H·D)."""
+    dt = q.dtype
+    qh, kh, vh, gh = (_heads(x, num_heads) for x in (q, k, v, g))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * (scale * LOG2E)
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(dt).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(_unheads(x, dt) for x in (dq, dk, dv))
+
+
+def _k4_smem_bytes(l: int, d: int) -> int:
+    """K4's larger launch (the columns pass, csrc/packed_attn_bwd.cu): two
+    padded L x D operands, a 96-row staging tile and fp32 row statistics."""
+    kst = -(-d // 16) * 16 + 8
+    lp = -(-l // 16) * 16
+    return 2 * (2 * lp + _K1_ROWS) * kst + 16 * lp
+
+
+def _packed_layout(name: str, ts, num_heads: int) -> int:
+    """Check that (B, L, W) views share one row stride `ld` (column slices
+    of a fused (B, L, 3W) tensor, or contiguous tensors) that K3/K4 can
+    address; returns ld."""
+    b, l, w = ts[0].shape
+    d = w // num_heads
+    ld = ts[0].stride(1)
+    for t in ts:
+        _require(t.dim() == 3 and tuple(t.shape) == (b, l, w),
+                 f"{name}: shapes {[tuple(x.shape) for x in ts]} differ")
+        _require(t.dtype == torch.bfloat16,
+                 f"{name} takes bf16, got {t.dtype}")
+        _require(t.device == ts[0].device, f"{name}: inputs on two devices")
+        _require(t.stride(2) == 1 and t.stride(1) == ld
+                 and t.stride(0) == l * ld,
+                 f"{name}: strides {t.stride()} are not rows of one stride")
+        _require(t.data_ptr() % 16 == 0, f"{name}: rows must be 16-byte aligned")
+    _require(d * num_heads == w and d % 8 == 0 and d <= 128,
+             f"{name}: head dim {d} must divide W and be a multiple of 8 "
+             "up to 128")
+    _require(ld % 8 == 0, f"{name}: row stride {ld} must be a multiple of 8")
+    return ld
+
+
+@functools.lru_cache(maxsize=None)
+def _k3_entry():
+    fn = _build.load("packed_attn").mico_packed_attn
+    fn.argtypes = [_c_void_p] * 3 + [ctypes.c_int, _c_void_p] + [
+        ctypes.c_int] * 4 + [ctypes.c_float, _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_entry():
+    fn = _build.load("packed_attn_bwd").mico_packed_attn_bwd
+    fn.argtypes = [_c_void_p] * 3 + [ctypes.c_int] + [_c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def packed_attention(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """K3: q, k, v (B, L, H·D) → (B, L, H·D). On the card they are bf16
+    views with one row stride: the column slices of the fused qkv (stride
+    3W) or three contiguous tensors (stride W); L·D must fit one block's
+    shared memory (L ≤ 510 at D = 88). CPU tensors take the plain twin."""
+    if not q.is_cuda:
+        return packed_attention_plain(q, k, v, num_heads, scale)
+    ld = _packed_layout("K3", (q, k, v), num_heads)
+    b, l, w = q.shape
+    d = w // num_heads
+    _require(_packed_smem_bytes(l, d) <= _MAX_SMEM,
+             f"K3: L={l} with head dim {d} does not fit shared memory")
+    out = torch.empty((b, l, w), dtype=q.dtype, device=q.device)
+    rc = _k3_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+                     out.data_ptr(), b, l, num_heads, d,
+                     float(scale * LOG2E), _stream())
+    _check(rc, "packed_attn")
+    packed_attention.launches += 1
+    return out
+
+
+packed_attention.launches = 0
+
+
+def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
+                         dqkv: Optional[torch.Tensor] = None):
+    """K4: the gradient (dq, dk, dv) of `packed_attention` for the output
+    gradient g (B, L, H·D). With `dqkv` (B, L, 3·H·D) given, the three are
+    written into its column slices (the fused projection's gradient) and
+    returned as views of it. On the card q, k, v as for K3 and g bf16 and
+    contiguous; CPU tensors take the plain twin."""
+    if not q.is_cuda:
+        grads = packed_attention_bwd_plain(q, k, v, g, num_heads, scale)
+        if dqkv is None:
+            return grads
+        w = q.shape[-1]
+        for i, x in enumerate(grads):
+            dqkv[..., i * w:(i + 1) * w] = x
+        return tuple(dqkv[..., i * w:(i + 1) * w] for i in range(3))
+    ld = _packed_layout("K4", (q, k, v), num_heads)
+    b, l, w = q.shape
+    d = w // num_heads
+    _require(g.dtype == q.dtype and tuple(g.shape) == (b, l, w)
+             and g.is_contiguous() and g.device == q.device,
+             f"K4: g must be contiguous {tuple(q.shape)} {q.dtype}")
+    _require(_k4_smem_bytes(l, d) <= _MAX_SMEM,
+             f"K4: L={l} with head dim {d} does not fit shared memory")
+    if dqkv is None:
+        outs = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
+                     for _ in range(3))
+    else:
+        _require(tuple(dqkv.shape) == (b, l, 3 * w) and dqkv.is_contiguous()
+                 and dqkv.dtype == q.dtype and dqkv.device == q.device,
+                 f"K4: dqkv must be contiguous ({b}, {l}, {3 * w})")
+        outs = tuple(dqkv[..., i * w:(i + 1) * w] for i in range(3))
+    ldo = outs[0].stride(1)
+    stats = torch.empty((b, num_heads, l, 4), dtype=torch.float32,
+                        device=q.device)
+    rc = _k4_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
+                     g.data_ptr(), stats.data_ptr(),
+                     *(o.data_ptr() for o in outs), ldo, b, l, num_heads, d,
+                     float(scale), _stream())
+    _check(rc, "packed_attn_bwd")
+    packed_attention_bwd.launches += 1
+    return outs
+
+
+packed_attention_bwd.launches = 0
+
+
+def _kernel_route(x: torch.Tensor) -> bool:
+    """The JAX dtype gate (flash_attention.py:1186-1192, :1204): the kernels
+    take bf16 on the card; CUDA fp32 takes the plain twins, as JAX takes its
+    identical-math reference; the CPU always takes the twins (through the
+    wrappers)."""
+    return not x.is_cuda or x.dtype == torch.bfloat16
+
+
+class _PackedQKV(torch.autograd.Function):
+    """Forward K3 over the column slices of the fused qkv; saves qkv and
+    not the output (`_packed_qkv_vjp_fwd`, :1195); backward K4 into one
+    (B, L, 3W) gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(qkv)
+        q, k, v = qkv.chunk(3, dim=-1)
+        if _kernel_route(qkv):
+            return packed_attention(q, k, v, num_heads, scale)
+        return packed_attention_plain(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        q, k, v = qkv.chunk(3, dim=-1)
+        g = g.contiguous()
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        if _kernel_route(qkv):
+            packed_attention_bwd(q, k, v, g, ctx.num_heads, ctx.scale, dqkv)
+        else:
+            grads = packed_attention_bwd_plain(q, k, v, g, ctx.num_heads,
+                                               ctx.scale)
+            torch.cat(grads, dim=-1, out=dqkv)
+        return dqkv, None, None
+
+
+class _Packed(torch.autograd.Function):
+    """Forward K3 on three (B, L, W) inputs; saves q, k, v
+    (`_packed_vjp_fwd`, :1099); backward K4."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(q, k, v)
+        if _kernel_route(q):
+            return packed_attention(q, k, v, num_heads, scale)
+        return packed_attention_plain(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        g = g.contiguous()
+        if _kernel_route(q):
+            dq, dk, dv = packed_attention_bwd(q, k, v, g, ctx.num_heads,
+                                              ctx.scale)
+        else:
+            dq, dk, dv = packed_attention_bwd_plain(q, k, v, g, ctx.num_heads,
+                                                    ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def packed_qkv_self_attention(qkv: torch.Tensor, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """Self-attention on the fused projection output (B, L, 3·H·D) →
+    (B, L, H·D), differentiable (`packed_qkv_self_attention`, :1180)."""
+    return _PackedQKV.apply(qkv, num_heads, float(scale))
+
+
+def packed_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          num_heads: int, scale: float) -> torch.Tensor:
+    """Self-attention on projection-layout q, k, v (B, L, H·D) →
+    (B, L, H·D), differentiable (`packed_self_attention`, :936)."""
+    return _Packed.apply(q, k, v, num_heads, float(scale))
+
+
 KERNELS = {
     "K1": fused_ln_qkv_self_attention,
     "K2": flash_attention,
+    "K3": packed_attention,
+    "K4": packed_attention_bwd,
 }
 
 
 def _all_kernels() -> dict:
-    """K1, K2 and K7 (`ops/int8_attention.py`, which imports this module)."""
+    """K1-K4 and K7 (`ops/int8_attention.py`, which imports this module)."""
     from mico_tpu_torch.ops.int8_attention import int8_cross_attention
 
     return {**KERNELS, "K7": int8_cross_attention}

@@ -10,7 +10,8 @@ replaces the Pallas `_int8_cross_call` (int8_attention.py:86, body :56). Its
 plain twin `int8_cross_attention_plain` keeps the Pallas body's rounding
 points. The wrapper launches K7 for CUDA tensors and raises on what K7 does
 not take; only CPU tensors go to the plain twin. `launches` counts K7's
-launches.
+launches. K7 has no backward, so the wrapper raises rather than return an
+output without a gradient when autograd records a call that needs one.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from mico_tpu_torch.ops.flash_attention import (
     _check,
     _require,
     _stream,
+    refuse_grad,
 )
 
 # K7's limits (csrc/int8_cross_attn.cu): head dim, query rows, block warps
@@ -95,7 +97,9 @@ def int8_cross_attention(q: torch.Tensor, k8: torch.Tensor, ks: torch.Tensor,
     """q (B, Lq, H); k8, v8 (B, Lk, H) int8; ks, vs (B, Lk, nh) fp32.
     Returns (B, Lq, H) in q's dtype. Decode only (no backward). On the card
     K7 takes bf16 q, head dim 64, Lq ≤ 16, and Lq·Lk scores that fit one
-    block's shared memory (Lk ≤ 9108 at Lq = 6)."""
+    block's shared memory (Lk ≤ 9108 at Lq = 6). Raises under autograd when
+    an input requires a gradient, on any device."""
+    refuse_grad("K7 (int8_cross_attention)", q, ks, vs)
     if scale is None:
         scale = float(q.shape[-1] // num_heads) ** -0.5
     if not q.is_cuda:

@@ -7,6 +7,11 @@
 - `layer_norm`: fp32 statistics, biased variance, output in the input dtype,
   optional affine.
 - `gelu`: exact erf for fp32, the tanh approximation for bf16.
+- `dropout`: inverted dropout with torch semantics, drawn on the tensor's
+  device from an explicit `torch.Generator`. A training step holds one CPU
+  generator as its seed source; `fork_generator` / `draw_seeds` give the
+  device generators and the per-layer seeds its stochastic parts draw from
+  (the port's stand-in for `jax.random.split`: its numbers are not JAX's).
 
 TF32 is switched off at import: a float32 product or convolution on the card
 stays float32, as the JAX package's HIGHEST precision does. bf16 products
@@ -15,7 +20,7 @@ keep fp32 reductions (no reduced-precision split-K).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -79,3 +84,49 @@ def linear(
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (`mico_tpu/ops/layers.py:75-82`): each element kept
+    with probability 1 - rate and scaled by 1 / keep (keep rounded to x's
+    dtype first, as JAX divides by it in x's dtype), the rest zeroed.
+    Identity when the generator is None or the rate is 0. The mask is drawn
+    on x's device, so the generator must live there."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    keep_x = torch.tensor(keep, dtype=x.dtype).item()
+    return torch.where(mask, x / keep_x, 0.0)
+
+
+def draw_seeds(generator: torch.Generator, n: int) -> List[int]:
+    """n seeds drawn from a CPU generator (no device work, no sync)."""
+    if generator.device.type != "cpu":
+        raise ValueError(
+            "a training step's generator is a CPU torch.Generator (its seed "
+            f"source); got one on {generator.device}")
+    return torch.randint(0, 2 ** 62, (n,), generator=generator).tolist()
+
+
+def fork_generator(generator: Optional[torch.Generator],
+                   device) -> Optional[torch.Generator]:
+    """A new generator on `device`, seeded by one draw of the CPU
+    `generator`; None for None (evaluation)."""
+    if generator is None:
+        return None
+    return seeded_generator(draw_seeds(generator, 1)[0], device)
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def split_generator(generator: Optional[torch.Generator],
+                    n: int) -> List[Optional[torch.Generator]]:
+    """n CPU generators seeded from `generator` (the port's stand-in for
+    `jax.random.split`); n Nones for None."""
+    if generator is None:
+        return [None] * n
+    return [seeded_generator(s, "cpu") for s in draw_seeds(generator, n)]

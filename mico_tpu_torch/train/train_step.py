@@ -1,0 +1,48 @@
+"""The training step (counterpart of `mico_tpu/train/train_step.py`) on one
+card: the task losses, their total, the backward, the global-norm clip and
+the AdamW update. Parameters stay fp32 (master weights) and the model
+computes in `cfg.compute_dtype` (bf16 on the card): each matmul casts its
+weight, so the gradients arrive in fp32. The total is checked for
+finiteness every step, and a non-finite loss raises before the update.
+Data parallelism and ZeRO-1 (`mesh`, `zero1`) wait for ROADMAP.md queue 1
+item 10.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from mico_tpu_torch.config import MiCoConfig
+from mico_tpu_torch.train.objectives import Draws, task_losses
+from mico_tpu_torch.train.optim import Optimizer
+
+
+def make_train_step(cfg: MiCoConfig, optimizer: Optimizer, task: str,
+                    mesh=None, zero1: bool = False) -> Callable:
+    """Returns step(model, batch, generator, draws=None) → the loss dict
+    (detached, with `loss_total` and `grad_norm`). `generator` is the CPU
+    `torch.Generator` the step's draws come from."""
+    if mesh is not None or zero1:
+        raise NotImplementedError(
+            "mesh / zero1: not ported yet (ROADMAP.md, queue 1 item 10)")
+
+    def step(model, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator],
+             draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        losses = task_losses(model, cfg, batch, task, generator, draws=draws)
+        total = sum(losses.values())
+        total.backward()
+        if not torch.isfinite(total).item():
+            optimizer.zero_grad()
+            raise FloatingPointError(
+                f"non-finite loss at update {optimizer.count}: "
+                f"{ {k: v.item() for k, v in losses.items()} }")
+        norm = optimizer.clip_()
+        optimizer.step()
+        out = {k: v.detach() for k, v in losses.items()}
+        return dict(out, loss_total=total.detach(), grad_norm=norm)
+
+    return step

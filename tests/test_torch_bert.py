@@ -55,7 +55,8 @@ def test_text_only(rng, berts, monkeypatch, l, pad_from, k2_calls):
     want = jbert.bert_forward(jparams, jcfg, jnp.asarray(ids),
                               jnp.asarray(mask), attn_impl="flash")
     calls = _count_routes(monkeypatch)
-    got = tbert.bert_forward(model, t(ids), t(mask), attn_impl="flash")
+    got = tbert.bert_forward(model, t(ids), t(mask),
+                            attn_impl="flash").sequence_output
     assert calls == [True] * k2_calls
     close(got, want.sequence_output, MODEL_TOL)
 
@@ -78,7 +79,7 @@ def test_cross_attention_on_k2_route(rng, berts, monkeypatch, with_mask):
     got = tbert.bert_forward(
         model, t(ids), t(mask), encoder_hidden_states=t(cond),
         encoder_attention_mask=None if enc_mask is None else t(enc_mask),
-        attn_impl="flash")
+        attn_impl="flash").sequence_output
     # 2 layers, each: plain 30x30 self-attention, then K2 over 300 tokens
     assert calls == [with_mask] * jcfg.num_hidden_layers
     close(got, want.sequence_output, MODEL_TOL)
@@ -101,11 +102,13 @@ def test_cross_attention_unique_rows(rng, berts):
     got = tbert.bert_forward(
         model, t(ids), t(mask), encoder_hidden_states=t(cond),
         encoder_attention_mask=t(enc_mask),
-        encoder_row_index=t(index).long(), attn_impl="flash")
+        encoder_row_index=t(index).long(),
+        attn_impl="flash").sequence_output
     close(got, want.sequence_output, MODEL_TOL)
     repeated = tbert.bert_forward(
         model, t(ids), t(mask), encoder_hidden_states=t(cond[index]),
-        encoder_attention_mask=t(enc_mask[index]), attn_impl="flash")
+        encoder_attention_mask=t(enc_mask[index]),
+        attn_impl="flash").sequence_output
     close(got, repeated.numpy(), OP_TOL)
     with pytest.raises(ValueError, match="per unique row"):
         tbert.bert_forward(model, t(ids), t(mask),
@@ -139,3 +142,103 @@ def test_extended_attention_mask(rng, rank):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError):
         tbert.extended_attention_mask(torch.ones(5))
+
+
+# ---------------------------------------------------------------------------
+# training: mlm_loss, dropout, remat
+# ---------------------------------------------------------------------------
+
+
+def test_mlm_loss_matches_jax(rng, berts):
+    jparams, jcfg, model = berts
+    ids, mask = _text(rng, 3, 12, [12, 9, 12])
+    labels = np.where(rng.random((3, 12)) < 0.4, ids, -100).astype(np.int32)
+    labels[2] = -100                      # a row with no label
+    cond = (rng.standard_normal((3, 20, 64)) * 0.5).astype(np.float32)
+    want = jbert.bert_forward(jparams, jcfg, jnp.asarray(ids),
+                              jnp.asarray(mask),
+                              encoder_hidden_states=jnp.asarray(cond),
+                              labels=jnp.asarray(labels))
+    got = tbert.bert_forward(model, t(ids), t(mask),
+                             encoder_hidden_states=t(cond),
+                             labels=t(labels).long())
+    close(got.loss, want.loss, MODEL_TOL)
+    close(got.logits, want.logits, MODEL_TOL)
+    close(got.sequence_output, want.sequence_output, MODEL_TOL)
+    logits = rng.standard_normal((2, 5, 11)).astype(np.float32)
+    none = np.full((2, 5), -100, np.int32)
+    for lab in (labels[:2, :5] % 11, none):
+        close(tbert.mlm_loss(t(logits), t(lab).long()),
+              jbert.mlm_loss(jnp.asarray(logits), jnp.asarray(lab)), OP_TOL)
+    assert tbert.bert_forward(model, t(ids), t(mask)).loss is None
+
+
+def test_dropout_contract():
+    from mico_tpu_torch.ops.layers import dropout
+
+    x = torch.ones(200_000)
+    g = torch.Generator().manual_seed(0)
+    assert dropout(x, 0.0, g) is x and dropout(x, 0.1, None) is x
+    y = dropout(x, 0.1, g)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.9) < 5e-3
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.9))
+    assert abs(y.mean().item() - 1.0) < 1e-2          # the mean is kept
+
+
+def test_training_dropout_rate_zero_is_eval(rng, berts):
+    """A train generator with both rates at 0 changes nothing; with the
+    default 0.1 rates the output moves, and follows the seed."""
+    import dataclasses
+
+    _, _, model = berts
+    ids, mask = _text(rng, 2, 30, [30, 20])
+    cond = t((rng.standard_normal((2, 300, 64)) * 0.5).astype(np.float32))
+    evaluated = tbert.bert_forward(model, t(ids), t(mask),
+                                   encoder_hidden_states=cond).sequence_output
+    off = dataclasses.replace(model.cfg, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    real = model.cfg
+    try:
+        model.cfg = off
+        zero = tbert.bert_forward(
+            model, t(ids), t(mask), encoder_hidden_states=cond,
+            train_rng=torch.Generator().manual_seed(0)).sequence_output
+    finally:
+        model.cfg = real
+    torch.testing.assert_close(zero, evaluated, rtol=0, atol=0)
+    runs = [tbert.bert_forward(
+        model, t(ids), t(mask), encoder_hidden_states=cond,
+        train_rng=torch.Generator().manual_seed(s)).sequence_output
+        for s in (0, 0, 1)]
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+    assert not torch.allclose(runs[0], evaluated)
+    assert not torch.allclose(runs[0], runs[2])
+
+
+def test_remat_recomputes_the_same_dropout(rng, berts):
+    """remat (each layer under torch.utils.checkpoint) draws each layer's
+    masks from a seed inside the layer, so the recomputed forward drops the
+    same elements: equal loss and gradients."""
+    import copy
+
+    _, _, model = berts
+    model = copy.deepcopy(model).requires_grad_(True)
+    ids, mask = _text(rng, 2, 12, [12, 8])
+    labels = t(np.where(rng.random((2, 12)) < 0.5, ids, -100)).long()
+    cond = t((rng.standard_normal((2, 20, 64)) * 0.5).astype(np.float32))
+    got = []
+    for remat in (False, True):
+        model.zero_grad()
+        out = tbert.bert_forward(model, t(ids), t(mask),
+                                 encoder_hidden_states=cond, labels=labels,
+                                 remat=remat,
+                                 train_rng=torch.Generator().manual_seed(5))
+        out.loss.backward()
+        got.append((out.loss.item(), {n: p.grad.clone()
+                                      for n, p in model.named_parameters()
+                                      if p.grad is not None}))
+    assert got[0][0] == got[1][0]
+    assert got[0][1].keys() == got[1][1].keys()
+    for name, g in got[0][1].items():
+        torch.testing.assert_close(got[1][1][name], g, rtol=1e-6, atol=1e-7)

@@ -53,7 +53,8 @@ def test_k1_route_on_cpu_launches_nothing(rng, towers):
     tfa.reset_launch_counts()
     px = t(rng.standard_normal((1, 3, 28, 28)).astype(np.float32))
     tvit.eva_vit_forward(towers[2].vision_encoder, px, attn_impl="flash")
-    assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K7": 0}
+    assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                   "K7": 0}
 
 
 def test_pooled_output(rng, towers):
@@ -89,3 +90,122 @@ def test_unported_features_raise(feature):
                        head_width=4, **{feature: True})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvit.check_supported(cfg)
+
+
+# ---------------------------------------------------------------------------
+# the training route (train_rng): K3/K4 attention, DropPath, PatchDropout
+# ---------------------------------------------------------------------------
+
+
+def test_training_route_matches_jax(rng, towers, monkeypatch):
+    """With a train generator and the regularizers' rates at 0, the block
+    takes LN → qkv → `packed_qkv_self_attention` (never K1), and the output
+    and the gradients of a scalar loss equal JAX's training route."""
+    import jax
+
+    jparams, jcfg, model = towers
+    vit = copy.deepcopy(model.vision_encoder).requires_grad_(True)
+    px = rng.standard_normal((3, 3, 28, 28)).astype(np.float32)
+    w = rng.standard_normal((3, 5, 64)).astype(np.float32)
+
+    def loss(p):
+        out = jvit.eva_vit_forward(p, jcfg, jnp.asarray(px), attn_impl="flash",
+                                   train_rng=jax.random.PRNGKey(0))
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, want), want_grads = jax.value_and_grad(loss, has_aux=True)(jparams)
+    calls = []
+    real = tfa.packed_qkv_self_attention
+    monkeypatch.setattr(tfa, "packed_qkv_self_attention",
+                        lambda *a: calls.append(1) or real(*a))
+    got = tvit.eva_vit_forward(vit, t(px), attn_impl="flash",
+                               train_rng=torch.Generator().manual_seed(0))
+    assert len(calls) == jcfg.layers
+    close(got, want, MODEL_TOL)
+    (got * t(w)).sum().backward()
+    for name, p in vit.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            ref = want_grads["blocks"][parts[2]][int(parts[1])]
+        else:
+            ref = want_grads[parts[0]]
+            for part in parts[1:]:
+                ref = ref[part]
+        # the CLIP head is not on this path: JAX's gradient is zero there
+        close(torch.zeros_like(p) if p.grad is None else p.grad, ref,
+              MODEL_TOL)
+
+
+def test_drop_path_schedule_and_contract():
+    cfg = EvaVitConfig(image_size=28, patch_size=14, layers=5, width=8,
+                       head_width=4, drop_path_rate=0.4)
+    rates = tvit.drop_path_rates(cfg)
+    np.testing.assert_allclose(rates, np.linspace(0.0, 0.4, 5, dtype=np.float32),
+                               rtol=0, atol=0)
+    y = torch.randn(6, 3, 8)
+    keep = torch.tensor([True, False, True, True, False, True])
+    out = tvit.drop_path(y, keep, torch.tensor(0.6))
+    for i in range(6):
+        want = y[i] / 0.6 if keep[i] else torch.zeros_like(y[i])
+        torch.testing.assert_close(out[i], want)
+    # bf16: 1 / keep in bf16, as JAX divides by keep cast to the dtype
+    yb = y.bfloat16()
+    kb = torch.tensor(0.6).bfloat16().item()
+    torch.testing.assert_close(tvit.drop_path(yb, keep, torch.tensor(0.6))[0],
+                               yb[0] / kb)
+
+
+def test_patch_dropout_contract():
+    x = torch.arange(2 * 17 * 4, dtype=torch.float32).reshape(2, 17, 4)
+    out = tvit.patch_dropout(x, 0.5, torch.Generator().manual_seed(0))
+    n_keep = max(1, int(16 * 0.5))
+    assert out.shape == (2, 1 + n_keep, 4)
+    assert torch.equal(out[:, 0], x[:, 0])            # CLS exempt
+    for b in range(2):
+        rows = [int(r[0].item() - x[b, 0, 0].item()) // 4 for r in out[b, 1:]]
+        assert len(set(rows)) == n_keep and all(1 <= r <= 16 for r in rows)
+        for r, got in zip(rows, out[b, 1:]):
+            assert torch.equal(got, x[b, r])
+
+
+def test_regularized_training_forward_and_remat():
+    """DropPath 0.4 and PatchDropout 0.25 run in training, the draws follow
+    the generator's seed, and a rematerialised forward (each block under
+    torch.utils.checkpoint) recomputes with the same masks: equal output
+    and gradients."""
+    cfg = EvaVitConfig(image_size=28, patch_size=14, layers=3, width=64,
+                       head_width=32, embed_dim=64, drop_path_rate=0.4,
+                       patch_dropout=0.25)
+    vit = tvit.EvaVisionTransformer(
+        cfg, tvit.Init(torch.Generator().manual_seed(0))).requires_grad_(True)
+    px = torch.randn(4, 3, 28, 28, generator=torch.Generator().manual_seed(1))
+    results = []
+    for remat in (False, True):
+        vit.zero_grad()
+        out = tvit.eva_vit_forward(vit, px, attn_impl="flash", remat=remat,
+                                   train_rng=torch.Generator().manual_seed(3))
+        out.square().sum().backward()
+        results.append((out.detach(), {n: p.grad.clone()
+                                       for n, p in vit.named_parameters()
+                                       if p.grad is not None}))
+    assert results[0][0].shape == (4, 1 + 3, 64)
+    torch.testing.assert_close(results[1][0], results[0][0], rtol=0, atol=0)
+    for name, g in results[0][1].items():
+        torch.testing.assert_close(results[1][1][name], g, rtol=1e-6,
+                                   atol=1e-7)
+    other = tvit.eva_vit_forward(vit, px, attn_impl="flash",
+                                 train_rng=torch.Generator().manual_seed(4))
+    assert not torch.equal(other, results[0][0])
+    with torch.no_grad():
+        evaluated = tvit.eva_vit_forward(vit, px, attn_impl="flash")
+    assert evaluated.shape == (4, 5, 64)
+
+
+@pytest.mark.parametrize("kw,item", [(dict(remat=True, remat_policy="dots"),
+                                      "item 8"),
+                                     (dict(unroll_blocks=True), "item 8"),
+                                     (dict(pipeline_stages=2), "item 10")])
+def test_unported_training_options_raise(towers, kw, item):
+    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+        tvit.eva_vit_forward(towers[2].vision_encoder,
+                             torch.zeros(1, 3, 28, 28), **kw)

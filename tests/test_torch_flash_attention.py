@@ -154,7 +154,11 @@ def test_unknown_impl_raises():
 def test_launch_counters_reset():
     tfa.fused_ln_qkv_self_attention.launches = 3
     tfa.flash_attention.launches = 5
+    tfa.packed_attention.launches = 9
+    tfa.packed_attention_bwd.launches = 11
     int8_cross_attention.launches = 7
-    assert tfa.launch_counts() == {"K1": 3, "K2": 5, "K7": 7}
+    assert tfa.launch_counts() == {"K1": 3, "K2": 5, "K3": 9, "K4": 11,
+                                   "K7": 7}
     tfa.reset_launch_counts()
-    assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K7": 0}
+    assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                                   "K7": 0}

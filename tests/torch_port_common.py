@@ -116,3 +116,14 @@ def close(got, want, tol=MODEL_TOL) -> None:
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_allclose(np.asarray(got, np.float64),
                                np.asarray(want, np.float64), **tol)
+
+
+def no_launch(fn):
+    """fn()'s result, checking that it launched no kernel (the CPU routes
+    take the plain versions)."""
+    from mico_tpu_torch.ops import flash_attention as tfa
+
+    before = tfa.launch_counts()
+    out = fn()
+    assert tfa.launch_counts() == before
+    return out
