@@ -11,6 +11,7 @@ waits for a later slice (ROADMAP.md, queue 1 item 4).
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, Mapping
 
 import numpy as np
@@ -34,18 +35,20 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _skeleton(cfg: MiCoConfig, folded: bool) -> MiCo:
-    """A weightless (meta) MiCo with the parameter names `cfg` gives."""
-    model = MiCo(cfg, device="cpu", init_weights=False)
-    if folded:
-        model.fold_inference_params()
-    return model
+def _skeleton(cfg: MiCoConfig, keys) -> MiCo:
+    """A weightless (meta) MiCo with the parameter names `cfg` gives, in the
+    layout the state_dict keys are in: folded when they lack a parameter
+    that folding removes (a pre-norm block's LN affines and q/v biases, a
+    block's LayerScale). A post-norm tower without LayerScale folds to
+    itself."""
+    canonical = MiCo(cfg, device="cpu", init_weights=False)
+    folded = copy.deepcopy(canonical).fold_inference_params()
+    removed = set(canonical.state_dict()) - set(folded.state_dict())
+    return folded if removed - set(keys) else canonical
 
 
-def params_from_jax(params: Mapping, cfg: MiCoConfig) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for the JAX params of `cfg` (canonical or
-    folded). Raises on a leaf it does not place, on a port parameter it does
-    not fill, and on a shape that differs."""
+def _place(params: Mapping, cfg: MiCoConfig):
+    """(state_dict, the skeleton it fills) for the JAX params of `cfg`."""
     flat = _flatten(params)
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in flat.items():
@@ -57,9 +60,8 @@ def params_from_jax(params: Mapping, cfg: MiCoConfig) -> Dict[str, torch.Tensor]
         else:
             sd[path.replace("/", ".")] = torch.from_numpy(
                 np.array(leaf, np.float32))
-    folded = "vision_encoder/blocks/qkv_bias" in flat
-    want = {k: tuple(v.shape)
-            for k, v in _skeleton(cfg, folded).state_dict().items()}
+    model = _skeleton(cfg, sd)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     unplaced = sorted(set(sd) - set(want))
     unfilled = sorted(set(want) - set(sd))
     if unplaced or unfilled:
@@ -69,7 +71,14 @@ def params_from_jax(params: Mapping, cfg: MiCoConfig) -> Dict[str, torch.Tensor]
     if bad:
         raise ValueError("shape mismatch: " + ", ".join(
             f"{k} {tuple(sd[k].shape)} vs {want[k]}" for k in bad))
-    return sd
+    return sd, model
+
+
+def params_from_jax(params: Mapping, cfg: MiCoConfig) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for the JAX params of `cfg` (canonical or
+    folded). Raises on a leaf it does not place, on a port parameter it does
+    not fill, and on a shape that differs."""
+    return _place(params, cfg)[0]
 
 
 def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",
@@ -77,7 +86,6 @@ def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",
     """A MiCo holding the JAX params, on `device` in `dtype` (default
     `cfg.param_dtype`)."""
     dev = resolve_device(device)
-    sd = params_from_jax(params, cfg)
-    model = _skeleton(cfg, folded="vision_encoder.blocks.0.qkv_bias" in sd)
+    sd, model = _place(params, cfg)
     model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device=dev, dtype=dtype or cfg.dtypes()[0])

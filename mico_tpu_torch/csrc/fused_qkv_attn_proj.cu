@@ -1,0 +1,55 @@
+// K8: K5 followed by the attention's output projection.
+//
+// Replaces the TPU kernel `_fused_qkv_attn_proj_fwd`
+// (mico_tpu/ops/flash_attention.py:1443, pallas_call at :1459, body
+// `_fused_qkv_attn_proj_kernel` :1388, public entry `fused_qkv_attn_proj`
+// :1501), the route of a post-norm block when `FUSED_ATTN_PROJ` (:1385) is
+// on. Per batch row,
+//   o   = K5(x, W_qkv, bias)               (B, L, W) bf16, K5's rounding
+//   out = o . W_p (fp32 accumulate) + b_p (fp32), rounded to bf16
+// — the Pallas body stages o in bf16 and takes the product from there.
+//
+// What bounds it on the H100: tensor-core operations. At the bigE omni
+// step's ViT pass (B = 112, L = 257, W = 1792, H = 16, D = 112): K5's 607.6
+// GFLOP plus 2*28784*1792*1792 = 184.9 GFLOP for the projection, 792.5
+// GFLOP, 0.801 ms at 989 TFLOP/s bf16, against 232 MB of compulsory bytes
+// (x in, out out, both weights once).
+//
+// Design. The TPU kernel kept W_qkv and W_p resident in VMEM, so neither
+// qkv nor o reached HBM. Here both make one round trip through HBM/L2
+// (qkv 2 x 309 MB, o 2 x 103 MB at this shape) between three launches
+// behind one C entry: K5's two (the qkv GEMM of qkv_gemm.cuh without the
+// LN prologue, the packed attention of packed_attn.cuh), then the same
+// hand-written GEMM over o with W_p, the bias b_p added in fp32 in its
+// epilogue. No library GEMM is called.
+
+#include "common.cuh"
+#include "packed_attn.cuh"
+#include "qkv_gemm.cuh"
+
+// x (B*L, W) bf16; w (W, 3W) bf16; bias (3W) fp32; wp (W, W) bf16; bp (W)
+// fp32; qkv (B*L, 3W) and o (B*L, W) bf16 are scratch; out (B, L, W) bf16.
+// Needs W % 128 == 0 and D = W / H a multiple of 8 up to 128 (the wrapper
+// checks).
+extern "C" int mico_fused_qkv_attn_proj(const void* x, const void* w,
+                                        const void* bias, const void* wp,
+                                        const void* bp, void* qkv, void* o,
+                                        void* out, int B, int L, int W, int H,
+                                        float qk_scale, void* stream) {
+  using mico::bf16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = B * L, N = 3 * W, D = W / H;
+  cudaError_t e = mico::gemm::launch_gemm<false>(
+      static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
+      static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<bf16*>(qkv), M, W, N, 0, s);
+  if (e != cudaSuccess) return e;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  e = mico::packed::launch_attn(q, q + W, q + 2 * W, N, static_cast<bf16*>(o),
+                                B, L, H, D, qk_scale, s);
+  if (e != cudaSuccess) return e;
+  return mico::gemm::launch_gemm<false>(
+      static_cast<const bf16*>(o), nullptr, nullptr, nullptr,
+      static_cast<const bf16*>(wp), static_cast<const float*>(bp),
+      static_cast<bf16*>(out), M, W, W, 0, s);
+}

@@ -1,28 +1,33 @@
 """EVA Vision Transformer (counterpart of `mico_tpu/models/eva_vit.py`).
 
-The EVA01 family: conv patch embed as reshape + one matmul in (c, dy, dx)
-order, CLS token + absolute pos embed, pre-norm blocks with a packed qkv
-projection and q/v-only bias, optional LayerScale, MLP-GELU, the final LN
-over all tokens and `return_all_features`. Blocks are a ModuleList.
+The EVA01 family and EVA02-CLIP-bigE's post-norm blocks: conv patch embed
+as reshape + one matmul in (c, dy, dx) order, CLS token + absolute pos
+embed, pre-norm (x + γ·branch(LN(x))) or post-norm (x + LN(γ·branch(x)))
+blocks with a packed qkv projection and q/v-only bias, optional LayerScale
+γ, MLP-GELU, the final LN over all tokens and `return_all_features`. Blocks
+are a ModuleList.
 
 Routing of a block's attention (eva_vit.py:298-369, 438-461 with the bf16
-gates of flash_attention.py:1186-1192, 1693):
-  - training (a `train_rng` is given) with flash attention → LN → `linear`
+gates of flash_attention.py:1186-1192, 1340, 1513, 1693):
+  - training (a `train_rng` is given) with flash attention → (LN →) `linear`
     qkv → `packed_qkv_self_attention`: K3 forward and K4 backward in bf16 on
-    the card, their plain twins on the CPU and for other dtypes; never K1
-    (the `is_train` gate of `_ln_fusable`, eva_vit.py:448);
+    the card, their plain twins on the CPU and for other dtypes; never K1,
+    K5 or K8 (the `is_train` gates, eva_vit.py:316, 448);
   - flash attention asked for, bf16 on the card → kernel K1
-    (`fused_ln_qkv_self_attention`; affine off when the params are folded);
-  - flash on the CPU → K1's plain twin, through the same wrapper;
-  - flash on the card in another dtype → the unfused LN → qkv → packed
-    attention composition (`fused_ln_qkv_plain`), as the JAX gate does;
-  - plain attention asked for → LN → linear → `multi_head_attention`.
+    (`fused_ln_qkv_self_attention`; affine off when the params are folded)
+    for a pre-norm block; for a post-norm block K5
+    (`fused_qkv_self_attention`) then the output projection, or K8
+    (`fused_qkv_attn_proj`, both projections) when `FUSED_ATTN_PROJ` is on;
+  - flash on the CPU → the same wrappers, which take their plain twins;
+  - flash on the card in another dtype → the twins (`fused_ln_qkv_plain`,
+    `fused_qkv_plain`, `fused_qkv_attn_proj_plain`), as the JAX gate does;
+  - plain attention asked for → (LN →) linear → `multi_head_attention`.
 Training also runs PatchDropout (top-k of uniform scores, CLS exempt) and
 per-sample DropPath on the linear 0 → `drop_path_rate` schedule, drawn up
 front from a device generator forked from `train_rng`, so a block under
 `torch.utils.checkpoint` (`remat`) recomputes with the same masks.
-EVA02's RoPE, SwiGLU and sub-LN, post-norm and relative-position bias are
-not ported yet (ROADMAP.md, queue 1 item 2).
+EVA02's RoPE, SwiGLU and sub-LN and relative-position bias are not ported
+yet (ROADMAP.md, queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ _EVA02 = "not ported yet (ROADMAP.md, queue 1 item 2: EVA02 / bigE features)"
 
 def check_supported(cfg: EvaVitConfig) -> None:
     unsupported = [name for name in ("rope", "naiveswiglu", "subln",
-                                     "postnorm", "use_rel_pos_bias",
+                                     "use_rel_pos_bias",
                                      "use_shared_rel_pos_bias")
                    if getattr(cfg, name)]
     if unsupported:
@@ -53,7 +58,8 @@ def check_supported(cfg: EvaVitConfig) -> None:
 
 
 class EvaBlock(ParamGroup):
-    """One pre-norm block; parameter names as in the JAX `blocks/*` tree."""
+    """One pre-norm or post-norm block; parameter names as in the JAX
+    `blocks/*` tree."""
 
     def __init__(self, cfg: EvaVitConfig, init: Init, layer_id: int):
         w, h = cfg.width, cfg.mlp_hidden
@@ -72,6 +78,7 @@ class EvaBlock(ParamGroup):
             tensors["gamma_1"] = init.full((w,), cfg.ls_init_value)
             tensors["gamma_2"] = init.full((w,), cfg.ls_init_value)
         super().__init__(**tensors)
+        self.postnorm = cfg.postnorm
 
     def packed_qkv_bias(self) -> torch.Tensor:
         folded = self.get("qkv_bias")
@@ -86,61 +93,93 @@ class EvaBlock(ParamGroup):
         """keep: DropPath's (mask, keep_prob) for this block: the per-sample
         draws of the two residual branches, (2, B) bool, and the 0-d keep
         probability they were drawn against (None: no DropPath)."""
-        nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.ln_eps
-        if keep is not None:
-            masks, keep_prob = keep
-        g, b0 = self.get("norm1_w"), self.get("norm1_b")
-        if attn_impl == "flash" and is_train:
-            qkv = linear(layer_norm(x, g, b0, eps), self.get("qkv_w"),
-                         self.packed_qkv_bias())
-            o = fa.packed_qkv_self_attention(qkv, nh, hd ** -0.5)
-        elif attn_impl == "flash":
-            args = (x, g, b0, self.get("qkv_w").to(x.dtype),
-                    self.packed_qkv_bias(), nh,
-                    hd ** -0.5, eps, g is not None)
-            if x.is_cuda and x.dtype != torch.bfloat16:
-                o = fa.fused_ln_qkv_plain(*args)
-            else:
-                o = fa.fused_ln_qkv_self_attention(*args)
+        eps = cfg.ln_eps
+
+        def residual(x, y, i):
+            return x + (y if keep is None else drop_path(y, keep[0][i],
+                                                         keep[1]))
+
+        g1, b1 = self.get("norm1_w"), self.get("norm1_b")
+        g2, b2 = self.get("norm2_w"), self.get("norm2_b")
+        if self.postnorm:             # eva_vit.py:451-457
+            y = self._scaled(self._attention(x, cfg, attn_impl, is_train),
+                             "gamma_1")
+            x = residual(x, layer_norm(y, g1, b1, eps), 0)
+            y = self._scaled(self._mlp(x), "gamma_2")
+            return residual(x, layer_norm(y, g2, b2, eps), 1)
+        if attn_impl == "flash" and not is_train:
+            args = (x, g1, b1, self.get("qkv_w").to(x.dtype),
+                    self.packed_qkv_bias(), cfg.num_heads,
+                    cfg.head_dim ** -0.5, eps, g1 is not None)
+            o = (fa.fused_ln_qkv_self_attention(*args) if fa.kernel_route(x)
+                 else fa.fused_ln_qkv_plain(*args))
+            y = linear(o, self.get("proj_w"), self.get("proj_b"))
         else:
-            b, l, w = x.shape
-            qkv = linear(layer_norm(x, g, b0, eps), self.get("qkv_w"),
-                         self.packed_qkv_bias())
+            y = self._attention(layer_norm(x, g1, b1, eps), cfg, attn_impl,
+                                is_train)
+        x = residual(x, self._scaled(y, "gamma_1"), 0)
+        y = self._mlp(layer_norm(x, g2, b2, eps))
+        return residual(x, self._scaled(y, "gamma_2"), 1)
+
+    def _attention(self, h: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
+                   is_train: bool) -> torch.Tensor:
+        """The attention branch on its input h, output projection included
+        (`attention`, eva_vit.py:298-377): K5 or K8 when flash serves a
+        post-norm block; the packed K3/K4 route in training; else plain."""
+        nh, hd = cfg.num_heads, cfg.head_dim
+        w_qkv, bias = self.get("qkv_w"), self.packed_qkv_bias()
+        if attn_impl == "flash" and not is_train:
+            # only a post-norm block gets here: a pre-norm one takes K1
+            args = (h, w_qkv.to(h.dtype), bias, nh, hd ** -0.5)
+            kernel = fa.kernel_route(h)
+            if fa.FUSED_ATTN_PROJ:
+                args = args[:3] + (self.get("proj_w").to(h.dtype),
+                                   self.get("proj_b")) + args[3:]
+                return (fa.fused_qkv_attn_proj(*args) if kernel
+                        else fa.fused_qkv_attn_proj_plain(*args))
+            o = (fa.fused_qkv_self_attention(*args) if kernel
+                 else fa.fused_qkv_plain(*args))
+        elif attn_impl == "flash":
+            o = fa.packed_qkv_self_attention(linear(h, w_qkv, bias), nh,
+                                             hd ** -0.5)
+        else:
+            b, l, w = h.shape
+            qkv = linear(h, w_qkv, bias)
             q, k, v = qkv.reshape(b, l, 3, nh, hd).permute(2, 0, 3, 1, 4)
             o = multi_head_attention(q, k, v, scale=hd ** -0.5, impl=attn_impl)
             o = o.transpose(1, 2).reshape(b, l, w)
-        y = self._scaled(linear(o, self.get("proj_w"), self.get("proj_b")),
-                         "gamma_1")
-        x = x + (y if keep is None else drop_path(y, masks[0], keep_prob))
-        h = layer_norm(x, self.get("norm2_w"), self.get("norm2_b"), eps)
-        y = linear(gelu(linear(h, self.get("fc1_w"), self.get("fc1_b"))),
-                   self.get("fc2_w"), self.get("fc2_b"))
-        y = self._scaled(y, "gamma_2")
-        return x + (y if keep is None else drop_path(y, masks[1], keep_prob))
+        return linear(o, self.get("proj_w"), self.get("proj_b"))
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        return linear(gelu(linear(h, self.get("fc1_w"), self.get("fc1_b"))),
+                      self.get("fc2_w"), self.get("fc2_b"))
 
     def _scaled(self, y: torch.Tensor, key: str) -> torch.Tensor:
         gamma = self.get(key)
         return y if gamma is None else y * gamma.to(y.dtype)
 
     def fold_inference_params(self) -> None:
-        """In place: LN affines into the matmuls they feed, LayerScale into
-        the matmul that produces it (eva_vit.py:159-213), computed in fp32
-        and stored back in the parameters' dtype."""
+        """In place (eva_vit.py:159-213), computed in fp32 and stored back in
+        the parameters' dtype: LayerScale into the matmul that produces it
+        and, in a pre-norm block, the LN affines into the matmuls they feed.
+        A post-norm block's LNs feed no matmul and stay."""
         dt = self.get("qkv_w").dtype
 
         def f32(name):
             return self.drop(name).float()
 
-        n1w, n1b = f32("norm1_w"), f32("norm1_b")
-        q_b, v_b = f32("q_bias"), f32("v_bias")
-        qkv_w = f32("qkv_w")
-        qkv_bias = torch.cat([q_b, torch.zeros_like(q_b), v_b]) + n1b @ qkv_w
-        self.put("qkv_bias", qkv_bias.to(dt))
-        self.put("qkv_w", (qkv_w * n1w[:, None]).to(dt))
-        n2w, n2b = f32("norm2_w"), f32("norm2_b")
-        fc1_w, fc1_b = f32("fc1_w"), f32("fc1_b")
-        self.put("fc1_b", (fc1_b + n2b @ fc1_w).to(dt))
-        self.put("fc1_w", (fc1_w * n2w[:, None]).to(dt))
+        if not self.postnorm:
+            n1w, n1b = f32("norm1_w"), f32("norm1_b")
+            q_b, v_b = f32("q_bias"), f32("v_bias")
+            qkv_w = f32("qkv_w")
+            qkv_bias = (torch.cat([q_b, torch.zeros_like(q_b), v_b])
+                        + n1b @ qkv_w)
+            self.put("qkv_bias", qkv_bias.to(dt))
+            self.put("qkv_w", (qkv_w * n1w[:, None]).to(dt))
+            n2w, n2b = f32("norm2_w"), f32("norm2_b")
+            fc1_w, fc1_b = f32("fc1_w"), f32("fc1_b")
+            self.put("fc1_b", (fc1_b + n2b @ fc1_w).to(dt))
+            self.put("fc1_w", (fc1_w * n2w[:, None]).to(dt))
         for gamma_key, stem in (("gamma_1", "proj"), ("gamma_2", "fc2")):
             if self.get(gamma_key) is not None:
                 gam = f32(gamma_key)

@@ -108,10 +108,11 @@ class MiCo(nn.Module):
         return "flash" if self.cfg.use_flash_attention else "plain"
 
     def fold_inference_params(self) -> "MiCo":
-        """In place: the vision tower's LN affines and LayerScale folded
-        into the adjacent matmuls (mico.fold_inference_params); a pure
-        reparametrization for inference, after which the ViT blocks take
-        kernel K1 with `affine=False`."""
+        """In place: the vision tower's LN affines (pre-norm blocks) and
+        LayerScale folded into the adjacent matmuls
+        (mico.fold_inference_params); a pure reparametrization for
+        inference, after which pre-norm blocks take kernel K1 with
+        `affine=False` and post-norm blocks keep their LNs."""
         self.vision_encoder.fold_inference_params()
         return self
 

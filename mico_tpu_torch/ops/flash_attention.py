@@ -21,11 +21,22 @@ through `csrc/packed_attn.cuh`) and `csrc/packed_attn_bwd.cu`. The ViT's
 training route reaches them through the autograd Functions
 `packed_qkv_self_attention` and `packed_self_attention`.
 
+K5 `fused_qkv_self_attention` replaces `_fused_qkv_attn_fwd` (:1277, call
+:1292), body `_fused_qkv_attn_kernel` (:1229): K1 without the LayerNorm, the
+inference attention of a post-norm block (EVA02-CLIP-bigE). K8
+`fused_qkv_attn_proj` replaces `_fused_qkv_attn_proj_fwd` (:1443, call
+:1459), body :1388: K5 followed by the output projection, the same block's
+route when `FUSED_ATTN_PROJ` is on. Sources: `csrc/fused_qkv_attn.cu` and
+`csrc/fused_qkv_attn_proj.cu`, whose GEMMs are K1's (`csrc/qkv_gemm.cuh`)
+without the LN prologue.
+
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
-kernel does not take; only a tensor on the CPU goes to the plain twin. Each
-carries a `launches` count that grows by one per kernel launch. K1 has no
-backward: its wrapper raises when autograd records a call whose inputs
-require a gradient, on any device, rather than drop the gradient.
+kernel does not take; only a tensor on the CPU goes to the plain twin (the
+JAX dtype gate, which sends other dtypes on the card to the twins, is the
+caller's: `kernel_route`). Each carries a `launches` count that grows by
+one per kernel launch. K1, K5 and K8 have no backward: their wrappers raise
+when autograd records a call whose inputs require a gradient, on any
+device, rather than drop the gradient.
 """
 
 from __future__ import annotations
@@ -49,6 +60,11 @@ KV_TILED_MIN_Q = 128
 _MAX_SMEM = 232448
 # K1's attention launch: 6 warps of 16 query rows (fused_ln_qkv_attn.cu)
 _K1_ROWS = 96
+
+# A post-norm block's inference attention also runs its output projection
+# in the kernel (K8) when on; off by default, as in the JAX package
+# (flash_attention.py:1385)
+FUSED_ATTN_PROJ = False
 
 _c_void_p = ctypes.c_void_p
 
@@ -111,8 +127,24 @@ def fused_ln_qkv_plain(x, g, b0, w, bias, num_heads: int, scale: float,
     if affine:
         xn = xn * g.float() + b0.float()
     xn = xn.to(x.dtype)
-    qkv = torch.matmul(xn.float(), w.to(x.dtype).float()) + bias.float()
+    return fused_qkv_plain(xn, w, bias, num_heads, scale)
+
+
+def fused_qkv_plain(x, w, bias, num_heads: int, scale: float) -> torch.Tensor:
+    """K5's twin, `_fused_qkv_reference` (flash_attention.py:1318-1325): qkv
+    = x·W + bias in fp32, rounded once to x's dtype, then the packed
+    attention."""
+    qkv = torch.matmul(x.float(), w.to(x.dtype).float()) + bias.float()
     return packed_qkv_attention_plain(qkv.to(x.dtype), num_heads, scale)
+
+
+def fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """K8's twin, `_fused_qkv_attn_proj_reference` (:1492-1497): K5's twin,
+    then ·Wp + bp in fp32, rounded once to x's dtype."""
+    o = fused_qkv_plain(x, w, bias, num_heads, scale)
+    out = torch.matmul(o.float(), wp.to(o.dtype).float()) + bp.float()
+    return out.to(o.dtype)
 
 
 def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor],
@@ -159,6 +191,32 @@ def _k1_entry():
     return fn
 
 
+def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
+    """The checks K1, K5 and K8 share: bf16 contiguous x (B, L, W) and w
+    (W, 3W) on one device with bias (3W,); head dim a multiple of 8 up to
+    128; the GEMM's tiles (W % 32, 3W % 128); one head's K and V in a
+    block's shared memory. Returns (B, L, W, D)."""
+    _require(x.dim() == 3, f"{name}: x must be (B, L, W), got {tuple(x.shape)}")
+    b, l, wd = x.shape
+    d = wd // num_heads
+    _require(x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
+             f"{name} takes bf16 x and w, got {x.dtype} and {w.dtype}")
+    _require(x.is_contiguous() and w.is_contiguous(),
+             f"{name} needs contiguous x, w")
+    _require(tuple(w.shape) == (wd, 3 * wd) and bias.numel() == 3 * wd,
+             f"{name}: w must be ({wd}, {3 * wd}) and bias ({3 * wd},)")
+    _require(d * num_heads == wd and d % 8 == 0 and d <= 128,
+             f"{name}: head dim {d} must divide W and be a multiple of 8 "
+             "up to 128")
+    _require(wd % 32 == 0 and (3 * wd) % 128 == 0,
+             f"{name}: width {wd} needs W % 32 == 0 and 3W % 128 == 0")
+    _require(_packed_smem_bytes(l, d) <= _MAX_SMEM,
+             f"{name}: L={l} with head dim {d} does not fit shared memory")
+    _require(w.device == x.device and bias.device == x.device,
+             f"{name} inputs must share one device")
+    return b, l, wd, d
+
+
 def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
                                 scale: float, eps: float,
                                 affine: bool) -> torch.Tensor:
@@ -171,22 +229,10 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
     if not x.is_cuda:
         return fused_ln_qkv_plain(x, g, b0, w, bias, num_heads, scale, eps,
                                   affine)
-    _require(x.dim() == 3, f"x must be (B, L, W), got {tuple(x.shape)}")
-    b, l, wd = x.shape
-    d = wd // num_heads
-    _require(x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
-             f"K1 takes bf16 x and w, got {x.dtype} and {w.dtype}")
-    _require(x.is_contiguous() and w.is_contiguous(), "K1 needs contiguous x, w")
-    _require(tuple(w.shape) == (wd, 3 * wd) and bias.numel() == 3 * wd,
-             f"w must be ({wd}, {3 * wd}) and bias ({3 * wd},)")
-    _require(d * num_heads == wd and d % 8 == 0 and d <= 128,
-             f"head dim {d} must divide W and be a multiple of 8 up to 128")
-    _require(wd % 32 == 0 and (3 * wd) % 128 == 0 and wd <= 2048,
-             f"width {wd}: K1 needs W % 32 == 0, 3W % 128 == 0, W <= 2048")
-    _require(_packed_smem_bytes(l, d) <= _MAX_SMEM,
-             f"L={l} with head dim {d} does not fit K1's shared memory")
+    b, l, wd, d = _check_fused_qkv("K1", x, w, bias, num_heads)
+    _require(wd <= 2048, f"width {wd}: K1's LN statistics need W <= 2048")
     dev = x.device
-    for t in (w, bias) + ((g, b0) if affine else ()):
+    for t in (g, b0) if affine else ():
         _require(t.device == dev, "K1 inputs must share one device")
     bias32 = bias.float().contiguous()
     if affine:
@@ -208,6 +254,88 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
 
 
 fused_ln_qkv_self_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 / K8: projection-fused packed self-attention (post-norm blocks)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_entry():
+    fn = _build.load("fused_qkv_attn").mico_fused_qkv_attn
+    fn.argtypes = [_c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _k8_entry():
+    fn = _build.load("fused_qkv_attn_proj").mico_fused_qkv_attn_proj
+    fn.argtypes = [_c_void_p] * 8 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_qkv_self_attention(x, w, bias, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """K5: qkv projection + packed self-attention on the block input x
+    (B, L, W), not normalised first; w (W, 3W) and bias (3W,) the packed
+    projection. Returns (B, L, W), ready for the output projection. The
+    kernel takes bf16 x and w; the bias goes in as fp32. Inference only:
+    raises under autograd when an input requires a grad."""
+    refuse_grad("K5 (fused_qkv_self_attention)", x, w, bias)
+    if not x.is_cuda:
+        return fused_qkv_plain(x, w, bias, num_heads, scale)
+    b, l, wd, _ = _check_fused_qkv("K5", x, w, bias, num_heads)
+    bias32 = bias.float().contiguous()
+    qkv = torch.empty((b, l, 3 * wd), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, l, wd), dtype=x.dtype, device=x.device)
+    rc = _k5_entry()(
+        x.data_ptr(), w.data_ptr(), bias32.data_ptr(), qkv.data_ptr(),
+        out.data_ptr(), b, l, wd, num_heads, float(scale * LOG2E), _stream(),
+    )
+    _check(rc, "fused_qkv_attn")
+    fused_qkv_self_attention.launches += 1
+    return out
+
+
+fused_qkv_self_attention.launches = 0
+
+
+def fused_qkv_attn_proj(x, w, bias, wp, bp, num_heads: int,
+                        scale: float) -> torch.Tensor:
+    """K8: K5 followed by the output projection, ·wp (W, W) + bp (W,),
+    computed in the kernel's own GEMM. Returns (B, L, W). Takes what K5
+    takes, and bf16 contiguous wp with W % 128 == 0; the biases go in as
+    fp32. Inference only, as K5."""
+    refuse_grad("K8 (fused_qkv_attn_proj)", x, w, bias, wp, bp)
+    if not x.is_cuda:
+        return fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads, scale)
+    b, l, wd, _ = _check_fused_qkv("K8", x, w, bias, num_heads)
+    _require(wp.dtype == torch.bfloat16 and wp.is_contiguous()
+             and tuple(wp.shape) == (wd, wd) and bp.numel() == wd,
+             f"K8: wp must be contiguous bf16 ({wd}, {wd}) and bp ({wd},)")
+    _require(wd % 128 == 0, f"K8: width {wd} needs W % 128 == 0")
+    _require(wp.device == x.device and bp.device == x.device,
+             "K8 inputs must share one device")
+    bias32, bp32 = bias.float().contiguous(), bp.float().contiguous()
+    qkv = torch.empty((b, l, 3 * wd), dtype=x.dtype, device=x.device)
+    o = torch.empty((b, l, wd), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, l, wd), dtype=x.dtype, device=x.device)
+    rc = _k8_entry()(
+        x.data_ptr(), w.data_ptr(), bias32.data_ptr(), wp.data_ptr(),
+        bp32.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
+        b, l, wd, num_heads, float(scale * LOG2E), _stream(),
+    )
+    _check(rc, "fused_qkv_attn_proj")
+    fused_qkv_attn_proj.launches += 1
+    return out
+
+
+fused_qkv_attn_proj.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -504,11 +632,11 @@ def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
 packed_attention_bwd.launches = 0
 
 
-def _kernel_route(x: torch.Tensor) -> bool:
-    """The JAX dtype gate (flash_attention.py:1186-1192, :1204): the kernels
-    take bf16 on the card; CUDA fp32 takes the plain twins, as JAX takes its
-    identical-math reference; the CPU always takes the twins (through the
-    wrappers)."""
+def kernel_route(x: torch.Tensor) -> bool:
+    """The JAX dtype gate (flash_attention.py:1186-1192, :1204, :1340,
+    :1513, :1693): the kernels take bf16 on the card; CUDA fp32 takes the
+    plain twins, as JAX takes its identical-math reference; the CPU always
+    takes the twins (through the wrappers)."""
     return not x.is_cuda or x.dtype == torch.bfloat16
 
 
@@ -522,7 +650,7 @@ class _PackedQKV(torch.autograd.Function):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(qkv)
         q, k, v = qkv.chunk(3, dim=-1)
-        if _kernel_route(qkv):
+        if kernel_route(qkv):
             return packed_attention(q, k, v, num_heads, scale)
         return packed_attention_plain(q, k, v, num_heads, scale)
 
@@ -532,7 +660,7 @@ class _PackedQKV(torch.autograd.Function):
         q, k, v = qkv.chunk(3, dim=-1)
         g = g.contiguous()
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        if _kernel_route(qkv):
+        if kernel_route(qkv):
             packed_attention_bwd(q, k, v, g, ctx.num_heads, ctx.scale, dqkv)
         else:
             grads = packed_attention_bwd_plain(q, k, v, g, ctx.num_heads,
@@ -549,7 +677,7 @@ class _Packed(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(q, k, v)
-        if _kernel_route(q):
+        if kernel_route(q):
             return packed_attention(q, k, v, num_heads, scale)
         return packed_attention_plain(q, k, v, num_heads, scale)
 
@@ -557,7 +685,7 @@ class _Packed(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         g = g.contiguous()
-        if _kernel_route(q):
+        if kernel_route(q):
             dq, dk, dv = packed_attention_bwd(q, k, v, g, ctx.num_heads,
                                               ctx.scale)
         else:
@@ -585,11 +713,14 @@ KERNELS = {
     "K2": flash_attention,
     "K3": packed_attention,
     "K4": packed_attention_bwd,
+    "K5": fused_qkv_self_attention,
+    "K8": fused_qkv_attn_proj,
 }
 
 
 def _all_kernels() -> dict:
-    """K1-K4 and K7 (`ops/int8_attention.py`, which imports this module)."""
+    """K1-K5, K8 and K7 (`ops/int8_attention.py`, which imports this
+    module)."""
     from mico_tpu_torch.ops.int8_attention import int8_cross_attention
 
     return {**KERNELS, "K7": int8_cross_attention}

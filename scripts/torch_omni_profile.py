@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the port's omni step goes, on one CUDA card.
 
-    python3 scripts/torch_omni_profile.py [--trace out/trace.json]
+    python3 scripts/torch_omni_profile.py [--vision-encoder TYPE]
+                                          [--trace out/trace.json]
 
-Builds the full-width MiCo-ViT-g port in bf16 (random weights, seed 0),
+Builds the full-width MiCo port in bf16 (random weights, seed 0) on the
+vision tower `--vision-encoder` (default `evaclip01_giant`, the pre-norm
+ViT-g on K1; `evaclip02_bige` is the post-norm EVA02-CLIP-bigE on K5),
 runs chip_smoke.py's omni step (S = 16: a 112-frame ViT pass, BERT over
 (16, 30) tokens, heads, similarity) 3 times under `torch.profiler` after 2
 warm-up steps, and prints:
   - the step's host-clock time and the device's busy and idle shares over
     the profiled window;
-  - device time by kernel, with K1's three launches (ln_stats, ln_gemm,
-    packed_attn) named, grouped into K1 / K2 / cuBLAS GEMMs / the rest;
+  - device time by kernel, with the launches of K1 (ln_stats, its
+    LN-prologue GEMM, the packed attention) and of K5 (its GEMM, the packed
+    attention) named, grouped into those / K2 / cuBLAS GEMMs / LayerNorm /
+    GELU / the rest;
   - the top kernels by device time.
 `--trace` also writes the chrome trace. Ends with one JSON line of the
 grouped numbers.
@@ -38,8 +43,9 @@ STEPS = 3
 
 GROUPS = (
     ("K1 ln_stats", ("ln_stats_kernel",)),
-    ("K1 ln_gemm", ("ln_gemm_kernel",)),
-    ("K1 packed_attn", ("packed_attn_kernel",)),
+    ("K1 LN-prologue GEMM", ("tile_gemm_kernel<true>",)),
+    ("K5/K8 GEMM", ("tile_gemm_kernel<false>",)),
+    ("K1/K5 packed attention", ("packed_attn_kernel",)),
     ("K2 flash", ("flash_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2")),
     ("layer_norm", ("layer_norm", "LayerNorm")),
@@ -56,6 +62,9 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--vision-encoder", default="evaclip01_giant",
+                    choices=("evaclip01_giant", "evaclip02_bige"),
+                    help="the vision tower (MiCoConfig.vision_encoder_type)")
     ap.add_argument("--trace", help="write the chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -72,7 +81,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     _build.build_all()
-    cfg = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    cfg = MiCoConfig(vision_encoder_type=args.vision_encoder,
+                     max_vision_sample_num=4, max_audio_sample_num=2)
     model = MiCo(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
     dev = {k: torch.from_numpy(v).cuda() for k, v in omni_inputs().items()}
     for _ in range(2):
@@ -100,7 +110,8 @@ def main() -> int:
     groups = defaultdict(float)
     for name, ms in by_kernel.items():
         groups[group_of(name)] += ms
-    print(f"omni step S={S}: {step_ms:.3f} ms host clock over {STEPS} "
+    print(f"omni step S={S} on {args.vision_encoder}: {step_ms:.3f} ms "
+          f"host clock over {STEPS} "
           f"steps; device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / step_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / step_ms):.1f}% [{card}]")
@@ -110,7 +121,8 @@ def main() -> int:
     print("top kernels (ms/step):")
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f}  {name[:110]}")
-    print(json.dumps({"card": card, "step_ms": step_ms, "busy_ms": busy_ms,
+    print(json.dumps({"card": card, "vision_encoder": args.vision_encoder,
+                      "step_ms": step_ms, "busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / step_ms,
                       "groups_ms": dict(groups)}))
     return 0

@@ -1,6 +1,9 @@
 """The port's EVA ViT (`mico_tpu_torch/models/eva_vit.py`) against
-`mico_tpu.models.eva_vit` on the CPU: the forward on the K1 route ('flash')
-and on the unfused route, unfolded and folded, with LayerScale."""
+`mico_tpu.models.eva_vit` on the CPU, pre-norm (EVA01) and post-norm
+(EVA02-CLIP-bigE) blocks, with and without LayerScale: the forward on the
+'flash' route (K1 for pre-norm, K5 or, with `FUSED_ATTN_PROJ`, K8 for
+post-norm) and on the unfused route, unfolded and folded, and the training
+route."""
 
 import copy
 
@@ -10,6 +13,7 @@ import pytest
 import torch
 
 from mico_tpu.models import eva_vit as jvit
+from mico_tpu.ops import flash_attention as jfa
 from mico_tpu_torch.config import EvaVitConfig
 from mico_tpu_torch.models import eva_vit as tvit
 from mico_tpu_torch.ops import flash_attention as tfa
@@ -20,10 +24,13 @@ from torch_port_common import MODEL_TOL, close, configs, perturbed_params, \
 IMPLS = {"flash": "flash", "plain": "xla"}
 
 
-@pytest.fixture(scope="module", params=[None, 0.1], ids=["eva01", "layerscale"])
+@pytest.fixture(scope="module",
+                params=[(False, None), (False, 0.1), (True, None), (True, 0.1)],
+                ids=["eva01", "layerscale", "postnorm", "postnorm-layerscale"])
 def towers(request):
     """(JAX ViT params, JAX EvaVitConfig, port MiCo) of the tiny config."""
-    jcfg, tcfg = configs(eva=dict(ls_init_value=request.param))
+    postnorm, ls = request.param
+    jcfg, tcfg = configs(eva=dict(postnorm=postnorm, ls_init_value=ls))
     params = perturbed_params(jcfg)
     return params["vision_encoder"], jcfg.eva_config, port_model(params, tcfg)
 
@@ -37,8 +44,11 @@ def test_forward_matches_jax(rng, towers, folded, impl):
         jparams = jvit.fold_inference_params(jparams, jcfg)
         vit = copy.deepcopy(vit)
         vit.fold_inference_params()
-        assert vit.blocks[0].get("norm1_w") is None
-        assert vit.blocks[0].get("qkv_bias") is not None
+        blk = vit.blocks[0]
+        assert blk.get("gamma_1") is None and blk.get("gamma_2") is None
+        # a post-norm block's LNs feed no matmul: they stay, unfolded
+        assert (blk.get("norm1_w") is None) != jcfg.postnorm
+        assert (blk.get("qkv_bias") is None) == jcfg.postnorm
     px = rng.standard_normal((3, 3, 28, 28)).astype(np.float32)
     want = jvit.eva_vit_forward(jparams, jcfg, jnp.asarray(px),
                                 attn_impl=IMPLS[impl])
@@ -48,13 +58,52 @@ def test_forward_matches_jax(rng, towers, folded, impl):
 
 
 def test_k1_route_on_cpu_launches_nothing(rng, towers):
-    """'flash' takes the K1 wrapper, which on CPU tensors runs its plain
-    version: the launch count does not move."""
+    """'flash' takes the K1 wrapper (K5's for a post-norm tower), which on
+    CPU tensors runs its plain version: the launch counts do not move."""
     tfa.reset_launch_counts()
     px = t(rng.standard_normal((1, 3, 28, 28)).astype(np.float32))
     tvit.eva_vit_forward(towers[2].vision_encoder, px, attn_impl="flash")
     assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                   "K7": 0}
+                                   "K5": 0, "K7": 0, "K8": 0}
+
+
+@pytest.mark.parametrize("fused_proj,folded",
+                         [(False, False), (True, False), (True, True)],
+                         ids=["k5", "k8", "k8-folded"])
+def test_flash_inference_wrappers(rng, towers, monkeypatch, folded,
+                                  fused_proj):
+    """Which wrapper each block's 'flash' inference calls: K1 for a
+    pre-norm block whatever `FUSED_ATTN_PROJ` says; K5 then the output
+    projection for a post-norm block, or K8 when `FUSED_ATTN_PROJ` is on
+    (mirrored in the JAX package) — and the output equals JAX's."""
+    import jax
+
+    jparams, jcfg, model = towers
+    vit = model.vision_encoder
+    if folded:
+        jparams = jvit.fold_inference_params(jparams, jcfg)
+        vit = copy.deepcopy(vit)
+        vit.fold_inference_params()
+    jax.clear_caches()
+    monkeypatch.setattr(jfa, "FUSED_ATTN_PROJ", fused_proj)
+    monkeypatch.setattr(tfa, "FUSED_ATTN_PROJ", fused_proj)
+    calls = []
+    for name in ("fused_ln_qkv_self_attention", "fused_qkv_self_attention",
+                 "fused_qkv_attn_proj"):
+        real = getattr(tfa, name)
+        monkeypatch.setattr(tfa, name, lambda *a, _n=name, _f=real:
+                            calls.append(_n) or _f(*a))
+    px = rng.standard_normal((2, 3, 28, 28)).astype(np.float32)
+    want = jvit.eva_vit_forward(jparams, jcfg, jnp.asarray(px),
+                                attn_impl="flash")
+    got = tvit.eva_vit_forward(vit, t(px), attn_impl="flash")
+    if not jcfg.postnorm:
+        route = "fused_ln_qkv_self_attention"
+    else:
+        route = "fused_qkv_attn_proj" if fused_proj else \
+            "fused_qkv_self_attention"
+    assert calls == [route] * jcfg.layers
+    close(got, want, MODEL_TOL)
 
 
 def test_pooled_output(rng, towers):
@@ -84,7 +133,7 @@ def test_patch_embed_order(rng):
 
 
 @pytest.mark.parametrize("feature", ["rope", "naiveswiglu", "subln",
-                                     "postnorm", "use_rel_pos_bias"])
+                                     "use_rel_pos_bias"])
 def test_unported_features_raise(feature):
     cfg = EvaVitConfig(image_size=28, patch_size=14, layers=1, width=8,
                        head_width=4, **{feature: True})
@@ -99,8 +148,9 @@ def test_unported_features_raise(feature):
 
 def test_training_route_matches_jax(rng, towers, monkeypatch):
     """With a train generator and the regularizers' rates at 0, the block
-    takes LN → qkv → `packed_qkv_self_attention` (never K1), and the output
-    and the gradients of a scalar loss equal JAX's training route."""
+    takes (LN →) qkv → `packed_qkv_self_attention` (never K1, K5 or K8),
+    and the output and the gradients of a scalar loss equal JAX's training
+    route."""
     import jax
 
     jparams, jcfg, model = towers

@@ -156,9 +156,11 @@ def test_launch_counters_reset():
     tfa.flash_attention.launches = 5
     tfa.packed_attention.launches = 9
     tfa.packed_attention_bwd.launches = 11
+    tfa.fused_qkv_self_attention.launches = 13
+    tfa.fused_qkv_attn_proj.launches = 17
     int8_cross_attention.launches = 7
     assert tfa.launch_counts() == {"K1": 3, "K2": 5, "K3": 9, "K4": 11,
-                                   "K7": 7}
+                                   "K5": 13, "K7": 7, "K8": 17}
     tfa.reset_launch_counts()
     assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                   "K7": 0}
+                                   "K5": 0, "K7": 0, "K8": 0}

@@ -1,0 +1,121 @@
+"""The plain versions of the port's K5 (`fused_qkv_self_attention`) and K8
+(`fused_qkv_attn_proj`) in `mico_tpu_torch/ops/flash_attention.py` against
+the JAX package's Pallas kernels run in interpret mode and their plain
+references; the wrappers on CPU tensors launch nothing and refuse autograd;
+the input checks the wrappers make before a launch on the card."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mico_tpu.ops import flash_attention as jfa
+from mico_tpu_torch.ops import flash_attention as tfa
+
+from torch_port_common import OP_TOL, close, no_launch, t
+
+# (B, L, H, D): the ViT-g head dim with a 257-token tail, and bigE's 112
+CASES = [(2, 257, 4, 88), (2, 50, 4, 112)]
+IDS = ["257x4x88", "50x4x112"]
+
+
+def _inputs(rng, b, l, nh, d):
+    w = nh * d
+    x = rng.standard_normal((b, l, w)).astype(np.float32)
+    wq = (rng.standard_normal((w, 3 * w)) * 0.05).astype(np.float32)
+    bias = (rng.standard_normal(3 * w) * 0.05).astype(np.float32)
+    wp = (rng.standard_normal((w, w)) * 0.05).astype(np.float32)
+    bp = (rng.standard_normal(w) * 0.05).astype(np.float32)
+    return x, wq, bias, wp, bp
+
+
+@pytest.mark.parametrize("b,l,nh,d", CASES, ids=IDS)
+def test_k5_plain_matches_pallas_interpret(rng, b, l, nh, d):
+    x, wq, bias, _, _ = _inputs(rng, b, l, nh, d)
+    jargs = [jnp.asarray(a) for a in (x, wq, bias)]
+    scale = d ** -0.5
+    kernel = jfa._fused_qkv_attn_fwd(*jargs, nh, scale, True)
+    reference = jfa._fused_qkv_reference(*jargs, nh, scale)
+    got = no_launch(lambda: tfa.fused_qkv_self_attention(
+        t(x), t(wq), t(bias), nh, scale))
+    assert got.shape == x.shape
+    close(got, kernel, OP_TOL)
+    close(got, reference, OP_TOL)
+
+
+@pytest.mark.parametrize("b,l,nh,d", CASES, ids=IDS)
+def test_k8_plain_matches_pallas_interpret(rng, b, l, nh, d):
+    arrays = _inputs(rng, b, l, nh, d)
+    jargs = [jnp.asarray(a) for a in arrays]
+    scale = d ** -0.5
+    kernel = jfa._fused_qkv_attn_proj_fwd(*jargs, nh, scale, True)
+    reference = jfa._fused_qkv_attn_proj_reference(*jargs, nh, scale)
+    got = no_launch(lambda: tfa.fused_qkv_attn_proj(
+        *[t(a) for a in arrays], nh, scale))
+    assert got.shape == arrays[0].shape
+    close(got, kernel, OP_TOL)
+    close(got, reference, OP_TOL)
+
+
+def test_k8_plain_is_k5_then_projection(rng):
+    """K8's twin is K5's twin followed by the projection, rounded once."""
+    x, wq, bias, wp, bp = (t(a).bfloat16() for a in _inputs(rng, 1, 17, 2, 16))
+    o = tfa.fused_qkv_plain(x, wq, bias, 2, 0.25)
+    want = (o.float() @ wp.float() + bp.float()).bfloat16()
+    got = tfa.fused_qkv_attn_proj_plain(x, wq, bias, wp, bp, 2, 0.25)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K8"])
+def test_wrappers_refuse_autograd(rng, kernel):
+    """K5 and K8 have no backward: a call that autograd records with an
+    input that requires a gradient raises (on any device); under no_grad
+    the same call runs."""
+    x, wq, bias, wp, bp = (t(a) for a in _inputs(rng, 1, 9, 2, 16))
+    args = (x.requires_grad_(True), wq, bias)
+    if kernel == "K5":
+        fn = tfa.fused_qkv_self_attention
+    else:
+        fn, args = tfa.fused_qkv_attn_proj, args + (wp, bp)
+    with pytest.raises(RuntimeError, match=f"{kernel}.*no backward"):
+        fn(*args, 2, 0.25)
+    with torch.no_grad():
+        assert fn(*args, 2, 0.25).shape == (1, 9, 32)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("what,args,match", [
+    ("fp32 x", (torch.zeros(2, 9, 256), _bf16(256, 768), torch.zeros(768),
+                4), "bf16"),
+    ("w shape", (_bf16(2, 9, 256), _bf16(256, 512), torch.zeros(768), 4),
+     "w must be"),
+    ("head dim 136", (_bf16(2, 9, 272), _bf16(272, 816), torch.zeros(816),
+                      2), "head dim"),
+    ("W % 32", (_bf16(2, 9, 80), _bf16(80, 240), torch.zeros(240), 2),
+     "W % 32"),
+    ("shared memory", (_bf16(1, 2000, 256), _bf16(256, 768),
+                       torch.zeros(768), 2), "shared memory"),
+    ("strided x", (_bf16(2, 256, 9).transpose(1, 2), _bf16(256, 768),
+                   torch.zeros(768), 4), "contiguous"),
+])
+def test_kernel_input_checks(what, args, match):
+    """What the wrappers refuse before a launch on the card (the checks
+    are device-independent, so they run here on CPU tensors)."""
+    with pytest.raises(ValueError, match=match):
+        tfa._check_fused_qkv("K5", *args)
+
+
+def test_kernel_input_checks_accept_main_path_shapes():
+    """The shapes the main paths give the kernels pass: bigE's 16 x 112,
+    ViT-g's 16 x 88 (K1 and K5) and the ragged (3, 50, 4 x 64)."""
+    for b, l, nh, d in ((1, 257, 16, 112), (1, 257, 16, 88), (3, 50, 4, 64)):
+        w = nh * d
+        assert tfa._check_fused_qkv(
+            "K5", _bf16(b, l, w), _bf16(w, 3 * w), torch.zeros(3 * w),
+            nh) == (b, l, w, d)
+        assert tfa._packed_smem_bytes(l, d) <= tfa._MAX_SMEM
+    assert tfa._packed_smem_bytes(257, 112) == 130560

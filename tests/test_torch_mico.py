@@ -2,7 +2,8 @@
 with weights carried from JAX by `params_from_jax`, against
 `mico_tpu.models.mico` on the CPU — image (n = 1, the frame-embedding
 interp), video (n = 4), shared-route audio and depth embeddings, text
-embeddings, similarity and ITM scores."""
+embeddings, similarity and ITM scores; and a tiny post-norm MiCo (the
+EVA02-CLIP-bigE block) from canonical and folded trees."""
 
 import jax
 import jax.numpy as jnp
@@ -12,12 +13,12 @@ import torch
 
 from mico_tpu.models import mico as jm
 from mico_tpu_torch import config as tconfig
-from mico_tpu_torch.convert import params_from_jax
+from mico_tpu_torch.convert import mico_from_jax, params_from_jax
 from mico_tpu_torch.models.mico import MiCo, frame_embedding
 from mico_tpu_torch.ops import flash_attention as tfa
 
 from torch_port_common import MODEL_TOL, OP_TOL, close, configs, \
-    perturbed_params, port_model, t, to_numpy
+    no_launch, perturbed_params, port_model, t, to_numpy
 
 
 @pytest.fixture(scope="module")
@@ -157,6 +158,88 @@ def test_params_from_jax_raises_on_strays(models):
     wrong = dict(np_params, contra_temp=np.zeros((2,), np.float32))
     with pytest.raises(ValueError, match="contra_temp"):
         params_from_jax(wrong, tcfg)
+
+
+# ---------------------------------------------------------------------------
+# a post-norm tower (EVA02-CLIP-bigE's block) with LayerScale
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def postnorm_models():
+    jcfg, tcfg = configs(eva=dict(postnorm=True, ls_init_value=0.1))
+    return perturbed_params(jcfg, seed=5), jcfg, tcfg
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["canonical", "folded"])
+def test_postnorm_embeddings_and_itm(rng, postnorm_models, folded):
+    """A post-norm MiCo built by `mico_from_jax` from the canonical or the
+    folded JAX tree: video and audio embeddings and ITM probabilities equal
+    JAX's on the same tree."""
+    params, jcfg, tcfg = postnorm_models
+    if folded:
+        params = jm.fold_inference_params(params, jcfg)
+    model = mico_from_jax(to_numpy(params), tcfg, device="cpu")
+    blk = model.vision_encoder.blocks[0]
+    assert (blk.get("gamma_1") is None) == folded
+    assert blk.get("norm1_w") is not None and blk.get("qkv_bias") is None
+    px = rng.standard_normal((2, 4, 3, 28, 28)).astype(np.float32)
+    aud = rng.standard_normal((2, 2, 28, 28)).astype(np.float32)
+    jv = jm.forward_vision_encoder(params, jcfg, jnp.asarray(px))
+    ja = jm.forward_audio_encoder(params, jcfg, jnp.asarray(aud))
+    tv = no_launch(lambda: model.forward_vision_encoder(t(px)))
+    ta = model.forward_audio_encoder(t(aud))
+    close(tv, jv, MODEL_TOL)
+    close(_torch_embed(model, tv, "v"), _jax_embed(params, jcfg, jv, "v"),
+          MODEL_TOL)
+    close(_torch_embed(model, ta, "a"), _jax_embed(params, jcfg, ja, "a"),
+          MODEL_TOL)
+    ids = rng.integers(200, 20000, (3, 12)).astype(np.int32)
+    mask = np.ones((3, 12), np.int32)
+    mask[1, 7:] = 0
+    jcond = jm.get_multimodal_forward_input_vision(params, jcfg, jv[:1])
+    jcond = jnp.broadcast_to(jcond, (3,) + jcond.shape[1:])
+    jx = jm.forward_multimodal_encoder(params, jcfg, jnp.asarray(ids),
+                                       jnp.asarray(mask), jcond).sequence_output
+    jitm = jax.nn.softmax(jm.itm_head(params, jx[:, 0]), axis=1)[:, 1]
+    cond = model.get_multimodal_forward_input_vision(tv[:1]).expand(3, -1, -1)
+    x = model.forward_multimodal_encoder(t(ids), t(mask), cond)
+    close(torch.softmax(model.itm_head(x[:, 0]), dim=1)[:, 1], jitm,
+          MODEL_TOL)
+
+
+@pytest.mark.parametrize("folded", [False, True], ids=["canonical", "folded"])
+def test_params_from_jax_postnorm_layouts(postnorm_models, folded):
+    """A folded post-norm tree keeps its LNs and q/v biases and loses only
+    LayerScale, so it has no `qkv_bias`: the layout is read from what the
+    tree lacks, and every leaf is placed."""
+    params, jcfg, tcfg = postnorm_models
+    if folded:
+        params = jm.fold_inference_params(params, jcfg)
+    sd = params_from_jax(to_numpy(params), tcfg)
+    assert "vision_encoder.blocks.1.qkv_bias" not in sd
+    assert "vision_encoder.blocks.1.norm1_w" in sd
+    assert ("vision_encoder.blocks.1.gamma_1" in sd) != folded
+    np.testing.assert_array_equal(
+        sd["vision_encoder.blocks.1.proj_w"].numpy(),
+        np.asarray(params["vision_encoder"]["blocks"]["proj_w"][1]))
+
+
+def test_bige_config_builds_at_full_width():
+    """`evaclip02_bige` builds (weightless): the post-norm EVA02-CLIP-bigE
+    tower, 64 blocks of width 1792, 16 heads of 112, MLP 15360, 4.35 B
+    parameters, and vision_dim 1792 in the heads and `hidden_trans_*`."""
+    cfg = tconfig.MiCoConfig(vision_encoder_type="evaclip02_bige")
+    eva = cfg.eva_config
+    assert (eva.layers, eva.width, eva.num_heads, eva.head_dim,
+            eva.mlp_hidden, eva.seq_len, eva.postnorm) == (
+                64, 1792, 16, 112, 15360, 257, True)
+    model = MiCo(cfg, device="cpu", init_weights=False)
+    n = sum(p.numel() for p in model.vision_encoder.parameters())
+    assert abs(n - 4.3506e9) < 1e6
+    assert model.contra_head_v.get("kernel").shape == (1792, cfg.contra_dim)
+    assert model.hidden_trans_vision.get("kernel").shape == (1792, 768)
+    assert model.vision_encoder.blocks[0].postnorm
 
 
 def test_frame_embedding_interp(rng):

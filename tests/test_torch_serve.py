@@ -94,6 +94,31 @@ def test_folds_a_copy(pipes):
     assert tpipe.model.vision_encoder.blocks[0].get("norm1_w") is None
 
 
+def test_postnorm_pipeline_serves_a_folded_copy(rng):
+    """A post-norm tower with LayerScale (the EVA02-CLIP-bigE block): the
+    pipeline folds only LayerScale into its copy, keeps the LNs, and `_run`
+    gives JAX's folded pipeline's embeddings."""
+    jcfg, tcfg = configs(eva=dict(postnorm=True, ls_init_value=0.1))
+    params = perturbed_params(jcfg, seed=2)
+    jpipe = JaxPipeline(params, jcfg, batch_size=2, io_workers=2)
+    model = port_model(params, tcfg)
+    tpipe = EmbeddingPipeline(model, tcfg, batch_size=2, io_workers=2,
+                              device="cpu")
+    try:
+        blk = tpipe.model.vision_encoder.blocks[0]
+        assert blk.get("gamma_1") is None and blk.get("norm1_w") is not None
+        assert model.vision_encoder.blocks[0].get("gamma_1") is not None
+        items = [rng.standard_normal((1, 3, 28, 28)).astype(np.float32)
+                 for _ in range(3)]
+        got = tpipe._run(items, lambda a: a,
+                         lambda m, x: tpipe._embed_pixels(m, x, head="v"))
+    finally:
+        tpipe.close()
+    want = jpipe._run(items, lambda a: a,
+                      lambda p, x: jpipe._embed_pixels(p, x, head="v"))
+    close(got, want, MODEL_TOL)
+
+
 @pytest.mark.parametrize("method", ["embed_images", "embed_videos",
                                     "embed_depth", "embed_audio"])
 def test_media_entry_points_raise(pipes, method):
