@@ -73,7 +73,26 @@ Phases, run in order (any failure exits non-zero):
      B = 2 with every rate 0 and the draws injected, the card in bf16 (K3,
      K4, K2 and its backward) against the card in fp32 on the plain routes,
      each loss within 2e-2 relative and the gradient cosine >= 0.99 for
-     each optimizer group and the first and last block's qkv_w.
+     each optimizer group and the first and last block's qkv_w;
+  8. long-context: K6 (with and without the LSE) and K6b (dq, dk, dv)
+     against their plain versions in bf16 on unit-std inputs at the
+     long-context step's cross-attention (2, 12, 128, 8224, 64) in BERT's
+     strided layout, with no bias and with a (2, 1, 1, 8224) padding bias,
+     and at a ragged (1, 2, 160, 9000, 88) (the gates above, the LSE within
+     1e-3),
+     timed at the first beside the plain versions, SDPA (forward; its
+     autograd backward alone) and the bound; then five full-width steps of
+     long-context captioning (`scripts/train_bench.py --long-context`:
+     cap%tv, B = 2 samples of 32 frames, 8,224 condition tokens, a
+     128-token caption; probability dropout 0, so attention stays on the
+     kernels), each counted from 0 (K3 40, K4 40, K2 12, K6 12, K6b 12 per
+     step), finite losses, the last below the second's, ms/step,
+     samples/s, model TFLOP/s and peak memory; one no-grad forward of the
+     same losses (K6 12, K6b 0); and BERT's gradients of the caption loss at
+     B = 1 over condition tokens computed once, the bf16 kernel route
+     against the card's fp32 plain route (loss within 2e-2 relative, cosine
+     >= 0.99 per BERT parameter group and for the first and last layer's
+     cross-attention q/k/v weights).
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -97,6 +116,8 @@ import torch
 # the path whose own launch count the kernels line reports for each kernel
 KERNEL_PATH = {"K1": "omni step", "K2": "ITM", "K3": "train step",
                "K4": "train step", "K5": "bigE omni step",
+               "K6": "long-context train step",
+               "K6b": "long-context train step",
                "K7": "int8 beam caption (image)",
                "K8": "bigE omni step (FUSED_ATTN_PROJ)"}
 # published H100 SXM peaks (dense bf16 tensor cores, HBM3)
@@ -578,7 +599,7 @@ CAPTIONS = ["a man is skiing in a snowy day.", "it's a hot day",
 
 
 def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K3=0, K4=0,
-                K5=0, K7=0, K8=0):
+                K5=0, K6=0, K6b=0, K7=0, K8=0):
     """Run one path with every launch count set to 0 just before it, keep
     its own counts in `paths[what]` and hold them to the path's."""
     fa.reset_launch_counts()
@@ -586,8 +607,8 @@ def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K3=0, K4=0,
     torch.cuda.synchronize()
     got = fa.launch_counts()
     paths[what] = got
-    want = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "K5": K5, "K7": K7,
-            "K8": K8}
+    want = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "K5": K5, "K6": K6,
+            "K6b": K6b, "K7": K7, "K8": K8}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
     return out
@@ -1310,6 +1331,310 @@ def phase_train_grads(fa) -> dict:
                 lowest_tensor_cosine=per_tensor[worst])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: long-context caption training (K6, K6b)
+# ---------------------------------------------------------------------------
+
+LONG_B = 2                  # the JAX bench's 16 cut to what one card holds
+LONG_STEPS = 5
+LSE_TOL = 1e-3
+
+
+def long_qkvg(gen, b, h, lq, lk, d, layout: str):
+    """Unit-std bf16 q, k, v and an output gradient g of (B, H, L, D);
+    layout "bert": each a (B, L, H, D) tensor viewed as (B, H, L, D), k and
+    v column slices of one (B, Lk, 2, H, D) projection, as BERT's
+    cross-attention makes them; "contiguous": (B, H, L, D) tensors."""
+    def r(*s):
+        return torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
+
+    if layout == "contiguous":
+        return r(b, h, lq, d), r(b, h, lk, d), r(b, h, lk, d), r(b, h, lq, d)
+    kv = r(b, lk, 2, h, d)
+    return (r(b, lq, h, d).transpose(1, 2), kv[:, :, 0].transpose(1, 2),
+            kv[:, :, 1].transpose(1, 2), r(b, lq, h, d).transpose(1, 2))
+
+
+def check_lse(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(f"  {name}: lse max|d| {err:.3e}")
+    if not err <= LSE_TOL:
+        raise AssertionError(f"{name}: lse max |d| {err} > {LSE_TOL}")
+
+
+def sdpa_library(q, k, v, g, scale):
+    """SDPA forward on K6's inputs, and a closure that runs its autograd
+    backward alone (K6b's yardstick)."""
+    import torch.nn.functional as F
+
+    qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
+    return (lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+            lambda: torch.autograd.grad(out, (qq, kk, vv), g,
+                                        retain_graph=True))
+
+
+def phase_long_kernels(fa) -> list:
+    gen = torch.Generator().manual_seed(5)
+    errs = {"K6": [], "K6b": []}
+    log("phase long-context: K6 kv_tiled_attention / K6b "
+        "kv_tiled_attention_bwd vs their plain versions")
+    pad = torch.ones(LONG_B, 8224)
+    pad[1, 6000:] = 0
+    pad_bias = ((1.0 - pad) * -10000.0)[:, None, None, :].cuda()
+    cases = [("(2, 12, 128, 8224, 64) BERT layout, no bias",
+              (LONG_B, 12, 128, 8224, 64), "bert", None),
+             ("(2, 12, 128, 8224, 64) BERT layout, (2, 1, 1, 8224) padding "
+              "bias", (LONG_B, 12, 128, 8224, 64), "bert", pad_bias),
+             ("(1, 2, 160, 9000, 88) ragged, no bias", (1, 2, 160, 9000, 88),
+              "contiguous", None)]
+    timed = None
+    for what, shape, layout, bias in cases:
+        q, k, v, g = long_qkvg(gen, *shape, layout)
+        scale = shape[-1] ** -0.5
+        got = fa.kv_tiled_attention(q, k, v, bias, scale)
+        got_s, lse = fa.kv_tiled_attention(q, k, v, bias, scale,
+                                           return_lse=True)
+        want, want_lse = fa.kv_tiled_attention_plain(q, k, v, bias, scale,
+                                                     return_lse=True)
+        errs["K6"].append(compare(f"K6 {what}", got, want,
+                                  rel_mean=REL_MEAN_ERR_MAX))
+        errs["K6"].append(compare(f"K6 with LSE {what}", got_s, want,
+                                  rel_mean=REL_MEAN_ERR_MAX))
+        check_lse(f"K6 {what}", lse, want_lse)
+        # K6b and its plain version on the same inputs: K6's lse and o
+        delta = (g.float() * got_s.float()).sum(dim=-1, keepdim=True)
+        grads = fa.kv_tiled_attention_bwd(q, k, v, g, lse, delta, bias, scale)
+        wants = fa.kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta, bias,
+                                                scale)
+        for name, x, y in zip(("dq", "dk", "dv"), grads, wants):
+            errs["K6b"].append(compare(f"K6b {name} {what}", x, y,
+                                       rel_mean=REL_MEAN_ERR_MAX))
+        del got, got_s, want, want_lse, grads, wants
+        if timed is None:
+            timed = (q, k, v, g, lse, delta.contiguous(), scale)
+    q, k, v, g, lse, delta, scale = timed
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    shape = (f"q ({b}, {h}, {lq}, {d}), k/v ({b}, {h}, {lk}, {d}) bf16 "
+             f"strided views of (B, L, H, D), no bias")
+    sdpa_fwd, sdpa_bwd = sdpa_library(q, k, v, g, scale)
+    flops = 4 * b * h * lq * lk * d
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    rows = []
+    bms, by = bound_ms(flops, nbytes)
+    rows.append(dict(
+        name="K6 kv_tiled_attention", route="cuda",
+        source="mico_tpu_torch/csrc/kv_tiled_attn.cu",
+        replaces="mico_tpu/ops/flash_attention.py:286",
+        shape=shape + "; with LSE, as the training forward runs it",
+        ms=cuda_time_ms(lambda: fa.kv_tiled_attention(
+            q, k, v, None, scale, return_lse=True)),
+        ms_no_lse=cuda_time_ms(lambda: fa.kv_tiled_attention(
+            q, k, v, None, scale)),
+        plain_ms=cuda_time_ms(lambda: fa.kv_tiled_attention_plain(
+            q, k, v, None, scale, return_lse=True), iters=5, warmup=1),
+        library_ms=cuda_time_ms(sdpa_fwd),
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+    # s, dp, dq, dk and dv; q, k, v, g, lse and delta in, dq, dk, dv out
+    flops = 10 * b * h * lq * lk * d
+    nbytes = (2 * 2 * (q.numel() + k.numel() + v.numel() + g.numel())
+              - 2 * g.numel() + 4 * (lse.numel() + delta.numel()))
+    bms, by = bound_ms(flops, nbytes)
+    rows.append(dict(
+        name="K6b kv_tiled_attention_bwd", route="cuda",
+        source="mico_tpu_torch/csrc/kv_tiled_attn_bwd.cu",
+        replaces="mico_tpu/ops/flash_attention.py:486",
+        shape=shape + "; g, lse, delta -> dq, dk, dv",
+        ms=cuda_time_ms(lambda: fa.kv_tiled_attention_bwd(
+            q, k, v, g, lse, delta, None, scale)),
+        plain_ms=cuda_time_ms(lambda: fa.kv_tiled_attention_bwd_plain(
+            q, k, v, g, lse, delta, None, scale), iters=5, warmup=1),
+        library_ms=cuda_time_ms(sdpa_bwd),
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+    log(f"  K6 without LSE: {rows[0]['ms_no_lse']:.4f} ms")
+    return finish_rows(rows, errs)
+
+
+def phase_long_train(fa, card: str) -> dict:
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.train.objectives import task_losses
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mico_tpu_torch.train.train_step import make_train_step
+    from mico_tpu_torch.train.workload import (LONG_CONTEXT_CAPTION_LEN,
+                                               LONG_CONTEXT_FRAMES,
+                                               LONG_CONTEXT_TASK,
+                                               long_context_batch,
+                                               long_context_config,
+                                               pretrain_step_flops)
+
+    cfg = long_context_config()
+    t0 = time.perf_counter()
+    model = MiCo(cfg, device="cuda", seed=0)
+    opt = build_optimizer(model, OptimConfig(num_train_steps=10))
+    nvit = cfg.eva_config.layers
+    nbert = cfg.bert_config.num_hidden_layers
+    remat = cfg.checkpointing if cfg.bert_checkpointing is None \
+        else cfg.bert_checkpointing
+    log(f"phase long-context train: {LONG_CONTEXT_TASK} at B={LONG_B}, "
+        f"{LONG_CONTEXT_FRAMES} frames ({LONG_CONTEXT_FRAMES * 257} condition "
+        f"tokens), {LONG_CONTEXT_CAPTION_LEN}-token captions; fp32 master "
+        f"weights, bf16 compute, drop-path {cfg.eva_config.drop_path_rate}, "
+        f"BERT hidden dropout {cfg.bert_config.hidden_dropout_prob}, "
+        f"probability dropout 0, BERT remat {remat}; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step = make_train_step(cfg, opt, LONG_CONTEXT_TASK)
+    batch = long_context_batch(LONG_B, seed=0)
+    # per step: the ViT's training pass over 64 frames (K3, K4 per block);
+    # BERT's causal 128 x 128 self-attention on K2 (plain backward) and its
+    # cross-attention over 8,224 tokens on K6 with LSE and K6b per layer
+    # (K6 twice under BERT remat, whose recompute runs the forward again)
+    want = dict(K3=nvit, K4=nvit, K2=nbert, K6=nbert * (2 if remat else 1),
+                K6b=nbert)
+    paths, losses, times = {}, [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LONG_STEPS):
+        t0 = time.perf_counter()
+        out = run_counted(
+            fa, paths, f"long-context train step {i + 1}",
+            lambda: step(model, batch, torch.Generator().manual_seed(1)),
+            **want)
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append({k: v.item() for k, v in out.items()})
+        log(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5f}"
+                                            for k, v in losses[-1].items())
+            + f"; {times[-1]:.1f} ms")
+    peak = torch.cuda.max_memory_allocated()
+    for i, vals in enumerate(losses):
+        bad = [k for k, v in vals.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"long-context step {i + 1}: non-finite {bad}")
+    if not losses[-1]["loss_total"] < losses[1]["loss_total"]:
+        raise AssertionError(
+            f"long-context loss_total at step {LONG_STEPS} "
+            f"{losses[-1]['loss_total']} is not below step 2's "
+            f"{losses[1]['loss_total']}")
+    with torch.no_grad():
+        nograd = run_counted(
+            fa, paths, "long-context no-grad forward",
+            lambda: task_losses(model, cfg, batch, LONG_CONTEXT_TASK,
+                                torch.Generator().manual_seed(1)),
+            K3=nvit, K2=nbert, K6=nbert)
+    nograd = {k: v.item() for k, v in nograd.items()}
+    if not all(np.isfinite(v) for v in nograd.values()):
+        raise AssertionError(f"long-context no-grad losses {nograd}")
+    step_ms = statistics.median(times[-3:])
+    flops = pretrain_step_flops(cfg, LONG_B, LONG_CONTEXT_FRAMES, 0,
+                                LONG_CONTEXT_CAPTION_LEN, LONG_CONTEXT_TASK)
+    result = dict(
+        task=LONG_CONTEXT_TASK, batch=LONG_B, frames=LONG_CONTEXT_FRAMES,
+        caption_len=LONG_CONTEXT_CAPTION_LEN, bert_remat=remat,
+        losses=losses, step_times_ms=times, step_ms=step_ms,
+        samples_per_s=1e3 * LONG_B / step_ms, model_flops_per_step=flops,
+        model_tflops_per_s=flops / (step_ms * 1e-3) / 1e12,
+        peak_memory_bytes=peak, nograd_losses=nograd,
+        launches_per_step=paths[f"long-context train step {LONG_STEPS}"],
+        paths=paths)
+    log(f"  long-context step B={LONG_B}: median {step_ms:.2f} ms of the last "
+        f"3 ({[round(x, 2) for x in times]}), {result['samples_per_s']:.3f} "
+        f"samples/s, {result['model_tflops_per_s']:.2f} model TFLOP/s "
+        f"({flops / 1e12:.3f} TFLOP/step), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB [{card}]; no-grad forward {nograd}")
+    del opt, step, batch
+    free_cuda()
+    result["gradient_check"] = phase_long_grads(fa, model)
+    del model
+    free_cuda()
+    return result
+
+
+def phase_long_grads(fa, model) -> dict:
+    """BERT's gradients of the caption loss at B = 1 over condition tokens
+    computed once (the tower in bf16, detached): the bf16 kernel route (K2,
+    K6, K6b) against the card's fp32 plain route, every rate 0."""
+    from mico_tpu_torch.models import mico as mico_mod
+    from mico_tpu_torch.train.masker import mask_tokens
+    from mico_tpu_torch.train.objectives import caption_loss
+    from mico_tpu_torch.train.optim import param_group_labels
+    from mico_tpu_torch.train.workload import (long_context_batch,
+                                               long_context_config)
+
+    base = long_context_config(hidden_dropout_prob=0.0)
+    cfg16 = dataclasses.replace(base, eva_override=dataclasses.replace(
+        base.eva_config, drop_path_rate=0.0))
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32",
+                                use_flash_attention=False)
+    batch = long_context_batch(1, seed=1)
+    model.cfg = cfg16
+    with torch.no_grad():
+        cond = mico_mod.condition_input(
+            model, mico_mod.forward_vision_encoder(model,
+                                                   batch["vision_pixels"]),
+            "vision").detach()
+    masked = mask_tokens(batch["caption_ids"], 0.6,
+                         torch.Generator().manual_seed(2))
+    names = [n for n, _ in model.named_parameters() if n.startswith("bert.")]
+    runs = {}
+    for label, cfg in (("bf16", cfg16), ("fp32", cfg32)):
+        model.cfg = cfg
+        model.zero_grad(set_to_none=True)
+        fa.reset_launch_counts()
+        loss = caption_loss(model, cfg, cond, batch["caption_ids"],
+                            batch["caption_mask"],
+                            train_rng=torch.Generator().manual_seed(0),
+                            masked=masked)
+        loss.backward()
+        torch.cuda.synchronize()
+        params = dict(model.named_parameters())
+        runs[label] = dict(loss=loss.item(), launches=fa.launch_counts(),
+                           grads={n: params[n].grad.detach().float().clone()
+                                  for n in names
+                                  if params[n].grad is not None})
+        log(f"  long-context gradient check, card {label}: loss "
+            f"{runs[label]['loss']:.6f}, launches {runs[label]['launches']}")
+    model.zero_grad(set_to_none=True)
+    a, b = runs["bf16"], runs["fp32"]
+    nbert = base.bert_config.num_hidden_layers
+    if not (a["launches"]["K6"] == a["launches"]["K6b"] == nbert
+            and a["launches"]["K2"] == nbert):
+        raise AssertionError(f"bf16 run missed a kernel: {a['launches']}")
+    if any(b["launches"].values()):
+        raise AssertionError(f"fp32 run launched kernels: {b['launches']}")
+    if not abs(a["loss"] - b["loss"]) <= LOSS_RTOL * abs(b["loss"]):
+        raise AssertionError(f"loss_cap: bf16 {a['loss']} vs fp32 {b['loss']}")
+
+    def cos(x, y):
+        return torch.nn.functional.cosine_similarity(
+            x.double().flatten(), y.double().flatten(), dim=0).item()
+
+    labels = param_group_labels(model)
+    groups = {}
+    for n in names:
+        if n in a["grads"]:
+            groups.setdefault(labels[n], []).append(n)
+    group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
+                        torch.cat([b["grads"][n].flatten() for n in ns]))
+                 for g, ns in groups.items()}
+    held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
+        f"bert.layers.{i}.{w}" for i in (0, nbert - 1)
+        for w in ("xq_w", "xk_w", "xv_w"))}
+    per_tensor = {n: cos(a["grads"][n], b["grads"][n]) for n in a["grads"]
+                  if b["grads"][n].abs().max() > 0}
+    worst = min(per_tensor, key=per_tensor.get)
+    log(f"  long-context gradient cosine bf16 vs fp32 by BERT group "
+        f"{group_cos}; cross-attention {held}; lowest per tensor {worst} "
+        f"{per_tensor[worst]:.6f}")
+    for name, c in {**group_cos, **held}.items():
+        if not c >= GRAD_COSINE_MIN:
+            raise AssertionError(f"long-context gradient cosine {name} {c} < "
+                                 f"{GRAD_COSINE_MIN}")
+    return dict(loss_bf16=a["loss"], loss_fp32=b["loss"],
+                launches_bf16=a["launches"], group_cosine=group_cos,
+                cross_qkv_w_cosine=held, lowest_tensor=worst,
+                lowest_tensor_cosine=per_tensor[worst])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -1342,8 +1667,13 @@ def main() -> int:
     rows += phase_train_kernels(fa)
     train = phase_train_steps(fa, card)
     train["gradient_check"] = phase_train_grads(fa)
+    rows += phase_long_kernels(fa)
+    long = phase_long_train(fa, card)
     paths = {**omni["paths"], **caption["paths"], **bige["paths"],
-             "train step": train["launches_per_step"]}
+             "train step": train["launches_per_step"],
+             "long-context train step": long["launches_per_step"],
+             "long-context no-grad forward":
+                 long["paths"]["long-context no-grad forward"]}
     for row in rows:
         key = row["name"].split()[0]
         path = KERNEL_PATH[key]
@@ -1359,7 +1689,9 @@ def main() -> int:
                       "bige": {k: v for k, v in bige.items()
                                if k != "paths"},
                       "train": {k: v for k, v in train.items()
-                                if k != "paths"}}))
+                                if k != "paths"},
+                      "long_context": {k: v for k, v in long.items()
+                                       if k != "paths"}}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,8 +6,9 @@ self-attention → optional cross-attention over `encoder_hidden_states` →
 FFN-GELU, each sublayer residual + LN. 2D padding masks stay bidirectional
 and become additive (1 - m) * -10000. Layers are a ModuleList; attention
 routes through `multi_head_attention`, so the cross-attention over the
-257·n condition tokens takes kernel K2 and the 30-token self-attention stays
-plain. `mlm_logits` is the MLM head the decoder (`generation.py`) reads its
+257·n condition tokens takes kernel K2 (past 8192 tokens, a 32-frame video,
+K6 and K6b when there are 128 query rows or more) and the 30-token
+self-attention stays plain. `mlm_logits` is the MLM head the decoder (`generation.py`) reads its
 next-token logits from.
 
 Training (`train_rng`, a CPU `torch.Generator`): hidden dropout on the

@@ -4,7 +4,8 @@ Two implementations with the JAX package's routing:
   - `plain`: `plain_attention`, the twin of `xla_attention` — fp32 scores and
     softmax, probabilities cast to v's dtype, fp32 accumulation.
   - `flash`: `flash_attention` (`ops/flash_attention.py`), the resident-KV
-    kernel K2 on the card and its plain twin on the CPU.
+    kernel K2 or, past 8192 keys with at least 128 query rows, the KV-tiled
+    K6 and its backward K6b on the card, and their plain twins on the CPU.
 
 Shapes: q (B, H, Lq, D); k, v (B, H, Lk, D); additive bias broadcastable to
 (B, H, Lq, Lk). Attention-probability dropout (training) is drawn after the

@@ -11,6 +11,16 @@ exp), on (B, H, Lq, D). Source: `csrc/flash_attn.cu`. It is differentiable
 as `_flash_diff` is on the resident route (:686-697): the backward
 recomputes attention in plain torch.
 
+K6 `kv_tiled_attention` replaces the KV-tiled `_flash_kv_tiled` (:218, call
+:260) and `_flash_kv_tiled_stats` (:286, call :329), body `_kv_tiled_kernel`
+(:160): the same attention past MAX_RESIDENT_KV keys, with K6's rounding
+points and optionally the per-row log-sum-exp. K6b `kv_tiled_attention_bwd`
+replaces `_flash_kv_tiled_bwd` (:486; dQ call :531, dK/dV call :588): its
+gradient from that LSE. Sources: `csrc/kv_tiled_attn.cu` (K2's device code,
+`csrc/flash_attn.cuh`, with K6's rounding points) and
+`csrc/kv_tiled_attn_bwd.cu`. `flash_attention` routes to them as
+`_flash_diff` does (:637-697); long-context caption training reaches them.
+
 K3 `packed_attention` replaces `_packed_qkv_fwd` (:1135, call :1155) and
 `_packed_fwd` (:885, call :897), body `_packed_body` (:757): self-attention
 on projection-layout (B, L, H·D) rows read by column offset. K4
@@ -34,7 +44,8 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; only a tensor on the CPU goes to the plain twin (the
 JAX dtype gate, which sends other dtypes on the card to the twins, is the
 caller's: `kernel_route`). Each carries a `launches` count that grows by
-one per kernel launch. K1, K5 and K8 have no backward: their wrappers raise
+one per kernel launch (K6b: one per call, which launches its two kernels).
+K1, K5 and K8 have no backward: their wrappers raise
 when autograd records a call whose inputs require a gradient, on any
 device, rather than drop the gradient.
 """
@@ -55,6 +66,10 @@ LOG2E = 1.4426950408889634
 # to plain math (:615, :639-643), otherwise to the KV-tiled kernel K6
 MAX_RESIDENT_KV = 8192
 KV_TILED_MIN_Q = 128
+# under autograd the KV-tiled route treats a bias as a constant mask: K6b
+# replays it and it gets a zero gradient; False sends a biased call to the
+# plain recompute backward instead, with the bias's true gradient (:627-634)
+KV_TILED_BIAS_IS_MASK = True
 
 # shared memory one block may take on an H100 (232,448 bytes)
 _MAX_SMEM = 232448
@@ -353,35 +368,68 @@ def _k2_entry():
     return fn
 
 
-def _flash_cuda(q, k, v, bias, scale) -> torch.Tensor:
+def _check_heads(name: str, q, k, v, g=None) -> None:
+    """The layout K2, K6 and K6b take: bf16 q (B, H, Lq, D), k and v
+    (B, H, Lk, D) and, for K6b, g of q's shape, on one device; views with a
+    unit last stride and 16-byte aligned rows, such as BERT's transposed
+    linear outputs; D a multiple of 8 up to 128."""
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
              "q, k, v must be (B, H, L, D)")
     b, h, lq, d = q.shape
     lk = k.shape[2]
     _require(tuple(k.shape) == (b, h, lk, d) and k.shape == v.shape,
              f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
-    _require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-             f"K2 takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    _require(d % 8 == 0 and d <= 128, f"K2 head dim {d}: multiple of 8, <= 128")
+    _require(g is None or g.shape == q.shape,
+             f"g shape {None if g is None else tuple(g.shape)} vs q "
+             f"{tuple(q.shape)}")
+    _require(all(t.dtype == torch.bfloat16 for t in (q, k, v, g)
+                 if t is not None),
+             f"{name} takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+             + ("" if g is None else f" and g {g.dtype}"))
+    _require(d % 8 == 0 and d <= 128,
+             f"{name} head dim {d}: multiple of 8, <= 128")
     _require(lk >= 1 and lq >= 1, "empty attention")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.device == q.device, "q/k/v must share one device")
-        _require(t.stride(3) == 1, f"{name} must have a unit last stride")
+    for name_t, t in (("q", q), ("k", k), ("v", v), ("g", g)):
+        if t is None:
+            continue
+        _require(t.device == q.device, f"{name} inputs must share one device")
+        _require(t.stride(3) == 1, f"{name_t} must have a unit last stride")
         _require(all(s % 8 == 0 for s in t.stride()[:3])
                  and t.data_ptr() % 16 == 0,
-                 f"{name} rows must be 16-byte aligned")
-    out = torch.empty((b, lq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+                 f"{name_t} rows must be 16-byte aligned")
+
+
+def _heads_out(q: torch.Tensor, length: int) -> torch.Tensor:
+    """An uninitialised (B, H, length, D) output laid out as (B, length, H,
+    D), the layout BERT reshapes back without a copy."""
+    b, h, _, d = q.shape
+    return torch.empty((b, length, h, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
+
+
+def _bias_strides(bias, q, lk):
+    """(pointer tensor, its (b, h, q, k) strides) of an additive bias
+    broadcastable to (B, H, Lq, Lk), in fp32; strides 0 on broadcast axes.
+    With no bias the pointer is q's (never read)."""
     if bias is None:
-        bias_t = out                 # not read by the kernel
-        strides += [0, 0, 0, 0]
+        return q, [0, 0, 0, 0]
+    _require(bias.dim() == 4, "bias must be (B|1, H|1, Lq|1, Lk)")
+    _require(bias.device == q.device, "bias must share q's device")
+    b, h, lq, _ = q.shape
+    bias_t = bias.float().expand(b, h, lq, lk)
+    return bias_t, list(bias_t.stride())
+
+
+def _flash_cuda(q, k, v, bias, scale) -> torch.Tensor:
+    _check_heads("K2", q, k, v)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = _heads_out(q, lq)
+    bias_t, bstrides = _bias_strides(bias, q, lk)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]] + bstrides
+    if bias is None:
         qscale, pscale = scale * LOG2E, 1.0
     else:
-        _require(bias.dim() == 4, "bias must be (B|1, H|1, Lq|1, Lk)")
-        _require(bias.device == q.device, "bias must share q's device")
-        bias_t = bias.float().expand(b, h, lq, lk)
-        strides += list(bias_t.stride())
         qscale, pscale = scale, LOG2E
     c_strides = (ctypes.c_longlong * 16)(*strides)
     rc = _k2_entry()(
@@ -395,17 +443,22 @@ def _flash_cuda(q, k, v, bias, scale) -> torch.Tensor:
 
 
 def _flash_forward(q, k, v, bias, scale) -> torch.Tensor:
+    """The forward without LSE: K6 past MAX_RESIDENT_KV keys, else K2 (their
+    plain twins on the CPU)."""
+    if k.shape[2] > MAX_RESIDENT_KV:
+        return kv_tiled_attention(q, k, v, bias, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, bias, scale)
     return _flash_cuda(q, k, v, bias, scale)
 
 
 class _Flash(torch.autograd.Function):
-    """K2 (or its plain twin on the CPU) forward; the backward recomputes
-    attention in plain torch from the saved q, k, v and bias and takes its
-    gradient, as `_flash_diff_bwd` does on the resident route
-    (flash_attention.py:686-697): no probability matrix is kept between the
-    passes, and the bias gets its gradient by the same rule."""
+    """K2 or K6 (or their plain twins on the CPU) forward; the backward
+    recomputes attention in plain torch from the saved q, k, v and bias and
+    takes its gradient, as `_flash_diff_bwd` does on every route but the
+    KV-tiled masked one (flash_attention.py:686-697): no probability matrix
+    is kept between the passes, and the bias gets its gradient by the same
+    rule."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
@@ -433,32 +486,208 @@ class _Flash(torch.autograd.Function):
         return tuple(grads)
 
 
+class _KVTiled(torch.autograd.Function):
+    """The KV-tiled route under autograd (`_flash_diff_fwd` / `_bwd`,
+    flash_attention.py:650-685): forward K6 with the per-row LSE, saving q,
+    k, v, bias, out and lse; backward δ = Σ(g·out) in fp32 in plain torch,
+    then K6b. The bias is a constant mask here (`KV_TILED_BIAS_IS_MASK`):
+    its gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = kv_tiled_attention(q, k, v, bias, scale, return_lse=True)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
+        grads = kv_tiled_attention_bwd(q, k, v, g, lse, delta.contiguous(),
+                                       bias, ctx.scale)
+        grads = [gi if ctx.needs_input_grad[i] else None
+                 for i, gi in enumerate(grads)]
+        dbias = (torch.zeros_like(bias)
+                 if bias is not None and ctx.needs_input_grad[3] else None)
+        return (*grads, dbias, None)
+
+
 def flash_attention(q, k, v, bias: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B, H, Lq, D); k, v (B, H, Lk, D); bias broadcastable
-    (B|1, H|1, Lq|1, Lk). Routes as `_flash_diff` does: past 8192 KV rows,
-    fewer than 128 query rows take plain math and more need K6, which is not
-    ported yet. Differentiable (`_Flash`); a call that records no gradient
-    skips the autograd Function and its host cost."""
+    (B|1, H|1, Lq|1, Lk). Routes as `_flash_diff` does (flash_attention.py:
+    637-697): up to MAX_RESIDENT_KV keys K2; past them, fewer than
+    KV_TILED_MIN_Q query rows take plain math, more take K6. A call that
+    records no gradient runs the forward alone (no autograd Function, no
+    LSE). Under autograd the KV-tiled route with no bias or a mask bias
+    (`KV_TILED_BIAS_IS_MASK`) is `_KVTiled` (K6 with LSE, then K6b; the
+    bias gets a zero gradient); every other route is `_Flash` (K2 or K6,
+    then the plain recompute backward)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if k.shape[2] > MAX_RESIDENT_KV:
-        if q.shape[2] < KV_TILED_MIN_Q:
-            from mico_tpu_torch.ops.attention import plain_attention
+    scale = float(scale)
+    tiled = k.shape[2] > MAX_RESIDENT_KV
+    if tiled and q.shape[2] < KV_TILED_MIN_Q:
+        from mico_tpu_torch.ops.attention import plain_attention
 
-            return plain_attention(q, k, v, bias=bias, scale=scale)
-        raise NotImplementedError(
-            "K6 (KV-tiled flash attention, mico_tpu/ops/flash_attention.py:"
-            "218) is not ported yet: Lk > 8192 with Lq >= 128 "
-            "(ROADMAP.md, kernel queue)"
-        )
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        return _Flash.apply(q, k, v, bias, float(scale))
-    return _flash_forward(q, k, v, bias, float(scale))
+        return plain_attention(q, k, v, bias=bias, scale=scale)
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias))):
+        return _flash_forward(q, k, v, bias, scale)
+    if tiled and (bias is None or KV_TILED_BIAS_IS_MASK):
+        return _KVTiled.apply(q, k, v, bias, scale)
+    return _Flash.apply(q, k, v, bias, scale)
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 / K6b: KV-tiled flash attention and its backward (long context)
+# ---------------------------------------------------------------------------
+
+
+def kv_tiled_attention_plain(q, k, v, bias: Optional[torch.Tensor],
+                             scale: float, return_lse: bool = False):
+    """K6's twin, the rounding points of `_kv_tiled_kernel`
+    (flash_attention.py:160-215): q cast to k's dtype with no prescale; s =
+    q·kᵀ in fp32 times scale, plus the bias in fp32; p = exp(s − m) in
+    natural exp; p rounded to v's dtype for the PV product, the row sum l
+    over the unrounded p; o = acc / l in q's dtype and lse = m + log l in
+    fp32 (B, H, Lq, 1). Full-row: m is the row's maximum, not a running
+    one. The production tiles (`KV_TILED_TQ`/`TK` = 512/2048) and the card's
+    64-key chunks change only where p is rounded relative to the running
+    maximum, an fp32 rescale of an equally rounded p; a full-row twin is
+    the same function for any tiling, and in fp32 equals the tiled kernels
+    up to summation order."""
+    s = torch.matmul(q.to(k.dtype).float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(q.dtype)
+    return (o, m + torch.log(l)) if return_lse else o
+
+
+def kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta,
+                                 bias: Optional[torch.Tensor], scale: float):
+    """K6b's twin, the rounding points of `_kv_tiled_dq_kernel` and
+    `_kv_tiled_dkv_kernel` (flash_attention.py:369-483): p = exp(s − lse)
+    in fp32 with s as K6's; dp = g·vᵀ in fp32; ds = p·(dp − δ)·scale
+    rounded to k's dtype; dq = ds·k, dv = bf16(p)ᵀ·g, dk = dsᵀ·q, fp32
+    accumulation, written in the inputs' dtypes. Full-row, so there are no
+    padded tail rows: the kernels zero theirs (never 0·NaN). → (dq, dk,
+    dv)."""
+    kf, vf = k.float(), v.float()
+    qf, gf = q.to(k.dtype).float(), g.to(v.dtype).float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - lse)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(k.dtype).float()
+    dq = torch.matmul(ds, kf).to(q.dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).to(k.dtype)
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), gf).to(v.dtype)
+    return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_entry():
+    fn = _build.load("kv_tiled_attn").mico_kv_tiled_attn
+    fn.argtypes = [_c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+        _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _k6b_entry():
+    fn = _build.load("kv_tiled_attn_bwd").mico_kv_tiled_attn_bwd
+    fn.argtypes = [_c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+        _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def kv_tiled_attention(q, k, v, bias: Optional[torch.Tensor], scale: float,
+                       return_lse: bool = False):
+    """K6: q (B, H, Lq, D), k, v (B, H, Lk, D), bias broadcastable
+    (B|1, H|1, Lq|1, Lk) → o (B, H, Lq, D), and with `return_lse` also the
+    per-row log-sum-exp (B, H, Lq, 1) fp32. On the card q, k, v are bf16
+    views as K2 takes them (BERT's cross-attention K/V need no copy); CPU
+    tensors take the plain twin."""
+    if not q.is_cuda:
+        return kv_tiled_attention_plain(q, k, v, bias, scale, return_lse)
+    _check_heads("K6", q, k, v)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    out = _heads_out(q, lq)
+    lse = (torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    bias_t, bstrides = _bias_strides(bias, q, lk)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]] + bstrides
+    rc = _k6_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_t.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, lq, lk,
+        d, (ctypes.c_longlong * 16)(*strides), float(scale),
+        int(bias is not None), _stream(),
+    )
+    _check(rc, "kv_tiled_attn")
+    kv_tiled_attention.launches += 1
+    return (out, lse) if return_lse else out
+
+
+kv_tiled_attention.launches = 0
+
+
+def _check_row_stats(q, *stats) -> None:
+    """K6b's lse and δ: contiguous fp32 (B, H, Lq, 1) on q's device."""
+    b, h, lq, _ = q.shape
+    for t in stats:
+        _require(t.dtype == torch.float32 and tuple(t.shape) == (b, h, lq, 1)
+                 and t.is_contiguous() and t.device == q.device,
+                 f"K6b: lse and delta must be contiguous fp32 "
+                 f"({b}, {h}, {lq}, 1), got {t.dtype} {tuple(t.shape)}")
+
+
+def kv_tiled_attention_bwd(q, k, v, g, lse, delta,
+                           bias: Optional[torch.Tensor], scale: float):
+    """K6b: the gradient (dq, dk, dv) of K6 for the output gradient g, from
+    K6's lse and δ = Σ(g·out) (each (B, H, Lq, 1) fp32), the bias replayed
+    into the scores and given no gradient. On the card q, k, v and g as K6
+    takes q, k, v; one call launches the dQ and the dK/dV kernels and counts
+    once. CPU tensors take the plain twin."""
+    if not q.is_cuda:
+        return kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta, bias,
+                                            scale)
+    _check_heads("K6b", q, k, v, g)
+    _check_row_stats(q, lse, delta)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dq, dk, dv = _heads_out(q, lq), _heads_out(k, lk), _heads_out(v, lk)
+    bias_t, bstrides = _bias_strides(bias, q, lk)
+    strides = [s for t in (q, k, v, g, dq, dk, dv)
+               for s in t.stride()[:3]] + bstrides
+    rc = _k6b_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), bias_t.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
+        (ctypes.c_longlong * 25)(*strides), float(scale),
+        int(bias is not None), _stream(),
+    )
+    _check(rc, "kv_tiled_attn_bwd")
+    kv_tiled_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+kv_tiled_attention_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -714,12 +943,14 @@ KERNELS = {
     "K3": packed_attention,
     "K4": packed_attention_bwd,
     "K5": fused_qkv_self_attention,
+    "K6": kv_tiled_attention,
+    "K6b": kv_tiled_attention_bwd,
     "K8": fused_qkv_attn_proj,
 }
 
 
 def _all_kernels() -> dict:
-    """K1-K5, K8 and K7 (`ops/int8_attention.py`, which imports this
+    """K1-K6b, K8 and K7 (`ops/int8_attention.py`, which imports this
     module)."""
     from mico_tpu_torch.ops.int8_attention import int8_cross_attention
 

@@ -4,6 +4,7 @@
 
     python3 scripts/torch_train_bench.py [--task ret%tva_cap%tva] [--batch 8]
         [--frames 4] [--audio-slices 2] [--steps 8] [--profile]
+    python3 scripts/torch_train_bench.py --long-context [--batch 2] [--profile]
 
 The model is MiCo-ViT-g at full width (EVA01-CLIP-g/14, BERT-base) with
 fp32 master weights and AdamW moments from seed 0 and bf16 compute, dropout
@@ -11,6 +12,10 @@ and drop-path on; the batch is `--batch` synthetic samples of `--frames`
 RGB frames and `--audio-slices` fbank slices at 224 px and a 40-token
 caption, made with numpy from seed 0 (`mico_tpu_torch.train.workload`). The
 defaults are `configs/pretrain-omni.json`'s task and sample shape.
+`--long-context` is `scripts/train_bench.py --long-context`'s sample: task
+cap%tv over 32 frames (8,224 condition tokens) with 128-token captions and
+no audio, B 2 by default, BERT's attention-probability dropout 0 so that the
+cross-attention takes K6 and K6b (`workload.long_context_config`).
 
 Prints the card's name and power limit, each step's host-clock time (each
 ending in a synchronize: the step reads its loss), then one line with
@@ -41,9 +46,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 WARMUP = 2
+# K2 and K6 are instances of one template, `flash_kernel<KS, TILED>`
 GROUPS = (
     ("K3 packed_attn", ("packed_attn_kernel",)),
     ("K4 packed_attn_bwd", ("bwd_rows_kernel", "bwd_cols_kernel")),
+    ("K6 kv_tiled", ("true>(mico::flash::FlashArgs",)),
+    ("K6b kv_tiled_bwd", ("dq_kernel", "dkv_kernel")),
     ("K2 flash", ("flash_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2",
                        "gemv")),
@@ -99,9 +107,12 @@ def profile_step(fn) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--task", default="ret%tva_cap%tva")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="8, or 2 with --long-context")
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--audio-slices", type=int, default=2)
+    ap.add_argument("--long-context", action="store_true",
+                    help="cap%%tv over 32 frames with 128-token captions")
     ap.add_argument("--steps", type=int, default=8,
                     help=f"timed steps after {WARMUP} warm-up steps")
     ap.add_argument("--profile", action="store_true")
@@ -115,27 +126,35 @@ def main() -> int:
     from mico_tpu_torch.ops import flash_attention as fa
     from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
     from mico_tpu_torch.train.train_step import make_train_step
-    from mico_tpu_torch.train.workload import (CAPTION_LEN,
-                                               pretrain_step_flops,
-                                               synthetic_batch)
+    from mico_tpu_torch.train import workload as wl
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     _build.build_all()
-    cfg = MiCoConfig(max_vision_sample_num=args.frames,
-                     max_audio_sample_num=args.audio_slices)
+    if args.long_context:
+        args.task, args.frames = wl.LONG_CONTEXT_TASK, wl.LONG_CONTEXT_FRAMES
+        args.audio_slices, cap_len = 0, wl.LONG_CONTEXT_CAPTION_LEN
+        args.batch = args.batch or 2
+        cfg = wl.long_context_config()
+        batch = wl.long_context_batch(args.batch, seed=0)
+    else:
+        cap_len, args.batch = wl.CAPTION_LEN, args.batch or 8
+        cfg = MiCoConfig(max_vision_sample_num=args.frames,
+                         max_audio_sample_num=args.audio_slices)
+        batch = wl.synthetic_batch(args.batch, frames=args.frames,
+                                   audio=args.audio_slices, seed=0)
     model = MiCo(cfg, device="cuda", seed=0)
     opt = build_optimizer(model, OptimConfig(
         num_train_steps=WARMUP + args.steps + 1))
     step = make_train_step(cfg, opt, args.task)
-    batch = synthetic_batch(args.batch, frames=args.frames,
-                            audio=args.audio_slices, seed=0)
     gen = torch.Generator().manual_seed(0)
     print(f"task {args.task}: B={args.batch}, {args.frames} frames + "
-          f"{args.audio_slices} audio slices per sample, {CAPTION_LEN}-token "
-          f"captions; fp32 master weights, bf16 compute", flush=True)
+          f"{args.audio_slices} audio slices per sample, {cap_len}-token "
+          f"captions; fp32 master weights, bf16 compute, attention-"
+          f"probability dropout {cfg.bert_config.attention_probs_dropout_prob}",
+          flush=True)
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for i in range(WARMUP + args.steps):
@@ -148,10 +167,11 @@ def main() -> int:
         print(f"  step {i + 1}: {times[-1]:.2f} ms, loss_total "
               f"{losses[-1]:.5f}, launches {fa.launch_counts()}", flush=True)
     ms = statistics.median(times[WARMUP:])
-    flops = pretrain_step_flops(cfg, args.batch, args.frames,
-                                args.audio_slices, CAPTION_LEN, args.task)
+    flops = wl.pretrain_step_flops(cfg, args.batch, args.frames,
+                                   args.audio_slices, cap_len, args.task)
     res = dict(card=card, task=args.task, batch=args.batch,
                frames=args.frames, audio_slices=args.audio_slices,
+               caption_len=cap_len,
                step_ms=ms, step_times_ms=times, losses=losses,
                samples_per_s=1e3 * args.batch / ms,
                model_tflops_per_s=flops / (ms * 1e-3) / 1e12,

@@ -64,7 +64,8 @@ def test_k1_route_on_cpu_launches_nothing(rng, towers):
     px = t(rng.standard_normal((1, 3, 28, 28)).astype(np.float32))
     tvit.eva_vit_forward(towers[2].vision_encoder, px, attn_impl="flash")
     assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                   "K5": 0, "K7": 0, "K8": 0}
+                                   "K5": 0, "K6": 0, "K6b": 0, "K7": 0,
+                                   "K8": 0}
 
 
 @pytest.mark.parametrize("fused_proj,folded",

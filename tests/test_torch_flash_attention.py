@@ -132,17 +132,19 @@ def test_routing_threshold(rng, monkeypatch, lq, lk, route):
 
 def test_long_kv_routes(rng, monkeypatch):
     """Past 8192 KV rows: fewer than 128 query rows take plain math
-    (`_flash_diff`, flash_attention.py:639-643); more need K6, which raises
-    rather than running plain math silently."""
+    (`_flash_diff`, flash_attention.py:639-643); more take K6 (its plain
+    twin here), where the port once raised NotImplementedError."""
     q, k, v = _qkv(rng, 1, 1, 4, 8193, 8)
     spy = _Spy(monkeypatch)
     out = tfa.flash_attention(t(q), t(k), t(v))
     assert spy.calls == ["flash", "plain"]
     close(out, xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)),
           OP_TOL)
-    big_q = torch.zeros(1, 1, 128, 8)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tfa.flash_attention(big_q, t(k), t(v))
+    big_q = rng.standard_normal((1, 1, 128, 8)).astype(np.float32)
+    out = tfa.flash_attention(t(big_q), t(k), t(v))
+    assert spy.calls == ["flash", "plain", "flash"]
+    close(out, xla_attention(jnp.asarray(big_q), jnp.asarray(k),
+                             jnp.asarray(v)), OP_TOL)
 
 
 def test_unknown_impl_raises():
@@ -158,9 +160,13 @@ def test_launch_counters_reset():
     tfa.packed_attention_bwd.launches = 11
     tfa.fused_qkv_self_attention.launches = 13
     tfa.fused_qkv_attn_proj.launches = 17
+    tfa.kv_tiled_attention.launches = 19
+    tfa.kv_tiled_attention_bwd.launches = 23
     int8_cross_attention.launches = 7
     assert tfa.launch_counts() == {"K1": 3, "K2": 5, "K3": 9, "K4": 11,
-                                   "K5": 13, "K7": 7, "K8": 17}
+                                   "K5": 13, "K6": 19, "K6b": 23, "K7": 7,
+                                   "K8": 17}
     tfa.reset_launch_counts()
     assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                                   "K5": 0, "K7": 0, "K8": 0}
+                                   "K5": 0, "K6": 0, "K6b": 0, "K7": 0,
+                                   "K8": 0}

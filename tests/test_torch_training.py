@@ -2,8 +2,9 @@
 on the CPU at the tiny fp32 config: `task_losses` values and gradients for
 'ret%tva_cap%tva' and 'qa%tv' with JAX's own draws injected, the masker
 contract, the schedules, the param groups, three AdamW updates against the
-optax chain, a descending step; and the repairs: K1 and K7 refuse to run
-under autograd, K2 has the gradient of `_flash_diff`."""
+optax chain, a descending step, the long-context caption loss on the
+KV-tiled route (K6, K6b); and the repairs: K1 and K7 refuse to run under
+autograd, K2 has the gradient of `_flash_diff`."""
 
 import jax
 import jax.numpy as jnp
@@ -108,6 +109,87 @@ def test_task_losses_and_grads_match_jax(monkeypatch, task, size, frames):
     for name in want:
         close(got[name], want[name], dict(rtol=1e-5, atol=1e-6))
     sum(got.values()).backward()
+    sd = params_from_jax(to_numpy(want_grads), tcfg)
+    for name, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        close(g, sd[name], MODEL_TOL)
+
+
+@pytest.fixture
+def kv_tiled_at_tiny(monkeypatch):
+    """Both packages take the KV-tiled route (K6, K6b) at the tiny config:
+    a resident cliff of 256 keys under the 260 condition tokens of 4 frames
+    at 112 px, and a KV_TILED_MIN_Q of 16 query rows. JAX reads both at
+    trace time, so compiled programs are dropped before and after."""
+    jax.clear_caches()
+    for mod in (jfa, tfa):
+        monkeypatch.setattr(mod, "MAX_RESIDENT_KV", 256)
+        monkeypatch.setattr(mod, "KV_TILED_MIN_Q", 16)
+    yield
+    jax.clear_caches()
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_long_context_caption_matches_jax(monkeypatch, kv_tiled_at_tiny,
+                                          grad):
+    """Long-context captioning at the tiny config: 'cap%tv' with 16-token
+    captions over 260 condition tokens, the cross-attention (16 x 260 >
+    64 x 64) on the KV-tiled route in both packages (the Pallas kernels in
+    interpret mode, the port's K6/K6b plain twins). With JAX's mask draws
+    injected the loss equals JAX's and, under autograd, so do the
+    gradients; each layer runs K6 with LSE and K6b once. The no-grad
+    forward runs K6 without LSE and no K6b."""
+    task, size, frames = "cap%tv", 112, 4
+    jcfg, tcfg = configs(eva=dict(image_size=size), bert=NO_DROPOUT)
+    params = perturbed_params(jcfg, seed=6)
+    batch = _batch(np.random.default_rng(8), 3, frames, size, cap_len=16)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    key = jax.random.PRNGKey(5)
+    jax_calls = []     # JAX's KV-tiled entries, each time one is traced
+    for name in ("_flash_kv_tiled", "_flash_kv_tiled_stats",
+                 "_flash_kv_tiled_bwd"):
+        def jspy(*a, _real=getattr(jfa, name), _name=name, **kw):
+            jax_calls.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(jfa, name, jspy)
+    masks = []
+    with monkeypatch.context() as m:
+        real_mask = jobj.mask_tokens
+        m.setattr(jobj, "mask_tokens",
+                  lambda *a, **kw: masks.append(real_mask(*a, **kw))
+                  or masks[-1])
+        want, masks = jax.jit(lambda p: (
+            jobj.task_losses(key, p, jcfg, jbatch, task), masks))(params)
+
+    calls = []
+    for name, tag in (("kv_tiled_attention_plain", "K6"),
+                      ("kv_tiled_attention_bwd_plain", "K6b")):
+        def spy(*a, _real=getattr(tfa, name), _tag=tag, **kw):
+            calls.append(_tag + ("+lse" if len(a) > 5 and a[5] is True
+                                 else ""))
+            return _real(*a, **kw)
+        monkeypatch.setattr(tfa, name, spy)
+    model = port_model(params, tcfg).requires_grad_(grad)
+    draws = objectives.Draws(
+        masks=[tuple(t(np.asarray(x)) for x in pair) for pair in masks])
+    nl = tcfg.bert_config.num_hidden_layers
+    with torch.set_grad_enabled(grad):
+        got = no_launch(lambda: objectives.task_losses(
+            model, tcfg, _torch_batch(batch), task,
+            torch.Generator().manual_seed(0), draws=draws))
+    assert sorted(got) == sorted(want) == ["loss_cap"] and not draws.masks
+    close(got["loss_cap"], want["loss_cap"], dict(rtol=1e-5, atol=1e-6))
+    if not grad:
+        assert calls == ["K6"] * nl
+        assert set(jax_calls) == {"_flash_kv_tiled"}
+        return
+    assert calls == ["K6+lse"] * nl
+    no_launch(lambda: got["loss_cap"].backward())
+    assert calls == ["K6+lse"] * nl + ["K6b"] * nl
+    want_grads = jax.jit(jax.grad(lambda p: jobj.task_losses(
+        key, p, jcfg, jbatch, task)["loss_cap"]))(params)
+    assert set(jax_calls) == {"_flash_kv_tiled", "_flash_kv_tiled_stats",
+                              "_flash_kv_tiled_bwd"}
     sd = params_from_jax(to_numpy(want_grads), tcfg)
     for name, p in model.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -400,6 +482,24 @@ def test_workload_batch_and_flops():
     assert (batch["caption_ids"][:, 0] == 101).all()
     assert batch["caption_mask"].sum(dim=1).tolist() == [30, 40, 40]
     assert pretrain_step_flops(MiCoConfig(), 8) == 82184089042944
+
+
+def test_long_context_workload():
+    """The long-context sample of `train_bench.py --long-context`: 32
+    frames, 128-token captions, no audio; the port's FLOPs for one 'cap%tv'
+    step at B = 2 equal that script's `mix_train_flops` (104243832029184,
+    computed there)."""
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.train import workload as wl
+
+    batch = wl.long_context_batch(2, size=28, device="cpu")
+    assert sorted(batch) == ["caption_ids", "caption_mask", "vision_pixels"]
+    assert batch["vision_pixels"].shape == (2, 32, 3, 28, 28)
+    assert batch["caption_ids"].shape == (2, 128)
+    cfg = MiCoConfig(max_vision_sample_num=32, max_caption_len=128)
+    assert wl.pretrain_step_flops(
+        cfg, 2, wl.LONG_CONTEXT_FRAMES, 0, wl.LONG_CONTEXT_CAPTION_LEN,
+        wl.LONG_CONTEXT_TASK) == 104243832029184
 
 
 def test_itm_dedup_cross_kv_equivalence():
