@@ -59,6 +59,15 @@ Phases, run in order (any failure exits non-zero):
      within 1e-2 of the fp32 ITM probabilities; the whole bf16 route's ITM
      gap reported (at seed 0 the tower's near-argmax attention makes it
      scatter over images with an rms of 5-7e-3 on every bf16 route);
+  6b. CLIP: MiCo on the OpenAI-CLIP ViT-L/14 tower
+     (`vision_encoder_type="clip_vit_large_14_336px"`, which JAX maps to
+     224 px: 24 blocks, width 1024, 16 heads of 64, 257 tokens) at full
+     width and depth, fp32 weights drawn once from seed 0 on the card and a
+     bf16 copy: the omni step (K3 24, every other kernel 0; median ms of 5,
+     samples/s) and ITM (K3 24, K2 12), then both again with
+     `PACKED_CLS_SPLIT` on (K9 24, K3 0); each route's embeddings at cosine
+     >= 0.999 and its ITM within 1e-2 of the same one-sample inputs through
+     the fp32 weights on the plain routes on the card (TF32 off);
   7. train: K3 and K4 against their plain versions on the card in bf16 at
      the train step's vision pass (32, 257, 16 x 88) and at (3, 50, 4 x 64),
      timed beside the plain versions, SDPA (forward; its autograd backward
@@ -71,9 +80,15 @@ Phases, run in order (any failure exits non-zero):
      second's (the first with a non-zero learning rate), ms/step,
      samples/s, model TFLOP/s and peak memory; then the gradient check: at
      B = 2 with every rate 0 and the draws injected, the card in bf16 (K3,
-     K4, K2 and its backward) against the card in fp32 on the plain routes,
-     each loss within 2e-2 relative and the gradient cosine >= 0.99 for
-     each optimizer group and the first and last block's qkv_w;
+     K4, K2 and its backward) and in bf16 with `PACKED_CLS_SPLIT` on (K9 80,
+     K3 0, K4 80 over the vision and audio passes) against the card in fp32
+     on the plain routes, each loss within 2e-2 relative and the gradient
+     cosine >= 0.99 for each optimizer group and the first and last block's
+     qkv_w. Between the two, K9 against its plain version on unit-std qkv at
+     the train pass (32, 257, 3 x 16 x 88), CLIP-L/14's (112, 257, 3 x 16 x
+     64), (8, 257, 3 x 16 x 112) and (2, 385, 3 x 4 x 64) (the K3 gates),
+     timed at CLIP-L's and the train pass's beside K3 on the same input,
+     the plain version, SDPA and the bound;
   8. long-context: K6 (with and without the LSE) and K6b (dq, dk, dv)
      against their plain versions in bf16 on unit-std inputs at the
      long-context step's cross-attention (2, 12, 128, 8224, 64) in BERT's
@@ -92,7 +107,17 @@ Phases, run in order (any failure exits non-zero):
      B = 1 over condition tokens computed once, the bf16 kernel route
      against the card's fp32 plain route (loss within 2e-2 relative, cosine
      >= 0.99 per BERT parameter group and for the first and last layer's
-     cross-attention q/k/v weights).
+     cross-attention q/k/v weights);
+  9. mlp: P1 (`ops/fused_mlp.py`, the fused MLP of
+     `scripts/pallas_matmul_probe.py`) against its plain version at the
+     probe's geometry, x (28784, 1408), W1 (1408, 6144), W2 (6144, 1408),
+     and at a ragged (200, 128) x (128, 256), at 32 and 16 rows a block:
+     x unit-std and the weights at 1/sqrt(fan-in), so the MLP branch is as
+     large as x (the kernel gates, and the branch out - x alone under the
+     relative mean gate); timed beside the plain version, the library
+     route (torch.matmul, F.gelu, torch.matmul, the add) and the bound;
+     then the probe's chain of 8 calls (`scripts/torch_mlp_probe.py` at its
+     0.02-scale data), counted from 0 (P1 8).
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -119,7 +144,9 @@ KERNEL_PATH = {"K1": "omni step", "K2": "ITM", "K3": "train step",
                "K6": "long-context train step",
                "K6b": "long-context train step",
                "K7": "int8 beam caption (image)",
-               "K8": "bigE omni step (FUSED_ATTN_PROJ)"}
+               "K8": "bigE omni step (FUSED_ATTN_PROJ)",
+               "K9": "CLIP omni step (PACKED_CLS_SPLIT)",
+               "P1": "MLP probe chain"}
 # published H100 SXM peaks (dense bf16 tensor cores, HBM3)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -598,19 +625,21 @@ CAPTIONS = ["a man is skiing in a snowy day.", "it's a hot day",
             "two dogs play with a red ball on the grass"]
 
 
-def run_counted(fa, paths: dict, what: str, fn, K1=0, K2=0, K3=0, K4=0,
-                K5=0, K6=0, K6b=0, K7=0, K8=0):
+def run_counted(fa, paths: dict, what: str, fn, **want):
     """Run one path with every launch count set to 0 just before it, keep
-    its own counts in `paths[what]` and hold them to the path's."""
+    its own counts in `paths[what]` and hold them to the path's (`want`
+    names the kernels it launches; every other count must stay 0)."""
     fa.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
     got = fa.launch_counts()
     paths[what] = got
-    want = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "K5": K5, "K6": K6,
-            "K6b": K6b, "K7": K7, "K8": K8}
-    if got != want:
-        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    unknown = set(want) - set(got)
+    want = {name: want.get(name, 0) for name in got}
+    if unknown or got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}"
+                             + (f"; unknown kernels {unknown}" if unknown
+                                else ""))
     return out
 
 
@@ -1087,6 +1116,97 @@ def phase_bige(fa, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: MiCo on the OpenAI-CLIP ViT-L/14 tower (K3, or K9 with the flag)
+# ---------------------------------------------------------------------------
+
+
+def phase_clip(fa, card: str) -> dict:
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.text import BertWordPieceTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MiCoConfig(vision_encoder_type="clip_vit_large_14_336px",
+                     max_vision_sample_num=4, max_audio_sample_num=2)
+    tower = cfg.vision_tower_config
+    nlayers, nbert = tower.layers, cfg.bert_config.num_hidden_layers
+    t0 = time.perf_counter()
+    # one draw of the fp32 weights; the bf16 model is a copy of them
+    model32 = MiCo(cfg, device="cuda", seed=0)
+    model = copy.deepcopy(model32).to(dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+    n_vit = sum(p.numel() for p in model.vision_encoder.parameters())
+    log(f"phase CLIP: MiCo on the OpenAI-CLIP tower of "
+        f"'{cfg.vision_encoder_type}' (ViT-L/{tower.patch_size} at "
+        f"{tower.input_resolution} px: {nlayers} blocks, width {tower.width}, "
+        f"{tower.heads} heads of {tower.width // tower.heads}, "
+        f"{tower.seq_len} tokens; {n_vit / 1e6:.1f} M tower parameters; "
+        f"BERT {nbert} layers), fp32 drawn and a bf16 copy made on the card "
+        f"in {build_s:.1f} s")
+    inp = omni_inputs()
+    dev = {k: torch.from_numpy(v).cuda() for k, v in inp.items()}
+    tok = BertWordPieceTokenizer()
+    enc = tok(CAPTIONS, max_length=TEXT_LEN)
+    cap_ids = torch.from_numpy(enc["input_ids"]).long().cuda()
+    cap_mask = torch.from_numpy(enc["attention_mask"]).long().cuda()
+    paths, routes = {}, {}
+    for kernel, split in (("K3", False), ("K9", True)):
+        tag = " (PACKED_CLS_SPLIT)" if split else ""
+        fa.PACKED_CLS_SPLIT = split
+        try:
+            out = run_counted(fa, paths, "CLIP omni step" + tag,
+                              lambda: omni_step(model, **dev),
+                              **{kernel: nlayers})
+            times = timed_runs(lambda: omni_step(model, **dev), runs=5)
+            itm = run_counted(
+                fa, paths, "CLIP ITM" + tag,
+                lambda: itm_probs(model, dev["image"][:1], cap_ids, cap_mask),
+                **{kernel: nlayers, "K2": nbert})
+        finally:
+            fa.PACKED_CLS_SPLIT = False
+        for name in ("image", "video", "audio", "text"):
+            check_unit(f"CLIP omni {name}{tag}", out[name])
+        if itm.shape != (3,) or not torch.isfinite(itm).all():
+            raise AssertionError(f"CLIP ITM probabilities{tag} {itm}")
+        step_ms = statistics.median(times)
+        routes[kernel] = dict(out=out, itm=itm, step_ms=step_ms, times=times)
+        log(f"  CLIP omni step S={S}{tag} ({kernel} x {nlayers}): median "
+            f"{step_ms:.2f} ms of {len(times)} "
+            f"({[round(x, 2) for x in times]}), "
+            f"{1e3 * S / step_ms:.2f} samples/s [{card}]; ITM "
+            f"{[round(x, 5) for x in itm.tolist()]}")
+
+    # the reference: the same one-sample inputs through the fp32 weights on
+    # the plain routes (fp32 compute takes the plain twins), on the card
+    model32.cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                      use_flash_attention=False)
+    one = {k: v[:1] for k, v in dev.items()}
+    want = run_counted(fa, paths, "CLIP fp32 plain reference",
+                       lambda: omni_step(model32, **one))
+    itm_want = itm_probs(model32, one["image"], cap_ids, cap_mask)
+    result = dict(build_s=build_s, tower_params=n_vit, paths=paths)
+    for kernel, r in routes.items():
+        cos = {name: min_row_cosine(r["out"][name][:1], want[name])
+               for name in ("image", "video", "audio", "text")}
+        gap = (r["itm"] - itm_want).abs().max().item()
+        log(f"  CLIP {kernel} route: card bf16 vs card fp32 cosine "
+            f"{cos}; ITM max |d| {gap:.3e} (fp32 {itm_want.tolist()})")
+        for name, c in cos.items():
+            if not c >= COSINE_MIN:
+                raise AssertionError(f"CLIP {kernel} route {name} cosine {c}")
+        if not gap <= ITM_PROB_TOL:
+            raise AssertionError(f"CLIP {kernel} route ITM gap {gap} > "
+                                 f"{ITM_PROB_TOL}")
+        result[kernel] = dict(step_ms=r["step_ms"], step_times_ms=r["times"],
+                              samples_per_s=1e3 * S / r["step_ms"],
+                              cosine=cos, itm_max_abs_diff=gap)
+    del model, model32, routes
+    free_cuda()
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the pretraining step
 # ---------------------------------------------------------------------------
 
@@ -1176,6 +1296,68 @@ def phase_train_kernels(fa) -> list:
         library_ms=cuda_time_ms(sdpa_bwd),
         bound_ms=bms, bound_by=by, flops=2.5 * att_flops, bytes=nbytes))
     return finish_rows(rows, errs)
+
+
+def phase_cls_kernels(fa) -> list:
+    """K9 against its plain version at ViT-g's train pass, CLIP-L/14's
+    serving pass, bigE's head width and a 385-token sequence; timed at the
+    CLIP-L pass (and the train pass) beside K3 on the same input, the plain
+    version, SDPA and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(5)
+    errs = {"K9": []}
+    log("phase cls: K9 packed_qkv_cls_attention vs "
+        "packed_qkv_cls_attention_plain")
+    inputs = {}
+    for b, l, nh, d in ((4 * TRAIN_B, 257, 16, 88), (112, 257, 16, 64),
+                        (8, 257, 16, 112), (2, 385, 4, 64)):
+        # unit std, as for K3: scores of std ~1, a softmax far from flat
+        qkv = torch.randn(b, l, 3 * nh * d, generator=gen).to(
+            "cuda", torch.bfloat16)
+        scale = d ** -0.5
+        errs["K9"].append(compare(
+            f"K9 qkv ({b}, {l}, {3 * nh * d}) H={nh} D={d}",
+            fa.packed_qkv_cls_attention(qkv, nh, scale),
+            fa.packed_qkv_cls_attention_plain(qkv, nh, scale),
+            rel_mean=REL_MEAN_ERR_MAX))
+        inputs[(b, l, nh, d)] = qkv
+
+    def timed(qkv, nh, d) -> dict:
+        b, l, w3 = qkv.shape
+        w, scale = w3 // 3, d ** -0.5
+        q, k, v = qkv.chunk(3, dim=-1)
+        qh, kh, vh = (x.view(b, l, nh, d).transpose(1, 2) for x in (q, k, v))
+        flops = 4 * b * nh * l * l * d
+        nbytes = 2 * (qkv.numel() + b * l * w)
+        bms, by = bound_ms(flops, nbytes)
+        return dict(
+            ms=cuda_time_ms(lambda: fa.packed_qkv_cls_attention(qkv, nh,
+                                                                scale)),
+            k3_ms=cuda_time_ms(lambda: fa.packed_attention(q, k, v, nh,
+                                                           scale)),
+            plain_ms=cuda_time_ms(
+                lambda: fa.packed_qkv_cls_attention_plain(qkv, nh, scale),
+                iters=5, warmup=1),
+            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale)),
+            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+
+    clip = timed(inputs[(112, 257, 16, 64)], 16, 64)
+    train = timed(inputs[(4 * TRAIN_B, 257, 16, 88)], 16, 88)
+    row = dict(name="K9 packed_qkv_cls_attention", route="cuda",
+               source="mico_tpu_torch/csrc/packed_cls_attn.cu",
+               replaces="mico_tpu/ops/flash_attention.py:809",
+               shape="qkv (112, 257, 3072) bf16, H=16, D=64", **clip,
+               train_shape=f"qkv ({4 * TRAIN_B}, 257, 4224) bf16, H=16, D=88",
+               **{f"train_{k}": v for k, v in train.items()})
+    finish_rows([row], errs)
+    log(f"  K9 vs K3 on the same input: CLIP-L {clip['ms']:.4f} vs "
+        f"{clip['k3_ms']:.4f} ms; ViT-g train pass {train['ms']:.4f} vs "
+        f"{train['k3_ms']:.4f} ms (plain {train['plain_ms']:.4f}, SDPA "
+        f"{train['library_ms']:.4f}, bound {train['bound_ms']:.4f} by "
+        f"{train['bound_by']})")
+    return [row]
 
 
 def free_cuda() -> None:
@@ -1270,15 +1452,21 @@ def phase_train_grads(fa) -> dict:
     flip = torch.arange(GRAD_B, device="cuda").roll(1)
     names = [n for n, _ in model.named_parameters()]
     runs = {}
-    for label, cfg in (("bf16", cfg16), ("fp32", cfg32)):
+    for label, cfg, split in (("bf16", cfg16, False),
+                              ("bf16 K9", cfg16, True),
+                              ("fp32", cfg32, False)):
         model.cfg = cfg
         model.zero_grad(set_to_none=True)
         fa.reset_launch_counts()
-        losses = task_losses(model, cfg, batch, PRETRAIN_TASK,
-                             torch.Generator().manual_seed(0),
-                             draws=Draws(masks=[masked],
-                                         negatives=[(flip, flip)]))
-        sum(losses.values()).backward()
+        fa.PACKED_CLS_SPLIT = split
+        try:
+            losses = task_losses(model, cfg, batch, PRETRAIN_TASK,
+                                 torch.Generator().manual_seed(0),
+                                 draws=Draws(masks=[masked],
+                                             negatives=[(flip, flip)]))
+            sum(losses.values()).backward()
+        finally:
+            fa.PACKED_CLS_SPLIT = False
         torch.cuda.synchronize()
         runs[label] = dict(
             losses={k: v.item() for k, v in losses.items()},
@@ -1289,46 +1477,59 @@ def phase_train_grads(fa) -> dict:
         model.zero_grad(set_to_none=True)
         log(f"  gradient check, card {label}: losses {runs[label]['losses']}, "
             f"launches {runs[label]['launches']}")
-    a, b = runs["bf16"], runs["fp32"]
+    b = runs["fp32"]
+    passes = 2 * base.eva_config.layers        # the vision and audio passes
+    a, k9 = runs["bf16"], runs["bf16 K9"]["launches"]
     if a["launches"]["K3"] == 0 or a["launches"]["K4"] == 0 \
             or a["launches"]["K2"] == 0:
         raise AssertionError(f"bf16 run missed a kernel: {a['launches']}")
+    if (k9["K9"], k9["K3"], k9["K4"]) != (passes, 0, passes):
+        raise AssertionError(f"bf16 K9 run launches {k9}: expected K9 "
+                             f"{passes}, K3 0, K4 {passes}")
     if any(v for v in b["launches"].values()):
         raise AssertionError(f"fp32 run launched kernels: {b['launches']}")
-    for k, v in b["losses"].items():
-        if not abs(a["losses"][k] - v) <= LOSS_RTOL * abs(v):
-            raise AssertionError(f"{k}: bf16 {a['losses'][k]} vs fp32 {v}")
 
     def cos(x, y):
         return torch.nn.functional.cosine_similarity(
             x.double().flatten(), y.double().flatten(), dim=0).item()
 
     labels = param_group_labels(model)
-    groups = {}
-    for n in names:
-        if n in a["grads"]:
-            groups.setdefault(labels[n], []).append(n)
-    group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
-                        torch.cat([b["grads"][n].flatten() for n in ns]))
-                 for g, ns in groups.items()}
     last = base.eva_config.layers - 1
-    held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
-        "vision_encoder.blocks.0.qkv_w", f"vision_encoder.blocks.{last}.qkv_w")}
-    per_tensor = {n: cos(a["grads"][n], b["grads"][n]) for n in a["grads"]
-                  if b["grads"][n].abs().max() > 0}
-    worst = min(per_tensor, key=per_tensor.get)
-    log(f"  gradient cosine bf16 vs fp32 by group {group_cos}; {held}; lowest "
-        f"per tensor {worst} {per_tensor[worst]:.6f}")
-    for name, c in {**group_cos, **held}.items():
-        if not c >= GRAD_COSINE_MIN:
-            raise AssertionError(f"gradient cosine {name} {c} < "
-                                 f"{GRAD_COSINE_MIN}")
+    out = {}
+    for label in ("bf16", "bf16 K9"):
+        a = runs[label]
+        for k, v in b["losses"].items():
+            if not abs(a["losses"][k] - v) <= LOSS_RTOL * abs(v):
+                raise AssertionError(f"{k}: {label} {a['losses'][k]} vs "
+                                     f"fp32 {v}")
+        groups = {}
+        for n in names:
+            if n in a["grads"]:
+                groups.setdefault(labels[n], []).append(n)
+        group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
+                            torch.cat([b["grads"][n].flatten() for n in ns]))
+                     for g, ns in groups.items()}
+        held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
+            "vision_encoder.blocks.0.qkv_w",
+            f"vision_encoder.blocks.{last}.qkv_w")}
+        per_tensor = {n: cos(a["grads"][n], b["grads"][n])
+                      for n in a["grads"] if b["grads"][n].abs().max() > 0}
+        worst = min(per_tensor, key=per_tensor.get)
+        log(f"  gradient cosine {label} vs fp32 by group {group_cos}; "
+            f"{held}; lowest per tensor {worst} {per_tensor[worst]:.6f}")
+        for name, c in {**group_cos, **held}.items():
+            if not c >= GRAD_COSINE_MIN:
+                raise AssertionError(f"{label} gradient cosine {name} {c} < "
+                                     f"{GRAD_COSINE_MIN}")
+        out[label] = dict(losses=a["losses"], launches=a["launches"],
+                          group_cosine=group_cos, qkv_w_cosine=held,
+                          lowest_tensor=worst,
+                          lowest_tensor_cosine=per_tensor[worst])
     del model, runs
     free_cuda()
-    return dict(losses_bf16=a["losses"], losses_fp32=b["losses"],
-                launches_bf16=a["launches"], group_cosine=group_cos,
-                qkv_w_cosine=held, lowest_tensor=worst,
-                lowest_tensor_cosine=per_tensor[worst])
+    return dict(losses_fp32=b["losses"], **{
+        ("bf16" if label == "bf16" else "bf16_k9"): r
+        for label, r in out.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -1635,6 +1836,119 @@ def phase_long_grads(fa, model) -> dict:
                 lowest_tensor_cosine=per_tensor[worst])
 
 
+# ---------------------------------------------------------------------------
+# phase 9: P1, the fused ViT MLP of the matmul probe
+# ---------------------------------------------------------------------------
+
+
+def mlp_probe():
+    """`scripts/torch_mlp_probe.py`, the P1 probe, imported by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_mlp_probe.py"
+    spec = importlib.util.spec_from_file_location("torch_mlp_probe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def mlp_inputs(gen, m, k, n):
+    """x unit-std and W1, W2 at std 1/sqrt(fan-in): the MLP branch is as
+    large as x, so a fault in it cannot hide under the residual (on the
+    probe's 0.02-scale data x dominates the output)."""
+    def rnd(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+
+    return rnd(m, k), rnd(k, n, s=k ** -0.5), rnd(n, k, s=n ** -0.5)
+
+
+def mlp_library(x, w1, w2):
+    """One PyTorch call per stage: torch.matmul, F.gelu (tanh), torch.matmul,
+    the residual add; the (M, N) hidden goes through HBM."""
+    import torch.nn.functional as F
+
+    return torch.matmul(F.gelu(torch.matmul(x, w1), approximate="tanh"),
+                        w2) + x
+
+
+def check_branch(name: str, got, want, x) -> dict:
+    """The MLP branch alone, out - x, under the relative mean gate."""
+    gb, wb = got.float() - x.float(), want.float() - x.float()
+    err = (gb - wb).abs().mean().item()
+    ref = wb.abs().mean().item()
+    log(f"  {name} branch (out - x): mean|d| {err:.3e} (mean |ref| {ref:.3e})")
+    if not err <= REL_MEAN_ERR_MAX * ref:
+        raise AssertionError(f"{name} branch: mean |d| {err:.3e} > "
+                             f"{REL_MEAN_ERR_MAX} * {ref:.3e}")
+    return {"branch_mean_abs_err": err, "branch_mean_abs_ref": ref}
+
+
+def phase_mlp(fa, card: str) -> tuple:
+    """P1 against its plain version at the probe's geometry and a ragged
+    small one, timed beside the plain version, the library route and the
+    bound; then the probe's chain of 8 calls, counted from 0."""
+    from mico_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+    probe = mlp_probe()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    errs = {"P1": []}
+    log("phase mlp: P1 fused_mlp vs fused_mlp_plain")
+    branch = {}
+    for m, k, n in ((probe.M, probe.K, probe.N), (200, 128, 256)):
+        x, w1, w2 = mlp_inputs(gen, m, k, n)
+        want = fused_mlp_plain(x, w1, w2)
+        for rows in (32, 16):
+            got = fused_mlp(x, w1, w2, rows)
+            name = f"P1 ({m}, {k}) x ({k}, {n}) rows {rows}"
+            errs["P1"].append(compare(name, got, want,
+                                      rel_mean=REL_MEAN_ERR_MAX))
+            branch[name] = check_branch(name, got, want, x)
+        if m == probe.M:
+            timed = (x, w1, w2)
+        del want, got
+    x, w1, w2 = timed
+    m, k = x.shape
+    n = w1.shape[1]
+    flops = 4 * m * k * n
+    nbytes = 2 * (2 * x.numel() + w1.numel() + w2.numel())
+    bms, by = bound_ms(flops, nbytes)
+    row = dict(
+        name="P1 fused_mlp", route="cuda",
+        source="mico_tpu_torch/csrc/fused_mlp.cu",
+        replaces="scripts/pallas_matmul_probe.py:33",
+        shape=f"x ({m}, {k}), W1 ({k}, {n}), W2 ({n}, {k}) bf16",
+        ms=cuda_time_ms(lambda: fused_mlp(x, w1, w2, 32), iters=5, warmup=1),
+        ms_rows16=cuda_time_ms(lambda: fused_mlp(x, w1, w2, 16), iters=5,
+                               warmup=1),
+        plain_ms=cuda_time_ms(lambda: fused_mlp_plain(x, w1, w2), iters=3,
+                              warmup=1),
+        library_ms=cuda_time_ms(lambda: mlp_library(x, w1, w2), iters=5,
+                                warmup=1),
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes, branch=branch)
+    finish_rows([row], errs)
+    log(f"  P1 at 16 rows per block: {row['ms_rows16']:.4f} ms")
+    del x, w1, w2, timed
+
+    paths = {}
+    x, w1s, w2s = probe.probe_inputs()
+    out = run_counted(fa, paths, "MLP probe chain",
+                      lambda: probe.mlp_chain(x, w1s, w2s), P1=probe.DEPTH)
+    if out.shape != x.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"MLP probe chain: {tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    chain_ms = cuda_time_ms(lambda: probe.mlp_chain(x, w1s, w2s), iters=3,
+                            warmup=1)
+    chain_flops = probe.DEPTH * flops
+    log(f"  MLP probe chain ({probe.DEPTH} P1 calls at the probe's 0.02 "
+        f"scale): {chain_ms:.3f} ms, {chain_flops / chain_ms / 1e9:.1f} "
+        f"TF/s [{card}]; launches {paths['MLP probe chain']}")
+    del x, w1s, w2s, out
+    free_cuda()
+    return [row], dict(chain_ms=chain_ms, paths=paths)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -1664,16 +1978,24 @@ def main() -> int:
     del main_out, ref
     free_cuda()
     bige = phase_bige(fa, card)
+    clip = phase_clip(fa, card)
     rows += phase_train_kernels(fa)
+    rows += phase_cls_kernels(fa)
     train = phase_train_steps(fa, card)
     train["gradient_check"] = phase_train_grads(fa)
     rows += phase_long_kernels(fa)
     long = phase_long_train(fa, card)
+    mlp_rows, mlp = phase_mlp(fa, card)
+    rows += mlp_rows
     paths = {**omni["paths"], **caption["paths"], **bige["paths"],
+             **clip["paths"],
              "train step": train["launches_per_step"],
+             "train gradient check (PACKED_CLS_SPLIT)":
+                 train["gradient_check"]["bf16_k9"]["launches"],
              "long-context train step": long["launches_per_step"],
              "long-context no-grad forward":
-                 long["paths"]["long-context no-grad forward"]}
+                 long["paths"]["long-context no-grad forward"],
+             **mlp["paths"]}
     for row in rows:
         key = row["name"].split()[0]
         path = KERNEL_PATH[key]
@@ -1688,6 +2010,9 @@ def main() -> int:
                                   if k != "paths"},
                       "bige": {k: v for k, v in bige.items()
                                if k != "paths"},
+                      "clip": {k: v for k, v in clip.items()
+                               if k != "paths"},
+                      "mlp_probe_chain_ms": mlp["chain_ms"],
                       "train": {k: v for k, v in train.items()
                                 if k != "paths"},
                       "long_context": {k: v for k, v in long.items()

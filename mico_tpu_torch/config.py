@@ -2,7 +2,8 @@
 
 PyTorch counterpart of `mico_tpu/config.py`: the same field names, defaults
 and registry entries, with torch dtypes in `MiCoConfig.dtypes()`. Only the
-towers this package implements (EVA01 ViTs with the shared audio route) are
+towers this package implements (the EVA01 and post-norm EVA ViTs, and the
+OpenAI-CLIP ViTs of `models/clip_vit.py`, with the shared audio route) are
 buildable; asking for another tower raises `NotImplementedError` naming the
 ROADMAP queue that ports it.
 """
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 11: other encoders)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 8: other encoders)"
 
 
 @dataclass(frozen=True)
@@ -121,6 +122,25 @@ VISION_ENCODER_TYPES = {
 }
 
 
+# non-EVA vision towers the port builds, with their widths (the CLIP entries
+# of `mico_tpu/config.py` ALT_VISION_DIMS); Swin and VideoSwin are not ported
+ALT_VISION_DIMS = {
+    "clip_vit_base_16": 768,
+    "clip_vit_base_32": 768,
+    "clip_vit_large_14_336px": 1024,
+}
+
+# vision_encoder_type → CLIP_VIT_CONFIGS entry, JAX's map as it is
+# (`mico_tpu/config.py:327-337`): `clip_vit_base_32` takes the B/16 geometry
+# and `clip_vit_large_14_336px` L/14 at 224 px, so that both packages build
+# the same tower for the same name
+CLIP_TOWER_NAMES = {
+    "clip_vit_base_16": "clip_vit_base_16",
+    "clip_vit_base_32": "clip_vit_base_16",
+    "clip_vit_large_14_336px": "clip_vit_large_14",
+}
+
+
 def eva_config_for_encoder_type(
     vision_encoder_type: str, image_size: Optional[int] = None
 ) -> EvaVitConfig:
@@ -205,7 +225,17 @@ class MiCoConfig:
     audio_override: Optional[object] = None
 
     @property
+    def is_eva(self) -> bool:
+        """The vision tower is an EVA ViT (`models/eva_vit.py`); otherwise
+        a non-EVA tower of `vision_tower_config`."""
+        return (self.vision_override is None
+                and (self.eva_override is not None
+                     or self.vision_encoder_type.startswith("evaclip")))
+
+    @property
     def vision_dim(self) -> int:
+        if not self.is_eva:
+            return self.vision_tower_config.width
         return self.eva_config.width
 
     @property
@@ -224,8 +254,10 @@ class MiCoConfig:
 
     @property
     def eva_config(self) -> EvaVitConfig:
-        if self.vision_override is not None:
-            raise NotImplementedError(f"vision_override: {_NOT_PORTED}")
+        if not self.is_eva:
+            raise NotImplementedError(
+                f"vision tower {self.vision_encoder_type!r} is not an EVA "
+                "tower: its config is `vision_tower_config`")
         if self.eva_override is not None:
             return self.eva_override
         return eva_config_for_encoder_type(
@@ -233,8 +265,25 @@ class MiCoConfig:
         )
 
     @property
-    def vision_tower_config(self) -> EvaVitConfig:
-        return self.eva_config
+    def vision_tower_config(self):
+        """The config of the vision tower: an `EvaVitConfig`, or a
+        `ClipVitConfig` (`vision_override`, or the registry entry of JAX's
+        name map for a `clip*` type). Other families raise."""
+        from mico_tpu_torch.models.clip_vit import (CLIP_VIT_CONFIGS,
+                                                    ClipVitConfig)
+
+        if self.vision_override is not None:
+            if not isinstance(self.vision_override, ClipVitConfig):
+                raise NotImplementedError(
+                    f"vision_override {type(self.vision_override).__name__}: "
+                    f"{_NOT_PORTED}")
+            return self.vision_override
+        if self.is_eva:
+            return self.eva_config
+        t = self.vision_encoder_type
+        if t in CLIP_TOWER_NAMES:
+            return CLIP_VIT_CONFIGS[CLIP_TOWER_NAMES[t]]
+        raise NotImplementedError(f"vision tower {t!r}: {_NOT_PORTED}")
 
     @property
     def audio_tower_config(self):

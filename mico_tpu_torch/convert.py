@@ -4,7 +4,9 @@
 (or its `fold_inference_params`) returns, with numpy leaves, and gives the
 port's `state_dict`: the path `a/b/c` becomes the key `a.b.c`, and the
 stacked depth axis of `vision_encoder/blocks/*` and `bert/layers/*` is
-written out as a ModuleList index (`vision_encoder.blocks.3.qkv_w`). Layouts
+written out as a ModuleList index (`vision_encoder.blocks.3.qkv_w`). A list
+of per-block dicts (the CLIP tower's `blocks`, `init_clip_vit`) maps onto
+the same ModuleList keys by its list index. Layouts
 are unchanged (linears stay (in, out)). Loading a released `.pt` checkpoint
 waits for a later slice (ROADMAP.md, queue 1 item 4).
 """
@@ -28,6 +30,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out = {}
     for k, v in tree.items():
         path = f"{prefix}{k}"
+        if isinstance(v, (list, tuple)):
+            v = {str(i): item for i, item in enumerate(v)}
         if isinstance(v, Mapping):
             out.update(_flatten(v, path + "/"))
         else:

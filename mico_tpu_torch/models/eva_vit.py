@@ -8,19 +8,24 @@ blocks with a packed qkv projection and q/v-only bias, optional LayerScale
 are a ModuleList.
 
 Routing of a block's attention (eva_vit.py:298-369, 438-461 with the bf16
-gates of flash_attention.py:1186-1192, 1340, 1513, 1693):
+gates of flash_attention.py:1186-1192, 1340, 1513, 1693), read from the knobs
+of `ops/flash_attention.py` (defaults as JAX's):
   - training (a `train_rng` is given) with flash attention → (LN →) `linear`
-    qkv → `packed_qkv_self_attention`: K3 forward and K4 backward in bf16 on
-    the card, their plain twins on the CPU and for other dtypes; never K1,
-    K5 or K8 (the `is_train` gates, eva_vit.py:316, 448);
-  - flash attention asked for, bf16 on the card → kernel K1
-    (`fused_ln_qkv_self_attention`; affine off when the params are folded)
-    for a pre-norm block; for a post-norm block K5
-    (`fused_qkv_self_attention`) then the output projection, or K8
-    (`fused_qkv_attn_proj`, both projections) when `FUSED_ATTN_PROJ` is on;
+    qkv → `packed_qkv_self_attention`: K3 (K9 under `PACKED_CLS_SPLIT` at
+    L = 128k + 1) forward and K4 backward in bf16 on the card, their plain
+    twins on the CPU and for other dtypes; never K1, K5 or K8 (the
+    `is_train` gates, eva_vit.py:316, 448);
+  - flash inference, pre-norm block, `FUSED_LN_QKV` and `FUSED_QKV_PROJ` on
+    → kernel K1 (`fused_ln_qkv_self_attention`; affine off when the params
+    are folded), then the output projection;
+  - flash inference otherwise (a post-norm block, or a pre-norm one after
+    its LN) with `FUSED_QKV_PROJ` on → K5 (`fused_qkv_self_attention`)
+    then the output projection, or K8 (`fused_qkv_attn_proj`, both
+    projections) when `FUSED_ATTN_PROJ` is on;
+  - flash inference with `FUSED_QKV_PROJ` off → `linear` qkv →
+    `packed_qkv_self_attention` (K3, or K9 under the flag), as training;
   - flash on the CPU → the same wrappers, which take their plain twins;
-  - flash on the card in another dtype → the twins (`fused_ln_qkv_plain`,
-    `fused_qkv_plain`, `fused_qkv_attn_proj_plain`), as the JAX gate does;
+    flash on the card in another dtype → the twins, as the JAX gate does;
   - plain attention asked for → (LN →) linear → `multi_head_attention`.
 Training also runs PatchDropout (top-k of uniform scores, CLS exempt) and
 per-sample DropPath on the linear 0 → `drop_path_rate` schedule, drawn up
@@ -107,7 +112,8 @@ class EvaBlock(ParamGroup):
             x = residual(x, layer_norm(y, g1, b1, eps), 0)
             y = self._scaled(self._mlp(x), "gamma_2")
             return residual(x, layer_norm(y, g2, b2, eps), 1)
-        if attn_impl == "flash" and not is_train:
+        if (attn_impl == "flash" and not is_train and fa.FUSED_LN_QKV
+                and fa.FUSED_QKV_PROJ):         # `_ln_fusable`, :438-449
             args = (x, g1, b1, self.get("qkv_w").to(x.dtype),
                     self.packed_qkv_bias(), cfg.num_heads,
                     cfg.head_dim ** -0.5, eps, g1 is not None)
@@ -124,12 +130,12 @@ class EvaBlock(ParamGroup):
     def _attention(self, h: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
                    is_train: bool) -> torch.Tensor:
         """The attention branch on its input h, output projection included
-        (`attention`, eva_vit.py:298-377): K5 or K8 when flash serves a
-        post-norm block; the packed K3/K4 route in training; else plain."""
+        (`attention`, eva_vit.py:298-377): K5 or K8 at flash inference under
+        `FUSED_QKV_PROJ`; else, with flash, the packed K3/K9 route (K4 in
+        training); else plain."""
         nh, hd = cfg.num_heads, cfg.head_dim
         w_qkv, bias = self.get("qkv_w"), self.packed_qkv_bias()
-        if attn_impl == "flash" and not is_train:
-            # only a post-norm block gets here: a pre-norm one takes K1
+        if attn_impl == "flash" and not is_train and fa.FUSED_QKV_PROJ:
             args = (h, w_qkv.to(h.dtype), bias, nh, hd ** -0.5)
             kernel = fa.kernel_route(h)
             if fa.FUSED_ATTN_PROJ:

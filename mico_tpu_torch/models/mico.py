@@ -1,7 +1,8 @@
 """MiCo omni-modal model assembly (counterpart of `mico_tpu/models/mico.py`).
 
-One shared EVA ViT encodes every knowledge modality — video frames, images
-(1-frame videos), audio fbank slices tiled to 3 channels, depth maps — and a
+One shared ViT (EVA, or the OpenAI-CLIP tower of `models/clip_vit.py`)
+encodes every knowledge modality — video frames, images (1-frame videos),
+audio fbank slices tiled to 3 channels, depth maps — and a
 BERT with cross-attention is the language interface for contrastive
 retrieval and ITM. `MiCo` is an `nn.Module` holding the parameters under the
 JAX package's names (see `mico_tpu_torch.convert.params_from_jax`), with the
@@ -25,6 +26,7 @@ from torch import nn
 
 from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.models import bert as bert_mod
+from mico_tpu_torch.models import clip_vit as clip_mod
 from mico_tpu_torch.models import eva_vit as vit_mod
 from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.models.bert import BertOutput
@@ -72,7 +74,12 @@ class MiCo(nn.Module):
         def param(t):   # made without gradients; training turns them on
             return nn.Parameter(t, requires_grad=False)
 
-        self.vision_encoder = vit_mod.EvaVisionTransformer(cfg.eva_config, init)
+        if cfg.is_eva:
+            self.vision_encoder = vit_mod.EvaVisionTransformer(cfg.eva_config,
+                                                               init)
+        else:                         # `_init_vision_tower`, mico.py:105-113
+            self.vision_encoder = clip_mod.ClipVisionTransformer(
+                cfg.vision_tower_config, init)
         self.bert = bert_mod.Bert(cfg.bert_config, init)
         for m, in_dim in (("t", md), ("s", md), ("v", vd), ("a", cfg.audio_dim),
                           ("d", vd)):
@@ -108,12 +115,14 @@ class MiCo(nn.Module):
         return "flash" if self.cfg.use_flash_attention else "plain"
 
     def fold_inference_params(self) -> "MiCo":
-        """In place: the vision tower's LN affines (pre-norm blocks) and
+        """In place: an EVA tower's LN affines (pre-norm blocks) and
         LayerScale folded into the adjacent matmuls
         (mico.fold_inference_params); a pure reparametrization for
         inference, after which pre-norm blocks take kernel K1 with
-        `affine=False` and post-norm blocks keep their LNs."""
-        self.vision_encoder.fold_inference_params()
+        `affine=False` and post-norm blocks keep their LNs. The identity for
+        a non-EVA tower (mico.py:89-102)."""
+        if self.cfg.is_eva:
+            self.vision_encoder.fold_inference_params()
         return self
 
     # -- inference entry points (no autograd) -------------------------------
@@ -191,10 +200,17 @@ def forward_vision_encoder(model: MiCo, pixels: torch.Tensor,
                            ) -> torch.Tensor:
     """(b, n, 3, h, w) → (b, n, seq, vision_dim): frames folded into the
     batch for one ViT pass (mico.py:139-196); train_rng (a CPU generator)
-    runs the ViT's training route."""
+    runs the EVA tower's training route. The CLIP tower has no training
+    regularizers, as in JAX (mico.py:167-173): it runs the same forward
+    with or without train_rng."""
     cfg = model.cfg
     b, n = pixels.shape[:2]
     flat = pixels.reshape(b * n, *pixels.shape[2:])
+    if not cfg.is_eva:
+        tokens = clip_mod.clip_vit_forward(
+            model.vision_encoder, flat, return_all_features=True,
+            compute_dtype=model.compute_dtype)
+        return tokens.reshape(b, n, *tokens.shape[1:])
     tokens = vit_mod.eva_vit_forward(
         model.vision_encoder, flat, return_all_features=True,
         compute_dtype=model.compute_dtype, attn_impl=model.attn_impl,

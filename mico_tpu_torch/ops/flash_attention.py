@@ -31,6 +31,13 @@ through `csrc/packed_attn.cuh`) and `csrc/packed_attn_bwd.cu`. The ViT's
 training route reaches them through the autograd Functions
 `packed_qkv_self_attention` and `packed_self_attention`.
 
+K9 `packed_qkv_cls_attention` replaces the CLS-split body of
+`_packed_qkv_fwd` (:1135, call :1155), `_packed_qkv_cls_kernel` (:809), which
+JAX selects when `PACKED_CLS_SPLIT` is on and L > 128 with L % 128 == 1: K3's
+function on the fused qkv with the CLS token split out (the patch x patch
+tile, a CLS column and a CLS row as fp32 rank-1 terms, natural exp). Source:
+`csrc/packed_cls_attn.cu`. Its gradient is K4's, as in JAX (:1199).
+
 K5 `fused_qkv_self_attention` replaces `_fused_qkv_attn_fwd` (:1277, call
 :1292), body `_fused_qkv_attn_kernel` (:1229): K1 without the LayerNorm, the
 inference attention of a post-norm block (EVA02-CLIP-bigE). K8
@@ -76,10 +83,16 @@ _MAX_SMEM = 232448
 # K1's attention launch: 6 warps of 16 query rows (fused_ln_qkv_attn.cu)
 _K1_ROWS = 96
 
-# A post-norm block's inference attention also runs its output projection
-# in the kernel (K8) when on; off by default, as in the JAX package
-# (flash_attention.py:1385)
+# Routing knobs with the JAX package's defaults (flash_attention.py:1129,
+# :1226, :1385, :1564). PACKED_CLS_SPLIT: the fused-qkv self-attention of a
+# 128k+1-token sequence takes K9 instead of K3. FUSED_QKV_PROJ: a ViT
+# block's inference attention runs its qkv projection in the kernel (K5; K1
+# with FUSED_LN_QKV for a pre-norm block). FUSED_ATTN_PROJ: K8, the output
+# projection too. FUSED_LN_QKV: a pre-norm block's LN in the kernel (K1).
+PACKED_CLS_SPLIT = False
+FUSED_QKV_PROJ = True
 FUSED_ATTN_PROJ = False
+FUSED_LN_QKV = True
 
 _c_void_p = ctypes.c_void_p
 
@@ -741,6 +754,37 @@ def packed_attention_bwd_plain(q, k, v, g, num_heads: int, scale: float):
     return tuple(_unheads(x, dt) for x in (dq, dk, dv))
 
 
+def packed_qkv_cls_attention_plain(qkv: torch.Tensor, num_heads: int,
+                                   scale: float) -> torch.Tensor:
+    """K9's plain twin, the rounding points of `_packed_qkv_cls_kernel`
+    (flash_attention.py:809-868), which are not K3's: s_pp = q_p·k_pᵀ in
+    fp32 times scale; the CLS column s_pc = Σ_d q_p·k_cls, the CLS row
+    s_cp = Σ_d k_p·q_cls and s_cc as fp32 elementwise products summed over
+    D, times scale; natural exp against m_p = max(rowmax s_pp, s_pc) and
+    m_c = max(max s_cp, s_cc); only p_pp is rounded to qkv's dtype (for the
+    PV product, fp32 accumulation), p_pc·v_cls and the CLS row Σ p_cp·v_p +
+    p_cc·v_cls stay fp32 with the unrounded p; each row is divided by its
+    sum after PV and rounded once. qkv (B, L, 3·H·D) → (B, L, H·D)."""
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    q, k, v = (_heads(x, num_heads) for x in qkv.split(w, dim=-1))
+    qp, kp, vp = q[:, :, 1:], k[:, :, 1:], v[:, :, 1:]
+    qc, kc, vc = q[:, :, :1], k[:, :, :1], v[:, :, :1]
+    s_pp = torch.matmul(qp, kp.transpose(-1, -2)) * scale
+    s_pc = (qp * kc).sum(dim=-1, keepdim=True) * scale       # (B, H, P, 1)
+    s_cp = (kp * qc).sum(dim=-1, keepdim=True) * scale       # (B, H, P, 1)
+    s_cc = (qc * kc).sum(dim=-1, keepdim=True) * scale       # (B, H, 1, 1)
+    m_p = torch.maximum(s_pp.amax(dim=-1, keepdim=True), s_pc)
+    p_pp, p_pc = torch.exp(s_pp - m_p), torch.exp(s_pc - m_p)
+    l_p = p_pp.sum(dim=-1, keepdim=True) + p_pc
+    m_c = torch.maximum(s_cp.amax(dim=-2, keepdim=True), s_cc)
+    p_cp, p_cc = torch.exp(s_cp - m_c), torch.exp(s_cc - m_c)
+    l_c = p_cp.sum(dim=-2, keepdim=True) + p_cc
+    o_p = torch.matmul(p_pp.to(qkv.dtype).float(), vp) + p_pc * vc
+    o_c = (p_cp * vp).sum(dim=-2, keepdim=True) + p_cc * vc
+    return _unheads(torch.cat([o_c / l_c, o_p / l_p], dim=2), qkv.dtype)
+
+
 def _k4_smem_bytes(l: int, d: int) -> int:
     """K4's larger launch (the columns pass, csrc/packed_attn_bwd.cu): two
     padded L x D operands, a 96-row staging tile and fp32 row statistics."""
@@ -861,6 +905,64 @@ def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
 packed_attention_bwd.launches = 0
 
 
+def _k9_smem_bytes(l: int, d: int) -> int:
+    """K9's dynamic shared memory (csrc/packed_cls_attn.cu): K3's K/V rooms
+    over the L - 1 patch rows, then the CLS row's q, k, v and the CLS
+    query's L - 1 probabilities in fp32."""
+    dp = -(-d // 16) * 16
+    return _packed_smem_bytes(l - 1, d) + 4 * (3 * dp + -(-(l - 1) // 16) * 16)
+
+
+def _check_cls(qkv: torch.Tensor, num_heads: int):
+    """What K9 takes: contiguous, 16-byte aligned bf16 qkv (B, L, 3W) with
+    L >= 2, D a multiple of 8 up to 128, one head's patch K and V in a
+    block's shared memory. Returns (B, L, W, D)."""
+    _require(qkv.dim() == 3, f"K9: qkv must be (B, L, 3W), got {tuple(qkv.shape)}")
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    d = w // num_heads
+    _require(qkv.dtype == torch.bfloat16, f"K9 takes bf16, got {qkv.dtype}")
+    _require(qkv.is_contiguous() and qkv.data_ptr() % 16 == 0,
+             "K9 needs a contiguous, 16-byte aligned qkv")
+    _require(3 * w == w3 and d * num_heads == w and d % 8 == 0 and d <= 128,
+             f"K9: head dim {d} must divide W and be a multiple of 8 up to 128")
+    _require(l >= 2, f"K9: L={l} has no patch token")
+    _require(_k9_smem_bytes(l, d) <= _MAX_SMEM,
+             f"K9: L={l} with head dim {d} does not fit shared memory")
+    return b, l, w, d
+
+
+@functools.lru_cache(maxsize=None)
+def _k9_entry():
+    fn = _build.load("packed_cls_attn").mico_packed_cls_attn
+    fn.argtypes = [_c_void_p, ctypes.c_int, _c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def packed_qkv_cls_attention(qkv: torch.Tensor, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """K9: self-attention on the fused qkv (B, L, 3·H·D) → (B, L, H·D) with
+    the CLS token (row 0) split out, at `_packed_qkv_cls_kernel`'s rounding
+    points. On the card qkv is contiguous bf16, read by column offset (row
+    stride 3W) with no split copy; L ≥ 2, D a multiple of 8 up to 128, and
+    one head's patch K and V must fit a block's shared memory. CPU tensors
+    take the plain twin."""
+    if not qkv.is_cuda:
+        return packed_qkv_cls_attention_plain(qkv, num_heads, scale)
+    b, l, w, d = _check_cls(qkv, num_heads)
+    out = torch.empty((b, l, w), dtype=qkv.dtype, device=qkv.device)
+    rc = _k9_entry()(qkv.data_ptr(), 3 * w, out.data_ptr(), b, l, num_heads, d,
+                     float(scale), _stream())
+    _check(rc, "packed_cls_attn")
+    packed_qkv_cls_attention.launches += 1
+    return out
+
+
+packed_qkv_cls_attention.launches = 0
+
+
 def kernel_route(x: torch.Tensor) -> bool:
     """The JAX dtype gate (flash_attention.py:1186-1192, :1204, :1340,
     :1513, :1693): the kernels take bf16 on the card; CUDA fp32 takes the
@@ -870,18 +972,23 @@ def kernel_route(x: torch.Tensor) -> bool:
 
 
 class _PackedQKV(torch.autograd.Function):
-    """Forward K3 over the column slices of the fused qkv; saves qkv and
-    not the output (`_packed_qkv_vjp_fwd`, :1195); backward K4 into one
-    (B, L, 3W) gradient."""
+    """Forward K3 over the column slices of the fused qkv, or K9 under
+    `PACKED_CLS_SPLIT` at L = 128k + 1 (`_packed_qkv_fwd`, :1144); saves
+    qkv and not the
+    output (`_packed_qkv_vjp_fwd`, :1195); backward K4 into one (B, L, 3W)
+    gradient on either forward (JAX has no K9 backward)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(qkv)
         q, k, v = qkv.chunk(3, dim=-1)
-        if kernel_route(qkv):
-            return packed_attention(q, k, v, num_heads, scale)
-        return packed_attention_plain(q, k, v, num_heads, scale)
+        if not kernel_route(qkv):
+            return packed_attention_plain(q, k, v, num_heads, scale)
+        l = qkv.shape[1]
+        if PACKED_CLS_SPLIT and l > 128 and l % 128 == 1:
+            return packed_qkv_cls_attention(qkv, num_heads, scale)
+        return packed_attention(q, k, v, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -899,8 +1006,8 @@ class _PackedQKV(torch.autograd.Function):
 
 
 class _Packed(torch.autograd.Function):
-    """Forward K3 on three (B, L, W) inputs; saves q, k, v
-    (`_packed_vjp_fwd`, :1099); backward K4."""
+    """Forward K3 on three (B, L, W) inputs, never K9 (`_packed_fwd`, :885);
+    saves q, k, v (`_packed_vjp_fwd`, :1099); backward K4."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
@@ -926,7 +1033,8 @@ class _Packed(torch.autograd.Function):
 def packed_qkv_self_attention(qkv: torch.Tensor, num_heads: int,
                               scale: float) -> torch.Tensor:
     """Self-attention on the fused projection output (B, L, 3·H·D) →
-    (B, L, H·D), differentiable (`packed_qkv_self_attention`, :1180)."""
+    (B, L, H·D), differentiable (`packed_qkv_self_attention`, :1180): K3,
+    or K9 under `PACKED_CLS_SPLIT` at L = 128k + 1; backward K4."""
     return _PackedQKV.apply(qkv, num_heads, float(scale))
 
 
@@ -946,15 +1054,17 @@ KERNELS = {
     "K6": kv_tiled_attention,
     "K6b": kv_tiled_attention_bwd,
     "K8": fused_qkv_attn_proj,
+    "K9": packed_qkv_cls_attention,
 }
 
 
 def _all_kernels() -> dict:
-    """K1-K6b, K8 and K7 (`ops/int8_attention.py`, which imports this
-    module)."""
+    """K1-K6b, K8, K9, K7 (`ops/int8_attention.py`, which imports this
+    module) and P1 (`ops/fused_mlp.py`)."""
+    from mico_tpu_torch.ops.fused_mlp import fused_mlp
     from mico_tpu_torch.ops.int8_attention import int8_cross_attention
 
-    return {**KERNELS, "K7": int8_cross_attention}
+    return {**KERNELS, "K7": int8_cross_attention, "P1": fused_mlp}
 
 
 def reset_launch_counts() -> None:

@@ -5,7 +5,8 @@
   epilogue (fp32 accumulate + bias, one rounding); elsewhere the product is
   taken in fp32 and rounded once.
 - `layer_norm`: fp32 statistics, biased variance, output in the input dtype,
-  optional affine.
+  optional affine. `LN_STATS_DTYPE` (JAX `layers.py:22`, a perf_lab knob)
+  set to bf16 computes the statistics and the affine in bf16 instead.
 - `gelu`: exact erf for fp32, the tanh approximation for bf16.
 - `dropout`: inverted dropout with torch semantics, drawn on the tensor's
   device from an explicit `torch.Generator`. A training step holds one CPU
@@ -30,6 +31,10 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
+# dtype of LayerNorm's statistics and affine (`mico_tpu/ops/layers.py:22`):
+# fp32 is the default; bf16 is `scripts/torch_perf_lab.py`'s ln_bf16 variant
+LN_STATS_DTYPE = torch.float32
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact erf GELU for fp32; tanh approximation for bf16 (its max error
@@ -45,7 +50,18 @@ def layer_norm(
     eps: float,
 ) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics (biased variance);
-    output in the input dtype. weight/bias may be None (folded layout)."""
+    output in the input dtype. weight/bias may be None (folded layout).
+    With `LN_STATS_DTYPE` other than fp32, JAX's formula in that dtype
+    (`layers.py:63-68`): every step rounded to it, the means accumulated in
+    fp32 as `jnp.mean` does."""
+    if LN_STATS_DTYPE != torch.float32:
+        xs = x.to(LN_STATS_DTYPE)
+        mean = xs.mean(dim=-1, keepdim=True)
+        var = (xs - mean).square().mean(dim=-1, keepdim=True)
+        y = (xs - mean) * torch.rsqrt(var + eps)
+        if weight is not None:
+            y = y * weight.to(LN_STATS_DTYPE) + bias.to(LN_STATS_DTYPE)
+        return y.to(x.dtype)
     n = x.shape[-1]
     if x.dtype == torch.float32 or x.is_cuda:
         # the card's kernel keeps statistics and affine in fp32 and rounds

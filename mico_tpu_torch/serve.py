@@ -70,7 +70,8 @@ class EmbeddingPipeline:
     Failed items come back as zero rows + indices in `pipe.last_failures`.
 
     `model` is a `MiCo`; with `fold_constants` (the default) the pipeline
-    serves a folded copy, so the caller's model keeps its canonical layout.
+    serves a folded copy of an EVA tower, so the caller's model keeps its
+    canonical layout (a CLIP tower's folded copy is the model itself).
     """
 
     def __init__(
@@ -87,9 +88,10 @@ class EmbeddingPipeline:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if fold_constants:
+        if fold_constants and model.cfg.is_eva:
             # LN affines / LayerScale folded into the adjacent matmuls — a
-            # reparametrization (MiCo.fold_inference_params) on a copy
+            # reparametrization (MiCo.fold_inference_params) on a copy; a
+            # CLIP tower folds to itself, so it is served as it is
             model = copy.deepcopy(model).fold_inference_params()
         self.model = model.to(self.device)
         self.cfg = cfg

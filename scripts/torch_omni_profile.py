@@ -2,20 +2,23 @@
 """Where the time of the port's omni step goes, on one CUDA card.
 
     python3 scripts/torch_omni_profile.py [--vision-encoder TYPE]
+                                          [--cls-split]
                                           [--trace out/trace.json]
 
 Builds the full-width MiCo port in bf16 (random weights, seed 0) on the
 vision tower `--vision-encoder` (default `evaclip01_giant`, the pre-norm
-ViT-g on K1; `evaclip02_bige` is the post-norm EVA02-CLIP-bigE on K5),
+ViT-g on K1; `evaclip02_bige` is the post-norm EVA02-CLIP-bigE on K5;
+`clip_vit_large_14_336px` is the OpenAI-CLIP ViT-L/14 at 224 px on K3, or
+on K9 with `--cls-split`, which sets `PACKED_CLS_SPLIT`),
 runs chip_smoke.py's omni step (S = 16: a 112-frame ViT pass, BERT over
 (16, 30) tokens, heads, similarity) 3 times under `torch.profiler` after 2
 warm-up steps, and prints:
   - the step's host-clock time and the device's busy and idle shares over
     the profiled window;
   - device time by kernel, with the launches of K1 (ln_stats, its
-    LN-prologue GEMM, the packed attention) and of K5 (its GEMM, the packed
-    attention) named, grouped into those / K2 / cuBLAS GEMMs / LayerNorm /
-    GELU / the rest;
+    LN-prologue GEMM, the packed attention), of K5 (its GEMM, the packed
+    attention), K3 (the packed attention) and K9 named, grouped into those
+    / K2 / cuBLAS GEMMs / LayerNorm / GELU / the rest;
   - the top kernels by device time.
 `--trace` also writes the chrome trace. Ends with one JSON line of the
 grouped numbers.
@@ -45,7 +48,8 @@ GROUPS = (
     ("K1 ln_stats", ("ln_stats_kernel",)),
     ("K1 LN-prologue GEMM", ("tile_gemm_kernel<true>",)),
     ("K5/K8 GEMM", ("tile_gemm_kernel<false>",)),
-    ("K1/K5 packed attention", ("packed_attn_kernel",)),
+    ("K1/K3/K5 packed attention", ("packed_attn_kernel",)),
+    ("K9 CLS-split attention", ("packed_cls_attn_kernel",)),
     ("K2 flash", ("flash_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2")),
     ("layer_norm", ("layer_norm", "LayerNorm")),
@@ -63,8 +67,11 @@ def group_of(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--vision-encoder", default="evaclip01_giant",
-                    choices=("evaclip01_giant", "evaclip02_bige"),
+                    choices=("evaclip01_giant", "evaclip02_bige",
+                             "clip_vit_large_14_336px"),
                     help="the vision tower (MiCoConfig.vision_encoder_type)")
+    ap.add_argument("--cls-split", action="store_true",
+                    help="set PACKED_CLS_SPLIT (K9 for the K3 route)")
     ap.add_argument("--trace", help="write the chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -75,12 +82,14 @@ def main() -> int:
     from mico_tpu_torch.config import MiCoConfig
     from mico_tpu_torch.models.mico import MiCo
     from mico_tpu_torch.ops import _build
+    from mico_tpu_torch.ops import flash_attention as fa
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     _build.build_all()
+    fa.PACKED_CLS_SPLIT = args.cls_split
     cfg = MiCoConfig(vision_encoder_type=args.vision_encoder,
                      max_vision_sample_num=4, max_audio_sample_num=2)
     model = MiCo(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
@@ -110,7 +119,9 @@ def main() -> int:
     groups = defaultdict(float)
     for name, ms in by_kernel.items():
         groups[group_of(name)] += ms
-    print(f"omni step S={S} on {args.vision_encoder}: {step_ms:.3f} ms "
+    tower = args.vision_encoder + (" (PACKED_CLS_SPLIT)" if args.cls_split
+                                   else "")
+    print(f"omni step S={S} on {tower}: {step_ms:.3f} ms "
           f"host clock over {STEPS} "
           f"steps; device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / step_ms:.1f}%), idle "
@@ -122,6 +133,7 @@ def main() -> int:
     for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f}  {name[:110]}")
     print(json.dumps({"card": card, "vision_encoder": args.vision_encoder,
+                      "cls_split": args.cls_split,
                       "step_ms": step_ms, "busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / step_ms,
                       "groups_ms": dict(groups)}))

@@ -65,7 +65,7 @@ def test_k1_route_on_cpu_launches_nothing(rng, towers):
     tvit.eva_vit_forward(towers[2].vision_encoder, px, attn_impl="flash")
     assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
                                    "K5": 0, "K6": 0, "K6b": 0, "K7": 0,
-                                   "K8": 0}
+                                   "K8": 0, "K9": 0, "P1": 0}
 
 
 @pytest.mark.parametrize("fused_proj,folded",

@@ -13,6 +13,7 @@ from mico_tpu.ops import flash_attention as jfa
 from mico_tpu.ops.attention import xla_attention
 from mico_tpu_torch.ops import attention as tattn
 from mico_tpu_torch.ops import flash_attention as tfa
+from mico_tpu_torch.ops.fused_mlp import fused_mlp
 from mico_tpu_torch.ops.int8_attention import int8_cross_attention
 
 from torch_port_common import OP_TOL, close, t
@@ -163,10 +164,12 @@ def test_launch_counters_reset():
     tfa.kv_tiled_attention.launches = 19
     tfa.kv_tiled_attention_bwd.launches = 23
     int8_cross_attention.launches = 7
+    tfa.packed_qkv_cls_attention.launches = 29
+    fused_mlp.launches = 31
     assert tfa.launch_counts() == {"K1": 3, "K2": 5, "K3": 9, "K4": 11,
                                    "K5": 13, "K6": 19, "K6b": 23, "K7": 7,
-                                   "K8": 17}
+                                   "K8": 17, "K9": 29, "P1": 31}
     tfa.reset_launch_counts()
     assert tfa.launch_counts() == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
                                    "K5": 0, "K6": 0, "K6b": 0, "K7": 0,
-                                   "K8": 0}
+                                   "K8": 0, "K9": 0, "P1": 0}

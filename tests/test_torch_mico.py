@@ -272,7 +272,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,attr", [
-    (dict(vision_encoder_type="clip_vit_base_16"), "eva_config"),
+    (dict(vision_encoder_type="videoswin_base"), "vision_dim"),
     (dict(vision_encoder_type="swin_base"), "vision_tower_config"),
     (dict(audio_encoder_type="beats"), "audio_dim"),
     (dict(audio_encoder_type="ast"), "audio_tower_config"),
