@@ -9,7 +9,14 @@ Phases, run in order (any failure exits non-zero):
   2. kernels: K1, K2 and K7 against their plain PyTorch versions on the card
      in bf16, at the main paths' shapes and layouts (the tensors that are
      then timed) and at smaller and biased cases, with their times beside
-     the plain version, a PyTorch yardstick and the card's bound; then K5
+     the plain version, a PyTorch yardstick and the card's bound; K2 also
+     at cases that cross its splits of the keys (one query row over 1028
+     keys, 8192 keys, a ragged 8100, the decode with a (1, 1, 1, 1028) bias
+     masking every key of its second split, the long-context step's causal
+     (2, 12, 128, 128) self-attention with its bias), and at ITM and the
+     decode its device time per call (torch.profiler), its host time per
+     call, its plan (splits, key warps) and roofline share beside SDPA's
+     device and host time; then K5
      and K8 (the post-norm block's projection-fused attention, and with the
      output projection) at the bigE ViT pass x (112, 257, 1792) 16 x 112,
      at (8, 257, 1408) 16 x 88 and at (3, 50, 256) 4 x 64 (unit-std x,
@@ -93,10 +100,12 @@ Phases, run in order (any failure exits non-zero):
      against their plain versions in bf16 on unit-std inputs at the
      long-context step's cross-attention (2, 12, 128, 8224, 64) in BERT's
      strided layout, with no bias and with a (2, 1, 1, 8224) padding bias,
-     and at a ragged (1, 2, 160, 9000, 88) (the gates above, the LSE within
-     1e-3),
-     timed at the first beside the plain versions, SDPA (forward; its
-     autograd backward alone) and the bound; then five full-width steps of
+     at a ragged (1, 2, 160, 9000, 88), at one query row (2, 12, 1, 8224,
+     64) and with a (2, 1, 1, 8224) bias masking every key of K6's fourth
+     split (the gates above, the LSE within 1e-3), timed at the first
+     beside the plain versions, SDPA (forward; its autograd backward alone)
+     and the bound, and K6's device and host time per call, plan and
+     roofline share beside SDPA's as for K2; then five full-width steps of
      long-context captioning (`scripts/train_bench.py --long-context`:
      cap%tv, B = 2 samples of 32 frames, 8,224 condition tokens, a
      128-token caption; probability dropout 0, so attention stays on the
@@ -185,6 +194,90 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_time_ms(fn, iters: int = 50, warmup: int = 3):
+    """The device's own time per call (no host time, no gaps), from
+    torch.profiler: for each kernel the calls ran, its mean recorded
+    duration times its launches per call. The profiler now and then loses
+    kernel records (a sixth of a kernel's, or nearly all of cuDNN's memset
+    in one run: 3 of 50), so a sum over the calls divided by their number
+    reads low. The calls are identical and follow a warm-up, so every kernel
+    recorded runs in each of them: one recorded in fewer than half the calls
+    counts once a call. None, logged, when no device kernel was recorded:
+    a measurement the profiler could not take fails no check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            per_call = round(evt.count / iters)
+            if per_call < 1:
+                log(f"  torch.profiler recorded {evt.key[:60]} {evt.count} "
+                    f"times in {iters} calls; counted once a call")
+                per_call = 1
+            total_us += dev_us / evt.count * per_call
+    if total_us <= 0:
+        log("  torch.profiler recorded no device kernel: device time not "
+            "measured")
+        return None
+    return total_us / 1e3
+
+
+def host_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """The host's time to issue one call: a loop with no synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / iters
+
+
+def split_timing(fa, fn, library, q, k, bms: float) -> dict:
+    """K2's or K6's device and host time per call (no bias) beside SDPA's,
+    the call's plan and the roofline share of its device time."""
+    dev = device_time_ms(fn)
+    _, kw, nsplit, _ = plan_of(fa, q, k)
+    return dict(device_ms=dev, host_ms=host_time_ms(fn),
+                library_device_ms=device_time_ms(library),
+                library_host_ms=host_time_ms(library),
+                splits=nsplit, key_warps=kw,
+                roofline_share=None if dev is None else bms / dev)
+
+
+def plan_of(fa, q, k, bias=None):
+    """(row warps, key warps, splits, chunks a split) of K2/K6 on q, k."""
+    rows = 0 if bias is None else (1 if bias.shape[2] == 1 else -1)
+    return fa.flash_plan(q.shape[2], k.shape[2], q.shape[0] * q.shape[1],
+                         q.shape[3], rows, fa._sm_count(q.device.index))
+
+
+def k2_and_sdpa(fa, q, k, v):
+    """K2 and one SDPA call on the same inputs (D 64), as closures."""
+    import torch.nn.functional as F
+
+    return (lambda: fa.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
+
+
+def plan_label(fa, q, k, bias=None) -> str:
+    _, kw, nsplit, _ = plan_of(fa, q, k, bias)
+    return f"{nsplit} split(s), {kw} key warp(s)"
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -316,8 +409,6 @@ def k7_library(q, k8, ks, v8, vs, heads):
 
 
 def phase_kernels(fa) -> list:
-    import torch.nn.functional as F
-
     from mico_tpu_torch.ops import int8_attention as i8
 
     gen = torch.Generator().manual_seed(1)
@@ -362,10 +453,35 @@ def phase_kernels(fa) -> list:
     full[:, :, 0] = 1
     cases.append(("bias (4,1,30,257) mask", qkv(4, 12, 30, 257),
                   ((1.0 - full) * -10000.0)[:, None].cuda()))
+    # cases that cross split boundaries of the keys: one query row, the
+    # long ends of the resident route (a ragged last split at 8100 = 126 x
+    # 64 + 36), the decode with a padding bias that masks every key of its
+    # second split, and the long-context step's causal self-attention
+    cases.append(("Lq = 1: q (2,12,1,64) kv (2,12,1028,64)",
+                  qkv(2, 12, 1, 1028), None))
+    cases.append(("q (1,12,30,64) kv (1,12,8192,64)", qkv(1, 12, 30, 8192),
+                  None))
+    cases.append(("ragged q (1,4,40,64) kv (1,4,8100,64)", qkv(1, 4, 40, 8100),
+                  None))
+    q, k, v = qkv(1, 12, 10, 1028)
+    _, _, nsplit, per = plan_of(fa, q, k)
+    pad = torch.ones(1, 1028)
+    pad[:, 64 * per:128 * per] = 0
+    pad[:, 1000:] = 0
+    cases.append((f"bias (1,1,1,1028) masking all of split 2 of {nsplit} "
+                  f"(keys {64 * per}..{128 * per - 1}), q (1,12,10,64)",
+                  (q, k, v), ((1.0 - pad) * -10000.0)[:, None, None].cuda()))
+    causal = torch.full((128, 128), -10000.0).triu(1).expand(2, 1, 128, 128)
+    cases.append(("causal (2,1,128,128) bias, (2,12,128,64) self-attention",
+                  qkv(2, 12, 128, 128), causal.contiguous().cuda()))
     for name, (q, k, v), bias in cases:
         got = fa.flash_attention(q, k, v, bias=bias)
         want = fa.flash_attention_plain(q, k, v, bias, q.shape[-1] ** -0.5)
-        errs["K2"].append(compare(f"K2 {name}", got, want))
+        errs["K2"].append(compare(
+            f"K2 {name}, {plan_label(fa, q, k, bias)}", got, want))
+    if plan_of(fa, *dec_qkv[:2])[2] < 2:
+        raise AssertionError("K2's decode shape takes one split: the masked "
+                             "split case checks nothing")
 
     log("phase kernels: K7 int8_cross_attention vs int8_cross_attention_plain")
     # beam vision (64 x 3 beams over 8 frames), greedy vision, audio beam
@@ -412,32 +528,35 @@ def phase_kernels(fa) -> list:
     flops = 4 * q.shape[0] * 12 * TEXT_LEN * 257 * 64
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     bms, by = bound_ms(flops, nbytes)
+    k2, sdpa = k2_and_sdpa(fa, q, k, v)
     rows.append(dict(
         name="K2 flash_attention", route="cuda",
         source="mico_tpu_torch/csrc/flash_attn.cu",
         replaces="mico_tpu/ops/flash_attention.py:93",
         shape="q (3, 12, 30, 64), k/v (3, 12, 257, 64) bf16 strided views "
               "of (3, L, 12, 64), no bias",
-        ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v)),
+        ms=cuda_time_ms(k2),
         plain_ms=cuda_time_ms(
             lambda: fa.flash_attention_plain(q, k, v, None, 0.125)),
-        library_ms=cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
+        library_ms=cuda_time_ms(sdpa),
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        **split_timing(fa, k2, sdpa, q, k, bms),
     ))
     # ... and at the recompute caption decode's cross-attention
     q, k, v = dec_qkv
-    dbms, _ = bound_ms(4 * 12 * 10 * 1028 * 64,
-                       2 * (2 * q.numel() + k.numel() + v.numel()))
+    k2, sdpa = k2_and_sdpa(fa, q, k, v)
+    dbms, dby = bound_ms(4 * 12 * 10 * 1028 * 64,
+                         2 * (2 * q.numel() + k.numel() + v.numel()))
     rows[-1].update(
         decode_shape="q (1, 12, 10, 64), k/v (1, 12, 1028, 64) bf16 strided "
                      "views of (1, L, 12, 64), no bias",
-        decode_ms=cuda_time_ms(lambda: fa.flash_attention(q, k, v)),
+        decode_ms=cuda_time_ms(k2),
         decode_plain_ms=cuda_time_ms(
             lambda: fa.flash_attention_plain(q, k, v, None, 0.125)),
-        decode_library_ms=cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125)),
-        decode_bound_ms=dbms)
+        decode_library_ms=cuda_time_ms(sdpa),
+        decode_bound_ms=dbms, decode_bound_by=dby,
+        **{f"decode_{key}": val for key, val in split_timing(
+            fa, k2, sdpa, q, k, dbms).items()})
     # K7 at the beam vision decode step: bytes are the int8 K/V, the scales,
     # q and the output; operations the two products
     q, k8, ks, v8, vs, heads = k7_args
@@ -466,7 +585,23 @@ def phase_kernels(fa) -> list:
     log(f"  {row['name']} at the recompute decode: {row['decode_ms']:.4f} ms "
         f"(plain {row['decode_plain_ms']:.4f}, library "
         f"{row['decode_library_ms']:.4f}, bound {row['decode_bound_ms']:.4f})")
+    for pre, what in (("", "ITM"), ("decode_", "recompute decode")):
+        log_split_timing(f"{row['name']} at {what}", row, pre)
     return rows
+
+
+def ms_text(x, digits: int = 4) -> str:
+    """A measured number, or "not measured" where the profiler gave none."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
+
+
+def log_split_timing(what: str, row: dict, pre: str = "") -> None:
+    log(f"  {what}: device {ms_text(row[pre + 'device_ms'])} ms, host "
+        f"{row[pre + 'host_ms']:.4f} ms a call, {row[pre + 'splits']} "
+        f"split(s), {row[pre + 'key_warps']} key warp(s), roofline share "
+        f"{ms_text(row[pre + 'roofline_share'], 3)}; SDPA "
+        f"device {ms_text(row[pre + 'library_device_ms'])}, host "
+        f"{row[pre + 'library_host_ms']:.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1590,6 +1725,24 @@ def phase_long_kernels(fa) -> list:
               "bias", (LONG_B, 12, 128, 8224, 64), "bert", pad_bias),
              ("(1, 2, 160, 9000, 88) ragged, no bias", (1, 2, 160, 9000, 88),
               "contiguous", None)]
+    # cases that cross split boundaries of the keys besides those (11 and
+    # 29 splits, the last ragged): one query row, and a padding bias that
+    # masks every key of the fourth split
+    _, _, nsplit, per = fa.flash_plan(
+        128, 8224, LONG_B * 12, 64, 1,
+        fa._sm_count(torch.cuda.current_device()))
+    if nsplit < 4:
+        raise AssertionError(f"K6 takes {nsplit} splits at the long-context "
+                             "shape: the masked split case checks nothing")
+    pad = torch.ones(LONG_B, 8224)
+    pad[:, 3 * 64 * per:4 * 64 * per] = 0
+    pad[1, 6000:] = 0
+    cases += [("(2, 12, 1, 8224, 64) one query row, no bias",
+               (LONG_B, 12, 1, 8224, 64), "contiguous", None),
+              (f"(2, 12, 128, 8224, 64) BERT layout, a (2, 1, 1, 8224) bias "
+               f"masking all of split 4 of {nsplit} (keys {3 * 64 * per}.."
+               f"{4 * 64 * per - 1})", (LONG_B, 12, 128, 8224, 64), "bert",
+               ((1.0 - pad) * -10000.0)[:, None, None, :].cuda())]
     timed = None
     for what, shape, layout, bias in cases:
         q, k, v, g = long_qkvg(gen, *shape, layout)
@@ -1599,6 +1752,7 @@ def phase_long_kernels(fa) -> list:
                                            return_lse=True)
         want, want_lse = fa.kv_tiled_attention_plain(q, k, v, bias, scale,
                                                      return_lse=True)
+        what = f"{what}, {plan_label(fa, q, k, bias)}"
         errs["K6"].append(compare(f"K6 {what}", got, want,
                                   rel_mean=REL_MEAN_ERR_MAX))
         errs["K6"].append(compare(f"K6 with LSE {what}", got_s, want,
@@ -1625,19 +1779,25 @@ def phase_long_kernels(fa) -> list:
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
     rows = []
     bms, by = bound_ms(flops, nbytes)
+
+    def k6():
+        return fa.kv_tiled_attention(q, k, v, None, scale, return_lse=True)
+
+    def k6_no_lse():
+        return fa.kv_tiled_attention(q, k, v, None, scale)
+
     rows.append(dict(
         name="K6 kv_tiled_attention", route="cuda",
         source="mico_tpu_torch/csrc/kv_tiled_attn.cu",
         replaces="mico_tpu/ops/flash_attention.py:286",
         shape=shape + "; with LSE, as the training forward runs it",
-        ms=cuda_time_ms(lambda: fa.kv_tiled_attention(
-            q, k, v, None, scale, return_lse=True)),
-        ms_no_lse=cuda_time_ms(lambda: fa.kv_tiled_attention(
-            q, k, v, None, scale)),
+        ms=cuda_time_ms(k6), ms_no_lse=cuda_time_ms(k6_no_lse),
+        device_ms_no_lse=device_time_ms(k6_no_lse),
         plain_ms=cuda_time_ms(lambda: fa.kv_tiled_attention_plain(
             q, k, v, None, scale, return_lse=True), iters=5, warmup=1),
         library_ms=cuda_time_ms(sdpa_fwd),
-        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        **split_timing(fa, k6, sdpa_fwd, q, k, bms)))
     # s, dp, dq, dk and dv; q, k, v, g, lse and delta in, dq, dk, dv out
     flops = 10 * b * h * lq * lk * d
     nbytes = (2 * 2 * (q.numel() + k.numel() + v.numel() + g.numel())
@@ -1654,7 +1814,9 @@ def phase_long_kernels(fa) -> list:
             q, k, v, g, lse, delta, None, scale), iters=5, warmup=1),
         library_ms=cuda_time_ms(sdpa_bwd),
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
-    log(f"  K6 without LSE: {rows[0]['ms_no_lse']:.4f} ms")
+    log(f"  K6 without LSE: {rows[0]['ms_no_lse']:.4f} ms (device "
+        f"{ms_text(rows[0]['device_ms_no_lse'])})")
+    log_split_timing("K6 with LSE", rows[0])
     return finish_rows(rows, errs)
 
 

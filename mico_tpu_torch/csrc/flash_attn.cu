@@ -12,32 +12,38 @@
 // any of (B|1, H|1, Lq|1, Lk) through the strides the wrapper passes (0 on a
 // broadcast axis).
 //
-// What bounds it on the H100: memory bytes. At the ITM cross-attention shape
-// (q (N, 12, 30, 64), k/v (N, 12, 257*n, 64)) each key row is used by only
-// 30 query rows: 4*Lq*D = 7.7 kFLOP per 256 bytes of K and V, 30 op/byte,
-// a tenth of the 295 op/byte where the tensor cores would take over.
+// What bounds it on the H100: memory bytes, and below a few microseconds of
+// work the launch itself. At the ITM cross-attention shape (q (N, 12, 30,
+// 64), k/v (N, 12, 257*n, 64)) each key row is used by only 30 query rows:
+// 4*Lq*D = 7.7 kFLOP per 256 bytes of K and V, 30 op/byte, a tenth of the
+// 295 op/byte where the tensor cores would take over; its bound is 0.00079
+// ms at N = 3, the recompute decode's (1, 12, 10, 64) over 1028 keys
+// 0.00095 ms. Both are far below a launch, so the wrapper's host time and
+// the device's latency chain (load Q, then each key chunk) set the time.
 //
-// Design. The TPU kernel keeps the whole K/V of a head resident in VMEM;
+// Design (flash_attn.cuh, shared with K6: `TILED` false keeps K2's rounding
+// points). The TPU kernel keeps the whole K/V of a head resident in VMEM;
 // Lk reaches 8192 here and a head's K/V (2 MB at D = 128) does not fit the
-// SM's 227 KB. So K and V stream through shared memory in 64-key chunks
-// with an online softmax (flash_attn.cuh, shared with K6: `TILED` false
-// keeps K2's rounding points). The result differs from the full-row softmax
-// of the plain twin by fp32 reassociation only. The Q tile is scaled and
-// rounded once into mma fragments held in registers. Each K/V byte is read
-// once per q-tile of 64 rows, so at Lq <= 64 the kernel reads the
-// compulsory bytes once.
+// SM's 227 KB. So K and V stream through a cp.async ring of 64-key chunks
+// with an online softmax, the bias chunk staged beside them. One block
+// holds all of a head's query rows (1 warp of rows at the decode's 10, 2 at
+// ITM's 30), so K and V are read once. At these shapes one warp walking
+// the chunks in series (~2 us a chunk) is what takes the time, so the
+// wrapper's plan shortens that chain: ITM's 5 chunks go to 3 splits
+// across blocks of 2 key warps each, the decode's 17 to 9 splits of 2 key
+// warps, each with a combine kernel; the causal 128 x 128 self-attention
+// to 2 key warps of one block. The result differs from the
+// full-row softmax of the plain twin by fp32 reassociation and by where p
+// is rounded relative to a running maximum. The wrapper packs every
+// argument into one struct (one ctypes argument) to keep its host time
+// down.
 
 #include "flash_attn.cuh"
 
-// q/k/v/o bf16 with unit stride on D; strides[0..11] the (b, h, l) element
-// strides of q, k, v, o; strides[12..15] the bias's (b, h, q, k) strides (fp32,
-// 0 where broadcast). D a multiple of 8 up to 128 (the wrapper checks).
-extern "C" int mico_flash_attn(const void* q, const void* k, const void* v,
-                               const void* bias, void* o, int B, int H, int Lq,
-                               int Lk, int D, const long long* strides,
-                               float qscale, float pscale, int has_bias,
-                               void* stream) {
-  const mico::flash::FlashArgs a = mico::flash::make_args(
-      q, k, v, bias, o, nullptr, Lq, Lk, D, strides, qscale, pscale, has_bias);
-  return mico::flash::launch<false>(a, B, H, static_cast<cudaStream_t>(stream));
+// `call` points to a FlashCall (flash_attn.cuh): q/k/v/o bf16 with unit
+// stride on D, the bias fp32 (0 strides where broadcast), D a multiple of 8
+// up to 128, the plan (row and key warps, splits) chosen by the wrapper.
+extern "C" int mico_flash_attn(const void* call) {
+  return mico::flash::launch<false>(
+      static_cast<const mico::flash::FlashCall*>(call));
 }

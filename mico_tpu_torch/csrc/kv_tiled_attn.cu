@@ -16,30 +16,29 @@
 //
 // What bounds it on the H100: bytes. At the long-context step's shape (q
 // (2, 12, 128, 64), k/v (2, 12, 8224, 64) bf16) it must read 51 MB for 6.5
-// GFLOP: 0.015 ms at 3.35 TB/s against 0.0065 ms at 989 TFLOP/s; each key
-// row meets only 128 query rows.
+// GFLOP: 0.0153 ms at 3.35 TB/s against 0.0065 ms at 989 TFLOP/s; each key
+// row meets only 128 query rows. Keeping 3.35 TB/s busy at ~1 us of memory
+// latency takes ~3 MB of copies in flight, ~25 KB an SM.
 //
 // Design. The device code is K2's (flash_attn.cuh) with `TILED` true: the
 // TPU's (q-tile, k-tile) grid with its running statistics carried across
-// sequential KV grid steps in VMEM scratch becomes one block per q-tile of
-// 64 rows whose loop streams 64-key chunks through double-buffered shared
-// memory, the statistics in registers. The TPU's 512 x 2048 production tiles
-// do not change the arithmetic beyond where p is rounded relative to the
-// running maximum. At Lq = 128 the grid is 2 x 12 x 2 = 48 blocks on 132
-// SMs, and each q-tile reads K and V once: splitting the keys over more
-// blocks is speed work for later.
+// sequential KV grid steps in VMEM scratch becomes blocks that each run the
+// online softmax over one contiguous range of 64-key chunks (split-KV),
+// then a combine kernel that rescales the partials by exp(m_i - m) and
+// writes o and the LSE. One block holds all 128 query rows (8 warps), so
+// each head's K and V cross from memory once (51 MB, not the 101 MB of two
+// 64-row q-tiles); the wrapper's plan gives 11 splits of 12 chunks, 264
+// blocks on 132 SMs, each with a 4-stage cp.async ring (48 KB in flight a
+// block at D = 64). The TPU's 512 x 2048 production tiles and the splits
+// change the arithmetic only in where p is rounded relative to the running
+// maximum and in the fp32 order of the sums.
 
 #include "flash_attn.cuh"
 
-// As mico_flash_attn, with lse (B, H, Lq) fp32 written when not null; the
-// scores are scaled by `scale` in fp32 and exponentiated in base e.
-extern "C" int mico_kv_tiled_attn(const void* q, const void* k, const void* v,
-                                  const void* bias, void* o, void* lse, int B,
-                                  int H, int Lq, int Lk, int D,
-                                  const long long* strides, float scale,
-                                  int has_bias, void* stream) {
-  const mico::flash::FlashArgs a = mico::flash::make_args(
-      q, k, v, bias, o, static_cast<float*>(lse), Lq, Lk, D, strides, scale,
-      mico::LOG2E, has_bias);
-  return mico::flash::launch<true>(a, B, H, static_cast<cudaStream_t>(stream));
+// As mico_flash_attn, with lse (B, H, Lq) fp32 written when the call's lse
+// is not 0; the scores are scaled by `qscale` in fp32 and exponentiated in
+// base e (pscale = log2e).
+extern "C" int mico_kv_tiled_attn(const void* call) {
+  return mico::flash::launch<true>(
+      static_cast<const mico::flash::FlashCall*>(call));
 }

@@ -7,9 +7,11 @@ packed (B, L, H·D). Source: `csrc/fused_ln_qkv_attn.cu`.
 
 K2 `flash_attention` replaces the resident-KV `_flash` (:93, call :127) with
 both bodies, `_kernel` (no bias, exp2) and `_kernel_bias` (additive bias,
-exp), on (B, H, Lq, D). Source: `csrc/flash_attn.cu`. It is differentiable
-as `_flash_diff` is on the resident route (:686-697): the backward
-recomputes attention in plain torch.
+exp), on (B, H, Lq, D). Source: `csrc/flash_attn.cu`. K2 and K6 split the
+keys across blocks where that fills the card (`flash_plan`); a split call
+also launches a combine kernel. It is differentiable as `_flash_diff` is
+on the resident route (:686-697): the backward recomputes attention in
+plain torch.
 
 K6 `kv_tiled_attention` replaces the KV-tiled `_flash_kv_tiled` (:218, call
 :260) and `_flash_kv_tiled_stats` (:286, call :329), body `_kv_tiled_kernel`
@@ -51,7 +53,8 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; only a tensor on the CPU goes to the plain twin (the
 JAX dtype gate, which sends other dtypes on the card to the twins, is the
 caller's: `kernel_route`). Each carries a `launches` count that grows by
-one per kernel launch (K6b: one per call, which launches its two kernels).
+one per call that launches its kernel (K6b launches two, and K2 and K6
+past one split of the keys a second, the combine).
 K1, K5 and K8 have no backward: their wrappers raise
 when autograd records a call whose inputs require a gradient, on any
 device, rather than drop the gradient.
@@ -61,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from typing import Dict, Optional
 
 import torch
@@ -371,12 +375,76 @@ fused_qkv_attn_proj.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# K2/K6 launch geometry (csrc/flash_attn.cuh): keys a streamed chunk, the
+# chunks a split of the keys takes at least where it can, and the packed
+# FlashCall the C entries read (every field 8 bytes)
+KV_CHUNK = 64
+SPLIT_CHUNKS = 2
+_FLASH_CALL = struct.Struct("<7q11q16q2d")
+
+
+def row_warps(lq: int) -> int:
+    """Warps of 16 query rows in a K2/K6 block: enough for min(Lq, 128)
+    rows, so that one block holds all of a head's query rows up to 128."""
+    return -(-min(lq, 128) // 16)
+
+
+def kv_split_plan(lq: int, lk: int, heads: int, sms: int = 132,
+                  splits: Optional[int] = None, rw: Optional[int] = None):
+    """(splits, chunks a split) of K2's and K6's keys for `heads` = B·H.
+    Split s takes the 64-key chunks [s·per, (s+1)·per) ∩ [0, ⌈Lk/64⌉): the
+    splits are contiguous, each starts on a chunk and none is empty; only
+    the last may end inside a chunk (a ragged Lk). Unless `splits` asks for
+    a count, it is the fewest that give about two blocks per SM, with
+    SPLIT_CHUNKS chunks a split at least: a launch and a combine cost more
+    than a warp's chain of one or two chunks (PERF.md §6), so up to two
+    chunks of keys take one split."""
+    chunks = -(-lk // KV_CHUNK)
+    if splits is None:
+        blocks = heads * -(-lq // (16 * (rw or row_warps(lq))))
+        splits = min(-(-2 * sms // blocks), -(-chunks // SPLIT_CHUNKS))
+    per = -(-chunks // max(1, min(splits, chunks)))
+    return -(-chunks // per), per
+
+
+def flash_plan(lq: int, lk: int, heads: int, d: int, bias_rows: int = 0,
+               sms: int = 132, splits: Optional[int] = None,
+               key_warps: Optional[int] = None,
+               block_rows: Optional[int] = None):
+    """(row warps, key warps, splits, chunks a split) of one K2/K6 launch.
+    The splits are `kv_split_plan`'s. Where the grid still has under two
+    blocks an SM, key warps walk a split's chunks side by side for the same
+    rows (one per chunk, up to 16 warps a block at D ≤ 64, 8 above, and as
+    many chunk slots as shared memory holds beside the Q tile), which
+    shortens the chain of chunks one warp walks in series. `bias_rows` is
+    the staged bias's rows a chunk: 0, 1 (broadcast over the queries) or
+    -1 for a row per query row. `splits`, `key_warps` and `block_rows`
+    (query rows a block, a multiple of 16) override the plan's counts (the
+    benchmark's sweep)."""
+    rw = row_warps(min(lq, block_rows or lq))
+    nsplit, per = kv_split_plan(lq, lk, heads, sms, splits, rw)
+    dp = -(-d // 16) * 16
+    rows = 16 * rw if bias_rows < 0 else bias_rows
+    slot = 4 * KV_CHUNK * (dp + 8) + 4 * rows * (KV_CHUNK + 8)
+    fit = (_MAX_SMEM - 32 * rw * (dp + 8)) // slot
+    most = min((16 if d <= 64 else 8) // rw, per, fit)
+    if key_warps is None:
+        blocks = heads * -(-lq // (16 * rw)) * nsplit
+        key_warps = 1 if blocks >= 2 * sms else most
+    return rw, max(1, min(key_warps, most)), nsplit, per
+
+
 @functools.lru_cache(maxsize=None)
-def _k2_entry():
-    fn = _build.load("flash_attn").mico_flash_attn
-    fn.argtypes = [_c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, _c_void_p]
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_entry(tiled: bool):
+    """K6's (`tiled`) or K2's C entry: one argument, a packed FlashCall."""
+    lib = _build.load("kv_tiled_attn" if tiled else "flash_attn")
+    fn = lib.mico_kv_tiled_attn if tiled else lib.mico_flash_attn
+    fn.argtypes = [ctypes.c_char_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -385,74 +453,115 @@ def _check_heads(name: str, q, k, v, g=None) -> None:
     """The layout K2, K6 and K6b take: bf16 q (B, H, Lq, D), k and v
     (B, H, Lk, D) and, for K6b, g of q's shape, on one device; views with a
     unit last stride and 16-byte aligned rows, such as BERT's transposed
-    linear outputs; D a multiple of 8 up to 128."""
-    _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
-             "q, k, v must be (B, H, L, D)")
+    linear outputs; D a multiple of 8 up to 128. (Messages are built only
+    on failure: this runs on every launch.)"""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, L, D)")
     b, h, lq, d = q.shape
-    lk = k.shape[2]
-    _require(tuple(k.shape) == (b, h, lk, d) and k.shape == v.shape,
-             f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
-    _require(g is None or g.shape == q.shape,
-             f"g shape {None if g is None else tuple(g.shape)} vs q "
-             f"{tuple(q.shape)}")
-    _require(all(t.dtype == torch.bfloat16 for t in (q, k, v, g)
-                 if t is not None),
-             f"{name} takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
-             + ("" if g is None else f" and g {g.dtype}"))
-    _require(d % 8 == 0 and d <= 128,
-             f"{name} head dim {d}: multiple of 8, <= 128")
-    _require(lk >= 1 and lq >= 1, "empty attention")
+    ks = k.shape
+    if ks[0] != b or ks[1] != h or ks[3] != d or v.shape != ks:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} vs q "
+                         f"{tuple(q.shape)}")
+    if g is not None and g.shape != q.shape:
+        raise ValueError(f"g shape {tuple(g.shape)} vs q {tuple(q.shape)}")
+    bf16 = torch.bfloat16
+    if (q.dtype != bf16 or k.dtype != bf16 or v.dtype != bf16
+            or (g is not None and g.dtype != bf16)):
+        raise ValueError(
+            f"{name} takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+            + ("" if g is None else f" and g {g.dtype}"))
+    if d % 8 or d > 128:
+        raise ValueError(f"{name} head dim {d}: multiple of 8, <= 128")
+    if ks[2] < 1 or lq < 1:
+        raise ValueError("empty attention")
+    dev = q.device
     for name_t, t in (("q", q), ("k", k), ("v", v), ("g", g)):
         if t is None:
             continue
-        _require(t.device == q.device, f"{name} inputs must share one device")
-        _require(t.stride(3) == 1, f"{name_t} must have a unit last stride")
-        _require(all(s % 8 == 0 for s in t.stride()[:3])
-                 and t.data_ptr() % 16 == 0,
-                 f"{name_t} rows must be 16-byte aligned")
+        if t.device != dev:
+            raise ValueError(f"{name} inputs must share one device")
+        st = t.stride()
+        if st[3] != 1:
+            raise ValueError(f"{name_t} must have a unit last stride")
+        if st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name_t} rows must be 16-byte aligned")
 
 
 def _heads_out(q: torch.Tensor, length: int) -> torch.Tensor:
     """An uninitialised (B, H, length, D) output laid out as (B, length, H,
     D), the layout BERT reshapes back without a copy."""
     b, h, _, d = q.shape
-    return torch.empty((b, length, h, d), dtype=q.dtype,
-                       device=q.device).transpose(1, 2)
+    return torch.empty_strided((b, h, length, d),
+                               (length * h * d, d, h * d, 1),
+                               dtype=q.dtype, device=q.device)
 
 
 def _bias_strides(bias, q, lk):
-    """(pointer tensor, its (b, h, q, k) strides) of an additive bias
-    broadcastable to (B, H, Lq, Lk), in fp32; strides 0 on broadcast axes.
-    With no bias the pointer is q's (never read)."""
+    """(fp32 bias or None, its (b, h, q, k) strides) of an additive bias
+    broadcastable to (B, H, Lq, Lk): stride 0 on every axis of size 1, as
+    `expand` gives, without making the view. Keep the tensor alive through
+    the launch."""
     if bias is None:
-        return q, [0, 0, 0, 0]
-    _require(bias.dim() == 4, "bias must be (B|1, H|1, Lq|1, Lk)")
-    _require(bias.device == q.device, "bias must share q's device")
+        return None, (0, 0, 0, 0)
+    if bias.dim() != 4:
+        raise ValueError("bias must be (B|1, H|1, Lq|1, Lk)")
+    if bias.device != q.device:
+        raise ValueError("bias must share q's device")
+    if bias.dtype != torch.float32:
+        bias = bias.float()
     b, h, lq, _ = q.shape
-    bias_t = bias.float().expand(b, h, lq, lk)
-    return bias_t, list(bias_t.stride())
+    strides = []
+    for want, size, st in zip((b, h, lq, lk), bias.shape, bias.stride()):
+        if size != want and size != 1:
+            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
+                             f"to {(b, h, lq, lk)}")
+        strides.append(0 if size == 1 else st)
+    return bias, strides
 
 
-def _flash_cuda(q, k, v, bias, scale) -> torch.Tensor:
-    _check_heads("K2", q, k, v)
+def _flash_launch(q, k, v, bias, scale: float, tiled: bool,
+                  return_lse: bool = False, splits: Optional[int] = None,
+                  key_warps: Optional[int] = None,
+                  block_rows: Optional[int] = None):
+    """Launch K6 (`tiled`, K6's rounding points, optionally the LSE) or K2
+    on CUDA tensors as `flash_plan` lays it out, and count one launch of
+    the public wrapper's: the split kernel and, past one split, its
+    combine. `splits`, `key_warps` and `block_rows` override the plan (the
+    benchmark's sweep)."""
+    _check_heads("K6" if tiled else "K2", q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
+    bias, bstrides = _bias_strides(bias, q, lk)
+    bias_rows = 0 if bias is None else (1 if bstrides[2] == 0 else -1)
+    rw, kw, nsplit, per = flash_plan(lq, lk, b * h, d, bias_rows,
+                                     _sm_count(q.device.index), splits,
+                                     key_warps, block_rows)
     out = _heads_out(q, lq)
-    bias_t, bstrides = _bias_strides(bias, q, lk)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]] + bstrides
-    if bias is None:
-        qscale, pscale = scale * LOG2E, 1.0
-    else:
+    lse = (torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    ws = None
+    if nsplit > 1:
+        ws = torch.empty(nsplit * b * h * lq * (d + 2), dtype=torch.float32,
+                         device=q.device)
+    if tiled or bias is not None:
         qscale, pscale = scale, LOG2E
-    c_strides = (ctypes.c_longlong * 16)(*strides)
-    rc = _k2_entry()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_t.data_ptr(),
-        out.data_ptr(), b, h, lq, lk, d, c_strides, float(qscale),
-        float(pscale), int(bias is not None), _stream(),
-    )
-    _check(rc, "flash_attn")
-    flash_attention.launches += 1
-    return out
+    else:
+        qscale, pscale = scale * LOG2E, 1.0
+    call = _FLASH_CALL.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        0 if bias is None else bias.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
+        0 if ws is None else ws.data_ptr(),
+        b, h, lq, lk, d, rw, kw, nsplit, per, int(bias is not None),
+        _stream(), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *out.stride()[:3], *bstrides, qscale, pscale)
+    _check(_flash_entry(tiled)(call),
+           "kv_tiled_attn" if tiled else "flash_attn")
+    if tiled:
+        kv_tiled_attention.launches += 1
+    else:
+        flash_attention.launches += 1
+    return (out, lse) if return_lse else out
 
 
 def _flash_forward(q, k, v, bias, scale) -> torch.Tensor:
@@ -462,7 +571,7 @@ def _flash_forward(q, k, v, bias, scale) -> torch.Tensor:
         return kv_tiled_attention(q, k, v, bias, scale)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, bias, scale)
-    return _flash_cuda(q, k, v, bias, scale)
+    return _flash_launch(q, k, v, bias, scale, tiled=False)
 
 
 class _Flash(torch.autograd.Function):
@@ -610,16 +719,6 @@ def kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta,
 
 
 @functools.lru_cache(maxsize=None)
-def _k6_entry():
-    fn = _build.load("kv_tiled_attn").mico_kv_tiled_attn
-    fn.argtypes = [_c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-        _c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _k6b_entry():
     fn = _build.load("kv_tiled_attn_bwd").mico_kv_tiled_attn_bwd
     fn.argtypes = [_c_void_p] * 10 + [ctypes.c_int] * 5 + [
@@ -638,23 +737,8 @@ def kv_tiled_attention(q, k, v, bias: Optional[torch.Tensor], scale: float,
     tensors take the plain twin."""
     if not q.is_cuda:
         return kv_tiled_attention_plain(q, k, v, bias, scale, return_lse)
-    _check_heads("K6", q, k, v)
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    out = _heads_out(q, lq)
-    lse = (torch.empty((b, h, lq, 1), dtype=torch.float32, device=q.device)
-           if return_lse else None)
-    bias_t, bstrides = _bias_strides(bias, q, lk)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]] + bstrides
-    rc = _k6_entry()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_t.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, lq, lk,
-        d, (ctypes.c_longlong * 16)(*strides), float(scale),
-        int(bias is not None), _stream(),
-    )
-    _check(rc, "kv_tiled_attn")
-    kv_tiled_attention.launches += 1
-    return (out, lse) if return_lse else out
+    return _flash_launch(q, k, v, bias, scale, tiled=True,
+                         return_lse=return_lse)
 
 
 kv_tiled_attention.launches = 0
@@ -685,12 +769,13 @@ def kv_tiled_attention_bwd(q, k, v, g, lse, delta,
     b, h, lq, d = q.shape
     lk = k.shape[2]
     dq, dk, dv = _heads_out(q, lq), _heads_out(k, lk), _heads_out(v, lk)
-    bias_t, bstrides = _bias_strides(bias, q, lk)
+    bias, bstrides = _bias_strides(bias, q, lk)
     strides = [s for t in (q, k, v, g, dq, dk, dv)
-               for s in t.stride()[:3]] + bstrides
+               for s in t.stride()[:3]] + list(bstrides)
     rc = _k6b_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), bias_t.data_ptr(), dq.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        q.data_ptr() if bias is None else bias.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
         (ctypes.c_longlong * 25)(*strides), float(scale),
         int(bias is not None), _stream(),

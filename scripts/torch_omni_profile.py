@@ -50,7 +50,7 @@ GROUPS = (
     ("K5/K8 GEMM", ("tile_gemm_kernel<false>",)),
     ("K1/K3/K5 packed attention", ("packed_attn_kernel",)),
     ("K9 CLS-split attention", ("packed_cls_attn_kernel",)),
-    ("K2 flash", ("flash_kernel",)),
+    ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2")),
     ("layer_norm", ("layer_norm", "LayerNorm")),
     ("gelu", ("gelu", "GeluCUDAKernel")),

@@ -46,13 +46,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 WARMUP = 2
-# K2 and K6 are instances of one template, `flash_kernel<KS, TILED>`
+# K2 and K6 are instances of two templates, `flash_kernel<KS, NW, TILED>` and
+# its `combine_kernel<TILED>`: K6 is TILED true, matched first
 GROUPS = (
     ("K3 packed_attn", ("packed_attn_kernel",)),
     ("K4 packed_attn_bwd", ("bwd_rows_kernel", "bwd_cols_kernel")),
     ("K6 kv_tiled", ("true>(mico::flash::FlashArgs",)),
     ("K6b kv_tiled_bwd", ("dq_kernel", "dkv_kernel")),
-    ("K2 flash", ("flash_kernel",)),
+    ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2",
                        "gemv")),
     ("optimizer and clip (multi-tensor)", ("multi_tensor_apply", "adam",
