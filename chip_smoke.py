@@ -19,9 +19,16 @@ Phases, run in order (any failure exits non-zero):
      device and host time; then K5
      and K8 (the post-norm block's projection-fused attention, and with the
      output projection) at the bigE ViT pass x (112, 257, 1792) 16 x 112,
-     at (8, 257, 1408) 16 x 88 and at (3, 50, 256) 4 x 64 (unit-std x,
-     weights at the init std 0.02; also mean |d| <= 1e-2 * mean |ref|),
-     timed at the first beside F.linear + SDPA (+ F.linear);
+     at (8, 257, 1408) 16 x 88, at (3, 50, 256) 4 x 64 and at (2, 600,
+     1792) 16 x 112 (three key blocks: the attention's streamed path;
+     unit-std x, weights at the init std 0.02; also mean |d| <= 1e-2 *
+     mean |ref|),
+     and their GEMM stage alone (`bf16_gemm_bias`, the C entry
+     `mico_bf16_gemm_bias`) against its plain product at the qkv and the
+     out-projection shape of the bigE pass and the ragged tail's qkv, under
+     the same gates; timed at the first beside F.linear + SDPA (+ F.linear),
+     with each call's device ms by stage (the GEMM, the attention, K8's
+     out-projection) beside one F.linear at each GEMM's shape and SDPA;
   3. main: the full-width MiCo-ViT-g omni step (S = 16: 1 image + 4 video
      frames + 2 audio slices in one 112-frame ViT pass, BERT over (16, 30)
      tokens, heads, similarity), ITM for 1 image x 3 captions, and
@@ -196,7 +203,8 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fn, iters: int = 50, warmup: int = 3):
+def device_time_ms(fn, iters: int = 50, warmup: int = 3,
+                   by_kernel: bool = False):
     """The device's own time per call (no host time, no gaps), from
     torch.profiler: for each kernel the calls ran, its mean recorded
     duration times its launches per call. The profiler now and then loses
@@ -205,7 +213,8 @@ def device_time_ms(fn, iters: int = 50, warmup: int = 3):
     reads low. The calls are identical and follow a warm-up, so every kernel
     recorded runs in each of them: one recorded in fewer than half the calls
     counts once a call. None, logged, when no device kernel was recorded:
-    a measurement the profiler could not take fails no check."""
+    a measurement the profiler could not take fails no check. With
+    `by_kernel`, {kernel name: ms per call} instead of their sum."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -216,7 +225,7 @@ def device_time_ms(fn, iters: int = 50, warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    kernels_us = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
@@ -227,12 +236,14 @@ def device_time_ms(fn, iters: int = 50, warmup: int = 3):
                 log(f"  torch.profiler recorded {evt.key[:60]} {evt.count} "
                     f"times in {iters} calls; counted once a call")
                 per_call = 1
-            total_us += dev_us / evt.count * per_call
-    if total_us <= 0:
+            kernels_us[evt.key] = dev_us / evt.count * per_call
+    if sum(kernels_us.values()) <= 0:
         log("  torch.profiler recorded no device kernel: device time not "
             "measured")
         return None
-    return total_us / 1e3
+    if by_kernel:
+        return {name: us / 1e3 for name, us in kernels_us.items()}
+    return sum(kernels_us.values()) / 1e3
 
 
 def host_time_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -650,15 +661,29 @@ def k8_library(x, w, bias, wp, bp, nh, scale):
     return F.linear(k5_library(x, w, bias, nh, scale), wp.t(), bp.to(x.dtype))
 
 
+def stage_device_ms(fn) -> dict:
+    """Device ms per call of each stage of a K5/K8 call (torch.profiler, by
+    kernel name: the GEMM's launches, summed, and the attention's), or None
+    where the profiler recorded nothing."""
+    kern = device_time_ms(fn, by_kernel=True)
+    if kern is None:
+        return {"gemm": None, "attention": None}
+    return {"gemm": sum(ms for n, ms in kern.items() if "gemm" in n),
+            "attention": sum(ms for n, ms in kern.items() if "attn" in n)}
+
+
 def phase_fused_qkv_kernels(fa) -> list:
+    import torch.nn.functional as F
+
     gen = torch.Generator().manual_seed(4)
     errs = {"K5": [], "K8": []}
     log("phase kernels: K5 fused_qkv_self_attention / K8 fused_qkv_attn_proj "
         "vs fused_qkv_plain / fused_qkv_attn_proj_plain")
     # the bigE ViT pass (16 samples x 7 frames; the tensors timed below),
-    # ViT-g's head dim 88, and a ragged tail at 4 x 64
+    # ViT-g's head dim 88, a ragged tail at 4 x 64, and rows of three key
+    # blocks (the attention's streamed path past 272 keys)
     for b, l, nh, d in ((S * 7, 257, 16, 112), (8, 257, 16, 88),
-                        (3, 50, 4, 64)):
+                        (3, 50, 4, 64), (2, 600, 16, 112)):
         a = fused_qkv_inputs(gen, b, l, nh, d)
         what = f"({b}, {l}, {nh * d}) H={nh} D={d}"
         errs["K5"].append(compare(
@@ -670,24 +695,71 @@ def phase_fused_qkv_kernels(fa) -> list:
             rel_mean=REL_MEAN_ERR_MAX))
         if b == S * 7:
             timed = a
+        elif d == 64:
+            ragged = a
     a = timed
     b, l, wd = a["x"].shape
     nh = a["num_heads"]
     d = wd // nh
+    m = b * l
+    x2 = a["x"].view(m, wd)
+    # the GEMM stage alone (mico_bf16_gemm_bias) against its plain product,
+    # at the qkv and the out-projection shape and the ragged tail's qkv
+    gemm_errs = {}
+    r2 = ragged["x"].view(-1, ragged["x"].shape[-1])
+    for what, args in (("qkv", (x2, a["w"], a["bias"])),
+                       ("out-projection", (x2, a["wp"], a["bp"])),
+                       ("ragged qkv", (r2, ragged["w"], ragged["bias"]))):
+        shape = f"({args[0].shape[0]}, {args[0].shape[1]}) x {tuple(args[1].shape)}"
+        err = compare(f"GEMM stage {what} {shape}", fa.bf16_gemm_bias(*args),
+                      fa.bf16_gemm_plain(*args), rel_mean=REL_MEAN_ERR_MAX)
+        gemm_errs[what] = err
     shape = f"x ({b}, {l}, {wd}) bf16, W ({wd}, {3 * wd}), H={nh}, D={d}"
     flops = 2 * b * l * wd * 3 * wd + 4 * b * nh * l * l * d
     nbytes = 2 * (2 * a["x"].numel() + a["w"].numel()) + 4 * a["bias"].numel()
+
+    def k5():
+        return fa.fused_qkv_self_attention(*k5_args(a))
+
+    def k8():
+        return fa.fused_qkv_attn_proj(*k8_args(a))
+
+    # the stages' yardsticks: one F.linear at each GEMM's shape and one SDPA
+    # call on the q/k/v of the same projection (times only)
+    qkv = F.linear(x2, a["w"].t(), a["bias"].to(x2.dtype))
+    q, k, v = qkv.view(b, l, 3, nh, d).permute(2, 0, 3, 1, 4)
+    o = k5().view(m, wd)
+    wt, wpt = a["w"].t(), a["wp"].t()
+    b16, bp16 = a["bias"].to(x2.dtype), a["bp"].to(x2.dtype)
+    library_stages = {
+        "qkv GEMM (F.linear)": device_time_ms(lambda: F.linear(x2, wt, b16)),
+        "attention (SDPA)": device_time_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=a["scale"])),
+        "out-projection GEMM (F.linear)": device_time_ms(
+            lambda: F.linear(o, wpt, bp16))}
+    st5, st8 = stage_device_ms(k5), stage_device_ms(k8)
+    stages5 = {"qkv GEMM": st5["gemm"], "attention": st5["attention"]}
+    stages8 = {"qkv GEMM": st5["gemm"], "attention": st8["attention"],
+               "out-projection GEMM": None if None in (st8["gemm"], st5["gemm"])
+               else st8["gemm"] - st5["gemm"]}
+    for name, stages in (("K5", stages5), ("K8", stages8)):
+        log(f"  {name} device ms by stage: " + ", ".join(
+            f"{k} {ms_text(v)}" for k, v in stages.items()) + "; beside: "
+            + ", ".join(f"{k} {ms_text(v)}" for k, v in library_stages.items()))
     rows = []
     bms, by = bound_ms(flops, nbytes)
     rows.append(dict(
         name="K5 fused_qkv_self_attention", route="cuda",
         source="mico_tpu_torch/csrc/fused_qkv_attn.cu",
         replaces="mico_tpu/ops/flash_attention.py:1277", shape=shape,
-        ms=cuda_time_ms(lambda: fa.fused_qkv_self_attention(*k5_args(a))),
+        ms=cuda_time_ms(k5),
         plain_ms=cuda_time_ms(lambda: fa.fused_qkv_plain(*k5_args(a)),
                               iters=5, warmup=1),
         library_ms=cuda_time_ms(lambda: k5_library(*k5_args(a))),
-        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        device_ms=device_time_ms(k5), stages_device_ms=stages5,
+        library_stages_device_ms=library_stages,
+        gemm_stage_checks=gemm_errs))
     flops += 2 * b * l * wd * wd
     nbytes += 2 * a["wp"].numel() + 4 * a["bp"].numel()
     bms, by = bound_ms(flops, nbytes)
@@ -696,11 +768,13 @@ def phase_fused_qkv_kernels(fa) -> list:
         source="mico_tpu_torch/csrc/fused_qkv_attn_proj.cu",
         replaces="mico_tpu/ops/flash_attention.py:1443",
         shape=shape + f", Wp ({wd}, {wd})",
-        ms=cuda_time_ms(lambda: fa.fused_qkv_attn_proj(*k8_args(a))),
+        ms=cuda_time_ms(k8),
         plain_ms=cuda_time_ms(lambda: fa.fused_qkv_attn_proj_plain(
             *k8_args(a)), iters=5, warmup=1),
         library_ms=cuda_time_ms(lambda: k8_library(*k8_args(a))),
-        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
+        bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        device_ms=device_time_ms(k8), stages_device_ms=stages8,
+        library_stages_device_ms=library_stages))
     return finish_rows(rows, errs)
 
 

@@ -22,8 +22,8 @@
 // behind one C entry instead:
 //   (a) ln_stats: one warp per row takes fp32 mean and rstd (two passes over
 //       the row held in registers), 8 bytes per row to global memory;
-//   (b) the LN-prologue GEMM (qkv_gemm.cuh, `tile_gemm_kernel<true>`,
-//       shared with K5 and K8 without the prologue): 128x128 output tiles,
+//   (b) the LN-prologue GEMM (qkv_gemm.cuh, `tile_gemm_kernel`): 128x128
+//       output tiles,
 //       BK = 32, two-stage pipeline. W tiles arrive by cp.async; x tiles
 //       are loaded to registers one step ahead, normalised (and
 //       affine-transformed) in fp32 and rounded to bf16 on their way into
@@ -107,7 +107,7 @@ extern "C" int mico_fused_ln_qkv_attn(const void* x, const void* gamma,
       static_cast<const bf16*>(x), static_cast<float2*>(stats), M, W, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = mico::gemm::launch_gemm<true>(
+  e = mico::gemm::launch_gemm(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
       static_cast<const bf16*>(w), static_cast<const float*>(bias),

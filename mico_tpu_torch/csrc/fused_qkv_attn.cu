@@ -24,36 +24,52 @@
 // batch grid and computed qkv in VMEM, so qkv never reached HBM. A Hopper SM
 // has 227 KB of shared memory, so here qkv makes one round trip through
 // HBM/L2 (2 x 309 MB at this shape) between two launches behind one C entry:
-//   (a) the qkv GEMM of qkv_gemm.cuh without the LN prologue: x and W tiles
-//       by cp.async, 128x128 tiles, mma.sync, the bias in fp32 in the
-//       epilogue, one rounding to bf16 into a (B*L, 3W) scratch;
-//   (b) the packed attention of packed_attn.cuh (shared with K1 and K3),
-//       reading q/k/v of one head by column offset from the qkv rows (row
-//       stride 3W). D = 112 takes its KS = 7 instance: 130,560 bytes of
-//       shared memory at L = 257.
-// wgmma, TMA and warp specialisation are left to later work.
+//   (a) the persistent, warp-specialised GEMM of wgmma_gemm.cuh: clusters
+//       of two CTAs that share each W tile by TMA multicast, a 3-stage
+//       ring, two consumer warpgroups of wgmma m64n256k16, the bias in fp32
+//       in the epilogue, one rounding to bf16, TMA stores into a (B*L, 3W)
+//       scratch;
+//   (b) the packed attention of qkv_attn.cuh: one block per (b, h) stages
+//       the head's K and V once by TMA, takes Q in 64-row tiles, keeps each
+//       score row in registers (QK^T once, the exact maximum from
+//       registers) and runs both products as wgmma.
+// At bigE's pass the two take about 0.72 and 0.24 ms of device time on an
+// H100 80GB HBM3 at 700 W (scripts/torch_qkv_bench.py; PERF.md).
+// K1 keeps the mma.sync GEMM of qkv_gemm.cuh and packed_attn.cuh.
 
 #include "common.cuh"
-#include "packed_attn.cuh"
-#include "qkv_gemm.cuh"
+#include "qkv_attn.cuh"
+#include "wgmma_gemm.cuh"
 
 // x (B*L, W) bf16; w (W, 3W) bf16; bias (3W) fp32; qkv (B*L, 3W) bf16 is
-// scratch; out (B, L, W) bf16. Needs W % 32 == 0, 3W % 128 == 0 and
-// D = W / H a multiple of 8 up to 128 (the wrapper checks).
+// scratch; out (B, L, W) bf16. Needs W % 8 == 0, D = W / H a multiple of
+// 8 up to 128 and qattn::smem_bytes(L, D) within 227 KB (the wrapper
+// checks).
 extern "C" int mico_fused_qkv_attn(const void* x, const void* w,
                                    const void* bias, void* qkv, void* out,
                                    int B, int L, int W, int H, float qk_scale,
                                    void* stream) {
   using mico::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, N = 3 * W, D = W / H;
-  cudaError_t e = mico::gemm::launch_gemm<false>(
-      static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(qkv), M, W, N, 0, s);
+  cudaError_t e = mico::wg::launch_gemm(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(qkv), B * L, W,
+      3 * W, s);
   if (e != cudaSuccess) return e;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  return mico::packed::launch_attn(q, q + W, q + 2 * W, N,
-                                   static_cast<bf16*>(out), B, L, H, D,
-                                   qk_scale, s);
+  return mico::qattn::launch_attn(static_cast<const bf16*>(qkv),
+                                  static_cast<bf16*>(out), B, L, H, W / H,
+                                  qk_scale, s);
+}
+
+// The GEMM stage alone, for checks and timing (no model path calls it):
+// out (M, N) = a (M, K) . w (K, N) + bias, bf16 with fp32 bias, rounded
+// once. K % 8 == 0 and N % 8 == 0.
+extern "C" int mico_bf16_gemm_bias(const void* a, const void* w,
+                                   const void* bias, void* out, int M, int K,
+                                   int N, void* stream) {
+  using mico::bf16;
+  return mico::wg::launch_gemm(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(out), M, K, N,
+      static_cast<cudaStream_t>(stream));
 }

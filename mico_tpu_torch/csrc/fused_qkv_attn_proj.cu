@@ -18,19 +18,17 @@
 // Design. The TPU kernel kept W_qkv and W_p resident in VMEM, so neither
 // qkv nor o reached HBM. Here both make one round trip through HBM/L2
 // (qkv 2 x 309 MB, o 2 x 103 MB at this shape) between three launches
-// behind one C entry: K5's two (the qkv GEMM of qkv_gemm.cuh without the
-// LN prologue, the packed attention of packed_attn.cuh), then the same
-// hand-written GEMM over o with W_p, the bias b_p added in fp32 in its
-// epilogue. No library GEMM is called.
+// behind one C entry: K5's two (the wgmma + TMA GEMM of wgmma_gemm.cuh, the
+// packed attention of qkv_attn.cuh), then the same GEMM over o with W_p,
+// the bias b_p added in fp32 in its epilogue. No library GEMM is called.
 
 #include "common.cuh"
-#include "packed_attn.cuh"
-#include "qkv_gemm.cuh"
+#include "qkv_attn.cuh"
+#include "wgmma_gemm.cuh"
 
 // x (B*L, W) bf16; w (W, 3W) bf16; bias (3W) fp32; wp (W, W) bf16; bp (W)
 // fp32; qkv (B*L, 3W) and o (B*L, W) bf16 are scratch; out (B, L, W) bf16.
-// Needs W % 128 == 0 and D = W / H a multiple of 8 up to 128 (the wrapper
-// checks).
+// Needs what K5 needs (the wrapper checks).
 extern "C" int mico_fused_qkv_attn_proj(const void* x, const void* w,
                                         const void* bias, const void* wp,
                                         const void* bp, void* qkv, void* o,
@@ -38,18 +36,17 @@ extern "C" int mico_fused_qkv_attn_proj(const void* x, const void* w,
                                         float qk_scale, void* stream) {
   using mico::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, N = 3 * W, D = W / H;
-  cudaError_t e = mico::gemm::launch_gemm<false>(
-      static_cast<const bf16*>(x), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(qkv), M, W, N, 0, s);
+  const int M = B * L;
+  cudaError_t e = mico::wg::launch_gemm(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const float*>(bias), static_cast<bf16*>(qkv), M, W, 3 * W,
+      s);
   if (e != cudaSuccess) return e;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  e = mico::packed::launch_attn(q, q + W, q + 2 * W, N, static_cast<bf16*>(o),
-                                B, L, H, D, qk_scale, s);
+  e = mico::qattn::launch_attn(static_cast<const bf16*>(qkv),
+                               static_cast<bf16*>(o), B, L, H, W / H,
+                               qk_scale, s);
   if (e != cudaSuccess) return e;
-  return mico::gemm::launch_gemm<false>(
-      static_cast<const bf16*>(o), nullptr, nullptr, nullptr,
-      static_cast<const bf16*>(wp), static_cast<const float*>(bp),
-      static_cast<bf16*>(out), M, W, W, 0, s);
+  return mico::wg::launch_gemm(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(wp),
+      static_cast<const float*>(bp), static_cast<bf16*>(out), M, W, W, s);
 }

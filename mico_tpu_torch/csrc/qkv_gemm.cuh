@@ -1,18 +1,16 @@
-// The tiled bf16 GEMM of the ViT attention kernels: out = A . W + bias,
-// A (M, K) and W (K, N) bf16 row-major, bias (N) fp32, out (M, N) bf16.
-// Shared by K1 (fused_ln_qkv_attn.cu, with the LayerNorm prologue), K5
-// (fused_qkv_attn.cu) and K8 (fused_qkv_attn_proj.cu, both projections).
+// The tiled bf16 GEMM of K1 (fused_ln_qkv_attn.cu) with its LayerNorm
+// prologue: out = LN(A) . W + bias, A (M, K) and W (K, N) bf16 row-major,
+// bias (N) fp32, out (M, N) bf16. (K5 and K8 left it for the wgmma + TMA
+// GEMM of wgmma_gemm.cuh; this header now serves K1 alone, its code as
+// before.)
 //
 // 128x128 output tiles, BK = 32, a two-stage pipeline, 8 warps of 64x32
 // running mma.sync m16n8k16 with fp32 accumulators; the bias is added in
 // fp32 in the epilogue and each output rounded once to bf16. W tiles arrive
-// by cp.async. A tiles:
-//   LN = true  (K1): loaded to registers one step ahead, normalised with the
-//              per-row (mean, rstd) from `stats` (and the affine when
-//              `affine`) in fp32 and rounded to bf16 on their way into
-//              shared memory, so the normalised tensor never exists in
-//              global memory;
-//   LN = false (K5, K8): copied by cp.async like the W tiles.
+// by cp.async. A tiles are loaded to registers one step ahead, normalised
+// with the per-row (mean, rstd) from `stats` (and the affine when `affine`)
+// in fp32 and rounded to bf16 on their way into shared memory, so the
+// normalised tensor never exists in global memory.
 // The grid walks the column tiles fastest, so the blocks that share a row
 // tile read A from L2 and W stays L2-resident.
 //
@@ -28,7 +26,6 @@ constexpr int GM = 128, GN = 128, GK = 32, GT = 256;
 constexpr int AST = GK + 8;   // A tile row stride (bf16): conflict-free ldmatrix
 constexpr int BST = GN + 8;   // B tile row stride
 
-template <bool LN>
 __global__ void __launch_bounds__(GT, 2)
 tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
                  const float* __restrict__ gam, const float* __restrict__ bet,
@@ -36,16 +33,14 @@ tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
                  bf16* __restrict__ out, int M, int K, int N, int affine) {
   __shared__ __align__(16) bf16 As[2][GM * AST];
   __shared__ __align__(16) bf16 Bs[2][GK * BST];
-  __shared__ float2 s_stats[LN ? GM : 1];
+  __shared__ float2 s_stats[GM];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
   const int wm = warp >> 2, wn = warp & 3;   // warp tile: rows wm*64, cols wn*32
 
-  if constexpr (LN) {
-    for (int r = tid; r < GM; r += GT)
-      s_stats[r] = (m0 + r < M) ? stats[m0 + r] : make_float2(0.f, 0.f);
-  }
+  for (int r = tid; r < GM; r += GT)
+    s_stats[r] = (m0 + r < M) ? stats[m0 + r] : make_float2(0.f, 0.f);
 
   uint4 xr[2];
   auto load_x = [&](int kt) {
@@ -80,16 +75,6 @@ tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
           make_uint4(o[0], o[1], o[2], o[3]);
     }
   };
-  auto load_a_async = [&](int kt, int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * GT, r = v >> 2, cv = v & 3;
-      const int row = m0 + r;
-      const bool ok = row < M;
-      cp_async_16(&As[buf][r * AST + cv * 8],
-                  ok ? x + (size_t)row * K + kt * GK + cv * 8 : x, ok);
-    }
-  };
   auto load_b = [&](int kt, int buf) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -108,17 +93,11 @@ tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   const int nk = K / GK;
-  if constexpr (LN) {
-    load_x(0);
-    load_b(0, 0);
-    cp_async_commit();
-    __syncthreads();   // s_stats visible
-    store_a(0, 0);
-  } else {
-    load_a_async(0, 0);
-    load_b(0, 0);
-    cp_async_commit();
-  }
+  load_x(0);
+  load_b(0, 0);
+  cp_async_commit();
+  __syncthreads();   // s_stats visible
+  store_a(0, 0);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -126,9 +105,8 @@ tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
     const int buf = kt & 1;
     if (kt + 1 < nk) {
       load_b(kt + 1, buf ^ 1);
-      if constexpr (!LN) load_a_async(kt + 1, buf ^ 1);
       cp_async_commit();
-      if constexpr (LN) load_x(kt + 1);
+      load_x(kt + 1);
     }
 #pragma unroll
     for (int ks = 0; ks < GK / 16; ++ks) {
@@ -153,7 +131,7 @@ tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
         for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
     }
     if (kt + 1 < nk) {
-      if constexpr (LN) store_a(kt + 1, buf ^ 1);
+      store_a(kt + 1, buf ^ 1);
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -177,16 +155,15 @@ tile_gemm_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
   }
 }
 
-// out (M, N) = A (M, K) . w (K, N) + bias, with K1's LayerNorm prologue on A
-// when LN (stats (M) of (mean, rstd); gam/bet (K) read when affine).
-template <bool LN>
+// out (M, N) = LN(A) (M, K) . w (K, N) + bias: stats (M) of (mean, rstd);
+// gam/bet (K) read when affine.
 inline cudaError_t launch_gemm(const bf16* x, const float2* stats,
                                const float* gam, const float* bet,
                                const bf16* w, const float* bias, bf16* out,
                                int M, int K, int N, int affine,
                                cudaStream_t s) {
   dim3 grid(N / GN, (M + GM - 1) / GM);
-  tile_gemm_kernel<LN><<<grid, GT, 0, s>>>(x, stats, gam, bet, w, bias, out,
+  tile_gemm_kernel<<<grid, GT, 0, s>>>(x, stats, gam, bet, w, bias, out,
                                            M, K, N, affine);
   return cudaGetLastError();
 }

@@ -1,0 +1,276 @@
+// The wgmma + TMA GEMM of K5's qkv projection and K8's two projections:
+// out (M, N) = A (M, K) . W (K, N) + bias, A and W bf16 row-major, bias (N)
+// fp32, out bf16. The products accumulate in fp32, the bias is added in fp32
+// in the epilogue and each output is rounded once to bf16: the rounding
+// points of `_fused_qkv_attn_kernel` (mico_tpu/ops/flash_attention.py:1229)
+// and `_fused_qkv_attn_proj_kernel` (:1388).
+//
+// What bounds it on the H100: tensor-core operations (bigE's qkv product,
+// M 28,784, K 1792, N 5376: 554.6 GFLOP, 0.561 ms at 989 TFLOP/s bf16,
+// against 0.108 ms for its 361 MB of compulsory bytes).
+//
+// Design:
+//  - persistent clusters of two CTAs (as many as the card holds at once, one
+//    CTA an SM) walk the output tiles of 128 x BN; the cluster's CTAs take
+//    the two row tiles of a pair with the same column tile, column tiles
+//    fastest, so the CTAs in flight share a few row tiles of A through L2
+//    and W stays L2-resident;
+//  - one producer thread a CTA issues TMA loads into a ring of STAGES
+//    stages (128-byte swizzle), each completing on its `full` mbarrier: its
+//    own A tile (128 x 64), and half of the shared W tile (64 x BN), which
+//    TMA multicasts to both CTAs of the cluster. That halves W's traffic
+//    from L2, which at 48 KB a stage per CTA held the first version to 512
+//    TFLOP/s. A stage is refilled once the consumers of both CTAs have
+//    released it (`empty`, four arrivals, two of them remote); the ring
+//    runs on across tiles;
+//  - two consumer warpgroups each own 64 rows of the tile and run
+//    wgmma.mma_async m64nBNk16 with A and W from shared memory. W (K, N)
+//    row-major is MN-major for wgmma's B operand, which bf16 takes through
+//    the descriptor's transpose bit: no transposed weight is made. A
+//    consumer keeps one k-step of wgmmas in flight and frees the previous
+//    stage when it retires;
+//  - the epilogue adds the bias, rounds to bf16 into a staging tile in
+//    shared memory (swizzled, conflict-free) and hands it to TMA stores, so
+//    the consumers go on to the next tile while the stores drain: stores
+//    from registers took 40% of the GEMM's time;
+//  - setmaxnreg moves registers from the producer warpgroup (40) to the
+//    consumers (232: BN/2 accumulators a thread);
+//  - ragged edges: the tensor maps fill rows past M, columns past N and k
+//    past K with zeros, and the TMA stores clip at M and N. Needs K % 8 == 0
+//    and N % 8 == 0 (TMA's 16-byte strides).
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace mico {
+namespace wg {
+
+// 128 x 256 tiles: 128 x 128 ones ran the bigE qkv product at 634 TFLOP/s
+// against 758 (scripts/torch_qkv_bench.py, PERF.md)
+constexpr int BM = 128, BN = 256, BK = 64;
+constexpr int THREADS = 384;            // 2 consumer warpgroups + producer
+constexpr int CLUSTER = 2;              // CTAs sharing each W tile
+constexpr int RING_BYTES = 147456;      // 144 KB of stages (3 at BN 256)
+
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int STAGE = A_BYTES + BK * BN * 2;
+constexpr int STAGES = RING_BYTES / STAGE;
+constexpr int C_BYTES = 64 * BN * 2;   // a warpgroup's output rows
+constexpr int SMEM = STAGES * STAGE + 2 * C_BYTES + 2 * STAGES * 8 + 1024;
+
+__device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
+                                          const unsigned char* a,
+                                          const unsigned char* b, int first) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t da = hop::desc_sw128(a + kk * 32, 16, 1024);
+    const uint64_t db = hop::desc_sw128(b + kk * 2048, BK * 128, 1024);
+    hop::wgmma_ss_n256<1>(acc, da, db, !(first && kk == 0));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_w,
+                  const __grid_constant__ CUtensorMap tma_out,
+                  const float* __restrict__ bias, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hop::align1024(smem_raw);
+  unsigned char* cstage = smem + STAGES * STAGE;   // [warpgroup]
+  uint64_t* full = reinterpret_cast<uint64_t*>(cstage + 2 * C_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  // the cluster's CTAs take consecutive row tiles of the same column tile:
+  // tile group p -> (row group p / ntn, column tile p % ntn)
+  const uint32_t rank = hop::cluster_rank();
+  const int ntn = (N + BN - 1) / BN;
+  const int npairs = ((M + CLUSTER * BM - 1) / (CLUSTER * BM)) * ntn;
+  const int nk = (K + BK - 1) / BK;
+  const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 2 * CLUSTER);
+    }
+    hop::fence_barrier_init();
+  }
+  hop::cluster_sync();   // the peer's barriers exist before any multicast
+
+  if (wgi == 2) {
+    // producer warpgroup: one thread issues every load
+    hop::setmaxnreg_dec<40>();
+    if (threadIdx.x == 256) {
+      hop::prefetch_map(&tma_a);
+      hop::prefetch_map(&tma_w);
+      int stage = 0, phase = 0;
+      for (int p = first; p < npairs; p += step) {
+        const int m0 = (CLUSTER * (p / ntn) + rank) * BM, n0 = (p % ntn) * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          // the stage is free in both CTAs: the W half lands in each
+          hop::mbar_wait(&empty[stage], phase ^ 1);
+          hop::mbar_expect_tx(&full[stage], STAGE);
+          unsigned char* st = smem + stage * STAGE;
+          hop::tma_load_2d(st, &tma_a, &full[stage], kt * BK, m0);
+#pragma unroll
+          for (int j = 0; j < BN / 64 / CLUSTER; ++j) {
+            const int box = rank * (BN / 64 / CLUSTER) + j;
+            hop::tma_load_2d_mc(st + A_BYTES + box * BK * 128, &tma_w,
+                                &full[stage], n0 + 64 * box, kt * BK,
+                                (1 << CLUSTER) - 1);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // the tail: every stage released by both CTAs' consumers, so no
+      // remote arrival reaches this CTA after it exits
+      for (int i = 0; i < STAGES; ++i) {
+        hop::mbar_wait(&empty[stage], phase ^ 1);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    hop::setmaxnreg_inc<232>();
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    int stage = 0, phase = 0;
+    auto release = [&](int s) {
+      if (tid == 0)
+        for (int r = 0; r < CLUSTER; ++r) hop::mbar_arrive_cluster(&empty[s], r);
+    };
+    for (int p = first; p < npairs; p += step) {
+      const int m0 = (CLUSTER * (p / ntn) + rank) * BM, n0 = (p % ntn) * BN;
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        hop::mbar_wait(&full[stage], phase);
+        const unsigned char* st = smem + stage * STAGE;
+        hop::fence_regs(acc);
+        hop::wgmma_fence();
+        mma_stage(acc, st + wgi * 64 * 128, st + A_BYTES, kt == 0);
+        hop::wgmma_commit();
+        if (kt > 0) {
+          hop::wgmma_wait<1>();
+          hop::fence_regs(acc);
+          release(prev);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hop::wgmma_wait<0>();
+      hop::fence_regs(acc);
+      release(prev);
+
+      // epilogue: + bias in fp32, one rounding to bf16 into this warpgroup's
+      // staging rows (128-byte swizzle, conflict-free), then TMA stores that
+      // clip at M and N and run on while the next tile's products start
+      unsigned char* cs = cstage + wgi * C_BYTES;
+      if (tid == 0) hop::bulk_wait_read<0>();   // the last tile's stores
+      hop::named_sync(1 + wgi, 128);
+      const int rl = warp * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = 8 * j + 2 * (lane & 3);
+        const float2 bv = n0 + col < N
+                              ? *reinterpret_cast<const float2*>(bias + n0 + col)
+                              : make_float2(0.f, 0.f);
+        *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
+            pack_bf16(acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
+        *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col, 8192)) =
+            pack_bf16(acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+      }
+      hop::fence_proxy_async();
+      hop::named_sync(1 + wgi, 128);
+      if (tid == 0) {
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          hop::tma_store_2d(&tma_out, cs + c * 8192, n0 + 64 * c,
+                            m0 + wgi * 64);
+        hop::bulk_commit();
+      }
+    }
+    if (tid == 0) hop::bulk_wait<0>();
+  }
+}
+
+static inline cudaError_t launch_clusters(const CUtensorMap& ta,
+                                          const CUtensorMap& tw,
+                                          const CUtensorMap& tout,
+                                          const float* bias, int M, int N,
+                                          int K, cudaStream_t stream) {
+  // the opt-in and the clusters the card holds at once, once per device
+  static int clusters[hop::MAX_DEVICES] = {};
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  auto kernel = wgmma_gemm_kernel;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int held = dev < hop::MAX_DEVICES ? clusters[dev] : 0;
+  if (held == 0) {
+    e = cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+    if (e != cudaSuccess) return e;
+    cfg.gridDim = dim3(CLUSTER);
+    e = cudaOccupancyMaxActiveClusters(&held, (const void*)kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (held < 1) return cudaErrorInvalidConfiguration;
+    if (dev < hop::MAX_DEVICES) clusters[dev] = held;
+  }
+  const int npairs =
+      ((M + CLUSTER * BM - 1) / (CLUSTER * BM)) * ((N + BN - 1) / BN);
+  cfg.gridDim = dim3(CLUSTER * (npairs < held ? npairs : held));
+  void* args[] = {const_cast<CUtensorMap*>(&ta), const_cast<CUtensorMap*>(&tw),
+                  const_cast<CUtensorMap*>(&tout), &bias, &M, &N, &K};
+  return cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
+}
+
+// out (M, N) = a (M, K) . w (K, N) + bias on `stream`. The grid is as many
+// clusters of two as the card holds at once, at most one a pair of row
+// tiles.
+inline cudaError_t launch_gemm(const bf16* a, const bf16* w, const float* bias,
+                               bf16* out, int M, int K, int N,
+                               cudaStream_t stream) {
+  if (K % 8 || N % 8 || M <= 0) return cudaErrorInvalidValue;
+  CUtensorMap ta, tw, tout;
+  const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t astr[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t abox[2] = {BK, BM};
+  const cuuint64_t wdims[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t wstr[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t wbox[2] = {64, BK};
+  const cuuint64_t odims[2] = {(cuuint64_t)N, (cuuint64_t)M};
+  const cuuint32_t obox[2] = {64, 64};
+  cudaError_t e = hop::make_map(&ta, a, 2, adims, astr, abox);
+  if (e != cudaSuccess) return e;
+  e = hop::make_map(&tw, w, 2, wdims, wstr, wbox);
+  if (e != cudaSuccess) return e;
+  e = hop::make_map(&tout, out, 2, odims, wstr, obox);
+  if (e != cudaSuccess) return e;
+  return launch_clusters(ta, tw, tout, bias, M, N, K, stream);
+}
+
+}  // namespace wg
+}  // namespace mico

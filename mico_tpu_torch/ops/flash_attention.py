@@ -46,8 +46,10 @@ inference attention of a post-norm block (EVA02-CLIP-bigE). K8
 `fused_qkv_attn_proj` replaces `_fused_qkv_attn_proj_fwd` (:1443, call
 :1459), body :1388: K5 followed by the output projection, the same block's
 route when `FUSED_ATTN_PROJ` is on. Sources: `csrc/fused_qkv_attn.cu` and
-`csrc/fused_qkv_attn_proj.cu`, whose GEMMs are K1's (`csrc/qkv_gemm.cuh`)
-without the LN prologue.
+`csrc/fused_qkv_attn_proj.cu`: the wgmma + TMA GEMM of `csrc/wgmma_gemm.cuh`
+and the packed attention of `csrc/qkv_attn.cuh` (one block per head, both
+products on wgmma). `bf16_gemm_bias` launches the GEMM alone, for checks
+and timing; no model path calls it.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; only a tensor on the CPU goes to the plain twin (the
@@ -162,21 +164,27 @@ def fused_ln_qkv_plain(x, g, b0, w, bias, num_heads: int, scale: float,
     return fused_qkv_plain(xn, w, bias, num_heads, scale)
 
 
+def bf16_gemm_plain(a, w, bias) -> torch.Tensor:
+    """The twin of K5's and K8's GEMM stage (`bf16_gemm_bias`): a·w + bias
+    in fp32 with w in a's dtype, rounded once to a's dtype."""
+    out = torch.matmul(a.float(), w.to(a.dtype).float()) + bias.float()
+    return out.to(a.dtype)
+
+
 def fused_qkv_plain(x, w, bias, num_heads: int, scale: float) -> torch.Tensor:
     """K5's twin, `_fused_qkv_reference` (flash_attention.py:1318-1325): qkv
     = x·W + bias in fp32, rounded once to x's dtype, then the packed
     attention."""
-    qkv = torch.matmul(x.float(), w.to(x.dtype).float()) + bias.float()
-    return packed_qkv_attention_plain(qkv.to(x.dtype), num_heads, scale)
+    return packed_qkv_attention_plain(bf16_gemm_plain(x, w, bias), num_heads,
+                                      scale)
 
 
 def fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads: int,
                               scale: float) -> torch.Tensor:
     """K8's twin, `_fused_qkv_attn_proj_reference` (:1492-1497): K5's twin,
     then ·Wp + bp in fp32, rounded once to x's dtype."""
-    o = fused_qkv_plain(x, w, bias, num_heads, scale)
-    out = torch.matmul(o.float(), wp.to(o.dtype).float()) + bp.float()
-    return out.to(o.dtype)
+    return bf16_gemm_plain(fused_qkv_plain(x, w, bias, num_heads, scale), wp,
+                           bp)
 
 
 def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor],
@@ -223,11 +231,31 @@ def _k1_entry():
     return fn
 
 
+# K5's and K8's attention (csrc/qkv_attn.cuh): keys a key block, rows a Q
+# tile; one key block of K and of V in 64-column chunks of 128 bytes
+_QKV_ATTN_KEYS = 272
+_QKV_ATTN_QROWS = 64
+
+
+def _qkv_attn_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of K5's and K8's attention launch (mirrors
+    `qattn::smem_bytes` in csrc/qkv_attn.cuh): one key block of K and of V
+    (272 keys, the whole head at L ≤ 272; longer rows stream their blocks
+    through them) in ⌈D/64⌉ chunks of 128-byte rows, two Q tiles and two
+    output tiles of 64 rows, eight mbarriers and 1 KB to align the swizzled
+    tiles. It does not grow with L."""
+    nt = -(-d // 64)
+    return (2 * nt * _QKV_ATTN_KEYS * 128 + 4 * nt * _QKV_ATTN_QROWS * 128
+            + 8 * 8 + 1024)
+
+
 def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
     """The checks K1, K5 and K8 share: bf16 contiguous x (B, L, W) and w
     (W, 3W) on one device with bias (3W,); head dim a multiple of 8 up to
-    128; the GEMM's tiles (W % 32, 3W % 128); one head's K and V in a
-    block's shared memory. Returns (B, L, W, D)."""
+    128; the GEMM's tiles (W % 32, 3W % 128); a block's shared memory (K1
+    holds one head's K and V, `_packed_smem_bytes`; K5 and K8 one key
+    block of each at any L, `_qkv_attn_smem_bytes`). Returns (B, L, W,
+    D)."""
     _require(x.dim() == 3, f"{name}: x must be (B, L, W), got {tuple(x.shape)}")
     b, l, wd = x.shape
     d = wd // num_heads
@@ -242,7 +270,9 @@ def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
              "up to 128")
     _require(wd % 32 == 0 and (3 * wd) % 128 == 0,
              f"{name}: width {wd} needs W % 32 == 0 and 3W % 128 == 0")
-    _require(_packed_smem_bytes(l, d) <= _MAX_SMEM,
+    smem = (_packed_smem_bytes(l, d) if name == "K1"
+            else _qkv_attn_smem_bytes(d))
+    _require(smem <= _MAX_SMEM,
              f"{name}: L={l} with head dim {d} does not fit shared memory")
     _require(w.device == x.device and bias.device == x.device,
              f"{name} inputs must share one device")
@@ -309,6 +339,49 @@ def _k8_entry():
         ctypes.c_float, _c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_entry():
+    fn = _build.load("fused_qkv_attn").mico_bf16_gemm_bias
+    fn.argtypes = [_c_void_p] * 4 + [ctypes.c_int] * 3 + [_c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_gemm(a, w, bias):
+    """What the GEMM stage takes: contiguous bf16 a (M, K) and w (K, N) on
+    one device with bias (N,), K and N multiples of 8 (TMA's 16-byte
+    strides). Returns (M, K, N)."""
+    _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0]
+             and bias.numel() == w.shape[1],
+             f"bf16_gemm_bias: a {tuple(a.shape)}, w {tuple(w.shape)}, "
+             f"bias ({bias.numel()},) do not chain")
+    _require(a.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
+             and a.is_contiguous() and w.is_contiguous(),
+             "bf16_gemm_bias takes contiguous bf16 a and w")
+    m, k = a.shape
+    n = w.shape[1]
+    _require(k % 8 == 0 and n % 8 == 0,
+             f"bf16_gemm_bias: K {k} and N {n} must be multiples of 8")
+    _require(w.device == a.device and bias.device == a.device,
+             "bf16_gemm_bias inputs must share one device")
+    return m, k, n
+
+
+def bf16_gemm_bias(a, w, bias) -> torch.Tensor:
+    """K5's and K8's GEMM stage alone (csrc/wgmma_gemm.cuh): a (M, K) · w
+    (K, N) + bias (N,) with bf16 a, w and an fp32 bias, rounded once to
+    bf16. For checks and timing: no model path calls it."""
+    if not a.is_cuda:
+        return bf16_gemm_plain(a, w, bias)
+    m, k, n = _check_gemm(a, w, bias)
+    bias32 = bias.float().contiguous()
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _check(_gemm_entry()(a.data_ptr(), w.data_ptr(), bias32.data_ptr(),
+                         out.data_ptr(), m, k, n, _stream()),
+           "bf16_gemm_bias")
+    return out
 
 
 def fused_qkv_self_attention(x, w, bias, num_heads: int,

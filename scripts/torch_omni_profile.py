@@ -2,23 +2,24 @@
 """Where the time of the port's omni step goes, on one CUDA card.
 
     python3 scripts/torch_omni_profile.py [--vision-encoder TYPE]
-                                          [--cls-split]
+                                          [--cls-split] [--attn-proj]
                                           [--trace out/trace.json]
 
 Builds the full-width MiCo port in bf16 (random weights, seed 0) on the
 vision tower `--vision-encoder` (default `evaclip01_giant`, the pre-norm
 ViT-g on K1; `evaclip02_bige` is the post-norm EVA02-CLIP-bigE on K5;
 `clip_vit_large_14_336px` is the OpenAI-CLIP ViT-L/14 at 224 px on K3, or
-on K9 with `--cls-split`, which sets `PACKED_CLS_SPLIT`),
+on K9 with `--cls-split`, which sets `PACKED_CLS_SPLIT`; `--attn-proj` sets
+`FUSED_ATTN_PROJ`, which takes bigE's blocks to K8),
 runs chip_smoke.py's omni step (S = 16: a 112-frame ViT pass, BERT over
 (16, 30) tokens, heads, similarity) 3 times under `torch.profiler` after 2
 warm-up steps, and prints:
   - the step's host-clock time and the device's busy and idle shares over
     the profiled window;
   - device time by kernel, with the launches of K1 (ln_stats, its
-    LN-prologue GEMM, the packed attention), of K5 (its GEMM, the packed
-    attention), K3 (the packed attention) and K9 named, grouped into those
-    / K2 / cuBLAS GEMMs / LayerNorm / GELU / the rest;
+    LN-prologue GEMM, the packed attention), of K5 and K8 (their wgmma
+    GEMM, their attention), K3 (the packed attention) and K9 named, grouped
+    into those / K2 / cuBLAS GEMMs / LayerNorm / GELU / the rest;
   - the top kernels by device time.
 `--trace` also writes the chrome trace. Ends with one JSON line of the
 grouped numbers.
@@ -46,9 +47,10 @@ STEPS = 3
 
 GROUPS = (
     ("K1 ln_stats", ("ln_stats_kernel",)),
-    ("K1 LN-prologue GEMM", ("tile_gemm_kernel<true>",)),
-    ("K5/K8 GEMM", ("tile_gemm_kernel<false>",)),
-    ("K1/K3/K5 packed attention", ("packed_attn_kernel",)),
+    ("K1 LN-prologue GEMM", ("tile_gemm_kernel",)),
+    ("K5/K8 GEMM", ("wgmma_gemm_kernel",)),
+    ("K1/K3 packed attention", ("packed_attn_kernel",)),
+    ("K5/K8 attention", ("qkv_attn_kernel",)),
     ("K9 CLS-split attention", ("packed_cls_attn_kernel",)),
     ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2")),
@@ -72,6 +74,8 @@ def main() -> int:
                     help="the vision tower (MiCoConfig.vision_encoder_type)")
     ap.add_argument("--cls-split", action="store_true",
                     help="set PACKED_CLS_SPLIT (K9 for the K3 route)")
+    ap.add_argument("--attn-proj", action="store_true",
+                    help="set FUSED_ATTN_PROJ (K8 for a post-norm tower's K5)")
     ap.add_argument("--trace", help="write the chrome trace to this path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -90,6 +94,7 @@ def main() -> int:
     print(card, flush=True)
     _build.build_all()
     fa.PACKED_CLS_SPLIT = args.cls_split
+    fa.FUSED_ATTN_PROJ = args.attn_proj
     cfg = MiCoConfig(vision_encoder_type=args.vision_encoder,
                      max_vision_sample_num=4, max_audio_sample_num=2)
     model = MiCo(cfg, device="cuda", seed=0, dtype=torch.bfloat16)
@@ -119,8 +124,9 @@ def main() -> int:
     groups = defaultdict(float)
     for name, ms in by_kernel.items():
         groups[group_of(name)] += ms
-    tower = args.vision_encoder + (" (PACKED_CLS_SPLIT)" if args.cls_split
-                                   else "")
+    tower = (args.vision_encoder
+             + (" (PACKED_CLS_SPLIT)" if args.cls_split else "")
+             + (" (FUSED_ATTN_PROJ)" if args.attn_proj else ""))
     print(f"omni step S={S} on {tower}: {step_ms:.3f} ms "
           f"host clock over {STEPS} "
           f"steps; device busy {busy_ms:.3f} ms/step "
@@ -134,6 +140,7 @@ def main() -> int:
         print(f"  {ms:9.3f}  {name[:110]}")
     print(json.dumps({"card": card, "vision_encoder": args.vision_encoder,
                       "cls_split": args.cls_split,
+                      "attn_proj": args.attn_proj,
                       "step_ms": step_ms, "busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / step_ms,
                       "groups_ms": dict(groups)}))

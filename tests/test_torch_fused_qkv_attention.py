@@ -104,9 +104,12 @@ def _bf16(*shape):
 ])
 def test_kernel_input_checks(what, args, match):
     """What the wrappers refuse before a launch on the card (the checks
-    are device-independent, so they run here on CPU tensors)."""
+    are device-independent, so they run here on CPU tensors). K5 and K8
+    take any L (their attention streams key blocks past 272 keys), so the
+    shared-memory case is K1's, whose attention holds a head's K and V."""
+    name = "K1" if what == "shared memory" else "K5"
     with pytest.raises(ValueError, match=match):
-        tfa._check_fused_qkv("K5", *args)
+        tfa._check_fused_qkv(name, *args)
 
 
 def test_kernel_input_checks_accept_main_path_shapes():
