@@ -9,7 +9,14 @@ Phases, run in order (any failure exits non-zero):
   2. kernels: K1, K2 and K7 against their plain PyTorch versions on the card
      in bf16, at the main paths' shapes and layouts (the tensors that are
      then timed) and at smaller and biased cases, with their times beside
-     the plain version, a PyTorch yardstick and the card's bound; K2 also
+     the plain version, a PyTorch yardstick and the card's bound; K1 at
+     (8, 257, 1408), a ragged (2, 300, 80) with two heads of 40, odd
+     counts of 64-column k-steps (2, 40, 48) with two heads of 24 and (4,
+     257, 960) with 15 heads of 64, rows of three key blocks (2, 600, 1408)
+     and the bench ViT pass (112, 257, 1408), each with the LN affine on
+     and off (also mean |d| <= 1e-2 * mean |ref|), and its GEMM stage alone
+     (`ln_gemm_bias`) at the bench pass; K1's device ms by stage (statistics, GEMM,
+     attention) beside F.layer_norm, F.linear and SDPA; K2 also
      at cases that cross its splits of the keys (one query row over 1028
      keys, 8192 keys, a ragged 8100, the decode with a (1, 1, 1, 1028) bias
      masking every key of its second split, the long-context step's causal
@@ -84,9 +91,13 @@ Phases, run in order (any failure exits non-zero):
      the fp32 weights on the plain routes on the card (TF32 off);
   7. train: K3 and K4 against their plain versions on the card in bf16 at
      the train step's vision pass (32, 257, 16 x 88) and at (3, 50, 4 x 64),
-     timed beside the plain versions, SDPA (forward; its autograd backward
-     alone) and the bound; then six full-width pretraining steps of
-     `configs/pretrain-omni.json`'s task ret%tva_cap%tva (B = 8 samples of
+     K3 on both layouts (column slices of the fused qkv, three contiguous
+     tensors) and also at (2, 600, 16 x 88) (rows of three key blocks, past
+     K4's limit), timed beside the plain versions, SDPA (forward; its
+     autograd backward alone) and the bound, K3's device ms beside SDPA's
+     there and at CLIP-L/14's (112, 257, 3 x 16 x 64); then six
+     full-width pretraining steps of `configs/pretrain-omni.json`'s task
+     ret%tva_cap%tva (B = 8 samples of
      4 frames, 2 audio slices and a 40-token caption; fp32 master weights
      and AdamW moments from seed 0, bf16 compute, dropout and drop-path on,
      the same draws every step), each counted from 0 (K3 80 and K4 80 per
@@ -366,6 +377,24 @@ def k1_library(x, g, b0, w, bias, nh, scale, eps, affine):
     return o.transpose(1, 2).reshape(b, l, wd)
 
 
+def k1_library_stages(x, g, b0, w, bias, nh, scale, eps) -> dict:
+    """Device ms of K1's library route, stage by stage (affine on):
+    F.layer_norm, F.linear at the qkv shape, SDPA on that qkv's heads."""
+    import torch.nn.functional as F
+
+    b, l, wd = x.shape
+    gx, bx = g.to(x.dtype), b0.to(x.dtype)
+    xn = F.layer_norm(x, (wd,), gx, bx, eps)
+    wt, b16 = w.t(), bias.to(x.dtype)
+    qkv = F.linear(xn, wt, b16)
+    q, k, v = qkv.view(b, l, 3, nh, wd // nh).permute(2, 0, 3, 1, 4)
+    return {"F.layer_norm": device_time_ms(
+                lambda: F.layer_norm(x, (wd,), gx, bx, eps)),
+            "F.linear": device_time_ms(lambda: F.linear(xn, wt, b16)),
+            "SDPA": device_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))}
+
+
 def itm_cross_qkv(gen, n=3, width=768, heads=12, enc_width=1408,
                   lq=TEXT_LEN, lk=257):
     """K2's inputs as BERT's cross-attention makes them: q from the text
@@ -425,17 +454,34 @@ def phase_kernels(fa) -> list:
     gen = torch.Generator().manual_seed(1)
     errs = {"K1": [], "K2": [], "K7": []}
     log("phase kernels: K1 fused_ln_qkv_self_attention vs fused_ln_qkv_plain")
-    # B = 8 and the bench ViT pass (16 samples x 7 frames); the B = 112
-    # tensors are the ones timed below
-    for b in (8, S * 7):
-        args = k1_inputs(gen, b)
+    # B = 8, a ragged width (W 80: two heads of 40, one 64-column k-step
+    # past K), odd counts of k-steps (W 48 and 960: the GEMM's k-steps run
+    # in pairs, so each ends on a step wholly past K), rows of three key
+    # blocks (the attention's streamed path) and the bench ViT pass (16
+    # samples x 7 frames), whose tensors are timed below
+    for b, l, nh, d in ((8, 257, 16, 88), (2, 300, 2, 40), (2, 40, 2, 24),
+                        (4, 257, 15, 64), (2, 600, 16, 88),
+                        (S * 7, 257, 16, 88)):
+        args = k1_inputs(gen, b, l, nh, d)
         for affine in (True, False):
             got = fa.fused_ln_qkv_self_attention(*args, affine)
             want = fa.fused_ln_qkv_plain(*args, affine)
-            errs["K1"].append(compare(f"K1 ({b}, 257, 1408) affine={affine}",
-                                      got, want))
+            errs["K1"].append(compare(
+                f"K1 ({b}, {l}, {nh * d}) H={nh} D={d} affine={affine}",
+                got, want, rel_mean=REL_MEAN_ERR_MAX))
             del got, want
     k1_args = args
+    # the LayerNorm-prologue GEMM stage alone (statistics + GEMM,
+    # `ln_gemm_bias`) at the timed shape
+    x, g, b0, w, bias, _, _, eps = k1_args
+    x2 = x.view(-1, x.shape[-1])
+    for affine in (True, False):
+        errs["K1"].append(compare(
+            f"K1 GEMM stage, {tuple(x2.shape)} x {tuple(w.shape)} "
+            f"affine={affine}",
+            fa.ln_gemm_bias(x2, g, b0, w, bias, eps, affine),
+            fa.ln_gemm_plain(x2, g, b0, w, bias, eps, affine),
+            rel_mean=REL_MEAN_ERR_MAX))
 
     log("phase kernels: K2 flash_attention vs flash_attention_plain")
 
@@ -521,18 +567,30 @@ def phase_kernels(fa) -> list:
     flops = 2 * b * l * wd * 3 * wd + 4 * b * nh * l * l * d
     nbytes = 2 * (2 * x.numel() + w.numel()) + 4 * (bias.numel() + 2 * wd)
     bms, by = bound_ms(flops, nbytes)
+
+    def k1():
+        return fa.fused_ln_qkv_self_attention(*args, True)
+
+    stages = stage_device_ms(k1, {"statistics": "stats", "GEMM": "gemm",
+                                  "attention": "attn"})
+    k1_lib = k1_library_stages(*args)
+    log("  K1 device ms by stage: " + ", ".join(
+        f"{k} {ms_text(v)}" for k, v in stages.items()) + "; beside: "
+        + ", ".join(f"{k} {ms_text(v)}" for k, v in k1_lib.items()))
     rows.append(dict(
         name="K1 fused_ln_qkv_self_attention", route="cuda",
         source="mico_tpu_torch/csrc/fused_ln_qkv_attn.cu",
         replaces="mico_tpu/ops/flash_attention.py:1624",
         shape=f"x ({b}, {l}, {wd}) bf16, W ({wd}, {3 * wd}), H={nh}, D={d}",
-        ms=cuda_time_ms(lambda: fa.fused_ln_qkv_self_attention(*args, True)),
+        ms=cuda_time_ms(k1),
         ms_affine_off=cuda_time_ms(
             lambda: fa.fused_ln_qkv_self_attention(*args, False)),
         plain_ms=cuda_time_ms(lambda: fa.fused_ln_qkv_plain(*args, True),
                               iters=5, warmup=1),
         library_ms=cuda_time_ms(lambda: k1_library(*args, True)),
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        device_ms=device_time_ms(k1), stages_device_ms=stages,
+        library_stages_device_ms=k1_lib,
     ))
     # K2 at the ITM cross-attention: 1 image x 3 captions, compared above
     q, k, v = itm_qkv
@@ -661,15 +719,17 @@ def k8_library(x, w, bias, wp, bp, nh, scale):
     return F.linear(k5_library(x, w, bias, nh, scale), wp.t(), bp.to(x.dtype))
 
 
-def stage_device_ms(fn) -> dict:
-    """Device ms per call of each stage of a K5/K8 call (torch.profiler, by
-    kernel name: the GEMM's launches, summed, and the attention's), or None
+def stage_device_ms(fn, stages=None) -> dict:
+    """Device ms per call of each stage of a K1/K5/K8 call (torch.profiler,
+    by kernel name: `stages` maps a stage to a word of its kernels' names,
+    by default the GEMM's launches, summed, and the attention's), or None
     where the profiler recorded nothing."""
+    stages = stages or {"gemm": "gemm", "attention": "attn"}
     kern = device_time_ms(fn, by_kernel=True)
     if kern is None:
-        return {"gemm": None, "attention": None}
-    return {"gemm": sum(ms for n, ms in kern.items() if "gemm" in n),
-            "attention": sum(ms for n, ms in kern.items() if "attn" in n)}
+        return {stage: None for stage in stages}
+    return {stage: sum(ms for n, ms in kern.items() if word in n)
+            for stage, word in stages.items()}
 
 
 def phase_fused_qkv_kernels(fa) -> list:
@@ -1448,7 +1508,10 @@ def phase_train_kernels(fa) -> list:
     timed = None
     log("phase train: K3 packed_attention / K4 packed_attention_bwd vs "
         "their plain versions")
-    for b, l, nh, d in ((4 * TRAIN_B, 257, 16, 88), (3, 50, 4, 64)):
+    # the train pass, a ragged tail and (K3 alone: K4 holds a head's K and
+    # V, which L 600 does not fit) rows of three key blocks
+    for b, l, nh, d in ((4 * TRAIN_B, 257, 16, 88), (3, 50, 4, 64),
+                        (2, 600, 16, 88)):
         w = nh * d
         # unit std: q.k sums D products of unit variance, so the scaled
         # scores (times D^-0.5) have std ~1 and the softmax is far from flat
@@ -1457,11 +1520,19 @@ def phase_train_kernels(fa) -> list:
         g = torch.randn(b, l, w, generator=gen).to("cuda", torch.bfloat16)
         q, k, v = qkv.chunk(3, dim=-1)
         scale = d ** -0.5
-        errs["K3"].append(compare(
-            f"K3 qkv ({b}, {l}, {3 * w}) H={nh} D={d}",
-            fa.packed_attention(q, k, v, nh, scale),
-            fa.packed_attention_plain(q, k, v, nh, scale),
-            rel_mean=REL_MEAN_ERR_MAX))
+        # both layouts: column slices of the fused qkv (row stride 3W) and
+        # three contiguous tensors (row stride W)
+        for layout, (qq, kk, vv) in (
+                ("column slices", (q, k, v)),
+                ("three tensors", (q.contiguous(), k.contiguous(),
+                                   v.contiguous()))):
+            errs["K3"].append(compare(
+                f"K3 qkv ({b}, {l}, {3 * w}) H={nh} D={d}, {layout}",
+                fa.packed_attention(qq, kk, vv, nh, scale),
+                fa.packed_attention_plain(qq, kk, vv, nh, scale),
+                rel_mean=REL_MEAN_ERR_MAX))
+        if fa._k4_smem_bytes(l, d) > fa._MAX_SMEM:
+            continue
         got = fa.packed_attention_bwd(q, k, v, g, nh, scale)
         want = fa.packed_attention_bwd_plain(q, k, v, g, nh, scale)
         for name, x, y in zip(("dq", "dk", "dv"), got, want):
@@ -1478,18 +1549,43 @@ def phase_train_kernels(fa) -> list:
     att_flops = 4 * b * nh * l * l * d
     rows = []
     bms, by = bound_ms(att_flops, 2 * (qkv.numel() + b * l * w))
+
+    def k3():
+        return fa.packed_attention(q, k, v, nh, scale)
+
+    # ... and at CLIP-L/14's serving pass, (112, 257, 3 x 16 x 64)
+    clip_qkv = torch.randn(S * 7, 257, 3 * 1024, generator=gen).to(
+        "cuda", torch.bfloat16)
+    cq, ck, cv = clip_qkv.chunk(3, dim=-1)
+    clip_fwd, _ = k34_library(clip_qkv, cq.contiguous(), 16, 0.125)
+    clip_bms, clip_by = bound_ms(4 * S * 7 * 16 * 257 * 257 * 64,
+                                 2 * (clip_qkv.numel() + S * 7 * 257 * 1024))
     rows.append(dict(
         name="K3 packed_attention", route="cuda",
         source="mico_tpu_torch/csrc/packed_attn.cu",
         replaces="mico_tpu/ops/flash_attention.py:1135",
         shape=f"qkv ({b}, {l}, {w3}) bf16 column slices, H={nh}, D={d}",
-        ms=cuda_time_ms(lambda: fa.packed_attention(q, k, v, nh, scale)),
+        ms=cuda_time_ms(k3),
         plain_ms=cuda_time_ms(
             lambda: fa.packed_attention_plain(q, k, v, nh, scale),
             iters=5, warmup=1),
         library_ms=cuda_time_ms(sdpa_fwd),
         bound_ms=bms, bound_by=by, flops=att_flops,
-        bytes=2 * (qkv.numel() + b * l * w)))
+        bytes=2 * (qkv.numel() + b * l * w),
+        device_ms=device_time_ms(k3),
+        library_device_ms=device_time_ms(sdpa_fwd),
+        clip_shape=f"qkv ({S * 7}, 257, 3072) bf16 column slices, H=16, "
+                   "D=64",
+        clip_device_ms=device_time_ms(
+            lambda: fa.packed_attention(cq, ck, cv, 16, 0.125)),
+        clip_library_device_ms=device_time_ms(clip_fwd),
+        clip_bound_ms=clip_bms, clip_bound_by=clip_by))
+    row = rows[-1]
+    log(f"  K3 device ms: train pass {ms_text(row['device_ms'])} (SDPA "
+        f"{ms_text(row['library_device_ms'])}); CLIP-L "
+        f"{ms_text(row['clip_device_ms'])} (SDPA "
+        f"{ms_text(row['clip_library_device_ms'])}, bound "
+        f"{clip_bms:.4f} by {clip_by})")
     nbytes = 2 * (qkv.numel() + g.numel()) + 2 * qkv.numel()
     bms, by = bound_ms(2.5 * att_flops, nbytes)
     rows.append(dict(

@@ -19,29 +19,24 @@
 //
 // Design. On the TPU the 11.9 MB W_qkv sits resident in VMEM and qkv never
 // reaches HBM; a Hopper SM has 227 KB, so neither holds here. Three launches
-// behind one C entry instead:
+// behind one C entry instead, the last two K5's (fused_qkv_attn.cu):
 //   (a) ln_stats: one warp per row takes fp32 mean and rstd (two passes over
 //       the row held in registers), 8 bytes per row to global memory;
-//   (b) the LN-prologue GEMM (qkv_gemm.cuh, `tile_gemm_kernel`): 128x128
-//       output tiles,
-//       BK = 32, two-stage pipeline. W tiles arrive by cp.async; x tiles
-//       are loaded to registers one step ahead, normalised (and
-//       affine-transformed) in fp32 and rounded to bf16 on their way into
-//       shared memory, so the normalised tensor never exists in global
-//       memory. 8 warps of 64x32 each run mma.sync m16n8k16 with fp32
-//       accumulators; the bias is added in fp32 in the epilogue. The grid
-//       walks the column tiles fastest so the 33 blocks sharing a row tile
-//       read x from L2 and W stays L2-resident (11.9 MB of 50 MB).
-//   (c) packed_attn (packed_attn.cuh, shared with K3): grid (q-tiles of 96
-//       rows, H, B), 6 warps of 16 query rows; q/k/v of one head are read by
-//       column offset from the packed qkv rows (row stride 3W, no
-//       transposes), K and V staged in shared memory, two passes over
-//       16-key blocks (exact row maximum, then exp2 and the PV product).
-// wgmma, TMA and warp specialisation are left to later work.
+//   (b) the LN-prologue instance of the wgmma + TMA GEMM (wgmma_gemm.cuh,
+//       `ln_gemm_kernel`): TMA brings the raw x and W tiles, each consumer
+//       warp loads its rows of x into wgmma's A-fragment registers,
+//       normalises them (and applies the affine) in fp32 and rounds to bf16
+//       there, and wgmma takes A from registers and W from shared memory,
+//       so the normalised tensor never exists in global (or shared) memory;
+//       the bias is added in fp32 in the epilogue, one rounding, TMA stores
+//       into a (B*L, 3W) scratch;
+//   (c) the packed attention of qkv_attn.cuh over the scratch's column
+//       slices (one block per (b, h), K/V staged once by TMA, the score row
+//       in registers, both products on wgmma).
 
 #include "common.cuh"
-#include "packed_attn.cuh"
-#include "qkv_gemm.cuh"
+#include "qkv_attn.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 using namespace mico;
@@ -93,8 +88,8 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, int M,
 
 // x (B*L, W) bf16; gamma/beta (W) fp32 (read when affine); w (W, 3W) bf16;
 // bias (3W) fp32; stats (B*L, 2) fp32 and qkv (B*L, 3W) bf16 are scratch;
-// out (B, L, W) bf16. Needs W % 32 == 0, 3W % 128 == 0, W <= 2048,
-// D = W / H a multiple of 8 up to 128 (the wrapper checks).
+// out (B, L, W) bf16. Needs W % 8 == 0, W <= 2048 and D = W / H a multiple
+// of 8 up to 128 (the wrapper checks); any L.
 extern "C" int mico_fused_ln_qkv_attn(const void* x, const void* gamma,
                                       const void* beta, const void* w,
                                       const void* bias, void* stats, void* qkv,
@@ -102,19 +97,39 @@ extern "C" int mico_fused_ln_qkv_attn(const void* x, const void* gamma,
                                       float eps, int affine, float qk_scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, N = 3 * W, D = W / H;
+  const int M = B * L, N = 3 * W;
   ln_stats_kernel<<<(M + ST_ROWS - 1) / ST_ROWS, ST_ROWS * 32, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<float2*>(stats), M, W, eps);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = mico::gemm::launch_gemm(
+  e = mico::wg::launch_ln_gemm(
       static_cast<const bf16*>(x), static_cast<const float2*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const bf16*>(w), static_cast<const float*>(bias),
-      static_cast<bf16*>(qkv), M, W, N, affine, s);
+      affine, static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<bf16*>(qkv), M, W, N, s);
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(qkv);
-  return mico::packed::launch_attn(q, q + W, q + 2 * W, N,
-                                   static_cast<bf16*>(out), B, L, H, D,
-                                   qk_scale, s);
+  return mico::qattn::launch_attn(q, q + W, q + 2 * W, N,
+                                  static_cast<bf16*>(out), B, L, H, W / H,
+                                  qk_scale, s);
+}
+
+// Stages (a) and (b) alone, for checks and timing (no model path calls
+// them): out (M, N) = LN(x) . w + bias; stats (M, 2) fp32 is scratch.
+// K % 8 == 0, K <= 2048, N % 8 == 0.
+extern "C" int mico_ln_gemm_bias(const void* x, const void* gamma,
+                                 const void* beta, const void* w,
+                                 const void* bias, void* stats, void* out,
+                                 int M, int K, int N, float eps, int affine,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ln_stats_kernel<<<(M + ST_ROWS - 1) / ST_ROWS, ST_ROWS * 32, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<float2*>(stats), M, K, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return mico::wg::launch_ln_gemm(
+      static_cast<const bf16*>(x), static_cast<const float2*>(stats),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      affine, static_cast<const bf16*>(w), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), M, K, N, s);
 }

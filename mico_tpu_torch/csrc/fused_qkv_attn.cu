@@ -34,17 +34,18 @@
 //       score row in registers (QK^T once, the exact maximum from
 //       registers) and runs both products as wgmma.
 // At bigE's pass the two take about 0.72 and 0.24 ms of device time on an
-// H100 80GB HBM3 at 700 W (scripts/torch_qkv_bench.py; PERF.md).
-// K1 keeps the mma.sync GEMM of qkv_gemm.cuh and packed_attn.cuh.
+// H100 80GB HBM3 at 700 W (scripts/torch_qkv_bench.py; PERF.md). K1
+// (fused_ln_qkv_attn.cu) runs the same two stages, its GEMM in the
+// LayerNorm-prologue instance, after a statistics pass; K3 (packed_attn.cu)
+// runs the attention alone.
 
 #include "common.cuh"
 #include "qkv_attn.cuh"
 #include "wgmma_gemm.cuh"
 
 // x (B*L, W) bf16; w (W, 3W) bf16; bias (3W) fp32; qkv (B*L, 3W) bf16 is
-// scratch; out (B, L, W) bf16. Needs W % 8 == 0, D = W / H a multiple of
-// 8 up to 128 and qattn::smem_bytes(L, D) within 227 KB (the wrapper
-// checks).
+// scratch; out (B, L, W) bf16. Needs D = W / H a multiple of 8 up to 128
+// (the wrapper checks); any L.
 extern "C" int mico_fused_qkv_attn(const void* x, const void* w,
                                    const void* bias, void* qkv, void* out,
                                    int B, int L, int W, int H, float qk_scale,
@@ -56,7 +57,8 @@ extern "C" int mico_fused_qkv_attn(const void* x, const void* w,
       static_cast<const float*>(bias), static_cast<bf16*>(qkv), B * L, W,
       3 * W, s);
   if (e != cudaSuccess) return e;
-  return mico::qattn::launch_attn(static_cast<const bf16*>(qkv),
+  const bf16* q = static_cast<const bf16*>(qkv);
+  return mico::qattn::launch_attn(q, q + W, q + 2 * W, 3 * W,
                                   static_cast<bf16*>(out), B, L, H, W / H,
                                   qk_scale, s);
 }

@@ -42,7 +42,8 @@ extern "C" int mico_fused_qkv_attn_proj(const void* x, const void* w,
       static_cast<const float*>(bias), static_cast<bf16*>(qkv), M, W, 3 * W,
       s);
   if (e != cudaSuccess) return e;
-  e = mico::qattn::launch_attn(static_cast<const bf16*>(qkv),
+  const bf16* q = static_cast<const bf16*>(qkv);
+  e = mico::qattn::launch_attn(q, q + W, q + 2 * W, 3 * W,
                                static_cast<bf16*>(o), B, L, H, W / H,
                                qk_scale, s);
   if (e != cudaSuccess) return e;

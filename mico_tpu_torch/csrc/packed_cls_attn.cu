@@ -17,20 +17,20 @@
 //   both rows divided by l after PV, rounded once to bf16.
 //
 // The TPU split removed lane padding (257 -> 384 lanes); here 16-row
-// mma.sync tiles pad 257 only to 272, so K9 is ported for its function and
-// costs what K3 costs. Design: K3's (packed_attn.cuh) over the patch rows
-// and keys. Grid (patch q-tiles of 96 rows, H, B); six warps of 16 patch
-// query rows hold Q as mma fragments; the block stages its head's patch K
-// (zero-padded to a multiple of 16 in D) and V in shared memory (the Q tile
-// passes through V's room first), and the CLS q, k, v in fp32. Each warp
-// takes its rows' CLS column s_pc from the staged Q tile before the V load,
-// then two passes over 16-key blocks: the exact row maximum (with s_pc),
-// then exponentiation and the PV product over D/8 output tiles, the CLS
-// column's fp32 term added last. A seventh warp, live only in the blocks
-// of q-tile 0, computes the CLS query row with fp32 CUDA-core dot products
-// over the staged K and V (its P probabilities in shared memory). Keys past
-// P (none when P % 16 == 0) are masked with the finite -1e30. The fused qkv
-// is read by column offset with row stride 3W (16-byte rows: D % 8 == 0).
+// mma.sync tiles pad 257 only to 272, so K9 is ported for its function.
+// Design: mma.sync over the patch rows and keys. Grid (patch q-tiles of 96
+// rows, H, B); six warps of 16 patch query rows hold Q as mma fragments; the
+// block stages its head's patch K (zero-padded to a multiple of 16 in D) and V
+// in shared memory (the Q tile passes through V's room first), and the CLS q,
+// k, v in fp32. Each warp takes its rows' CLS column s_pc from the staged Q
+// tile before the V load, then two passes over 16-key blocks: the exact row
+// maximum (with s_pc), then exponentiation and the PV product over D/8 output
+// tiles, the CLS column's fp32 term added last. A seventh warp, live only in
+// the blocks of q-tile 0, computes the CLS query row with fp32 CUDA-core dot
+// products over the staged K and V (its P probabilities in shared memory).
+// Keys past P (none when P % 16 == 0) are masked with the finite -1e30. The
+// fused qkv is read by column offset with row stride 3W (16-byte rows: D % 8
+// == 0).
 //
 // What bounds it on the H100: bytes, as K3. At ViT-g's train pass, qkv
 // (32, 257, 3 x 16 x 88) bf16, it reads 69.5 MB and writes 23.2 MB: 0.028 ms

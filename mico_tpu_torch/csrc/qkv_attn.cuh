@@ -1,23 +1,27 @@
-// The packed self-attention of K5 and K8 on Hopper: per batch row b and head
-// h, q/k/v of the head read by column offset from the (B*L, 3W) qkv rows of
-// the projection, and
+// The packed self-attention of K1, K3, K5 and K8 on Hopper: per batch row b
+// and head h, q/k/v of the head read by column offset h*D from rows of three
+// base pointers that share one row stride `ld` (3W for the column slices of
+// a fused (B*L, 3W) qkv, W for three (B, L, W) tensors), and
 //   s   = q_h k_h^T in fp32, times scale * log2e
 //   p   = exp2(s - rowmax(s)) in fp32 against the exact full-row maximum
 //   o_h = (bf16(p) v_h, fp32 accumulate) / rowsum(p), the sum over fp32 p
 // written packed as (B, L, H*D) bf16: `_packed_body`'s rounding points
 // (mico_tpu/ops/flash_attention.py:757), as `_fused_qkv_attn_kernel`
-// (:1229) computes them on its local qkv.
+// (:1229) and `_fused_ln_qkv_attn_kernel` (:1567) compute them on their
+// local qkv.
 //
-// What bounds it on the H100: tensor-core operations (bigE: 4 B H L^2 D =
-// 53.0 GFLOP, 0.054 ms at 989 TFLOP/s, against 0.037 ms for q/k/v in and
-// o out at 3.35 TB/s).
+// What bounds it on the H100: tensor-core operations at bigE's pass (4 B H
+// L^2 D = 53.0 GFLOP, 0.054 ms at 989 TFLOP/s, against 0.037 ms for q/k/v
+// in and o out at 3.35 TB/s); bytes at ViT-g's train pass (K3, qkv (32,
+// 257, 4224): 92.8 MB, 0.028 ms, against 11.9 GFLOP, 0.012 ms).
 //
 // Design. One block per (b, h): at L <= 272, K and V of the head are staged
-// in shared memory once (a 4-D tensor map over (D, 3H, L, B): TMA fills rows past L
-// and columns past D with zeros, so no copy reads another head or batch
-// row), Q in tiles of 64 query rows, one tile per consumer warpgroup at a
-// time. Two consumer warpgroups and a producer warpgroup (setmaxnreg moves
-// registers to the consumers: 232 a thread, 40 for the producer):
+// in shared memory once (one 4-D tensor map an operand over (D, H, L, B),
+// rows `ld` apart: TMA fills rows past L and columns past D with zeros, so
+// no copy reads another head or batch row), Q in tiles of 64 query rows,
+// one tile per consumer warpgroup at a time. Two consumer warpgroups and a
+// producer warpgroup (setmaxnreg moves registers to the consumers: 232 a
+// thread, 40 for the producer):
 //  - the producer issues both warpgroups' first Q tiles, then K, then V (K
 //    and V on their own mbarriers, so QK^T starts while V is in flight), and
 //    refills a warpgroup's Q buffer as soon as that warpgroup's QK^T has
@@ -195,7 +199,8 @@ __device__ __forceinline__ void block_pv(float (&s)[128], float (&st)[8],
 template <int NT, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
 qkv_attn_kernel(const __grid_constant__ CUtensorMap tma_q,
-                const __grid_constant__ CUtensorMap tma_kv,
+                const __grid_constant__ CUtensorMap tma_k,
+                const __grid_constant__ CUtensorMap tma_v,
                 const __grid_constant__ CUtensorMap tma_o, int L, int H,
                 float qk_scale) {
   extern __shared__ unsigned char smem_raw[];
@@ -235,7 +240,8 @@ qkv_attn_kernel(const __grid_constant__ CUtensorMap tma_q,
     hop::setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       hop::prefetch_map(&tma_q);
-      hop::prefetch_map(&tma_kv);
+      hop::prefetch_map(&tma_k);
+      hop::prefetch_map(&tma_v);
       auto load_q = [&](int qt) {
         const int w = qt & 1, n = qt >> 1;
         if (n > 0) hop::mbar_wait(&qempty[w], (n - 1) & 1);
@@ -244,20 +250,20 @@ qkv_attn_kernel(const __grid_constant__ CUtensorMap tma_q,
           hop::tma_load_4d(qs + (w * NT + c) * CHUNK, &tma_q, &qfull[w],
                            64 * c, h, qt * QROWS, b);
       };
-      // key block kb of K (part 1) or V (part 2) into its buffer
-      auto load_block = [&](unsigned char* dst, uint64_t* bar, int part,
-                            int kb) {
+      // key block kb of K or V (`map`) into its buffer
+      auto load_block = [&](unsigned char* dst, uint64_t* bar,
+                            const CUtensorMap* map, int kb) {
         hop::mbar_expect_tx(bar, NT * kch);
         for (int c = 0; c < NT; ++c)
           for (int r = 0; r < KB; r += KBOX)
-            hop::tma_load_4d(dst + c * kch + r * 128, &tma_kv, bar, 64 * c,
-                             part * H + h, kb * KB + r, b);
+            hop::tma_load_4d(dst + c * kch + r * 128, map, bar, 64 * c, h,
+                             kb * KB + r, b);
       };
       if constexpr (!STREAM) {
         load_q(0);
         if (nqt > 1) load_q(1);
-        load_block(ks, kfull, 1, 0);
-        load_block(vs, vfull, 2, 0);
+        load_block(ks, kfull, &tma_k, 0);
+        load_block(vs, vfull, &tma_v, 0);
         for (int qt = 2; qt < nqt; ++qt) load_q(qt);
       } else {
         // each round of two Q tiles streams K twice (the maximum, then the
@@ -270,11 +276,11 @@ qkv_attn_kernel(const __grid_constant__ CUtensorMap tma_q,
           for (int pass = 0; pass < 2; ++pass)
             for (int kb = 0; kb < nkb; ++kb) {
               if (kf > 0) hop::mbar_wait(kempty, (kf - 1) & 1);
-              load_block(ks, kfull, 1, kb);
+              load_block(ks, kfull, &tma_k, kb);
               ++kf;
               if (pass == 1) {
                 if (vf > 0) hop::mbar_wait(vempty, (vf - 1) & 1);
-                load_block(vs, vfull, 2, kb);
+                load_block(vs, vfull, &tma_v, kb);
                 ++vf;
               }
             }
@@ -378,28 +384,32 @@ qkv_attn_kernel(const __grid_constant__ CUtensorMap tma_q,
   if (tid == 0) hop::bulk_wait<0>();
 }
 
-// qkv (B*L, 3W) bf16 with W = H*D, q/k/v at column offsets 0, W, 2W; out
-// (B, L, W). D a multiple of 8 up to 128 (the wrappers check); any L.
-inline cudaError_t launch_attn(const bf16* qkv, bf16* out, int B, int L,
-                               int H, int D, float qk_scale,
-                               cudaStream_t stream) {
-  if (D % 8 || D > 128 || D <= 0 || L <= 0) return cudaErrorInvalidValue;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)3 * H,
-                              (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)6 * H * D,
-                                 (cuuint64_t)6 * H * D * L};
+// q, k, v: the head-0 columns of batch row 0 of three bf16 operands whose
+// rows lie `ld` elements apart (batch rows L * ld apart; for a fused qkv
+// (B*L, 3W): qkv, qkv + W, qkv + 2W with ld = 3W); out (B, L, H*D). D a
+// multiple of 8 up to 128, ld a multiple of 8 and the pointers 16-byte
+// aligned (TMA's strides and addresses; the wrappers check); any L.
+inline cudaError_t launch_attn(const bf16* q, const bf16* k, const bf16* v,
+                               int ld, bf16* out, int B, int L, int H, int D,
+                               float qk_scale, cudaStream_t stream) {
+  if (D % 8 || D > 128 || D <= 0 || L <= 0 || ld % 8)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ld * 2,
+                                 (cuuint64_t)ld * 2 * L};
   const cuuint32_t qbox[4] = {64, 1, QROWS, 1};
   const cuuint32_t kvbox[4] = {64, 1, KBOX, 1};
-  const cuuint64_t odims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)L,
-                               (cuuint64_t)B};
   const cuuint64_t ostrides[3] = {(cuuint64_t)D * 2, (cuuint64_t)2 * H * D,
                                   (cuuint64_t)2 * H * D * L};
-  CUtensorMap tq, tkv, to;
-  cudaError_t e = hop::make_map(&tq, qkv, 4, dims, strides, qbox);
+  CUtensorMap tq, tk, tv, to;
+  cudaError_t e = hop::make_map(&tq, q, 4, dims, strides, qbox);
   if (e != cudaSuccess) return e;
-  e = hop::make_map(&tkv, qkv, 4, dims, strides, kvbox);
+  e = hop::make_map(&tk, k, 4, dims, strides, kvbox);
   if (e != cudaSuccess) return e;
-  e = hop::make_map(&to, out, 4, odims, ostrides, qbox);
+  e = hop::make_map(&tv, v, 4, dims, strides, kvbox);
+  if (e != cudaSuccess) return e;
+  e = hop::make_map(&to, out, 4, dims, ostrides, qbox);
   if (e != cudaSuccess) return e;
   int dev;
   e = cudaGetDevice(&dev);
@@ -410,23 +420,23 @@ inline cudaError_t launch_attn(const bf16* qkv, bf16* out, int B, int L,
   if (D > 64 && stream_kv) {
     e = hop::smem_opt_in<2>((const void*)qkv_attn_kernel<2, true>, dev);
     if (e != cudaSuccess) return e;
-    qkv_attn_kernel<2, true><<<grid, THREADS, smem, stream>>>(tq, tkv, to, L,
-                                                              H, qk_scale);
+    qkv_attn_kernel<2, true><<<grid, THREADS, smem, stream>>>(
+        tq, tk, tv, to, L, H, qk_scale);
   } else if (D > 64) {
     e = hop::smem_opt_in<3>((const void*)qkv_attn_kernel<2, false>, dev);
     if (e != cudaSuccess) return e;
-    qkv_attn_kernel<2, false><<<grid, THREADS, smem, stream>>>(tq, tkv, to, L,
-                                                               H, qk_scale);
+    qkv_attn_kernel<2, false><<<grid, THREADS, smem, stream>>>(
+        tq, tk, tv, to, L, H, qk_scale);
   } else if (stream_kv) {
     e = hop::smem_opt_in<4>((const void*)qkv_attn_kernel<1, true>, dev);
     if (e != cudaSuccess) return e;
-    qkv_attn_kernel<1, true><<<grid, THREADS, smem, stream>>>(tq, tkv, to, L,
-                                                              H, qk_scale);
+    qkv_attn_kernel<1, true><<<grid, THREADS, smem, stream>>>(
+        tq, tk, tv, to, L, H, qk_scale);
   } else {
     e = hop::smem_opt_in<5>((const void*)qkv_attn_kernel<1, false>, dev);
     if (e != cudaSuccess) return e;
-    qkv_attn_kernel<1, false><<<grid, THREADS, smem, stream>>>(tq, tkv, to, L,
-                                                               H, qk_scale);
+    qkv_attn_kernel<1, false><<<grid, THREADS, smem, stream>>>(
+        tq, tk, tv, to, L, H, qk_scale);
   }
   return cudaGetLastError();
 }

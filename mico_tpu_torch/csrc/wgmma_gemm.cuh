@@ -1,13 +1,21 @@
-// The wgmma + TMA GEMM of K5's qkv projection and K8's two projections:
-// out (M, N) = A (M, K) . W (K, N) + bias, A and W bf16 row-major, bias (N)
-// fp32, out bf16. The products accumulate in fp32, the bias is added in fp32
-// in the epilogue and each output is rounded once to bf16: the rounding
-// points of `_fused_qkv_attn_kernel` (mico_tpu/ops/flash_attention.py:1229)
-// and `_fused_qkv_attn_proj_kernel` (:1388).
+// The wgmma + TMA GEMM of K5's qkv projection, K8's two projections and K1's
+// LayerNorm-prologue projection:
+//   out (M, N) = A (M, K) . W (K, N) + bias
+// A and W bf16 row-major, bias (N) fp32, out bf16. The products accumulate
+// in fp32, the bias is added in fp32 in the epilogue and each output is
+// rounded once to bf16: the rounding points of `_fused_qkv_attn_kernel`
+// (mico_tpu/ops/flash_attention.py:1229), `_fused_qkv_attn_proj_kernel`
+// (:1388) and `_fused_ln_qkv_attn_kernel` (:1567). In K1's instance
+// (`ln_gemm_kernel`) A is the raw x and the operand is
+//   xn = bf16(((x - mean) * rstd) * gamma + beta)
+// from per-row fp32 (mean, rstd) that K1's statistics pass wrote, made in
+// registers on the way into the tensor cores: xn never exists in global
+// or shared memory.
 //
 // What bounds it on the H100: tensor-core operations (bigE's qkv product,
 // M 28,784, K 1792, N 5376: 554.6 GFLOP, 0.561 ms at 989 TFLOP/s bf16,
-// against 0.108 ms for its 361 MB of compulsory bytes).
+// against 0.108 ms for its 361 MB of compulsory bytes; ViT-g's, K 1408, N
+// 4224: 342.4 GFLOP, 0.346 ms).
 //
 // Design:
 //  - persistent clusters of two CTAs (as many as the card holds at once, one
@@ -24,20 +32,34 @@
 //    released it (`empty`, four arrivals, two of them remote); the ring
 //    runs on across tiles;
 //  - two consumer warpgroups each own 64 rows of the tile and run
-//    wgmma.mma_async m64nBNk16 with A and W from shared memory. W (K, N)
+//    wgmma.mma_async m64nBNk16 with W from shared memory. W (K, N)
 //    row-major is MN-major for wgmma's B operand, which bf16 takes through
 //    the descriptor's transpose bit: no transposed weight is made. A
 //    consumer keeps one k-step of wgmmas in flight and frees the previous
 //    stage when it retires;
+//  - A: the plain GEMM reads it from shared memory too (SS wgmma). The LN
+//    instance takes it from registers (RS wgmma): each consumer warp loads
+//    its 16 rows of the raw x stage with ldmatrix in wgmma's A-fragment
+//    layout, normalises them in fp32 with its two rows' (mean, rstd) and
+//    the columns' (gamma, beta) (staged once in shared memory, (1, 0)
+//    without the affine, (0, 0) past K: TMA fills x past K with zeros, which
+//    would normalise to beta - mean * rstd * gamma) and rounds to bf16. The
+//    RS wgmma reads its registers asynchronously, so k-step kt + 1's
+//    fragments are made in a second register set while kt's wgmmas run,
+//    and the k-loop runs in pairs (an even count of k-steps, a zero step
+//    where K needs an odd one) so that each set is named at compile time
+//    and no branch stands between the wgmmas of a step;
 //  - the epilogue adds the bias, rounds to bf16 into a staging tile in
 //    shared memory (swizzled, conflict-free) and hands it to TMA stores, so
 //    the consumers go on to the next tile while the stores drain: stores
 //    from registers took 40% of the GEMM's time;
 //  - setmaxnreg moves registers from the producer warpgroup (40) to the
-//    consumers (232: BN/2 accumulators a thread);
+//    consumers (232: BN/2 accumulators a thread, and the LN instance's two
+//    sets of 16 A registers);
 //  - ragged edges: the tensor maps fill rows past M, columns past N and k
 //    past K with zeros, and the TMA stores clip at M and N. Needs K % 8 == 0
-//    and N % 8 == 0 (TMA's 16-byte strides).
+//    and N % 8 == 0 (TMA's 16-byte strides), and K <= LN_COLS for the LN
+//    instance.
 #pragma once
 
 #include "common.cuh"
@@ -58,6 +80,11 @@ constexpr int STAGE = A_BYTES + BK * BN * 2;
 constexpr int STAGES = RING_BYTES / STAGE;
 constexpr int C_BYTES = 64 * BN * 2;   // a warpgroup's output rows
 constexpr int SMEM = STAGES * STAGE + 2 * C_BYTES + 2 * STAGES * 8 + 1024;
+// the LN instance: K up to K1's statistics pass's 2048, with a (gamma,
+// beta) pair of fp32 a column before the barriers
+constexpr int LN_COLS = 2048;
+constexpr int SMEM_LN = SMEM + LN_COLS * 8;
+
 
 __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
                                           const unsigned char* a,
@@ -70,15 +97,94 @@ __device__ __forceinline__ void mma_stage(float (&acc)[BN / 2],
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
-                  const __grid_constant__ CUtensorMap tma_w,
-                  const __grid_constant__ CUtensorMap tma_out,
-                  const float* __restrict__ bias, int M, int N, int K) {
+// (x - mean) * rstd * gamma + beta of two neighbouring columns (g: their
+// gamma, beta, gamma, beta) in fp32, rounded to bf16
+__device__ __forceinline__ uint32_t ln_pair(uint32_t x, float mean, float rstd,
+                                            float4 g) {
+  const float2 f = unpack_bf16(x);
+  return pack_bf16(fmaf((f.x - mean) * rstd, g.x, g.y),
+                   fmaf((f.y - mean) * rstd, g.z, g.w));
+}
+
+// this warp's A fragments of one stage: its 16 rows (r = 16 warp + lane %
+// 16 for ldmatrix) of the warpgroup's 64-row, 128-byte-swizzled x tile `at`
+// over the stage's 64 columns, four k16 steps, normalised. gb: the stage's
+// first column's (gamma, beta); rows g and g + 8 (g = lane / 4) of the
+// warp take (m0, r0) and (m1, r1).
+__device__ __forceinline__ void ln_fragments(uint32_t (&a)[4][4],
+                                             const unsigned char* at,
+                                             const float2* gb, float m0,
+                                             float r0, float m1, float r1,
+                                             int warp, int lane) {
+  const int r = warp * 16 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    ldmatrix_x4(a[kk], at + r * 128 + (((2 * kk + (lane >> 4)) ^ (r & 7)) << 4));
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const float4 g0 = *reinterpret_cast<const float4*>(gb + kk * 16 + c);
+    const float4 g1 = *reinterpret_cast<const float4*>(gb + kk * 16 + c + 8);
+    a[kk][0] = ln_pair(a[kk][0], m0, r0, g0);
+    a[kk][1] = ln_pair(a[kk][1], m1, r1, g0);
+    a[kk][2] = ln_pair(a[kk][2], m0, r0, g1);
+    a[kk][3] = ln_pair(a[kk][3], m1, r1, g1);
+  }
+}
+
+// + bias in fp32, one rounding to bf16 into this warpgroup's staging rows
+// (128-byte swizzle, conflict-free), then TMA stores that clip at M and N
+// and run on while the next tile's products start
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+                                          unsigned char* cs,
+                                          const CUtensorMap* tma_out,
+                                          const float* __restrict__ bias,
+                                          int N, int m0, int n0, int wgi,
+                                          int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) hop::bulk_wait_read<0>();   // the last tile's stores
+  hop::named_sync(1 + wgi, 128);
+  const int rl = warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane & 3);
+    const float2 bv = n0 + col < N
+                          ? *reinterpret_cast<const float2*>(bias + n0 + col)
+                          : make_float2(0.f, 0.f);
+    *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
+        pack_bf16(acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
+    *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col, 8192)) =
+        pack_bf16(acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+  }
+  hop::fence_proxy_async();
+  hop::named_sync(1 + wgi, 128);
+  if (tid == 0) {
+#pragma unroll
+    for (int c = 0; c < BN / 64; ++c)
+      hop::tma_store_2d(tma_out, cs + c * 8192, n0 + 64 * c, m0 + wgi * 64);
+    hop::bulk_commit();
+  }
+}
+
+// the kernels' body; under LN A is the raw x, normalised with stats (M) of
+// (mean, rstd) and gamma/beta (K, read when affine) on its way into the
+// tensor cores
+template <bool LN>
+__device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a,
+                                          const CUtensorMap& tma_w,
+                                          const CUtensorMap& tma_out,
+                                          const float* __restrict__ bias,
+                                          int M, int N, int K,
+                                          const float2* __restrict__ stats,
+                                          const float* __restrict__ gamma,
+                                          const float* __restrict__ beta,
+                                          int affine) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
   unsigned char* cstage = smem + STAGES * STAGE;   // [warpgroup]
-  uint64_t* full = reinterpret_cast<uint64_t*>(cstage + 2 * C_BYTES);
+  float2* gb = reinterpret_cast<float2*>(cstage + 2 * C_BYTES);   // LN
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      cstage + 2 * C_BYTES + (LN ? LN_COLS * 8 : 0));
   uint64_t* empty = full + STAGES;
 
   // the cluster's CTAs take consecutive row tiles of the same column tile:
@@ -86,10 +192,18 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   const uint32_t rank = hop::cluster_rank();
   const int ntn = (N + BN - 1) / BN;
   const int npairs = ((M + CLUSTER * BM - 1) / (CLUSTER * BM)) * ntn;
-  const int nk = (K + BK - 1) / BK;
+  // LN's k-steps run in pairs: an even count, the last one past K (all
+  // zeros) where K needs an odd one
+  const int nk = LN ? ((K + BK - 1) / BK + 1) & ~1 : (K + BK - 1) / BK;
   const int first = blockIdx.x / CLUSTER, step = gridDim.x / CLUSTER;
   const int wgi = threadIdx.x / 128;
 
+  if constexpr (LN) {
+    for (int c = threadIdx.x; c < nk * BK; c += THREADS)
+      gb[c] = c >= K ? make_float2(0.f, 0.f)
+              : affine ? make_float2(gamma[c], beta[c])
+                       : make_float2(1.f, 0.f);
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       hop::mbar_init(&full[s], 1);
@@ -97,6 +211,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
     hop::fence_barrier_init();
   }
+  __syncthreads();
   hop::cluster_sync();   // the peer's barriers exist before any multicast
 
   if (wgi == 2) {
@@ -138,6 +253,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
       }
     }
   } else {
+    // the pool: 384 x 168 registers = 2 x 128 x 232 + 128 x 40
     hop::setmaxnreg_inc<232>();
     float acc[BN / 2];
 #pragma unroll
@@ -148,113 +264,110 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
       if (tid == 0)
         for (int r = 0; r < CLUSTER; ++r) hop::mbar_arrive_cluster(&empty[s], r);
     };
+    auto advance = [&]() {
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
     for (int p = first; p < npairs; p += step) {
       const int m0 = (CLUSTER * (p / ntn) + rank) * BM, n0 = (p % ntn) * BN;
       int prev = 0;
-      for (int kt = 0; kt < nk; ++kt) {
-        hop::mbar_wait(&full[stage], phase);
-        const unsigned char* st = smem + stage * STAGE;
-        hop::fence_regs(acc);
-        hop::wgmma_fence();
-        mma_stage(acc, st + wgi * 64 * 128, st + A_BYTES, kt == 0);
-        hop::wgmma_commit();
-        if (kt > 0) {
-          hop::wgmma_wait<1>();
+      if constexpr (!LN) {
+        for (int kt = 0; kt < nk; ++kt) {
+          hop::mbar_wait(&full[stage], phase);
+          const unsigned char* st = smem + stage * STAGE;
           hop::fence_regs(acc);
-          release(prev);
+          hop::wgmma_fence();
+          mma_stage(acc, st + wgi * 64 * 128, st + A_BYTES, kt == 0);
+          hop::wgmma_commit();
+          if (kt > 0) {
+            hop::wgmma_wait<1>();
+            hop::fence_regs(acc);
+            release(prev);
+          }
+          prev = stage;
+          advance();
         }
-        prev = stage;
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
+      } else {
+        // the statistics of this warp's rows g and g + 8 (zeros past M,
+        // whose x TMA fills with zeros and whose outputs the stores clip)
+        const int row = m0 + wgi * 64 + warp * 16 + (lane >> 2);
+        const float2 s0 = row < M ? stats[row] : make_float2(0.f, 0.f);
+        const float2 s1 = row + 8 < M ? stats[row + 8] : make_float2(0.f, 0.f);
+        uint32_t a0[4][4], a1[4][4];
+        auto fragments = [&](uint32_t (&a)[4][4], int kt) {
+          hop::mbar_wait(&full[stage], phase);
+          ln_fragments(a, smem + stage * STAGE + wgi * 64 * 128, gb + kt * BK,
+                       s0.x, s0.y, s1.x, s1.y, warp, lane);
+        };
+        // k-step kt on `cur`, then k-step kt + 1's fragments into `nxt`
+        // once kt - 1's wgmmas, the last to read `nxt`, have retired
+        auto kstep = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4],
+                         int kt) {
+          const unsigned char* st = smem + stage * STAGE + A_BYTES;
+          hop::fence_regs(acc);
+          hop::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            hop::wgmma_rs_n256<1>(
+                acc, cur[kk], hop::desc_sw128(st + kk * 2048, BK * 128, 1024),
+                kt > 0 || kk > 0);
+          hop::wgmma_commit();
+          if (kt > 0) {
+            hop::wgmma_wait<1>();
+            hop::fence_regs(acc);
+            release(prev);
+          }
+          prev = stage;
+          advance();
+          if (kt + 1 < nk) fragments(nxt, kt + 1);
+        };
+        fragments(a0, 0);
+        for (int kt = 0; kt < nk; kt += 2) {
+          kstep(a0, a1, kt);
+          kstep(a1, a0, kt + 1);
         }
       }
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
       release(prev);
-
-      // epilogue: + bias in fp32, one rounding to bf16 into this warpgroup's
-      // staging rows (128-byte swizzle, conflict-free), then TMA stores that
-      // clip at M and N and run on while the next tile's products start
-      unsigned char* cs = cstage + wgi * C_BYTES;
-      if (tid == 0) hop::bulk_wait_read<0>();   // the last tile's stores
-      hop::named_sync(1 + wgi, 128);
-      const int rl = warp * 16 + (lane >> 2);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = 8 * j + 2 * (lane & 3);
-        const float2 bv = n0 + col < N
-                              ? *reinterpret_cast<const float2*>(bias + n0 + col)
-                              : make_float2(0.f, 0.f);
-        *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
-            pack_bf16(acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
-        *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col, 8192)) =
-            pack_bf16(acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
-      }
-      hop::fence_proxy_async();
-      hop::named_sync(1 + wgi, 128);
-      if (tid == 0) {
-#pragma unroll
-        for (int c = 0; c < BN / 64; ++c)
-          hop::tma_store_2d(&tma_out, cs + c * 8192, n0 + 64 * c,
-                            m0 + wgi * 64);
-        hop::bulk_commit();
-      }
+      store_tile(acc, cstage + wgi * C_BYTES, &tma_out, bias, N, m0, n0, wgi,
+                 tid);
     }
     if (tid == 0) hop::bulk_wait<0>();
   }
 }
 
-static inline cudaError_t launch_clusters(const CUtensorMap& ta,
-                                          const CUtensorMap& tw,
-                                          const CUtensorMap& tout,
-                                          const float* bias, int M, int N,
-                                          int K, cudaStream_t stream) {
-  // the opt-in and the clusters the card holds at once, once per device
-  static int clusters[hop::MAX_DEVICES] = {};
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  auto kernel = wgmma_gemm_kernel;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int held = dev < hop::MAX_DEVICES ? clusters[dev] : 0;
-  if (held == 0) {
-    e = cudaFuncSetAttribute((const void*)kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM);
-    if (e != cudaSuccess) return e;
-    cfg.gridDim = dim3(CLUSTER);
-    e = cudaOccupancyMaxActiveClusters(&held, (const void*)kernel, &cfg);
-    if (e != cudaSuccess) return e;
-    if (held < 1) return cudaErrorInvalidConfiguration;
-    if (dev < hop::MAX_DEVICES) clusters[dev] = held;
-  }
-  const int npairs =
-      ((M + CLUSTER * BM - 1) / (CLUSTER * BM)) * ((N + BN - 1) / BN);
-  cfg.gridDim = dim3(CLUSTER * (npairs < held ? npairs : held));
-  void* args[] = {const_cast<CUtensorMap*>(&ta), const_cast<CUtensorMap*>(&tw),
-                  const_cast<CUtensorMap*>(&tout), &bias, &M, &N, &K};
-  return cudaLaunchKernelExC(&cfg, (const void*)kernel, args);
+__global__ void __launch_bounds__(THREADS, 1)
+wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                  const __grid_constant__ CUtensorMap tma_w,
+                  const __grid_constant__ CUtensorMap tma_out,
+                  const float* __restrict__ bias, int M, int N, int K) {
+  gemm_body<false>(tma_a, tma_w, tma_out, bias, M, N, K, nullptr, nullptr,
+                   nullptr, 0);
 }
 
-// out (M, N) = a (M, K) . w (K, N) + bias on `stream`. The grid is as many
-// clusters of two as the card holds at once, at most one a pair of row
-// tiles.
-inline cudaError_t launch_gemm(const bf16* a, const bf16* w, const float* bias,
-                               bf16* out, int M, int K, int N,
-                               cudaStream_t stream) {
-  if (K % 8 || N % 8 || M <= 0) return cudaErrorInvalidValue;
-  CUtensorMap ta, tw, tout;
+// K1's instance; a template, so that only a library that launches it
+// compiles it
+template <int = 0>
+__global__ void __launch_bounds__(THREADS, 1)
+ln_gemm_kernel(const __grid_constant__ CUtensorMap tma_x,
+               const __grid_constant__ CUtensorMap tma_w,
+               const __grid_constant__ CUtensorMap tma_out,
+               const float* __restrict__ bias, int M, int N, int K,
+               const float2* __restrict__ stats,
+               const float* __restrict__ gamma,
+               const float* __restrict__ beta, int affine) {
+  gemm_body<true>(tma_x, tma_w, tma_out, bias, M, N, K, stats, gamma, beta,
+                  affine);
+}
+
+// the tensor maps of a (M, K), w (K, N) and out (M, N)
+static inline cudaError_t make_maps(CUtensorMap* ta, CUtensorMap* tw,
+                                    CUtensorMap* tout, const bf16* a,
+                                    const bf16* w, bf16* out, int M, int K,
+                                    int N) {
   const cuuint64_t adims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t astr[1] = {(cuuint64_t)K * 2};
   const cuuint32_t abox[2] = {BK, BM};
@@ -263,13 +376,80 @@ inline cudaError_t launch_gemm(const bf16* a, const bf16* w, const float* bias,
   const cuuint32_t wbox[2] = {64, BK};
   const cuuint64_t odims[2] = {(cuuint64_t)N, (cuuint64_t)M};
   const cuuint32_t obox[2] = {64, 64};
-  cudaError_t e = hop::make_map(&ta, a, 2, adims, astr, abox);
+  cudaError_t e = hop::make_map(ta, a, 2, adims, astr, abox);
   if (e != cudaSuccess) return e;
-  e = hop::make_map(&tw, w, 2, wdims, wstr, wbox);
+  e = hop::make_map(tw, w, 2, wdims, wstr, wbox);
   if (e != cudaSuccess) return e;
-  e = hop::make_map(&tout, out, 2, odims, wstr, obox);
+  return hop::make_map(tout, out, 2, odims, wstr, obox);
+}
+
+// launches `kernel` (one of the above: ID 0 the plain, 1 the LN) on as many
+// clusters of two as the card holds at once, at most one a pair of row
+// tiles; the opt-in and that count are taken once per kernel and device
+template <int ID>
+static inline cudaError_t launch_clusters(const void* kernel, int smem, int M,
+                                          int N, void** args,
+                                          cudaStream_t stream) {
+  static int clusters[hop::MAX_DEVICES] = {};
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  return launch_clusters(ta, tw, tout, bias, M, N, K, stream);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int held = dev < hop::MAX_DEVICES ? clusters[dev] : 0;
+  if (held == 0) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    cfg.gridDim = dim3(CLUSTER);
+    e = cudaOccupancyMaxActiveClusters(&held, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (held < 1) return cudaErrorInvalidConfiguration;
+    if (dev < hop::MAX_DEVICES) clusters[dev] = held;
+  }
+  const int npairs =
+      ((M + CLUSTER * BM - 1) / (CLUSTER * BM)) * ((N + BN - 1) / BN);
+  cfg.gridDim = dim3(CLUSTER * (npairs < held ? npairs : held));
+  return cudaLaunchKernelExC(&cfg, kernel, args);
+}
+
+// out (M, N) = a (M, K) . w (K, N) + bias on `stream`
+inline cudaError_t launch_gemm(const bf16* a, const bf16* w, const float* bias,
+                               bf16* out, int M, int K, int N,
+                               cudaStream_t stream) {
+  if (K % 8 || N % 8 || M <= 0) return cudaErrorInvalidValue;
+  CUtensorMap ta, tw, tout;
+  cudaError_t e = make_maps(&ta, &tw, &tout, a, w, out, M, K, N);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&ta, &tw, &tout, &bias, &M, &N, &K};
+  return launch_clusters<0>((const void*)wgmma_gemm_kernel, SMEM, M, N,
+                                args, stream);
+}
+
+// out (M, N) = LN(x) (M, K) . w (K, N) + bias on `stream`: stats (M) of
+// (mean, rstd) in fp32, gamma/beta (K) fp32, read when affine
+inline cudaError_t launch_ln_gemm(const bf16* x, const float2* stats,
+                                  const float* gamma, const float* beta,
+                                  int affine, const bf16* w, const float* bias,
+                                  bf16* out, int M, int K, int N,
+                                  cudaStream_t stream) {
+  if (K % 8 || N % 8 || M <= 0 || K > LN_COLS) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw, tout;
+  cudaError_t e = make_maps(&tx, &tw, &tout, x, w, out, M, K, N);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&tx, &tw, &tout, &bias, &M, &N, &K,
+                  &stats, &gamma, &beta, &affine};
+  return launch_clusters<1>((const void*)ln_gemm_kernel<>, SMEM_LN, M, N,
+                            args, stream);
 }
 
 }  // namespace wg

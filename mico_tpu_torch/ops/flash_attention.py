@@ -3,7 +3,11 @@
 K1 `fused_ln_qkv_self_attention` replaces the Pallas kernel
 `_fused_ln_qkv_attn_kernel` (mico_tpu/ops/flash_attention.py:1567, called at
 :1641): LayerNorm → packed qkv projection → per-head softmax attention, output
-packed (B, L, H·D). Source: `csrc/fused_ln_qkv_attn.cu`.
+packed (B, L, H·D). Source: `csrc/fused_ln_qkv_attn.cu`: a statistics pass,
+then the LayerNorm-prologue instance of K5's GEMM (`csrc/wgmma_gemm.cuh`:
+x normalised in registers on its way into the tensor cores) and K5's
+attention (`csrc/qkv_attn.cuh`). `ln_gemm_bias` launches the statistics pass
+and the GEMM alone, for checks and timing; no model path calls it.
 
 K2 `flash_attention` replaces the resident-KV `_flash` (:93, call :127) with
 both bodies, `_kernel` (no bias, exp2) and `_kernel_bias` (additive bias,
@@ -28,8 +32,8 @@ K3 `packed_attention` replaces `_packed_qkv_fwd` (:1135, call :1155) and
 on projection-layout (B, L, H·D) rows read by column offset. K4
 `packed_attention_bwd` replaces `_packed_qkv_bwd` (:1059, call :1070) and
 `_packed_bwd` (:1032, call :1040), body `_packed_bwd_body` (:954), its
-gradient. Sources: `csrc/packed_attn.cu` (K1's attention launch, shared
-through `csrc/packed_attn.cuh`) and `csrc/packed_attn_bwd.cu`. The ViT's
+gradient. Sources: `csrc/packed_attn.cu` (the attention of K1, K5 and K8,
+`csrc/qkv_attn.cuh`) and `csrc/packed_attn_bwd.cu`. The ViT's
 training route reaches them through the autograd Functions
 `packed_qkv_self_attention` and `packed_self_attention`.
 
@@ -86,8 +90,9 @@ KV_TILED_BIAS_IS_MASK = True
 
 # shared memory one block may take on an H100 (232,448 bytes)
 _MAX_SMEM = 232448
-# K1's attention launch: 6 warps of 16 query rows (fused_ln_qkv_attn.cu)
-_K1_ROWS = 96
+# K4's and K9's query tiles: 6 warps of 16 rows (csrc/packed_attn_bwd.cu,
+# csrc/packed_cls_attn.cu)
+_PACKED_ROWS = 96
 
 # Routing knobs with the JAX package's defaults (flash_attention.py:1129,
 # :1226, :1385, :1564). PACKED_CLS_SPLIT: the fused-qkv self-attention of a
@@ -149,19 +154,32 @@ def packed_qkv_attention_plain(
     return o.to(qkv.dtype).transpose(1, 2).reshape(b, l, w)
 
 
-def fused_ln_qkv_plain(x, g, b0, w, bias, num_heads: int, scale: float,
-                       eps: float, affine: bool) -> torch.Tensor:
-    """Twin of `_fused_ln_qkv_reference` (flash_attention.py:1669-1674) with
-    its rounding points: LN in fp32 rounded once to x's dtype, qkv in fp32 +
-    bias in fp32 rounded once, then the packed attention."""
+def _ln_plain(x, g, b0, eps: float, affine: bool) -> torch.Tensor:
+    """K1's LayerNorm: fp32 statistics (two-pass variance), (x − mean) ·
+    rsqrt(var + eps), the affine in fp32, rounded once to x's dtype."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     xn = (xf - mean) * torch.rsqrt(var + eps)
     if affine:
         xn = xn * g.float() + b0.float()
-    xn = xn.to(x.dtype)
-    return fused_qkv_plain(xn, w, bias, num_heads, scale)
+    return xn.to(x.dtype)
+
+
+def fused_ln_qkv_plain(x, g, b0, w, bias, num_heads: int, scale: float,
+                       eps: float, affine: bool) -> torch.Tensor:
+    """Twin of `_fused_ln_qkv_reference` (flash_attention.py:1669-1674) with
+    its rounding points: LN in fp32 rounded once to x's dtype, qkv in fp32 +
+    bias in fp32 rounded once, then the packed attention."""
+    return fused_qkv_plain(_ln_plain(x, g, b0, eps, affine), w, bias,
+                           num_heads, scale)
+
+
+def ln_gemm_plain(x, g, b0, w, bias, eps: float,
+                  affine: bool) -> torch.Tensor:
+    """The twin of K1's GEMM stage with its LayerNorm (`ln_gemm_bias`): x
+    (M, K) normalised as `fused_ln_qkv_plain` does, then `bf16_gemm_plain`."""
+    return bf16_gemm_plain(_ln_plain(x, g, b0, eps, affine), w, bias)
 
 
 def bf16_gemm_plain(a, w, bias) -> torch.Tensor:
@@ -211,17 +229,6 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def _packed_smem_bytes(l: int, d: int) -> int:
-    """Dynamic shared memory of the packed attention launch of K1 and K3
-    (mirrors csrc/packed_attn.cuh):
-    K rows at stride DP+8, V rows (which first stage the Q tile) at stride
-    D or D+8, DP = D rounded up to 16."""
-    dp = -(-d // 16) * 16
-    lp = -(-l // 16) * 16
-    vst = d if (d // 8) % 2 == 1 else d + 8
-    return 2 * (lp * (dp + 8) + max(lp * vst, _K1_ROWS * (dp + 8)))
-
-
 @functools.lru_cache(maxsize=None)
 def _k1_entry():
     fn = _build.load("fused_ln_qkv_attn").mico_fused_ln_qkv_attn
@@ -231,30 +238,44 @@ def _k1_entry():
     return fn
 
 
-# K5's and K8's attention (csrc/qkv_attn.cuh): keys a key block, rows a Q
-# tile; one key block of K and of V in 64-column chunks of 128 bytes
+@functools.lru_cache(maxsize=None)
+def _ln_gemm_entry():
+    fn = _build.load("fused_ln_qkv_attn").mico_ln_gemm_bias
+    fn.argtypes = [_c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, _c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# the attention of K1, K3, K5 and K8 (csrc/qkv_attn.cuh): keys a key block,
+# rows a Q tile; one key block of K and of V in 64-column chunks of 128
+# bytes
 _QKV_ATTN_KEYS = 272
 _QKV_ATTN_QROWS = 64
 
 
 def _qkv_attn_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of K5's and K8's attention launch (mirrors
-    `qattn::smem_bytes` in csrc/qkv_attn.cuh): one key block of K and of V
-    (272 keys, the whole head at L ≤ 272; longer rows stream their blocks
-    through them) in ⌈D/64⌉ chunks of 128-byte rows, two Q tiles and two
-    output tiles of 64 rows, eight mbarriers and 1 KB to align the swizzled
-    tiles. It does not grow with L."""
+    """Dynamic shared memory of the attention launch of K1, K3, K5 and K8
+    (mirrors `qattn::smem_bytes` in csrc/qkv_attn.cuh): one key block of K
+    and of V (272 keys, the whole head at L ≤ 272; longer rows stream their
+    blocks through them) in ⌈D/64⌉ chunks of 128-byte rows, two Q tiles and
+    two output tiles of 64 rows, eight mbarriers and 1 KB to align the
+    swizzled tiles. It does not grow with L."""
     nt = -(-d // 64)
     return (2 * nt * _QKV_ATTN_KEYS * 128 + 4 * nt * _QKV_ATTN_QROWS * 128
             + 8 * 8 + 1024)
 
 
+# the checks take head dims up to 128, which this bounds at any L
+assert _qkv_attn_smem_bytes(128) <= _MAX_SMEM
+
+
 def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
     """The checks K1, K5 and K8 share: bf16 contiguous x (B, L, W) and w
     (W, 3W) on one device with bias (3W,); head dim a multiple of 8 up to
-    128; the GEMM's tiles (W % 32, 3W % 128); a block's shared memory (K1
-    holds one head's K and V, `_packed_smem_bytes`; K5 and K8 one key
-    block of each at any L, `_qkv_attn_smem_bytes`). Returns (B, L, W,
+    128 (which gives the GEMM's K % 8 and N % 8, TMA's 16-byte strides, and
+    fits the attention's shared memory at any L); for K1, W ≤ 2048 (its
+    statistics pass holds a row in a warp's registers). Returns (B, L, W,
     D)."""
     _require(x.dim() == 3, f"{name}: x must be (B, L, W), got {tuple(x.shape)}")
     b, l, wd = x.shape
@@ -268,12 +289,8 @@ def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
     _require(d * num_heads == wd and d % 8 == 0 and d <= 128,
              f"{name}: head dim {d} must divide W and be a multiple of 8 "
              "up to 128")
-    _require(wd % 32 == 0 and (3 * wd) % 128 == 0,
-             f"{name}: width {wd} needs W % 32 == 0 and 3W % 128 == 0")
-    smem = (_packed_smem_bytes(l, d) if name == "K1"
-            else _qkv_attn_smem_bytes(d))
-    _require(smem <= _MAX_SMEM,
-             f"{name}: L={l} with head dim {d} does not fit shared memory")
+    _require(name != "K1" or wd <= 2048,
+             f"width {wd}: K1's LN statistics need W <= 2048")
     _require(w.device == x.device and bias.device == x.device,
              f"{name} inputs must share one device")
     return b, l, wd, d
@@ -292,7 +309,6 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
         return fused_ln_qkv_plain(x, g, b0, w, bias, num_heads, scale, eps,
                                   affine)
     b, l, wd, d = _check_fused_qkv("K1", x, w, bias, num_heads)
-    _require(wd <= 2048, f"width {wd}: K1's LN statistics need W <= 2048")
     dev = x.device
     for t in (g, b0) if affine else ():
         _require(t.device == dev, "K1 inputs must share one device")
@@ -349,23 +365,23 @@ def _gemm_entry():
     return fn
 
 
-def _check_gemm(a, w, bias):
+def _check_gemm(a, w, bias, name: str = "bf16_gemm_bias"):
     """What the GEMM stage takes: contiguous bf16 a (M, K) and w (K, N) on
     one device with bias (N,), K and N multiples of 8 (TMA's 16-byte
     strides). Returns (M, K, N)."""
     _require(a.dim() == 2 and w.dim() == 2 and a.shape[1] == w.shape[0]
              and bias.numel() == w.shape[1],
-             f"bf16_gemm_bias: a {tuple(a.shape)}, w {tuple(w.shape)}, "
+             f"{name}: a {tuple(a.shape)}, w {tuple(w.shape)}, "
              f"bias ({bias.numel()},) do not chain")
     _require(a.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
              and a.is_contiguous() and w.is_contiguous(),
-             "bf16_gemm_bias takes contiguous bf16 a and w")
+             f"{name} takes contiguous bf16 a and w")
     m, k = a.shape
     n = w.shape[1]
     _require(k % 8 == 0 and n % 8 == 0,
-             f"bf16_gemm_bias: K {k} and N {n} must be multiples of 8")
+             f"{name}: K {k} and N {n} must be multiples of 8")
     _require(w.device == a.device and bias.device == a.device,
-             "bf16_gemm_bias inputs must share one device")
+             f"{name} inputs must share one device")
     return m, k, n
 
 
@@ -381,6 +397,29 @@ def bf16_gemm_bias(a, w, bias) -> torch.Tensor:
     _check(_gemm_entry()(a.data_ptr(), w.data_ptr(), bias32.data_ptr(),
                          out.data_ptr(), m, k, n, _stream()),
            "bf16_gemm_bias")
+    return out
+
+
+def ln_gemm_bias(x, g, b0, w, bias, eps: float,
+                 affine: bool) -> torch.Tensor:
+    """K1's statistics pass and GEMM stage alone (csrc/fused_ln_qkv_attn.cu
+    `mico_ln_gemm_bias`): LN(x (M, K)) · w (K, N) + bias (N,), the
+    LayerNorm applied on the way into the tensor cores, rounded once to
+    bf16. For checks and timing: no model path calls it."""
+    if not x.is_cuda:
+        return ln_gemm_plain(x, g, b0, w, bias, eps, affine)
+    m, k, n = _check_gemm(x, w, bias, "ln_gemm_bias")
+    _require(k <= 2048, f"ln_gemm_bias: K {k} must be <= 2048")
+    bias32 = bias.float().contiguous()
+    g32, b32 = ((g.float().contiguous(), b0.float().contiguous()) if affine
+                else (bias32, bias32))
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _check(_ln_gemm_entry()(
+        x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
+        bias32.data_ptr(), stats.data_ptr(), out.data_ptr(), m, k, n,
+        float(eps), int(bool(affine)), _stream()),
+        "ln_gemm_bias")
     return out
 
 
@@ -414,8 +453,8 @@ def fused_qkv_attn_proj(x, w, bias, wp, bp, num_heads: int,
                         scale: float) -> torch.Tensor:
     """K8: K5 followed by the output projection, ·wp (W, W) + bp (W,),
     computed in the kernel's own GEMM. Returns (B, L, W). Takes what K5
-    takes, and bf16 contiguous wp with W % 128 == 0; the biases go in as
-    fp32. Inference only, as K5."""
+    takes, and bf16 contiguous wp; the biases go in as fp32. Inference
+    only, as K5."""
     refuse_grad("K8 (fused_qkv_attn_proj)", x, w, bias, wp, bp)
     if not x.is_cuda:
         return fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads, scale)
@@ -423,7 +462,6 @@ def fused_qkv_attn_proj(x, w, bias, wp, bp, num_heads: int,
     _require(wp.dtype == torch.bfloat16 and wp.is_contiguous()
              and tuple(wp.shape) == (wd, wd) and bp.numel() == wd,
              f"K8: wp must be contiguous bf16 ({wd}, {wd}) and bp ({wd},)")
-    _require(wd % 128 == 0, f"K8: width {wd} needs W % 128 == 0")
     _require(wp.device == x.device and bp.device == x.device,
              "K8 inputs must share one device")
     bias32, bp32 = bias.float().contiguous(), bp.float().contiguous()
@@ -948,7 +986,12 @@ def _k4_smem_bytes(l: int, d: int) -> int:
     padded L x D operands, a 96-row staging tile and fp32 row statistics."""
     kst = -(-d // 16) * 16 + 8
     lp = -(-l // 16) * 16
-    return 2 * (2 * lp + _K1_ROWS) * kst + 16 * lp
+    return 2 * (2 * lp + _PACKED_ROWS) * kst + 16 * lp
+
+
+def _check_k4_fits(l: int, d: int) -> None:
+    _require(_k4_smem_bytes(l, d) <= _MAX_SMEM,
+             f"K4: L={l} with head dim {d} does not fit shared memory")
 
 
 def _packed_layout(name: str, ts, num_heads: int) -> int:
@@ -996,15 +1039,13 @@ def _k4_entry():
 def packed_attention(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
     """K3: q, k, v (B, L, H·D) → (B, L, H·D). On the card they are bf16
     views with one row stride: the column slices of the fused qkv (stride
-    3W) or three contiguous tensors (stride W); L·D must fit one block's
-    shared memory (L ≤ 510 at D = 88). CPU tensors take the plain twin."""
+    3W) or three contiguous tensors (stride W); any L. CPU tensors take the
+    plain twin."""
     if not q.is_cuda:
         return packed_attention_plain(q, k, v, num_heads, scale)
     ld = _packed_layout("K3", (q, k, v), num_heads)
     b, l, w = q.shape
     d = w // num_heads
-    _require(_packed_smem_bytes(l, d) <= _MAX_SMEM,
-             f"K3: L={l} with head dim {d} does not fit shared memory")
     out = torch.empty((b, l, w), dtype=q.dtype, device=q.device)
     rc = _k3_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
                      out.data_ptr(), b, l, num_heads, d,
@@ -1038,8 +1079,7 @@ def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
     _require(g.dtype == q.dtype and tuple(g.shape) == (b, l, w)
              and g.is_contiguous() and g.device == q.device,
              f"K4: g must be contiguous {tuple(q.shape)} {q.dtype}")
-    _require(_k4_smem_bytes(l, d) <= _MAX_SMEM,
-             f"K4: L={l} with head dim {d} does not fit shared memory")
+    _check_k4_fits(l, d)
     if dqkv is None:
         outs = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
                      for _ in range(3))
@@ -1064,11 +1104,16 @@ packed_attention_bwd.launches = 0
 
 
 def _k9_smem_bytes(l: int, d: int) -> int:
-    """K9's dynamic shared memory (csrc/packed_cls_attn.cu): K3's K/V rooms
-    over the L - 1 patch rows, then the CLS row's q, k, v and the CLS
-    query's L - 1 probabilities in fp32."""
+    """K9's dynamic shared memory (csrc/packed_cls_attn.cu): over the P =
+    L - 1 patch rows, padded to 16, K rows at stride DP + 8 and V rows
+    (which first stage the 96-row Q tile) at stride D or D + 8, DP = D
+    rounded up to 16; then the CLS row's q, k, v and the CLS query's P
+    probabilities in fp32."""
     dp = -(-d // 16) * 16
-    return _packed_smem_bytes(l - 1, d) + 4 * (3 * dp + -(-(l - 1) // 16) * 16)
+    pp = -(-(l - 1) // 16) * 16
+    vst = d if (d // 8) % 2 == 1 else d + 8
+    rooms = 2 * (pp * (dp + 8) + max(pp * vst, _PACKED_ROWS * (dp + 8)))
+    return rooms + 4 * (3 * dp + pp)
 
 
 def _check_cls(qkv: torch.Tensor, num_heads: int):
@@ -1134,7 +1179,9 @@ class _PackedQKV(torch.autograd.Function):
     `PACKED_CLS_SPLIT` at L = 128k + 1 (`_packed_qkv_fwd`, :1144); saves
     qkv and not the
     output (`_packed_qkv_vjp_fwd`, :1195); backward K4 into one (B, L, 3W)
-    gradient on either forward (JAX has no K9 backward)."""
+    gradient on either forward (JAX has no K9 backward). K4 takes fewer L
+    than K3 (`_k4_smem_bytes`), so a call that will need K4 is refused
+    before the forward runs."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
@@ -1144,6 +1191,8 @@ class _PackedQKV(torch.autograd.Function):
         if not kernel_route(qkv):
             return packed_attention_plain(q, k, v, num_heads, scale)
         l = qkv.shape[1]
+        if qkv.is_cuda and ctx.needs_input_grad[0]:
+            _check_k4_fits(l, q.shape[-1] // num_heads)
         if PACKED_CLS_SPLIT and l > 128 and l % 128 == 1:
             return packed_qkv_cls_attention(qkv, num_heads, scale)
         return packed_attention(q, k, v, num_heads, scale)
@@ -1165,12 +1214,15 @@ class _PackedQKV(torch.autograd.Function):
 
 class _Packed(torch.autograd.Function):
     """Forward K3 on three (B, L, W) inputs, never K9 (`_packed_fwd`, :885);
-    saves q, k, v (`_packed_vjp_fwd`, :1099); backward K4."""
+    saves q, k, v (`_packed_vjp_fwd`, :1099); backward K4, whose L limit is
+    checked before the forward, as `_PackedQKV` does."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(q, k, v)
+        if q.is_cuda and kernel_route(q) and any(ctx.needs_input_grad[:3]):
+            _check_k4_fits(q.shape[1], q.shape[-1] // num_heads)
         if kernel_route(q):
             return packed_attention(q, k, v, num_heads, scale)
         return packed_attention_plain(q, k, v, num_heads, scale)
@@ -1192,14 +1244,18 @@ def packed_qkv_self_attention(qkv: torch.Tensor, num_heads: int,
                               scale: float) -> torch.Tensor:
     """Self-attention on the fused projection output (B, L, 3·H·D) →
     (B, L, H·D), differentiable (`packed_qkv_self_attention`, :1180): K3,
-    or K9 under `PACKED_CLS_SPLIT` at L = 128k + 1; backward K4."""
+    or K9 under `PACKED_CLS_SPLIT` at L = 128k + 1; backward K4. K3 takes
+    any L; K4 does not (L ≤ 480 at D 88, `_k4_smem_bytes`), so a bf16
+    CUDA qkv that requires grad is refused past K4's limit before the
+    forward runs."""
     return _PackedQKV.apply(qkv, num_heads, float(scale))
 
 
 def packed_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           num_heads: int, scale: float) -> torch.Tensor:
     """Self-attention on projection-layout q, k, v (B, L, H·D) →
-    (B, L, H·D), differentiable (`packed_self_attention`, :936)."""
+    (B, L, H·D), differentiable (`packed_self_attention`, :936); K4's L
+    limit holds as in `packed_qkv_self_attention`."""
     return _Packed.apply(q, k, v, num_heads, float(scale))
 
 

@@ -17,9 +17,9 @@ warm-up steps, and prints:
   - the step's host-clock time and the device's busy and idle shares over
     the profiled window;
   - device time by kernel, with the launches of K1 (ln_stats, its
-    LN-prologue GEMM, the packed attention), of K5 and K8 (their wgmma
-    GEMM, their attention), K3 (the packed attention) and K9 named, grouped
-    into those / K2 / cuBLAS GEMMs / LayerNorm / GELU / the rest;
+    LN-prologue wgmma GEMM), of K5 and K8 (their wgmma GEMM), of the wgmma
+    attention that K1, K3, K5 and K8 share and of K9 named, grouped into
+    those / K2 / cuBLAS GEMMs / LayerNorm / GELU / the rest;
   - the top kernels by device time.
 `--trace` also writes the chrome trace. Ends with one JSON line of the
 grouped numbers.
@@ -47,10 +47,9 @@ STEPS = 3
 
 GROUPS = (
     ("K1 ln_stats", ("ln_stats_kernel",)),
-    ("K1 LN-prologue GEMM", ("tile_gemm_kernel",)),
+    ("K1 LN-prologue GEMM", ("ln_gemm_kernel",)),
     ("K5/K8 GEMM", ("wgmma_gemm_kernel",)),
-    ("K1/K3 packed attention", ("packed_attn_kernel",)),
-    ("K5/K8 attention", ("qkv_attn_kernel",)),
+    ("K1/K3/K5/K8 attention", ("qkv_attn_kernel",)),
     ("K9 CLS-split attention", ("packed_cls_attn_kernel",)),
     ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2")),

@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""K5 and K8, the post-norm block's projection-fused attention, on one CUDA
-card: each call's time, and the device's time per stage beside one PyTorch
-call for the same stage.
+"""K5 and K8 (the post-norm block's projection-fused attention), K1 (the
+LN-fused attention of the ViT-g omni step) or K3 (the packed attention of
+ViT training) on one CUDA card: each call's time, and the device's time per
+stage beside one PyTorch call for the same stage.
 
-    python3 scripts/torch_qkv_bench.py [--iters 50]
+    python3 scripts/torch_qkv_bench.py [--kernel K5|K1|K3] [--iters 50]
 
-At the bigE omni step's ViT pass, x (112, 257, 1792) bf16 with 16 heads of
-112 (`chip_smoke.fused_qkv_inputs`: unit-std x, weights and biases at the
-init std 0.02, seed 4), it prints:
+--kernel K1: at the omni step's ViT-g pass, x (112, 257, 1408) bf16 with 16
+heads of 88 and the LN affine on (`chip_smoke.k1_inputs`, seed 1): K1's
+event ms and device ms by stage (the statistics pass, the GEMM, the
+attention) beside F.layer_norm, F.linear at the qkv shape and SDPA on that
+qkv, and the library route's event ms.
+--kernel K3: at the train step's pass, qkv (32, 257, 4224) (16 heads of 88),
+and CLIP-L/14's, (112, 257, 3072) (16 heads of 64), unit-std column slices
+of a fused qkv (seed 3): K3's event and device ms beside SDPA's.
+--kernel K5 (the default): at the bigE omni step's ViT pass, x (112, 257,
+1792) bf16 with 16 heads of 112 (`chip_smoke.fused_qkv_inputs`: unit-std
+x, weights and biases at the init std 0.02, seed 4), it prints:
   - for each of K5 and K8: `ms`, the mean time of one call by CUDA events
     over `--iters` back-to-back calls; `device_ms`, the kernels' own time
     per call from torch.profiler, split by stage: the qkv GEMM, the
@@ -96,8 +105,87 @@ def bound(flops: float, nbytes: float) -> float:
     return 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES)
 
 
+def device_ms(fn, iters: int) -> float:
+    return sum(ms for ms, _ in device_kernels(fn, iters).values())
+
+
+def bench_k1(fa, card: str, it: int) -> dict:
+    """K1 at the omni step's ViT-g pass, by stage, beside its library
+    route's stages."""
+    import torch.nn.functional as F
+
+    from chip_smoke import k1_inputs, k1_library
+
+    args = k1_inputs(torch.Generator().manual_seed(1), 112)
+    x, g, b0, w, bias, nh, scale, eps = args
+    b, l, wd = x.shape
+    d = wd // nh
+
+    def k1():
+        return fa.fused_ln_qkv_self_attention(*args, True)
+
+    kern = device_kernels(k1, it)
+    stages = {"statistics": stage_ms(kern, "stats"),
+              "GEMM": stage_ms(kern, "gemm"),
+              "attention": stage_ms(kern, "attn")}
+    gx, bx, wt, b16 = g.to(x.dtype), b0.to(x.dtype), w.t(), bias.to(x.dtype)
+    xn = F.layer_norm(x, (wd,), gx, bx, eps)
+    qkv = F.linear(xn, wt, b16)
+    q, k, v = qkv.view(b, l, 3, nh, d).permute(2, 0, 3, 1, 4)
+    lib = {"F.layer_norm": device_ms(
+               lambda: F.layer_norm(x, (wd,), gx, bx, eps), it),
+           "F.linear": device_ms(lambda: F.linear(xn, wt, b16), it),
+           "SDPA": device_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, scale=scale), it)}
+    row = dict(ms=event_ms(k1, it),
+               device_ms=sum(ms for ms, _ in kern.values()),
+               kernels={n: ms for n, (ms, _) in kern.items()},
+               stages_device_ms=stages, library_device_ms=lib,
+               library_ms=event_ms(lambda: k1_library(*args, True), it))
+    print(f"K1 x {tuple(x.shape)}: {row['ms']:.4f} ms a call (events), "
+          f"device {row['device_ms']:.4f} ms [{card}]; library route "
+          f"{row['library_ms']:.4f} ms (events)", flush=True)
+    print("  device ms by stage: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + "; beside: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in lib.items()), flush=True)
+    return {"kernel": "K1", "shape": [b, l, nh, d], "K1": row}
+
+
+def bench_k3(fa, card: str, it: int) -> dict:
+    """K3 at the train pass and at CLIP-L/14's, beside SDPA."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    for b, l, nh, d in ((32, 257, 16, 88), (112, 257, 16, 64)):
+        w = nh * d
+        qkv = torch.randn(b, l, 3 * w, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        qh, kh, vh = (t.view(b, l, nh, d).transpose(1, 2) for t in (q, k, v))
+        scale = d ** -0.5
+
+        def k3():
+            return fa.packed_attention(q, k, v, nh, scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+
+        bms = bound(4.0 * b * nh * l * l * d, 2.0 * (qkv.numel() + b * l * w))
+        row = dict(ms=event_ms(k3, it), device_ms=device_ms(k3, it),
+                   sdpa_ms=event_ms(sdpa, it), sdpa_device_ms=device_ms(sdpa, it),
+                   bound_ms=bms)
+        rows[f"{b}x{l}x{nh}x{d}"] = row
+        print(f"K3 qkv ({b}, {l}, {3 * w}): {row['ms']:.4f} ms a call "
+              f"(events), device {row['device_ms']:.4f} ms; SDPA "
+              f"{row['sdpa_ms']:.4f}, device {row['sdpa_device_ms']:.4f} ms; "
+              f"bound {bms:.4f} ms [{card}]", flush=True)
+    return {"kernel": "K3", "K3": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("K5", "K1", "K3"), default="K5")
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -119,6 +207,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.kernel != "K5":
+        bench = bench_k1 if args.kernel == "K1" else bench_k3
+        print(json.dumps({"card": card, "iters": args.iters,
+                          **bench(fa, card, args.iters)}))
+        return 0
 
     a = fused_qkv_inputs(torch.Generator().manual_seed(4), B, L, H, D)
     x, w, bias, wp, bp = a["x"], a["w"], a["bias"], a["wp"], a["bp"]

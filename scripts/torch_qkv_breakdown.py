@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where K5's device time goes at bigE's pass, on one CUDA card: the kernel
-as it is and with one design choice undone or one stage cut short.
+"""Where K5's device time goes at bigE's pass, or K1's GEMM's at ViT-g's,
+on one CUDA card: the kernel as it is and with one design choice undone or
+one stage cut short.
 
-    python3 scripts/torch_qkv_breakdown.py
+    python3 scripts/torch_qkv_breakdown.py [--kernel K5|K1]
 
 Each variant is a copy of `mico_tpu_torch` under `build/qkv_breakdown/`
-(git-ignored) with one edit to its sources; only `fused_qkv_attn.cu` is
-built there (all variants at once):
+(git-ignored) with one edit to its sources; only `fused_qkv_attn.cu` (K5)
+or `fused_ln_qkv_attn.cu` (K1) is built there (all variants at once).
+K5's variants:
 
   - base:            the kernels as they are;
   - kv_loads_only:   the attention's consumers skip all compute once their
@@ -26,8 +28,21 @@ built there (all variants at once):
 Each is timed on `chip_smoke.fused_qkv_inputs` at x (112, 257, 1792), 16
 heads of 112, by `scripts/torch_qkv_bench.py`'s `device_kernels`
 (torch.profiler, 50 calls): the GEMM's and the attention's device ms per
-K5 call. Prints the card's name and power limit and a line per variant.
-Runs from any working directory.
+K5 call. K1's variants, each timed as the GEMM stage alone
+(`ln_gemm_bias`) on `chip_smoke.k1_inputs` at x (112, 257, 1408) with the
+affine:
+
+  - base:            the LayerNorm in the consumers' A registers;
+  - rs_without_ln:   the consumers load A into registers and skip the
+                     normalisation (an RS GEMM of the raw x: the output is
+                     then wrong, only its time is read);
+  - mean0_rstd1:     (mean, rstd) = (0, 1) for every row in place of the
+                     statistics: the compiler then drops the subtraction
+                     and the product, so this times the arithmetic less
+                     those two (and the statistics' loads; wrong output).
+
+Prints the card's name and power limit and a line per variant. Runs from
+any working directory.
 """
 
 from __future__ import annotations
@@ -51,7 +66,8 @@ VARIANTS = {
          "      }\n")],
     "no_kv_loads": [
         ("qkv_attn.cuh",
-         "        load_block(ks, kfull, 1, 0);\n        load_block(vs, vfull, 2, 0);\n",
+         "        load_block(ks, kfull, &tma_k, 0);\n"
+         "        load_block(vs, vfull, &tma_v, 0);\n",
          "        hop::mbar_arrive(kfull);\n        hop::mbar_arrive(vfull);\n")],
     "ieee_division": [
         ("qkv_attn.cuh",
@@ -66,10 +82,25 @@ VARIANTS = {
     "cluster_1": [
         ("wgmma_gemm.cuh", "constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 1;")],
     "no_gemm_stores": [
-        ("wgmma_gemm.cuh", "      for (int j = 0; j < BN / 8; ++j) {",
-         "      for (int j = 0; j < BN / 8 * (M < 0); ++j) {"),
-        ("wgmma_gemm.cuh", "        for (int c = 0; c < BN / 64; ++c)",
-         "        for (int c = 0; c < BN / 64 * (M < 0); ++c)")],
+        ("wgmma_gemm.cuh", "  for (int j = 0; j < BN / 8; ++j) {",
+         "  for (int j = 0; j < BN / 8 * (N < 0); ++j) {"),
+        ("wgmma_gemm.cuh", "    for (int c = 0; c < BN / 64; ++c)",
+         "    for (int c = 0; c < BN / 64 * (N < 0); ++c)")],
+}
+K1_VARIANTS = {
+    "base": [],
+    "rs_without_ln": [
+        ("wgmma_gemm.cuh", "    a[kk][0] = ln_pair(a[kk][0], m0, r0, g0);\n"
+         "    a[kk][1] = ln_pair(a[kk][1], m1, r1, g0);\n"
+         "    a[kk][2] = ln_pair(a[kk][2], m0, r0, g1);\n"
+         "    a[kk][3] = ln_pair(a[kk][3], m1, r1, g1);\n", "")],
+    "mean0_rstd1": [
+        ("wgmma_gemm.cuh",
+         "        const float2 s0 = row < M ? stats[row] : make_float2(0.f, 0.f);",
+         "        const float2 s0 = make_float2(0.f, 1.f);"),
+        ("wgmma_gemm.cuh",
+         "        const float2 s1 = row + 8 < M ? stats[row + 8] : make_float2(0.f, 0.f);",
+         "        const float2 s1 = make_float2(0.f, 1.f);")],
 }
 TIMER = r'''
 import sys, torch
@@ -85,16 +116,32 @@ kern = device_kernels(lambda: fa.fused_qkv_self_attention(
 print(f"{sys.argv[4]}: GEMM {stage_ms(kern, 'gemm'):.4f} ms, attention "
       f"{stage_ms(kern, 'attn'):.4f} ms a K5 call", flush=True)
 '''
+K1_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from mico_tpu_torch.ops import flash_attention as fa
+sys.path.insert(0, sys.argv[2])
+sys.path.insert(0, sys.argv[3])
+from chip_smoke import k1_inputs
+from torch_qkv_bench import device_kernels, stage_ms
+x, g, b0, w, bias, nh, scale, eps = k1_inputs(
+    torch.Generator().manual_seed(1), 112)
+x2 = x.view(-1, x.shape[-1])
+kern = device_kernels(lambda: fa.ln_gemm_bias(x2, g, b0, w, bias, eps, True),
+                      50)
+print(f"{sys.argv[4]}: GEMM {stage_ms(kern, 'gemm'):.4f} ms, statistics "
+      f"{stage_ms(kern, 'stats'):.4f} ms a call", flush=True)
+'''
 
 
-def make_variant(name: str, edits) -> Path:
+def make_variant(name: str, edits, source: str) -> Path:
     tree = OUT / name
     if tree.exists():
         shutil.rmtree(tree)
     shutil.copytree(ROOT / "mico_tpu_torch", tree / "mico_tpu_torch")
     csrc = tree / "mico_tpu_torch" / "csrc"
     for f in csrc.glob("*.cu"):
-        if f.stem != "fused_qkv_attn":
+        if f.stem != source:
             f.unlink()
     for fname, old, new in edits:
         path = csrc / fname
@@ -106,15 +153,24 @@ def make_variant(name: str, edits) -> Path:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=("K5", "K1"), default="K5")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_qkv_breakdown: needs a CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    trees = {name: make_variant(name, edits) for name, edits in VARIANTS.items()}
+    k1 = args.kernel == "K1"
+    variants, timer = (K1_VARIANTS, K1_TIMER) if k1 else (VARIANTS, TIMER)
+    source = "fused_ln_qkv_attn" if k1 else "fused_qkv_attn"
+    trees = {name: make_variant(f"{args.kernel}_{name}", edits, source)
+             for name, edits in variants.items()}
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from mico_tpu_torch.ops import _build; _build.build_all()",
@@ -122,7 +178,7 @@ def main() -> int:
     if any(p.wait() for p in builds):
         raise RuntimeError("a variant failed to build")
     for name, tree in trees.items():
-        subprocess.run([sys.executable, "-c", TIMER, str(tree), str(ROOT),
+        subprocess.run([sys.executable, "-c", timer, str(tree), str(ROOT),
                         str(ROOT / "scripts"), name], check=True)
     return 0
 

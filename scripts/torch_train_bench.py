@@ -49,7 +49,7 @@ WARMUP = 2
 # K2 and K6 are instances of two templates, `flash_kernel<KS, NW, TILED>` and
 # its `combine_kernel<TILED>`: K6 is TILED true, matched first
 GROUPS = (
-    ("K3 packed_attn", ("packed_attn_kernel",)),
+    ("K3 packed_attn", ("qkv_attn_kernel",)),
     ("K4 packed_attn_bwd", ("bwd_rows_kernel", "bwd_cols_kernel")),
     ("K6 kv_tiled", ("true>(mico::flash::FlashArgs",)),
     ("K6b kv_tiled_bwd", ("dq_kernel", "dkv_kernel")),

@@ -95,30 +95,41 @@ def _bf16(*shape):
      "w must be"),
     ("head dim 136", (_bf16(2, 9, 272), _bf16(272, 816), torch.zeros(816),
                       2), "head dim"),
-    ("W % 32", (_bf16(2, 9, 80), _bf16(80, 240), torch.zeros(240), 2),
-     "W % 32"),
-    ("shared memory", (_bf16(1, 2000, 256), _bf16(256, 768),
-                       torch.zeros(768), 2), "shared memory"),
+    # taken (match None): W 80, two heads of 40 (the GEMM needs W % 8,
+    # which D % 8 gives), and K1 at L 2000, D 128 (its attention streams
+    # key blocks past 272 keys)
+    pytest.param("W % 32", (_bf16(2, 9, 80), _bf16(80, 240),
+                            torch.zeros(240), 2), None,
+                 id="W % 32-args3-W % 32"),
+    pytest.param("shared memory", (_bf16(1, 2000, 256), _bf16(256, 768),
+                                   torch.zeros(768), 2), None,
+                 id="shared memory-args4-shared memory"),
     ("strided x", (_bf16(2, 256, 9).transpose(1, 2), _bf16(256, 768),
                    torch.zeros(768), 4), "contiguous"),
 ])
 def test_kernel_input_checks(what, args, match):
     """What the wrappers refuse before a launch on the card (the checks
-    are device-independent, so they run here on CPU tensors). K5 and K8
-    take any L (their attention streams key blocks past 272 keys), so the
-    shared-memory case is K1's, whose attention holds a head's K and V."""
+    are device-independent, so they run here on CPU tensors), and two
+    cases they take (match None). The L 2000 case is K1's."""
     name = "K1" if what == "shared memory" else "K5"
+    if match is None:
+        b, l, w = args[0].shape
+        assert tfa._check_fused_qkv(name, *args) == (b, l, w, w // args[3])
+        return
     with pytest.raises(ValueError, match=match):
         tfa._check_fused_qkv(name, *args)
 
 
 def test_kernel_input_checks_accept_main_path_shapes():
     """The shapes the main paths give the kernels pass: bigE's 16 x 112,
-    ViT-g's 16 x 88 (K1 and K5) and the ragged (3, 50, 4 x 64)."""
+    ViT-g's 16 x 88 (K1 and K5) and the ragged (3, 50, 4 x 64), each within
+    the attention's shared memory (`_qkv_attn_smem_bytes`, which K1 and K5
+    share)."""
     for b, l, nh, d in ((1, 257, 16, 112), (1, 257, 16, 88), (3, 50, 4, 64)):
         w = nh * d
-        assert tfa._check_fused_qkv(
-            "K5", _bf16(b, l, w), _bf16(w, 3 * w), torch.zeros(3 * w),
-            nh) == (b, l, w, d)
-        assert tfa._packed_smem_bytes(l, d) <= tfa._MAX_SMEM
-    assert tfa._packed_smem_bytes(257, 112) == 130560
+        for name in ("K1", "K5"):
+            assert tfa._check_fused_qkv(
+                name, _bf16(b, l, w), _bf16(w, 3 * w), torch.zeros(3 * w),
+                nh) == (b, l, w, d)
+        assert tfa._qkv_attn_smem_bytes(d) <= tfa._MAX_SMEM
+    assert tfa._qkv_attn_smem_bytes(112) == 205888

@@ -1,6 +1,6 @@
 """K5's and K8's Hopper design (`mico_tpu_torch/csrc/qkv_attn.cuh`,
-`csrc/wgmma_gemm.cuh`) on the CPU: the attention's shared-memory formula
-and the wrappers' checks, and the attention's algorithm emulated in torch
+`csrc/wgmma_gemm.cuh`; K1 and K3 run the same attention) on the CPU: the
+attention's shared-memory formula and the wrappers' checks, and the attention's algorithm emulated in torch
 against the JAX package's Pallas kernels in interpret mode.
 
 The emulation follows the kernel: q in tiles of 64 rows; K and V padded
@@ -82,25 +82,34 @@ def test_checks_accept_main_path_shapes(name, b, l, nh, d):
                      4), "head dim"),
     ("fp32 x", (torch.zeros(1, 9, 256), _bf16(256, 768), torch.zeros(768),
                 4), "bf16"),
-    ("W % 32", (_bf16(1, 9, 80), _bf16(80, 240), torch.zeros(240), 2),
-     "W % 32"),
+    # W 80 (two heads of 40) is taken: the GEMM needs W % 8, which D % 8
+    # gives
+    pytest.param("W % 32", (_bf16(1, 9, 80), _bf16(80, 240),
+                            torch.zeros(240), 2), None,
+                 id="W % 32-args3-W % 32"),
 ])
 def test_checks_refuse(name, what, args, match):
     """What K5 and K8 refuse before a launch on the card: a head dim past
-    128 or not a multiple of 8, fp32 inputs, widths the checks share with
-    K1."""
+    128 or not a multiple of 8, fp32 inputs; a width that is a multiple of
+    8 but not of 32 they take (match None)."""
+    if match is None:
+        assert tfa._check_fused_qkv(name, *args) == (1, 9, 80, 40)
+        return
     with pytest.raises(ValueError, match=match):
         tfa._check_fused_qkv(name, *args)
 
 
 def test_k1_check_keeps_its_formula():
-    """K1 runs the old packed attention, which holds a head's K and V: its
-    check still reads `_packed_smem_bytes`, so L 2000 at D 128 is refused
-    by K1 and taken by K5."""
-    args = (_bf16(1, 2000, 256), _bf16(256, 768), torch.zeros(768), 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        tfa._check_fused_qkv("K1", *args)
-    assert tfa._check_fused_qkv("K5", *args) == (1, 2000, 256, 128)
+    """K1, K3 and K5 share one shared-memory formula, the attention's
+    `_qkv_attn_smem_bytes` (one key block of K and V at any L), which fits
+    a block at the largest head dim the checks take: L 2000 at D 128
+    passes all three checks."""
+    assert tfa._qkv_attn_smem_bytes(128) <= tfa._MAX_SMEM
+    x, w, bias = _bf16(1, 2000, 256), _bf16(256, 768), torch.zeros(768)
+    q, k, v = _bf16(1, 2000, 768).chunk(3, dim=-1)
+    for name in ("K1", "K5"):
+        assert tfa._check_fused_qkv(name, x, w, bias, 2) == (1, 2000, 256, 128)
+    assert tfa._packed_layout("K3", (q, k, v), 2) == 768
 
 
 @pytest.mark.parametrize("what,args,match", [
