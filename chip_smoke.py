@@ -90,12 +90,16 @@ Phases, run in order (any failure exits non-zero):
      >= 0.999 and its ITM within 1e-2 of the same one-sample inputs through
      the fp32 weights on the plain routes on the card (TF32 off);
   7. train: K3 and K4 against their plain versions on the card in bf16 at
-     the train step's vision pass (32, 257, 16 x 88) and at (3, 50, 4 x 64),
-     K3 on both layouts (column slices of the fused qkv, three contiguous
-     tensors) and also at (2, 600, 16 x 88) (rows of three key blocks, past
-     K4's limit), timed beside the plain versions, SDPA (forward; its
-     autograd backward alone) and the bound, K3's device ms beside SDPA's
-     there and at CLIP-L/14's (112, 257, 3 x 16 x 64); then six
+     the train step's vision pass (32, 257, 16 x 88), at (3, 50, 4 x 64),
+     at (2, 600, 16 x 88) (rows of three key blocks) and at the
+     long-context step's vision pass (64, 257, 16 x 88), each on both
+     layouts (column slices of the fused qkv, three contiguous tensors;
+     K4 also into one (B, L, 3W) dqkv), timed beside the plain versions,
+     SDPA (forward; its autograd backward alone) and the bound; K3's device
+     ms beside SDPA's there and at CLIP-L/14's (112, 257, 3 x 16 x 64);
+     K4's device ms by launch at the train and the long-context pass
+     beside SDPA's backward alone, in device ms, with each backend that
+     takes the shape pinned (flash, cuDNN, memory-efficient); then six
      full-width pretraining steps of `configs/pretrain-omni.json`'s task
      ret%tva_cap%tva (B = 8 samples of
      4 frames, 2 audio slices and a 40-token caption; fp32 master weights
@@ -111,9 +115,10 @@ Phases, run in order (any failure exits non-zero):
      cosine >= 0.99 for each optimizer group and the first and last block's
      qkv_w. Between the two, K9 against its plain version on unit-std qkv at
      the train pass (32, 257, 3 x 16 x 88), CLIP-L/14's (112, 257, 3 x 16 x
-     64), (8, 257, 3 x 16 x 112) and (2, 385, 3 x 4 x 64) (the K3 gates),
-     timed at CLIP-L's and the train pass's beside K3 on the same input,
-     the plain version, SDPA and the bound;
+     64), (8, 257, 3 x 16 x 112), (2, 385, 3 x 4 x 64) and (1, 513, 3 x 4
+     x 88) (the patch keys stream past 273 tokens; the K3 gates), timed at
+     CLIP-L's and the train pass's beside K3 on the same input, the plain
+     version, SDPA and the bound, in event and device ms;
   8. long-context: K6 (with and without the LSE) and K6b (dq, dk, dv)
      against their plain versions in bf16 on unit-std inputs at the
      long-context step's cross-attention (2, 12, 128, 8224, 64) in BERT's
@@ -1502,16 +1507,59 @@ def k34_library(qkv, g, nh, scale):
                                         retain_graph=True))
 
 
+def sdpa_bwd_backends(qkv, g, nh, scale) -> dict:
+    """SDPA's autograd backward alone on the split (B, H, L, D) views of the
+    fused qkv, as a closure for each backend that takes them (pinned with
+    `torch.nn.attention.sdpa_kernel`): K4's yardsticks."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    go = g.view(b, l, nh, w // nh).transpose(1, 2)
+    out = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        q, k, v = (x.detach().view(b, l, nh, w // nh).transpose(1, 2)
+                   .requires_grad_(True) for x in qkv.split(w, dim=-1))
+        try:
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+                torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
+        except RuntimeError as e:
+            log(f"  SDPA backward, {name}: does not take the shape "
+                f"({str(e).splitlines()[0][:80]})")
+            continue
+        out[name] = (lambda o=o, q=q, k=k, v=v:
+                     torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+    return out
+
+
+def k4_device(fa, fn) -> dict:
+    """K4's device ms per call, in all and by launch (the rows' statistics
+    and dQ, the columns' dK and dV)."""
+    by = device_time_ms(fn, by_kernel=True)
+    if by is None:
+        return dict(device_ms=None, device_ms_by_launch=None)
+    launches = {"rows": 0.0, "cols": 0.0}
+    for name, ms in by.items():
+        for key in launches:
+            if f"k4_{key}" in name:
+                launches[key] += ms
+    return dict(device_ms=sum(by.values()), device_ms_by_launch=launches)
+
+
 def phase_train_kernels(fa) -> list:
     gen = torch.Generator().manual_seed(3)
     errs = {"K3": [], "K4": []}
-    timed = None
+    inputs = {}
     log("phase train: K3 packed_attention / K4 packed_attention_bwd vs "
         "their plain versions")
-    # the train pass, a ragged tail and (K3 alone: K4 holds a head's K and
-    # V, which L 600 does not fit) rows of three key blocks
+    # the train pass, a ragged tail, rows of three key blocks and the
+    # long-context step's pass (B 2 samples of 32 frames)
     for b, l, nh, d in ((4 * TRAIN_B, 257, 16, 88), (3, 50, 4, 64),
-                        (2, 600, 16, 88)):
+                        (2, 600, 16, 88), (LONG_B * 32, 257, 16, 88)):
         w = nh * d
         # unit std: q.k sums D products of unit variance, so the scaled
         # scores (times D^-0.5) have std ~1 and the softmax is far from flat
@@ -1520,6 +1568,7 @@ def phase_train_kernels(fa) -> list:
         g = torch.randn(b, l, w, generator=gen).to("cuda", torch.bfloat16)
         q, k, v = qkv.chunk(3, dim=-1)
         scale = d ** -0.5
+        want = fa.packed_attention_bwd_plain(q, k, v, g, nh, scale)
         # both layouts: column slices of the fused qkv (row stride 3W) and
         # three contiguous tensors (row stride W)
         for layout, (qq, kk, vv) in (
@@ -1531,17 +1580,20 @@ def phase_train_kernels(fa) -> list:
                 fa.packed_attention(qq, kk, vv, nh, scale),
                 fa.packed_attention_plain(qq, kk, vv, nh, scale),
                 rel_mean=REL_MEAN_ERR_MAX))
-        if fa._k4_smem_bytes(l, d) > fa._MAX_SMEM:
-            continue
-        got = fa.packed_attention_bwd(q, k, v, g, nh, scale)
-        want = fa.packed_attention_bwd_plain(q, k, v, g, nh, scale)
-        for name, x, y in zip(("dq", "dk", "dv"), got, want):
-            errs["K4"].append(compare(f"K4 {name} ({b}, {l}, {w})", x, y,
-                                      rel_mean=REL_MEAN_ERR_MAX))
-        del got, want
-        if timed is None:
-            timed = (qkv, g, nh, d)
-    qkv, g, nh, d = timed
+            got = fa.packed_attention_bwd(qq, kk, vv, g, nh, scale)
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                errs["K4"].append(compare(
+                    f"K4 {name} ({b}, {l}, {w}), {layout}", x, y,
+                    rel_mean=REL_MEAN_ERR_MAX))
+            del got
+        dqkv = torch.empty_like(qkv)
+        fa.packed_attention_bwd(q, k, v, g, nh, scale, dqkv)
+        errs["K4"].append(compare(
+            f"K4 dqkv ({b}, {l}, {3 * w})", dqkv, torch.cat(want, dim=-1),
+            rel_mean=REL_MEAN_ERR_MAX))
+        del want, dqkv
+        inputs[(b, l)] = (qkv, g, nh, d)
+    qkv, g, nh, d = inputs[(4 * TRAIN_B, 257)]
     b, l, w3 = qkv.shape
     w, scale = w3 // 3, d ** -0.5
     q, k, v = qkv.chunk(3, dim=-1)
@@ -1588,18 +1640,45 @@ def phase_train_kernels(fa) -> list:
         f"{clip_bms:.4f} by {clip_by})")
     nbytes = 2 * (qkv.numel() + g.numel()) + 2 * qkv.numel()
     bms, by = bound_ms(2.5 * att_flops, nbytes)
+    dqkv = torch.empty_like(qkv)
+
+    def k4():
+        return fa.packed_attention_bwd(q, k, v, g, nh, scale, dqkv)
+
+    lib = {name: device_time_ms(fn) for name, fn in
+           sdpa_bwd_backends(qkv, g, nh, scale).items()}
+    measured = {n: ms for n, ms in lib.items() if ms is not None}
+    # ... and at the long-context step's pass, (64, 257, 4224)
+    lqkv, lg, _, _ = inputs[(LONG_B * 32, 257)]
+    lq, lk, lv = lqkv.chunk(3, dim=-1)
+    ldqkv = torch.empty_like(lqkv)
+    long_dev = k4_device(fa, lambda: fa.packed_attention_bwd(
+        lq, lk, lv, lg, nh, scale, ldqkv))
+    long_lib = {name: device_time_ms(fn) for name, fn in
+                sdpa_bwd_backends(lqkv, lg, nh, scale).items()}
     rows.append(dict(
         name="K4 packed_attention_bwd", route="cuda",
         source="mico_tpu_torch/csrc/packed_attn_bwd.cu",
         replaces="mico_tpu/ops/flash_attention.py:1059",
         shape=f"qkv ({b}, {l}, {w3}), g ({b}, {l}, {w}) bf16 -> dqkv",
-        ms=cuda_time_ms(lambda: fa.packed_attention_bwd(q, k, v, g, nh,
-                                                        scale)),
+        ms=cuda_time_ms(k4),
         plain_ms=cuda_time_ms(
             lambda: fa.packed_attention_bwd_plain(q, k, v, g, nh, scale),
             iters=5, warmup=1),
         library_ms=cuda_time_ms(sdpa_bwd),
-        bound_ms=bms, bound_by=by, flops=2.5 * att_flops, bytes=nbytes))
+        bound_ms=bms, bound_by=by, flops=2.5 * att_flops, bytes=nbytes,
+        **k4_device(fa, k4),
+        library_device_ms_by_backend=lib,
+        library_device_ms=min(measured.values()) if measured else None,
+        long_shape=f"qkv {tuple(lqkv.shape)}, g {tuple(lg.shape)} bf16",
+        long_device_ms=long_dev["device_ms"],
+        long_device_ms_by_launch=long_dev["device_ms_by_launch"],
+        long_library_device_ms_by_backend=long_lib))
+    row = rows[-1]
+    log(f"  K4 device ms: train pass {ms_text(row['device_ms'])} "
+        f"({row['device_ms_by_launch']}), SDPA backward by backend {lib}; "
+        f"long-context pass {ms_text(row['long_device_ms'])} "
+        f"({row['long_device_ms_by_launch']}), SDPA {long_lib}")
     return finish_rows(rows, errs)
 
 
@@ -1616,7 +1695,7 @@ def phase_cls_kernels(fa) -> list:
         "packed_qkv_cls_attention_plain")
     inputs = {}
     for b, l, nh, d in ((4 * TRAIN_B, 257, 16, 88), (112, 257, 16, 64),
-                        (8, 257, 16, 112), (2, 385, 4, 64)):
+                        (8, 257, 16, 112), (2, 385, 4, 64), (1, 513, 4, 88)):
         # unit std, as for K3: scores of std ~1, a softmax far from flat
         qkv = torch.randn(b, l, 3 * nh * d, generator=gen).to(
             "cuda", torch.bfloat16)
@@ -1636,17 +1715,25 @@ def phase_cls_kernels(fa) -> list:
         flops = 4 * b * nh * l * l * d
         nbytes = 2 * (qkv.numel() + b * l * w)
         bms, by = bound_ms(flops, nbytes)
+
+        def k9():
+            return fa.packed_qkv_cls_attention(qkv, nh, scale)
+
+        def k3():
+            return fa.packed_attention(q, k, v, nh, scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+
         return dict(
-            ms=cuda_time_ms(lambda: fa.packed_qkv_cls_attention(qkv, nh,
-                                                                scale)),
-            k3_ms=cuda_time_ms(lambda: fa.packed_attention(q, k, v, nh,
-                                                           scale)),
+            ms=cuda_time_ms(k9), k3_ms=cuda_time_ms(k3),
             plain_ms=cuda_time_ms(
                 lambda: fa.packed_qkv_cls_attention_plain(qkv, nh, scale),
                 iters=5, warmup=1),
-            library_ms=cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, scale=scale)),
-            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes)
+            library_ms=cuda_time_ms(sdpa),
+            bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+            device_ms=device_time_ms(k9), k3_device_ms=device_time_ms(k3),
+            library_device_ms=device_time_ms(sdpa))
 
     clip = timed(inputs[(112, 257, 16, 64)], 16, 64)
     train = timed(inputs[(4 * TRAIN_B, 257, 16, 88)], 16, 88)
@@ -1662,6 +1749,11 @@ def phase_cls_kernels(fa) -> list:
         f"{train['k3_ms']:.4f} ms (plain {train['plain_ms']:.4f}, SDPA "
         f"{train['library_ms']:.4f}, bound {train['bound_ms']:.4f} by "
         f"{train['bound_by']})")
+    log(f"  K9 device ms: CLIP-L {ms_text(clip['device_ms'])} (K3 "
+        f"{ms_text(clip['k3_device_ms'])}, SDPA "
+        f"{ms_text(clip['library_device_ms'])}); train pass "
+        f"{ms_text(train['device_ms'])} (K3 {ms_text(train['k3_device_ms'])}"
+        f", SDPA {ms_text(train['library_device_ms'])})")
     return [row]
 
 

@@ -118,7 +118,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // Tile products over bf16 operands staged in shared memory with row stride
 // KST = KS * 16 + 8 (DP = KS * 16 columns, zero-padded past D; the +8
-// makes ldmatrix conflict-free). Shared by K4 and K6b.
+// makes ldmatrix conflict-free). K6b's.
 
 // A fragments of the 16 rows r0.. of X (all DP columns)
 template <int KS>

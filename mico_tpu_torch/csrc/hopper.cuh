@@ -1,5 +1,5 @@
-// Hopper building blocks of the port's wgmma kernels (K1, K3, K5 and K8):
-// raw PTX for the Tensor Memory Accelerator (TMA), mbarriers, warpgroup
+// Hopper building blocks of the port's wgmma kernels (K1, K3, K4, K5, K8,
+// K9): raw PTX for the Tensor Memory Accelerator (TMA), mbarriers, warpgroup
 // matrix multiplies (wgmma) and register reallocation (setmaxnreg), and the
 // host side's tensor maps. Needs sm_90a.
 //
@@ -169,6 +169,17 @@ __device__ __forceinline__ void tma_load_2d_mc(void* dst,
           saddr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1),
       "h"(mask)
+      : "memory");
+}
+
+// a contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(saddr(bar))
       : "memory");
 }
 
@@ -354,6 +365,27 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// d (64 x 64) += A (64 x 16, shared, K-major) . B (16 x 64, shared),
+// accumulating when scale_d; TB = 1 when B is MN-major, 0 when K-major
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 

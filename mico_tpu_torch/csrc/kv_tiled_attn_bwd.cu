@@ -24,8 +24,8 @@
 // GFLOP: 0.030 ms at 3.35 TB/s against 0.016 ms at 989 TFLOP/s.
 //
 // Design: the FlashAttention-2 split, two launches behind one C entry, with
-// the tile products of K4 (common.cuh). Nothing is recomputed but s: the
-// saved lse replaces K4's maximum and row-sum passes.
+// the mma.sync tile products of common.cuh. Nothing is recomputed but s:
+// the saved lse replaces a maximum and a row-sum pass.
 //   (a) dQ: grid (q-tiles of 64, H, B), 4 warps of 16 query rows holding q
 //       and g as mma fragments and lse, delta in registers; K and V stream
 //       in 64-key chunks through double-buffered shared memory (cp.async,

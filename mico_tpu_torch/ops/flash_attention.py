@@ -33,16 +33,20 @@ on projection-layout (B, L, H·D) rows read by column offset. K4
 `packed_attention_bwd` replaces `_packed_qkv_bwd` (:1059, call :1070) and
 `_packed_bwd` (:1032, call :1040), body `_packed_bwd_body` (:954), its
 gradient. Sources: `csrc/packed_attn.cu` (the attention of K1, K5 and K8,
-`csrc/qkv_attn.cuh`) and `csrc/packed_attn_bwd.cu`. The ViT's
-training route reaches them through the autograd Functions
-`packed_qkv_self_attention` and `packed_self_attention`.
+`csrc/qkv_attn.cuh`) and `csrc/packed_attn_bwd.cu` (two wgmma + TMA
+launches on the same machinery: the rows' statistics and dQ, then dK and
+dV by key tiles). Both take any L. The ViT's training route reaches them
+through the autograd Functions `packed_qkv_self_attention` and
+`packed_self_attention`.
 
 K9 `packed_qkv_cls_attention` replaces the CLS-split body of
 `_packed_qkv_fwd` (:1135, call :1155), `_packed_qkv_cls_kernel` (:809), which
 JAX selects when `PACKED_CLS_SPLIT` is on and L > 128 with L % 128 == 1: K3's
 function on the fused qkv with the CLS token split out (the patch x patch
 tile, a CLS column and a CLS row as fp32 rank-1 terms, natural exp). Source:
-`csrc/packed_cls_attn.cu`. Its gradient is K4's, as in JAX (:1199).
+`csrc/packed_cls_attn.cu`, an instance of K3's attention (`csrc/qkv_attn.cuh`)
+over the patch rows with the CLS terms added; any L >= 2. Its gradient is
+K4's, as in JAX (:1199).
 
 K5 `fused_qkv_self_attention` replaces `_fused_qkv_attn_fwd` (:1277, call
 :1292), body `_fused_qkv_attn_kernel` (:1229): K1 without the LayerNorm, the
@@ -90,9 +94,6 @@ KV_TILED_BIAS_IS_MASK = True
 
 # shared memory one block may take on an H100 (232,448 bytes)
 _MAX_SMEM = 232448
-# K4's and K9's query tiles: 6 warps of 16 rows (csrc/packed_attn_bwd.cu,
-# csrc/packed_cls_attn.cu)
-_PACKED_ROWS = 96
 
 # Routing knobs with the JAX package's defaults (flash_attention.py:1129,
 # :1226, :1385, :1564). PACKED_CLS_SPLIT: the fused-qkv self-attention of a
@@ -247,27 +248,33 @@ def _ln_gemm_entry():
     return fn
 
 
-# the attention of K1, K3, K5 and K8 (csrc/qkv_attn.cuh): keys a key block,
-# rows a Q tile; one key block of K and of V in 64-column chunks of 128
-# bytes
+# the attention of K1, K3, K5, K8 and K9 (csrc/qkv_attn.cuh): keys a key
+# block, rows a Q tile; one key block of K and of V in 64-column chunks of
+# 128 bytes; K9's CLS row takes CLS_THREADS threads, and K9 fp32 scratch:
+# the CLS token's q, k, v, a chunk's p, column sums, reductions, the CLS
+# row's scores and the CLS column of two Q tiles
 _QKV_ATTN_KEYS = 272
 _QKV_ATTN_QROWS = 64
+_CLS_THREADS = 96
+_CLS_FLOATS = (3 * 128 + 3 * _CLS_THREADS + 8 + _QKV_ATTN_KEYS
+               + 2 * _QKV_ATTN_QROWS)
 
 
-def _qkv_attn_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of the attention launch of K1, K3, K5 and K8
-    (mirrors `qattn::smem_bytes` in csrc/qkv_attn.cuh): one key block of K
-    and of V (272 keys, the whole head at L ≤ 272; longer rows stream their
-    blocks through them) in ⌈D/64⌉ chunks of 128-byte rows, two Q tiles and
-    two output tiles of 64 rows, eight mbarriers and 1 KB to align the
-    swizzled tiles. It does not grow with L."""
+def _qkv_attn_smem_bytes(d: int, cls: bool = False) -> int:
+    """Dynamic shared memory of the attention launch of K1, K3, K5 and K8,
+    and with `cls` of K9 (mirrors `qattn::smem_bytes` in
+    csrc/qkv_attn.cuh): one key block of K and of V (272 keys, the whole
+    head at L ≤ 272; longer rows stream their blocks through them) in
+    ⌈D/64⌉ chunks of 128-byte rows, two Q tiles and two output tiles of 64
+    rows, eight mbarriers and 1 KB to align the swizzled tiles; K9 adds an
+    mbarrier (16 bytes) and its fp32 scratch. It does not grow with L."""
     nt = -(-d // 64)
     return (2 * nt * _QKV_ATTN_KEYS * 128 + 4 * nt * _QKV_ATTN_QROWS * 128
-            + 8 * 8 + 1024)
+            + 8 * 8 + 1024 + (16 + 4 * _CLS_FLOATS if cls else 0))
 
 
 # the checks take head dims up to 128, which this bounds at any L
-assert _qkv_attn_smem_bytes(128) <= _MAX_SMEM
+assert _qkv_attn_smem_bytes(128, cls=True) <= _MAX_SMEM
 
 
 def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
@@ -981,19 +988,6 @@ def packed_qkv_cls_attention_plain(qkv: torch.Tensor, num_heads: int,
     return _unheads(torch.cat([o_c / l_c, o_p / l_p], dim=2), qkv.dtype)
 
 
-def _k4_smem_bytes(l: int, d: int) -> int:
-    """K4's larger launch (the columns pass, csrc/packed_attn_bwd.cu): two
-    padded L x D operands, a 96-row staging tile and fp32 row statistics."""
-    kst = -(-d // 16) * 16 + 8
-    lp = -(-l // 16) * 16
-    return 2 * (2 * lp + _PACKED_ROWS) * kst + 16 * lp
-
-
-def _check_k4_fits(l: int, d: int) -> None:
-    _require(_k4_smem_bytes(l, d) <= _MAX_SMEM,
-             f"K4: L={l} with head dim {d} does not fit shared memory")
-
-
 def _packed_layout(name: str, ts, num_heads: int) -> int:
     """Check that (B, L, W) views share one row stride `ld` (column slices
     of a fused (B, L, 3W) tensor, or contiguous tensors) that K3/K4 can
@@ -1058,13 +1052,30 @@ def packed_attention(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
 packed_attention.launches = 0
 
 
+def _check_k4(q, k, v, g, num_heads: int,
+              dqkv: Optional[torch.Tensor] = None) -> int:
+    """What K4 takes: q, k, v as for K3, g bf16 (B, L, W) contiguous on
+    their device and, when given, dqkv contiguous (B, L, 3W); any L.
+    Returns q/k/v's row stride."""
+    ld = _packed_layout("K4", (q, k, v), num_heads)
+    b, l, w = q.shape
+    _require(g.dtype == q.dtype and tuple(g.shape) == (b, l, w)
+             and g.is_contiguous() and g.device == q.device,
+             f"K4: g must be contiguous {tuple(q.shape)} {q.dtype}")
+    _require(dqkv is None or (
+        tuple(dqkv.shape) == (b, l, 3 * w) and dqkv.is_contiguous()
+        and dqkv.dtype == q.dtype and dqkv.device == q.device),
+        f"K4: dqkv must be contiguous ({b}, {l}, {3 * w})")
+    return ld
+
+
 def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
                          dqkv: Optional[torch.Tensor] = None):
     """K4: the gradient (dq, dk, dv) of `packed_attention` for the output
     gradient g (B, L, H·D). With `dqkv` (B, L, 3·H·D) given, the three are
     written into its column slices (the fused projection's gradient) and
     returned as views of it. On the card q, k, v as for K3 and g bf16 and
-    contiguous; CPU tensors take the plain twin."""
+    contiguous, any L; CPU tensors take the plain twin."""
     if not q.is_cuda:
         grads = packed_attention_bwd_plain(q, k, v, g, num_heads, scale)
         if dqkv is None:
@@ -1073,24 +1084,19 @@ def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
         for i, x in enumerate(grads):
             dqkv[..., i * w:(i + 1) * w] = x
         return tuple(dqkv[..., i * w:(i + 1) * w] for i in range(3))
-    ld = _packed_layout("K4", (q, k, v), num_heads)
+    ld = _check_k4(q, k, v, g, num_heads, dqkv)
     b, l, w = q.shape
     d = w // num_heads
-    _require(g.dtype == q.dtype and tuple(g.shape) == (b, l, w)
-             and g.is_contiguous() and g.device == q.device,
-             f"K4: g must be contiguous {tuple(q.shape)} {q.dtype}")
-    _check_k4_fits(l, d)
     if dqkv is None:
         outs = tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
                      for _ in range(3))
     else:
-        _require(tuple(dqkv.shape) == (b, l, 3 * w) and dqkv.is_contiguous()
-                 and dqkv.dtype == q.dtype and dqkv.device == q.device,
-                 f"K4: dqkv must be contiguous ({b}, {l}, {3 * w})")
         outs = tuple(dqkv[..., i * w:(i + 1) * w] for i in range(3))
     ldo = outs[0].stride(1)
-    stats = torch.empty((b, num_heads, l, 4), dtype=torch.float32,
-                        device=q.device)
+    # the rows' (m, l, 1/l, delta), rows padded to the columns launch's
+    # 64-query tiles
+    stats = torch.empty((b, num_heads, -(-l // 64) * 64, 4),
+                        dtype=torch.float32, device=q.device)
     rc = _k4_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld,
                      g.data_ptr(), stats.data_ptr(),
                      *(o.data_ptr() for o in outs), ldo, b, l, num_heads, d,
@@ -1103,23 +1109,10 @@ def packed_attention_bwd(q, k, v, g, num_heads: int, scale: float,
 packed_attention_bwd.launches = 0
 
 
-def _k9_smem_bytes(l: int, d: int) -> int:
-    """K9's dynamic shared memory (csrc/packed_cls_attn.cu): over the P =
-    L - 1 patch rows, padded to 16, K rows at stride DP + 8 and V rows
-    (which first stage the 96-row Q tile) at stride D or D + 8, DP = D
-    rounded up to 16; then the CLS row's q, k, v and the CLS query's P
-    probabilities in fp32."""
-    dp = -(-d // 16) * 16
-    pp = -(-(l - 1) // 16) * 16
-    vst = d if (d // 8) % 2 == 1 else d + 8
-    rooms = 2 * (pp * (dp + 8) + max(pp * vst, _PACKED_ROWS * (dp + 8)))
-    return rooms + 4 * (3 * dp + pp)
-
-
 def _check_cls(qkv: torch.Tensor, num_heads: int):
     """What K9 takes: contiguous, 16-byte aligned bf16 qkv (B, L, 3W) with
-    L >= 2, D a multiple of 8 up to 128, one head's patch K and V in a
-    block's shared memory. Returns (B, L, W, D)."""
+    L >= 2 (any L: past 273 the patch keys stream, as K3's do) and D a
+    multiple of 8 up to 128. Returns (B, L, W, D)."""
     _require(qkv.dim() == 3, f"K9: qkv must be (B, L, 3W), got {tuple(qkv.shape)}")
     b, l, w3 = qkv.shape
     w = w3 // 3
@@ -1130,8 +1123,6 @@ def _check_cls(qkv: torch.Tensor, num_heads: int):
     _require(3 * w == w3 and d * num_heads == w and d % 8 == 0 and d <= 128,
              f"K9: head dim {d} must divide W and be a multiple of 8 up to 128")
     _require(l >= 2, f"K9: L={l} has no patch token")
-    _require(_k9_smem_bytes(l, d) <= _MAX_SMEM,
-             f"K9: L={l} with head dim {d} does not fit shared memory")
     return b, l, w, d
 
 
@@ -1149,9 +1140,8 @@ def packed_qkv_cls_attention(qkv: torch.Tensor, num_heads: int,
     """K9: self-attention on the fused qkv (B, L, 3·H·D) → (B, L, H·D) with
     the CLS token (row 0) split out, at `_packed_qkv_cls_kernel`'s rounding
     points. On the card qkv is contiguous bf16, read by column offset (row
-    stride 3W) with no split copy; L ≥ 2, D a multiple of 8 up to 128, and
-    one head's patch K and V must fit a block's shared memory. CPU tensors
-    take the plain twin."""
+    stride 3W) with no split copy; any L ≥ 2, D a multiple of 8 up to 128.
+    CPU tensors take the plain twin."""
     if not qkv.is_cuda:
         return packed_qkv_cls_attention_plain(qkv, num_heads, scale)
     b, l, w, d = _check_cls(qkv, num_heads)
@@ -1177,11 +1167,9 @@ def kernel_route(x: torch.Tensor) -> bool:
 class _PackedQKV(torch.autograd.Function):
     """Forward K3 over the column slices of the fused qkv, or K9 under
     `PACKED_CLS_SPLIT` at L = 128k + 1 (`_packed_qkv_fwd`, :1144); saves
-    qkv and not the
-    output (`_packed_qkv_vjp_fwd`, :1195); backward K4 into one (B, L, 3W)
-    gradient on either forward (JAX has no K9 backward). K4 takes fewer L
-    than K3 (`_k4_smem_bytes`), so a call that will need K4 is refused
-    before the forward runs."""
+    qkv and not the output (`_packed_qkv_vjp_fwd`, :1195); backward K4
+    into one (B, L, 3W) gradient on either forward (JAX has no K9
+    backward)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
@@ -1191,8 +1179,6 @@ class _PackedQKV(torch.autograd.Function):
         if not kernel_route(qkv):
             return packed_attention_plain(q, k, v, num_heads, scale)
         l = qkv.shape[1]
-        if qkv.is_cuda and ctx.needs_input_grad[0]:
-            _check_k4_fits(l, q.shape[-1] // num_heads)
         if PACKED_CLS_SPLIT and l > 128 and l % 128 == 1:
             return packed_qkv_cls_attention(qkv, num_heads, scale)
         return packed_attention(q, k, v, num_heads, scale)
@@ -1214,15 +1200,12 @@ class _PackedQKV(torch.autograd.Function):
 
 class _Packed(torch.autograd.Function):
     """Forward K3 on three (B, L, W) inputs, never K9 (`_packed_fwd`, :885);
-    saves q, k, v (`_packed_vjp_fwd`, :1099); backward K4, whose L limit is
-    checked before the forward, as `_PackedQKV` does."""
+    saves q, k, v (`_packed_vjp_fwd`, :1099); backward K4."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(q, k, v)
-        if q.is_cuda and kernel_route(q) and any(ctx.needs_input_grad[:3]):
-            _check_k4_fits(q.shape[1], q.shape[-1] // num_heads)
         if kernel_route(q):
             return packed_attention(q, k, v, num_heads, scale)
         return packed_attention_plain(q, k, v, num_heads, scale)
@@ -1244,18 +1227,14 @@ def packed_qkv_self_attention(qkv: torch.Tensor, num_heads: int,
                               scale: float) -> torch.Tensor:
     """Self-attention on the fused projection output (B, L, 3·H·D) →
     (B, L, H·D), differentiable (`packed_qkv_self_attention`, :1180): K3,
-    or K9 under `PACKED_CLS_SPLIT` at L = 128k + 1; backward K4. K3 takes
-    any L; K4 does not (L ≤ 480 at D 88, `_k4_smem_bytes`), so a bf16
-    CUDA qkv that requires grad is refused past K4's limit before the
-    forward runs."""
+    or K9 under `PACKED_CLS_SPLIT` at L = 128k + 1; backward K4; any L."""
     return _PackedQKV.apply(qkv, num_heads, float(scale))
 
 
 def packed_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           num_heads: int, scale: float) -> torch.Tensor:
     """Self-attention on projection-layout q, k, v (B, L, H·D) →
-    (B, L, H·D), differentiable (`packed_self_attention`, :936); K4's L
-    limit holds as in `packed_qkv_self_attention`."""
+    (B, L, H·D), differentiable (`packed_self_attention`, :936); any L."""
     return _Packed.apply(q, k, v, num_heads, float(scale))
 
 

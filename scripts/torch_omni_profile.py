@@ -50,7 +50,7 @@ GROUPS = (
     ("K1 LN-prologue GEMM", ("ln_gemm_kernel",)),
     ("K5/K8 GEMM", ("wgmma_gemm_kernel",)),
     ("K1/K3/K5/K8 attention", ("qkv_attn_kernel",)),
-    ("K9 CLS-split attention", ("packed_cls_attn_kernel",)),
+    ("K9 CLS-split attention", ("cls_attn_kernel",)),
     ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2")),
     ("layer_norm", ("layer_norm", "LayerNorm")),

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """K5 and K8 (the post-norm block's projection-fused attention), K1 (the
-LN-fused attention of the ViT-g omni step) or K3 (the packed attention of
-ViT training) on one CUDA card: each call's time, and the device's time per
-stage beside one PyTorch call for the same stage.
+LN-fused attention of the ViT-g omni step), K3 (the packed attention of
+ViT training), K9 (K3's CLS-split form) or K4 (K3's backward) on one CUDA
+card: each call's time, and the device's time per stage beside one PyTorch
+call for the same stage.
 
-    python3 scripts/torch_qkv_bench.py [--kernel K5|K1|K3] [--iters 50]
+    python3 scripts/torch_qkv_bench.py [--kernel K5|K1|K3|K9|K4] [--iters 50]
 
 --kernel K1: at the omni step's ViT-g pass, x (112, 257, 1408) bf16 with 16
 heads of 88 and the LN affine on (`chip_smoke.k1_inputs`, seed 1): K1's
@@ -14,6 +15,15 @@ qkv, and the library route's event ms.
 --kernel K3: at the train step's pass, qkv (32, 257, 4224) (16 heads of 88),
 and CLIP-L/14's, (112, 257, 3072) (16 heads of 64), unit-std column slices
 of a fused qkv (seed 3): K3's event and device ms beside SDPA's.
+--kernel K9: at CLIP-L/14's pass and the train step's (unit-std fused qkv,
+seed 5): K9's event and device ms beside K3's and SDPA's device ms on the
+same input.
+--kernel K4: at the train step's pass, qkv (32, 257, 4224) with g (32,
+257, 1408), and the long-context step's, (64, 257, 4224) (unit std, seed
+3; dq, dk, dv into one dqkv, as the autograd Function calls it): K4's
+event ms and device ms, in all and by launch (kernels named "rows" and
+"cols"), beside SDPA's autograd backward alone in device ms with each
+backend that takes the shape pinned (flash, cuDNN, memory-efficient).
 --kernel K5 (the default): at the bigE omni step's ViT pass, x (112, 257,
 1792) bf16 with 16 heads of 112 (`chip_smoke.fused_qkv_inputs`: unit-std
 x, weights and biases at the init std 0.02, seed 4), it prints:
@@ -183,9 +193,114 @@ def bench_k3(fa, card: str, it: int) -> dict:
     return {"kernel": "K3", "K3": rows}
 
 
+def bench_k9(fa, card: str, it: int) -> dict:
+    """K9 at CLIP-L/14's pass and the train pass, beside K3 and SDPA on the
+    same input."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(5)
+    rows = {}
+    for b, l, nh, d in ((112, 257, 16, 64), (32, 257, 16, 88)):
+        w = nh * d
+        qkv = torch.randn(b, l, 3 * w, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        qh, kh, vh = (t.view(b, l, nh, d).transpose(1, 2) for t in (q, k, v))
+        scale = d ** -0.5
+
+        def k9():
+            return fa.packed_qkv_cls_attention(qkv, nh, scale)
+
+        def k3():
+            return fa.packed_attention(q, k, v, nh, scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+
+        bms = bound(4.0 * b * nh * l * l * d, 2.0 * (qkv.numel() + b * l * w))
+        row = dict(ms=event_ms(k9, it), device_ms=device_ms(k9, it),
+                   k3_device_ms=device_ms(k3, it),
+                   sdpa_device_ms=device_ms(sdpa, it), bound_ms=bms)
+        rows[f"{b}x{l}x{nh}x{d}"] = row
+        print(f"K9 qkv ({b}, {l}, {3 * w}): {row['ms']:.4f} ms a call "
+              f"(events), device {row['device_ms']:.4f} ms; K3 device "
+              f"{row['k3_device_ms']:.4f}, SDPA device "
+              f"{row['sdpa_device_ms']:.4f} ms; bound {bms:.4f} ms [{card}]",
+              flush=True)
+    return {"kernel": "K9", "K9": rows}
+
+
+def sdpa_backward(qkv, g, nh: int, scale: float) -> dict:
+    """{backend: closure running SDPA's autograd backward alone} on the
+    split (B, H, L, D) views of the fused qkv, for each backend that takes
+    them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    go = g.view(b, l, nh, w // nh).transpose(1, 2)
+    out = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        q, k, v = (x.detach().view(b, l, nh, w // nh).transpose(1, 2)
+                   .requires_grad_(True) for x in qkv.split(w, dim=-1))
+        try:
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(q, k, v, scale=scale)
+                torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
+        except RuntimeError as e:
+            print(f"  SDPA backward, {name}: does not take the shape "
+                  f"({str(e).splitlines()[0][:80]})", flush=True)
+            continue
+        out[name] = (lambda o=o, q=q, k=k, v=v:
+                     torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
+    return out
+
+
+def bench_k4(fa, card: str, it: int) -> dict:
+    """K4 at the train pass and the long-context pass, by launch, beside
+    SDPA's backward per backend."""
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    for b, l, nh, d in ((32, 257, 16, 88), (64, 257, 16, 88)):
+        w = nh * d
+        qkv = torch.randn(b, l, 3 * w, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+        g = torch.randn(b, l, w, generator=gen).to("cuda", torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        dqkv = torch.empty_like(qkv)
+        scale = d ** -0.5
+
+        def k4():
+            return fa.packed_attention_bwd(q, k, v, g, nh, scale, dqkv)
+
+        kern = device_kernels(k4, it)
+        lib = {n: device_ms(fn, it) for n, fn in
+               sdpa_backward(qkv, g, nh, scale).items()}
+        bms = bound(10.0 * b * nh * l * l * d,
+                    2.0 * (2 * qkv.numel() + g.numel()))
+        row = dict(ms=event_ms(k4, it),
+                   device_ms=sum(ms for ms, _ in kern.values()),
+                   by_launch={"rows": stage_ms(kern, "rows"),
+                              "cols": stage_ms(kern, "cols")},
+                   kernels={n: ms for n, (ms, _) in kern.items()},
+                   sdpa_backward_device_ms=lib, bound_ms=bms)
+        rows[f"{b}x{l}x{nh}x{d}"] = row
+        print(f"K4 qkv ({b}, {l}, {3 * w}): {row['ms']:.4f} ms a call "
+              f"(events), device {row['device_ms']:.4f} ms (rows "
+              f"{row['by_launch']['rows']:.4f}, cols "
+              f"{row['by_launch']['cols']:.4f}); SDPA backward device " +
+              ", ".join(f"{n} {ms:.4f}" for n, ms in lib.items()) +
+              f" ms; bound {bms:.4f} ms [{card}]", flush=True)
+    return {"kernel": "K4", "K4": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("K5", "K1", "K3"), default="K5")
+    ap.add_argument("--kernel", choices=("K5", "K1", "K3", "K9", "K4"),
+                    default="K5")
     ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -208,7 +323,8 @@ def main() -> int:
     _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.kernel != "K5":
-        bench = bench_k1 if args.kernel == "K1" else bench_k3
+        bench = {"K1": bench_k1, "K3": bench_k3, "K9": bench_k9,
+                 "K4": bench_k4}[args.kernel]
         print(json.dumps({"card": card, "iters": args.iters,
                           **bench(fa, card, args.iters)}))
         return 0

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where K5's device time goes at bigE's pass, or K1's GEMM's at ViT-g's,
-on one CUDA card: the kernel as it is and with one design choice undone or
-one stage cut short.
+"""Where K5's device time goes at bigE's pass, K1's GEMM's at ViT-g's or
+K9's at CLIP-L/14's, on one CUDA card: the kernel as it is and with one
+design choice undone or one stage cut short.
 
-    python3 scripts/torch_qkv_breakdown.py [--kernel K5|K1]
+    python3 scripts/torch_qkv_breakdown.py [--kernel K5|K1|K9]
 
 Each variant is a copy of `mico_tpu_torch` under `build/qkv_breakdown/`
-(git-ignored) with one edit to its sources; only `fused_qkv_attn.cu` (K5)
-or `fused_ln_qkv_attn.cu` (K1) is built there (all variants at once).
+(git-ignored) with one edit to its sources; only `fused_qkv_attn.cu` (K5),
+`fused_ln_qkv_attn.cu` (K1) or `packed_cls_attn.cu` (K9) is built there
+(all variants at once).
 K5's variants:
 
   - base:            the kernels as they are;
@@ -41,6 +42,24 @@ affine:
                      and the product, so this times the arithmetic less
                      those two (and the statistics' loads; wrong output).
 
+K9's variants (`packed_attn.cu` is built beside, for K3), each timed at
+CLIP-L/14's pass, qkv (112, 257, 3 x 16 x 64), and the train pass's, (32,
+257, 3 x 16 x 88) (unit std, seed 5), as K9's device ms a call beside K3's
+on the same input; each variant's build also names the K9 instances whose
+wgmmas ptxas serialised ("C751x" in `-Xptxas -v`, from one more build of
+the variant's source; <NT, STREAM>: NT 64-column chunks of D, STREAM the
+streamed keys past 272):
+
+  - base:            K9 as it is;
+  - no_cls_row:      no CLS-row code at all: the producer warpgroup's three
+                     other warps stage the CLS token and stop, compiled out
+                     past that (row 0 is then wrong);
+  - column:          the CLS column on the consumers' CUDA cores from the
+                     staged Q tile (K9's path past 256 patch rows) in place
+                     of k_cls in the key block's tail;
+  - exp2:            K3's exp2 in place of K9's natural exp (wrong values;
+                     the exponent's own cost).
+
 Prints the card's name and power limit and a line per variant. Runs from
 any working directory.
 """
@@ -53,6 +72,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 OUT = ROOT / "build" / "qkv_breakdown"
 VARIANTS = {
     "base": [],
@@ -102,6 +122,39 @@ K1_VARIANTS = {
          "        const float2 s1 = row + 8 < M ? stats[row + 8] : make_float2(0.f, 0.f);",
          "        const float2 s1 = make_float2(0.f, 1.f);")],
 }
+K9_VARIANTS = {
+    "base": [],
+    "no_cls_row": [
+        ("qkv_attn.cuh",
+         "  const bf16* kg = row0 + a.ld + a.W;        // patch key 0\n",
+         "#if 0\n  const bf16* kg = row0 + a.ld + a.W;\n"),
+        ("qkv_attn.cuh",
+         "    *reinterpret_cast<uint32_t*>(orow + 2 * ct) = pack_bf16(o0 / lc, o1 / lc);\n  }\n",
+         "    *reinterpret_cast<uint32_t*>(orow + 2 * ct) = pack_bf16(o0 / lc, o1 / lc);\n  }\n#endif\n")],
+    "column": [
+        ("qkv_attn.cuh", "  if (P > 256)\n", "  if (P > 0)\n")],
+    "exp2": [
+        ("qkv_attn.cuh", "  if constexpr (NAT)\n    return nat_exp(x);",
+         "  if constexpr (NAT && sizeof(x) == 0)\n    return nat_exp(x);")],
+}
+K9_TIMER = r'''
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from mico_tpu_torch.ops import flash_attention as fa
+sys.path.insert(0, sys.argv[3])
+from torch_qkv_bench import device_ms
+gen = torch.Generator().manual_seed(5)
+out = []
+for b, l, nh, d in ((112, 257, 16, 64), (32, 257, 16, 88)):
+    qkv = torch.randn(b, l, 3 * nh * d, generator=gen).to("cuda",
+                                                         torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    k9 = device_ms(lambda: fa.packed_qkv_cls_attention(qkv, nh, d ** -0.5),
+                   50)
+    k3 = device_ms(lambda: fa.packed_attention(q, k, v, nh, d ** -0.5), 50)
+    out.append(f"({b}, {l}, {3 * nh * d}) K9 {k9:.4f} ms (K3 {k3:.4f})")
+print(f"{sys.argv[4]}: " + "; ".join(out), flush=True)
+'''
 TIMER = r'''
 import sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -134,14 +187,14 @@ print(f"{sys.argv[4]}: GEMM {stage_ms(kern, 'gemm'):.4f} ms, statistics "
 '''
 
 
-def make_variant(name: str, edits, source: str) -> Path:
+def make_variant(name: str, edits, sources) -> Path:
     tree = OUT / name
     if tree.exists():
         shutil.rmtree(tree)
     shutil.copytree(ROOT / "mico_tpu_torch", tree / "mico_tpu_torch")
     csrc = tree / "mico_tpu_torch" / "csrc"
     for f in csrc.glob("*.cu"):
-        if f.stem != source:
+        if f.stem not in sources:
             f.unlink()
     for fname, old, new in edits:
         path = csrc / fname
@@ -152,13 +205,35 @@ def make_variant(name: str, edits, source: str) -> Path:
     return tree
 
 
+def ptxas_flags(tree: Path, source: str) -> str:
+    """The K9 instances whose wgmmas ptxas serialised in the variant's
+    source (its "C751x" notes under -Xptxas -v, which name the function)."""
+    import re
+
+    from mico_tpu_torch.ops import _build
+
+    csrc = tree / "mico_tpu_torch" / "csrc"
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc),
+         "-o", str(tree / "ptxas.so"), str(csrc / f"{source}.cu")],
+        capture_output=True, text=True, check=True)
+    notes = set()
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"\((C751\d)\).*cls_attn_kernelILi(\d)ELb(\d)", line)
+        if m:
+            notes.add(f"{m.group(1)} <{m.group(2)}, "
+                      f"{'true' if m.group(3) == '1' else 'false'}>")
+    return ("wgmmas serialised in " + ", ".join(sorted(notes))) if notes \
+        else "no wgmma serialised"
+
+
 def main() -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", choices=("K5", "K1"), default="K5")
+    ap.add_argument("--kernel", choices=("K5", "K1", "K9"), default="K5")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_qkv_breakdown: needs a CUDA device", file=sys.stderr)
@@ -166,11 +241,16 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    k1 = args.kernel == "K1"
-    variants, timer = (K1_VARIANTS, K1_TIMER) if k1 else (VARIANTS, TIMER)
-    source = "fused_ln_qkv_attn" if k1 else "fused_qkv_attn"
-    trees = {name: make_variant(f"{args.kernel}_{name}", edits, source)
+    variants, timer, source = {
+        "K5": (VARIANTS, TIMER, "fused_qkv_attn"),
+        "K1": (K1_VARIANTS, K1_TIMER, "fused_ln_qkv_attn"),
+        "K9": (K9_VARIANTS, K9_TIMER, "packed_cls_attn")}[args.kernel]
+    sources = (source, "packed_attn") if args.kernel == "K9" else (source,)
+    trees = {name: make_variant(f"{args.kernel}_{name}", edits, sources)
              for name, edits in variants.items()}
+    if args.kernel == "K9":
+        for name, tree in trees.items():
+            print(f"{name}: ptxas {ptxas_flags(tree, source)}", flush=True)
     builds = [subprocess.Popen(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
          "from mico_tpu_torch.ops import _build; _build.build_all()",

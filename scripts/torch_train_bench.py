@@ -50,7 +50,9 @@ WARMUP = 2
 # its `combine_kernel<TILED>`: K6 is TILED true, matched first
 GROUPS = (
     ("K3 packed_attn", ("qkv_attn_kernel",)),
-    ("K4 packed_attn_bwd", ("bwd_rows_kernel", "bwd_cols_kernel")),
+    ("K9 CLS-split attention", ("cls_attn_kernel",)),
+    ("K4 packed_attn_bwd", ("k4_rows_kernel", "k4_cols_kernel",
+                            "k4_dq_cast_kernel")),
     ("K6 kv_tiled", ("true>(mico::flash::FlashArgs",)),
     ("K6b kv_tiled_bwd", ("dq_kernel", "dkv_kernel")),
     ("K2 flash", ("flash_kernel", "combine_kernel")),

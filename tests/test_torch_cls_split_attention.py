@@ -153,17 +153,31 @@ def _bf16(*shape):
 
 
 @pytest.mark.parametrize("what,qkv,nh,match", [
-    ("fp32", torch.zeros(2, 257, 768), 4, "bf16"),
-    ("2-D", _bf16(257, 768), 4, "must be"),
-    ("head dim 12", _bf16(2, 257, 72), 2, "head dim"),
-    ("head dim 136", _bf16(2, 257, 816), 2, "head dim"),
-    ("one token", _bf16(2, 1, 768), 4, "no patch token"),
-    ("shared memory", _bf16(1, 1025, 384), 1, "shared memory"),
-    ("strided", _bf16(2, 768, 257).transpose(1, 2), 4, "contiguous"),
+    pytest.param("fp32", torch.zeros(2, 257, 768), 4, "bf16",
+                 id="fp32-qkv0-4-bf16"),
+    pytest.param("2-D", _bf16(257, 768), 4, "must be",
+                 id="2-D-qkv1-4-must be"),
+    pytest.param("head dim 12", _bf16(2, 257, 72), 2, "head dim",
+                 id="head dim 12-qkv2-2-head dim"),
+    pytest.param("head dim 136", _bf16(2, 257, 816), 2, "head dim",
+                 id="head dim 136-qkv3-2-head dim"),
+    pytest.param("one token", _bf16(2, 1, 768), 4, "no patch token",
+                 id="one token-qkv4-4-no patch token"),
+    # L 1025 at D 128: K9's shared memory no longer grows with L (its
+    # patch keys stream past one key block, as K3's do), so it is taken
+    pytest.param("shared memory", _bf16(1, 1025, 384), 1, None,
+                 id="shared memory-qkv5-1-shared memory"),
+    pytest.param("strided", _bf16(2, 768, 257).transpose(1, 2), 4,
+                 "contiguous", id="strided-qkv6-4-contiguous"),
 ])
 def test_k9_input_checks(what, qkv, nh, match):
     """What the K9 wrapper refuses before a launch on the card (the checks
-    are device-independent, so they run here on CPU tensors)."""
+    are device-independent, so they run here on CPU tensors); a case with
+    no match is one the check takes."""
+    if match is None:
+        b, l, w3 = qkv.shape
+        assert tfa._check_cls(qkv, nh) == (b, l, w3 // 3, w3 // 3 // nh)
+        return
     with pytest.raises(ValueError, match=match):
         tfa._check_cls(qkv, nh)
 
@@ -171,12 +185,13 @@ def test_k9_input_checks(what, qkv, nh, match):
 def test_k9_input_checks_accept_the_paths_shapes():
     """The shapes the paths give K9 pass: ViT-g's train pass (16 x 88),
     CLIP-L/14 (16 x 64), bigE's head width (16 x 112), 385 and 513 tokens;
-    each fits one block's 232,448 bytes of shared memory."""
+    each fits one block's 232,448 bytes of shared memory (K3's launch, one
+    mbarrier and the CLS row's scratch: 210,224 bytes at D 88)."""
     for b, l, nh, d in ((2, 257, 16, 88), (2, 257, 16, 64), (1, 257, 16, 112),
                         (1, 385, 4, 64), (1, 513, 4, 88)):
         assert tfa._check_cls(_bf16(b, l, 3 * nh * d), nh) == (b, l, nh * d,
                                                                d)
-    assert tfa._k9_smem_bytes(257, 88) == 100480
+    assert tfa._qkv_attn_smem_bytes(88, cls=True) == 210224 <= tfa._MAX_SMEM
 
 
 def test_k9_is_counted_and_cpu_launches_nothing():

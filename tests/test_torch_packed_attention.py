@@ -126,10 +126,13 @@ def test_bf16_rounding_points_match_pallas(l, nh, d):
 
 
 def test_k4_shared_memory_at_vit_g():
-    """K4's columns pass holds two padded 257 x 96 operands, a 96-row
-    staging tile and the row statistics: 137,472 bytes of the 232,448 one
-    block may take; K3 is the attention of K1, K5 and K8, one key block of
-    K and V at any L (205,888 bytes at D 88)."""
-    assert tfa._k4_smem_bytes(257, 88) == 137472 <= tfa._MAX_SMEM
+    """K3 is the attention of K1, K5 and K8, one key block of K and V at
+    any L (205,888 bytes of the 232,448 one block may take, at D 88); K4's
+    rows launch holds the same key block and four 64-row tiles, its columns
+    launch 64-row tiles only, so K4 too takes L past one key block at
+    ViT-g's D 88 (three contiguous tensors here)."""
     assert tfa._qkv_attn_smem_bytes(88) == 205888 <= tfa._MAX_SMEM
-    assert tfa._k4_smem_bytes(600, 88) > tfa._MAX_SMEM
+    for l in (257, 600):
+        q, k, v, g = (torch.zeros(2, l, 16 * 88, dtype=torch.bfloat16)
+                      for _ in range(4))
+        assert tfa._check_k4(q, k, v, g, 16) == 16 * 88
