@@ -125,10 +125,13 @@ Phases, run in order (any failure exits non-zero):
      strided layout, with no bias and with a (2, 1, 1, 8224) padding bias,
      at a ragged (1, 2, 160, 9000, 88), at one query row (2, 12, 1, 8224,
      64) and with a (2, 1, 1, 8224) bias masking every key of K6's fourth
-     split (the gates above, the LSE within 1e-3), timed at the first
-     beside the plain versions, SDPA (forward; its autograd backward alone)
-     and the bound, and K6's device and host time per call, plan and
-     roofline share beside SDPA's as for K2; then five full-width steps of
+     split and of the K6b split that holds its first key (the gates above,
+     the LSE within 1e-3), timed at the first beside the plain versions,
+     SDPA (forward; its autograd backward alone, unpinned and pinned to each
+     backend: the fastest backend's device ms is K6b's library_ms) and the
+     bound, K6's device and host time per call, plan and roofline share
+     beside SDPA's as for K2, and K6b's device ms by launch (the split-key
+     pass, the dQ combine) and plan; then five full-width steps of
      long-context captioning (`scripts/train_bench.py --long-context`:
      cap%tv, B = 2 samples of 32 frames, 8,224 condition tokens, a
      128-token caption; probability dropout 0, so attention stays on the
@@ -143,11 +146,13 @@ Phases, run in order (any failure exits non-zero):
   9. mlp: P1 (`ops/fused_mlp.py`, the fused MLP of
      `scripts/pallas_matmul_probe.py`) against its plain version at the
      probe's geometry, x (28784, 1408), W1 (1408, 6144), W2 (6144, 1408),
-     and at a ragged (200, 128) x (128, 256), at 32 and 16 rows a block:
-     x unit-std and the weights at 1/sqrt(fan-in), so the MLP branch is as
-     large as x (the kernel gates, and the branch out - x alone under the
-     relative mean gate); timed beside the plain version, the library
-     route (torch.matmul, F.gelu, torch.matmul, the add) and the bound;
+     and at a ragged (200, 128) x (128, 256): x unit-std and the weights
+     at 1/sqrt(fan-in), so the MLP branch is as large as x (the kernel
+     gates, and the branch out - x alone under the relative mean gate);
+     timed beside the plain version, the library route (torch.matmul,
+     F.gelu, torch.matmul, the add; event and device ms) and the bound, with
+     P1's device ms by launch (fc1 with the GELU epilogue, fc2 with the
+     residual one);
      then the probe's chain of 8 calls (`scripts/torch_mlp_probe.py` at its
      0.02-scale data), counted from 0 (P1 8).
 The line before them is a JSON summary of the run, the second-to-last line
@@ -1511,18 +1516,27 @@ def sdpa_bwd_backends(qkv, g, nh, scale) -> dict:
     """SDPA's autograd backward alone on the split (B, H, L, D) views of the
     fused qkv, as a closure for each backend that takes them (pinned with
     `torch.nn.attention.sdpa_kernel`): K4's yardsticks."""
+    b, l, w3 = qkv.shape
+    w = w3 // 3
+    return sdpa_bwd_pinned(
+        lambda: [x.view(b, l, nh, w // nh).transpose(1, 2)
+                 for x in qkv.split(w, dim=-1)],
+        g.view(b, l, nh, w // nh).transpose(1, 2), scale)
+
+
+def sdpa_bwd_pinned(views, go, scale) -> dict:
+    """SDPA's autograd backward alone for the output gradient go, one
+    closure for each backend that takes the (q, k, v) `views()` gives
+    (pinned with `torch.nn.attention.sdpa_kernel`): K4's and K6b's
+    yardsticks."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    b, l, w3 = qkv.shape
-    w = w3 // 3
-    go = g.view(b, l, nh, w // nh).transpose(1, 2)
     out = {}
     for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
                           ("cudnn", SDPBackend.CUDNN_ATTENTION),
                           ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
-        q, k, v = (x.detach().view(b, l, nh, w // nh).transpose(1, 2)
-                   .requires_grad_(True) for x in qkv.split(w, dim=-1))
+        q, k, v = (x.detach().requires_grad_(True) for x in views())
         try:
             with sdpa_kernel([backend]):
                 o = F.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -1987,23 +2001,30 @@ def phase_long_kernels(fa) -> list:
               "bias", (LONG_B, 12, 128, 8224, 64), "bert", pad_bias),
              ("(1, 2, 160, 9000, 88) ragged, no bias", (1, 2, 160, 9000, 88),
               "contiguous", None)]
-    # cases that cross split boundaries of the keys besides those (11 and
-    # 29 splits, the last ragged): one query row, and a padding bias that
-    # masks every key of the fourth split
-    _, _, nsplit, per = fa.flash_plan(
-        128, 8224, LONG_B * 12, 64, 1,
-        fa._sm_count(torch.cuda.current_device()))
-    if nsplit < 4:
-        raise AssertionError(f"K6 takes {nsplit} splits at the long-context "
-                             "shape: the masked split case checks nothing")
+    # cases that cross split boundaries of the keys besides those (K6: 11
+    # and 29 splits, the last ragged; K6b: 5 and 47): one query row, and a
+    # padding bias that masks every key of K6's fourth split and of the K6b
+    # split that holds its first key
+    sms = fa._sm_count(torch.cuda.current_device())
+    _, _, nsplit, per = fa.flash_plan(128, 8224, LONG_B * 12, 64, 1, sms)
+    bsplit, bper = fa.k6b_plan(8224, LONG_B * 12, sms)
+    if nsplit < 4 or bsplit < 2:
+        raise AssertionError(f"K6 takes {nsplit} splits, K6b {bsplit} at the "
+                             "long-context shape: the masked split case "
+                             "checks nothing")
+    k0, k1 = 3 * 64 * per, 4 * 64 * per
+    b0 = k0 // (64 * bper) * 64 * bper
+    b1 = min(8224, b0 + 64 * bper)
     pad = torch.ones(LONG_B, 8224)
-    pad[:, 3 * 64 * per:4 * 64 * per] = 0
+    pad[:, min(k0, b0):max(k1, b1)] = 0
     pad[1, 6000:] = 0
     cases += [("(2, 12, 1, 8224, 64) one query row, no bias",
                (LONG_B, 12, 1, 8224, 64), "contiguous", None),
               (f"(2, 12, 128, 8224, 64) BERT layout, a (2, 1, 1, 8224) bias "
-               f"masking all of split 4 of {nsplit} (keys {3 * 64 * per}.."
-               f"{4 * 64 * per - 1})", (LONG_B, 12, 128, 8224, 64), "bert",
+               f"masking all of K6's split 4 of {nsplit} (keys {k0}.."
+               f"{k1 - 1}) and K6b's split {b0 // (64 * bper) + 1} of "
+               f"{bsplit} (keys {b0}..{b1 - 1})",
+               (LONG_B, 12, 128, 8224, 64), "bert",
                ((1.0 - pad) * -10000.0)[:, None, None, :].cuda())]
     timed = None
     for what, shape, layout, bias in cases:
@@ -2065,20 +2086,40 @@ def phase_long_kernels(fa) -> list:
     nbytes = (2 * 2 * (q.numel() + k.numel() + v.numel() + g.numel())
               - 2 * g.numel() + 4 * (lse.numel() + delta.numel()))
     bms, by = bound_ms(flops, nbytes)
+
+    def k6b():
+        return fa.kv_tiled_attention_bwd(q, k, v, g, lse, delta, None, scale)
+
+    by_launch = stage_device_ms(k6b, {"pass": "k6b_kernel",
+                                      "combine": "combine_kernel"})
+    dev = (None if None in by_launch.values()
+           else sum(by_launch.values()))
+    lib = {name: device_time_ms(fn) for name, fn in sdpa_bwd_pinned(
+        lambda: (q, k, v), g, scale).items()}
+    measured = {n: ms for n, ms in lib.items() if ms is not None}
+    bsplit, bper = fa.k6b_plan(lk, b * h, fa._sm_count(q.device.index))
     rows.append(dict(
         name="K6b kv_tiled_attention_bwd", route="cuda",
         source="mico_tpu_torch/csrc/kv_tiled_attn_bwd.cu",
         replaces="mico_tpu/ops/flash_attention.py:486",
         shape=shape + "; g, lse, delta -> dq, dk, dv",
-        ms=cuda_time_ms(lambda: fa.kv_tiled_attention_bwd(
-            q, k, v, g, lse, delta, None, scale)),
+        ms=cuda_time_ms(k6b), device_ms=dev, device_ms_by_launch=by_launch,
+        splits=bsplit, chunks_per_split=bper,
         plain_ms=cuda_time_ms(lambda: fa.kv_tiled_attention_bwd_plain(
             q, k, v, g, lse, delta, None, scale), iters=5, warmup=1),
-        library_ms=cuda_time_ms(sdpa_bwd),
+        # the fastest pinned backend's device ms (the unpinned call's event
+        # ms where the profiler recorded none)
+        library_ms=(min(measured.values()) if measured
+                    else cuda_time_ms(sdpa_bwd)),
+        library_device_ms_by_backend=lib,
+        library_unpinned_ms=cuda_time_ms(sdpa_bwd),
+        roofline_share=None if dev is None else bms / dev,
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes))
     log(f"  K6 without LSE: {rows[0]['ms_no_lse']:.4f} ms (device "
         f"{ms_text(rows[0]['device_ms_no_lse'])})")
     log_split_timing("K6 with LSE", rows[0])
+    log(f"  K6b device ms {ms_text(dev)} ({by_launch}; {bsplit} splits of "
+        f"{bper} chunks), SDPA backward by backend {lib}")
     return finish_rows(rows, errs)
 
 
@@ -2323,12 +2364,10 @@ def phase_mlp(fa, card: str) -> tuple:
     for m, k, n in ((probe.M, probe.K, probe.N), (200, 128, 256)):
         x, w1, w2 = mlp_inputs(gen, m, k, n)
         want = fused_mlp_plain(x, w1, w2)
-        for rows in (32, 16):
-            got = fused_mlp(x, w1, w2, rows)
-            name = f"P1 ({m}, {k}) x ({k}, {n}) rows {rows}"
-            errs["P1"].append(compare(name, got, want,
-                                      rel_mean=REL_MEAN_ERR_MAX))
-            branch[name] = check_branch(name, got, want, x)
+        got = fused_mlp(x, w1, w2)
+        name = f"P1 ({m}, {k}) x ({k}, {n})"
+        errs["P1"].append(compare(name, got, want, rel_mean=REL_MEAN_ERR_MAX))
+        branch[name] = check_branch(name, got, want, x)
         if m == probe.M:
             timed = (x, w1, w2)
         del want, got
@@ -2338,21 +2377,31 @@ def phase_mlp(fa, card: str) -> tuple:
     flops = 4 * m * k * n
     nbytes = 2 * (2 * x.numel() + w1.numel() + w2.numel())
     bms, by = bound_ms(flops, nbytes)
+
+    def p1():
+        return fused_mlp(x, w1, w2)
+
+    stages = stage_device_ms(p1, {"fc1": "epi_gemm_kernel<1>",
+                                  "fc2": "epi_gemm_kernel<2>"})
+    dev = None if None in stages.values() else sum(stages.values())
     row = dict(
         name="P1 fused_mlp", route="cuda",
         source="mico_tpu_torch/csrc/fused_mlp.cu",
         replaces="scripts/pallas_matmul_probe.py:33",
         shape=f"x ({m}, {k}), W1 ({k}, {n}), W2 ({n}, {k}) bf16",
-        ms=cuda_time_ms(lambda: fused_mlp(x, w1, w2, 32), iters=5, warmup=1),
-        ms_rows16=cuda_time_ms(lambda: fused_mlp(x, w1, w2, 16), iters=5,
-                               warmup=1),
+        ms=cuda_time_ms(p1, iters=5, warmup=1), device_ms=dev,
+        device_ms_by_launch=stages,
         plain_ms=cuda_time_ms(lambda: fused_mlp_plain(x, w1, w2), iters=3,
                               warmup=1),
         library_ms=cuda_time_ms(lambda: mlp_library(x, w1, w2), iters=5,
                                 warmup=1),
+        library_device_ms=device_time_ms(lambda: mlp_library(x, w1, w2),
+                                         iters=10),
+        roofline_share=None if dev is None else bms / dev,
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes, branch=branch)
     finish_rows([row], errs)
-    log(f"  P1 at 16 rows per block: {row['ms_rows16']:.4f} ms")
+    log(f"  P1 device ms {ms_text(dev)} ({stages}), library route device "
+        f"{ms_text(row['library_device_ms'])}")
     del x, w1, w2, timed
 
     paths = {}

@@ -40,13 +40,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
       : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
-
 // c += a . b  (bf16 inputs, fp32 accumulators)
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -114,70 +107,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Tile products over bf16 operands staged in shared memory with row stride
-// KST = KS * 16 + 8 (DP = KS * 16 columns, zero-padded past D; the +8
-// makes ldmatrix conflict-free). K6b's.
-
-// A fragments of the 16 rows r0.. of X (all DP columns)
-template <int KS>
-__device__ __forceinline__ void load_a(uint32_t (&f)[KS][4], const bf16* X,
-                                       int lane, int r0) {
-  constexpr int KST = KS * 16 + 8;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-    ldmatrix_x4(f[ks], X + (r0 + (lane & 15)) * KST + ks * 16 + (lane >> 4) * 8);
-}
-
-// c (16 x 16) = A (16 x DP) . X[n0 .. n0 + 15, :]^T
-template <int KS>
-__device__ __forceinline__ void mma_abt(float (&c)[2][4],
-                                        const uint32_t (&a)[KS][4],
-                                        const bf16* X, int lane, int n0) {
-  constexpr int KST = KS * 16 + 8;
-#pragma unroll
-  for (int n = 0; n < 2; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t r[4];
-    ldmatrix_x4(r, X + (n0 + (lane & 7) + ((lane >> 4) << 3)) * KST + ks * 16 +
-                       ((lane >> 3) & 1) * 8);
-    mma_bf16(c[0], a[ks], r[0], r[1]);
-    mma_bf16(c[1], a[ks], r[2], r[3]);
-  }
-}
-
-// acc (16 x D, NT tiles of 8) += pa (16 x 16) . X[k0 .. k0 + 15, 0 .. D)
-template <int KS>
-__device__ __forceinline__ void mma_ab(float (&acc)[2 * KS][4],
-                                       const uint32_t (&pa)[4], const bf16* X,
-                                       int lane, int k0, int NT) {
-  constexpr int KST = KS * 16 + 8;
-  const bf16* row = X + (k0 + (lane & 15)) * KST;
-#pragma unroll
-  for (int n = 0; n < 2 * KS; n += 2) {
-    uint32_t r[4];
-    if (n + 1 < NT) {
-      ldmatrix_x4_trans(r, row + n * 8 + (lane >> 4) * 8);
-      mma_bf16(acc[n], pa, r[0], r[1]);
-      mma_bf16(acc[n + 1], pa, r[2], r[3]);
-    } else if (n < NT) {
-      ldmatrix_x2_trans(r, row + n * 8);
-      mma_bf16(acc[n], pa, r[0], r[1]);
-    }
-  }
-}
-
-// the accumulator layout of two 8-column tiles == the A fragment of one
-// k16 step; rounds to bf16 (RN)
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&s)[2][4]) {
-  a[0] = pack_bf16(s[0][0], s[0][1]);
-  a[1] = pack_bf16(s[0][2], s[0][3]);
-  a[2] = pack_bf16(s[1][0], s[1][1]);
-  a[3] = pack_bf16(s[1][2], s[1][3]);
 }
 
 }  // namespace mico

@@ -1,7 +1,7 @@
-// Hopper building blocks of the port's wgmma kernels (K1, K3, K4, K5, K8,
-// K9): raw PTX for the Tensor Memory Accelerator (TMA), mbarriers, warpgroup
-// matrix multiplies (wgmma) and register reallocation (setmaxnreg), and the
-// host side's tensor maps. Needs sm_90a.
+// Hopper building blocks of the port's wgmma kernels (K1, K3, K4, K5, K6b,
+// K8, K9, P1): raw PTX for the Tensor Memory Accelerator (TMA), mbarriers,
+// warpgroup matrix multiplies (wgmma) and register reallocation
+// (setmaxnreg), and the host side's tensor maps. Needs sm_90a.
 //
 // Shared-memory operands of wgmma use the 128-byte swizzle that TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes (64 bf16), in atoms of 8
@@ -11,9 +11,10 @@
 //   K-major (the contraction dimension contiguous): SBO is the stride of
 //     8-row groups along M or N; a k16 step inside the 128-byte row moves
 //     the start address by 32 bytes;
-//   MN-major (M or N contiguous, `TB = 1` for the B operand): LBO is the
-//     stride between 64-wide atoms along N, SBO the stride between 8-row
-//     groups along K; a k16 step moves the start by 16 rows (2048 bytes).
+//   MN-major (M or N contiguous, `TB = 1` for the B operand, `TA = 1` for
+//     A): LBO is the stride between 64-wide atoms along M or N, SBO the
+//     stride between 8-row groups along K; a k16 step moves the start by 16
+//     rows (2048 bytes).
 #pragma once
 
 #include <cuda.h>
@@ -368,9 +369,10 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-// d (64 x 64) += A (64 x 16, shared, K-major) . B (16 x 64, shared),
-// accumulating when scale_d; TB = 1 when B is MN-major, 0 when K-major
-template <int TB>
+// d (64 x 64) += A (64 x 16, shared) . B (16 x 64, shared), accumulating
+// when scale_d; TB = 1 when B is MN-major, 0 when K-major; TA likewise for
+// A (1: M-major)
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
   asm volatile(
@@ -379,14 +381,44 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+}
+
+// d (64 x 128) += A (64 x 16, shared) . B (16 x 128, shared), accumulating
+// when scale_d; TB = 1 when B is MN-major, 0 when K-major; TA likewise for
+// A (1: M-major)
+template <int TB, int TA = 0>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 // d (64 x 16) += A (64 x 16, shared, K-major) . B (16 x 16, shared),

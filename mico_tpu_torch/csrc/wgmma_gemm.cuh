@@ -1,5 +1,5 @@
-// The wgmma + TMA GEMM of K5's qkv projection, K8's two projections and K1's
-// LayerNorm-prologue projection:
+// The wgmma + TMA GEMM of K5's qkv projection, K8's two projections, K1's
+// LayerNorm-prologue projection and P1's two products:
 //   out (M, N) = A (M, K) . W (K, N) + bias
 // A and W bf16 row-major, bias (N) fp32, out bf16. The products accumulate
 // in fp32, the bias is added in fp32 in the epilogue and each output is
@@ -60,6 +60,11 @@
 //    past K with zeros, and the TMA stores clip at M and N. Needs K % 8 == 0
 //    and N % 8 == 0 (TMA's 16-byte strides), and K <= LN_COLS for the LN
 //    instance.
+// The epilogue is a compile-time choice (`Epi`): the bias above (K1, K5,
+// K8), or P1's two (`epi_gemm_kernel`, no bias): the tanh GELU on the fp32
+// accumulator, then one rounding (fc1), and one rounding of the product,
+// then a bf16 add of the residual x read from global memory, rounded again
+// (fc2: `mlp_kernel`'s bf16(y) + x).
 #pragma once
 
 #include "common.cuh"
@@ -132,29 +137,90 @@ __device__ __forceinline__ void ln_fragments(uint32_t (&a)[4][4],
   }
 }
 
-// + bias in fp32, one rounding to bf16 into this warpgroup's staging rows
-// (128-byte swizzle, conflict-free), then TMA stores that clip at M and N
-// and run on while the next tile's products start
+// the epilogues: + bias (K1, K5, K8); P1's fc1, bf16(gelu_tanh(acc)); P1's
+// fc2, bf16(bf16(acc) + x) with x (M, N) bf16 row-major
+enum Epi { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+
+// jax.nn.gelu(approximate=True) on fp32: 0.5 x (1 + tanh(sqrt(2/pi) (x +
+// 0.044715 x^3))), with tanh.approx.f32 (relative error about 2^-11, under
+// a quarter of the bf16 rounding that follows; `chip_smoke.py` holds the
+// branch under the relative mean gate)
+__device__ __forceinline__ float gelu_tanh(float x) {
+  float t;
+  asm("tanh.approx.f32 %0, %1;\n"
+      : "=f"(t)
+      : "f"(0.7978845608028654f * fmaf(0.044715f * x, x * x, x)));
+  const float hx = 0.5f * x;
+  return fmaf(hx, t, hx);
+}
+
+// bf16(bf16(y0) + x0), bf16(bf16(y1) + x1) of two neighbouring columns
+__device__ __forceinline__ uint32_t residual_pair(float y0, float y1,
+                                                  uint32_t x) {
+  const float2 y = unpack_bf16(pack_bf16(y0, y1));
+  const float2 r = unpack_bf16(x);
+  return pack_bf16(y.x + r.x, y.y + r.y);
+}
+
+// the epilogue (+ bias in fp32, or P1's) with one rounding to bf16 into
+// this warpgroup's staging rows (128-byte swizzle, conflict-free), then TMA
+// stores that clip at M and N and run on while the next tile's products
+// start
+template <int EPI = EPI_BIAS>
 __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
                                           unsigned char* cs,
                                           const CUtensorMap* tma_out,
                                           const float* __restrict__ bias,
                                           int N, int m0, int n0, int wgi,
-                                          int tid) {
+                                          int tid, const bf16* res = nullptr,
+                                          int M = 0) {
   const int warp = tid >> 5, lane = tid & 31;
   if (tid == 0) hop::bulk_wait_read<0>();   // the last tile's stores
   hop::named_sync(1 + wgi, 128);
   const int rl = warp * 16 + (lane >> 2);
+  if constexpr (EPI == EPI_RESIDUAL) {
+    // x's rows m and m + 8 of this thread (columns past N and rows past M
+    // read nothing: the stores clip them)
+    const int m = m0 + wgi * 64 + rl;
+    const bf16* x0 = res + (size_t)m * N + n0;
+    const bf16* x1 = x0 + (size_t)8 * N;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int col = 8 * j + 2 * (lane & 3);
-    const float2 bv = n0 + col < N
-                          ? *reinterpret_cast<const float2*>(bias + n0 + col)
-                          : make_float2(0.f, 0.f);
-    *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
-        pack_bf16(acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
-    *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col, 8192)) =
-        pack_bf16(acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      const bool in = n0 + col < N;
+      const uint32_t r0 =
+          in && m < M ? *reinterpret_cast<const uint32_t*>(x0 + col) : 0u;
+      const uint32_t r1 =
+          in && m + 8 < M ? *reinterpret_cast<const uint32_t*>(x1 + col) : 0u;
+      *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
+          residual_pair(acc[4 * j], acc[4 * j + 1], r0);
+      *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col,
+                                                          8192)) =
+          residual_pair(acc[4 * j + 2], acc[4 * j + 3], r1);
+    }
+  } else if constexpr (EPI == EPI_GELU) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
+          pack_bf16(gelu_tanh(acc[4 * j]), gelu_tanh(acc[4 * j + 1]));
+      *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col,
+                                                          8192)) =
+          pack_bf16(gelu_tanh(acc[4 * j + 2]), gelu_tanh(acc[4 * j + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * (lane & 3);
+      const float2 bv = n0 + col < N
+                            ? *reinterpret_cast<const float2*>(bias + n0 + col)
+                            : make_float2(0.f, 0.f);
+      *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl, col, 8192)) =
+          pack_bf16(acc[4 * j] + bv.x, acc[4 * j + 1] + bv.y);
+      *reinterpret_cast<uint32_t*>(cs + hop::sw128_offset(rl + 8, col,
+                                                          8192)) =
+          pack_bf16(acc[4 * j + 2] + bv.x, acc[4 * j + 3] + bv.y);
+    }
   }
   hop::fence_proxy_async();
   hop::named_sync(1 + wgi, 128);
@@ -168,8 +234,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
 
 // the kernels' body; under LN A is the raw x, normalised with stats (M) of
 // (mean, rstd) and gamma/beta (K, read when affine) on its way into the
-// tensor cores
-template <bool LN>
+// tensor cores; EPI the epilogue (res: fc2's residual x)
+template <bool LN, int EPI = EPI_BIAS>
 __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a,
                                           const CUtensorMap& tma_w,
                                           const CUtensorMap& tma_out,
@@ -178,7 +244,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a,
                                           const float2* __restrict__ stats,
                                           const float* __restrict__ gamma,
                                           const float* __restrict__ beta,
-                                          int affine) {
+                                          int affine,
+                                          const bf16* res = nullptr) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hop::align1024(smem_raw);
   unsigned char* cstage = smem + STAGES * STAGE;   // [warpgroup]
@@ -332,8 +399,8 @@ __device__ __forceinline__ void gemm_body(const CUtensorMap& tma_a,
       hop::wgmma_wait<0>();
       hop::fence_regs(acc);
       release(prev);
-      store_tile(acc, cstage + wgi * C_BYTES, &tma_out, bias, N, m0, n0, wgi,
-                 tid);
+      store_tile<EPI>(acc, cstage + wgi * C_BYTES, &tma_out, bias, N, m0, n0,
+                      wgi, tid, res, M);
     }
     if (tid == 0) hop::bulk_wait<0>();
   }
@@ -363,6 +430,18 @@ ln_gemm_kernel(const __grid_constant__ CUtensorMap tma_x,
                   affine);
 }
 
+// P1's instances (EPI_GELU, EPI_RESIDUAL); a template, so that only a
+// library that launches them compiles them
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+epi_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
+                const __grid_constant__ CUtensorMap tma_w,
+                const __grid_constant__ CUtensorMap tma_out,
+                const bf16* __restrict__ res, int M, int N, int K) {
+  gemm_body<false, EPI>(tma_a, tma_w, tma_out, nullptr, M, N, K, nullptr,
+                        nullptr, nullptr, 0, res);
+}
+
 // the tensor maps of a (M, K), w (K, N) and out (M, N)
 static inline cudaError_t make_maps(CUtensorMap* ta, CUtensorMap* tw,
                                     CUtensorMap* tout, const bf16* a,
@@ -383,7 +462,8 @@ static inline cudaError_t make_maps(CUtensorMap* ta, CUtensorMap* tw,
   return hop::make_map(tout, out, 2, odims, wstr, obox);
 }
 
-// launches `kernel` (one of the above: ID 0 the plain, 1 the LN) on as many
+// launches `kernel` (one of the above: ID 0 the plain, 1 the LN, 2 + EPI
+// P1's) on as many
 // clusters of two as the card holds at once, at most one a pair of row
 // tiles; the opt-in and that count are taken once per kernel and device
 template <int ID>
@@ -450,6 +530,21 @@ inline cudaError_t launch_ln_gemm(const bf16* x, const float2* stats,
                   &stats, &gamma, &beta, &affine};
   return launch_clusters<1>((const void*)ln_gemm_kernel<>, SMEM_LN, M, N,
                             args, stream);
+}
+
+// out (M, N) = epilogue(a (M, K) . w (K, N)) on `stream`, P1's two
+// epilogues: EPI_GELU, or EPI_RESIDUAL with res (M, N) bf16 row-major
+template <int EPI>
+inline cudaError_t launch_epi_gemm(const bf16* a, const bf16* w,
+                                   const bf16* res, bf16* out, int M, int K,
+                                   int N, cudaStream_t stream) {
+  if (K % 8 || N % 8 || M <= 0) return cudaErrorInvalidValue;
+  CUtensorMap ta, tw, tout;
+  cudaError_t e = make_maps(&ta, &tw, &tout, a, w, out, M, K, N);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&ta, &tw, &tout, &res, &M, &N, &K};
+  return launch_clusters<2 + EPI>((const void*)epi_gemm_kernel<EPI>, SMEM, M,
+                                  N, args, stream);
 }
 
 }  // namespace wg

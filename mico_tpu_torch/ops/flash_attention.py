@@ -22,10 +22,12 @@ K6 `kv_tiled_attention` replaces the KV-tiled `_flash_kv_tiled` (:218, call
 (:160): the same attention past MAX_RESIDENT_KV keys, with K6's rounding
 points and optionally the per-row log-sum-exp. K6b `kv_tiled_attention_bwd`
 replaces `_flash_kv_tiled_bwd` (:486; dQ call :531, dK/dV call :588): its
-gradient from that LSE. Sources: `csrc/kv_tiled_attn.cu` (K2's device code,
-`csrc/flash_attn.cuh`, with K6's rounding points) and
-`csrc/kv_tiled_attn_bwd.cu`. `flash_attention` routes to them as
-`_flash_diff` does (:637-697); long-context caption training reaches them.
+gradient from that LSE, in one wgmma + TMA pass over the keys split across
+blocks (`k6b_plan`) and a combine of the per-split dQ partials. Sources:
+`csrc/kv_tiled_attn.cu` (K2's device code, `csrc/flash_attn.cuh`, with K6's
+rounding points) and `csrc/kv_tiled_attn_bwd.cu`. `flash_attention` routes
+to them as `_flash_diff` does (:637-697); long-context caption training
+reaches them.
 
 K3 `packed_attention` replaces `_packed_qkv_fwd` (:1135, call :1155) and
 `_packed_fwd` (:885, call :897), body `_packed_body` (:757): self-attention
@@ -63,8 +65,9 @@ Each wrapper launches its kernel for CUDA tensors and raises on anything the
 kernel does not take; only a tensor on the CPU goes to the plain twin (the
 JAX dtype gate, which sends other dtypes on the card to the twins, is the
 caller's: `kernel_route`). Each carries a `launches` count that grows by
-one per call that launches its kernel (K6b launches two, and K2 and K6
-past one split of the keys a second, the combine).
+one per call that launches its kernel (K6b launches two, its pass and the
+dQ combine, and K2 and K6 past one split of the keys a second, the
+combine).
 K1, K5 and K8 have no backward: their wrappers raise
 when autograd records a call whose inputs require a gradient, on any
 device, rather than drop the gradient.
@@ -836,10 +839,48 @@ def kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta,
     return dq, dk, dv
 
 
+# K6b's launch geometry (csrc/kv_tiled_attn_bwd.cu): the queries a block
+# keeps resident at once (a 64-row tile for each consumer warpgroup)
+K6B_GROUP = 128
+
+
+def k6b_plan(lk: int, heads: int, sms: int = 132,
+             splits: Optional[int] = None):
+    """(splits, chunks a split) of K6b's keys for `heads` = B·H. A block
+    takes an SM (384 threads, 232 registers for each consumer thread), so
+    the plan asks for the fewest splits that fill the card in one wave:
+    ⌊sms / heads⌋, with SPLIT_CHUNKS 64-key chunks a split at least. Split
+    s takes chunks [s·per, (s+1)·per) ∩ [0, ⌈Lk/64⌉): contiguous, none
+    empty, only the last may end inside a chunk (a ragged Lk). `splits`
+    asks for a count."""
+    chunks = -(-lk // KV_CHUNK)
+    if splits is None:
+        splits = min(sms // heads, chunks // SPLIT_CHUNKS)
+    per = -(-chunks // max(1, min(splits, chunks)))
+    return -(-chunks // per), per
+
+
+def _k6b_smem_bytes(d: int) -> int:
+    """K6b's dynamic shared memory (csrc/kv_tiled_attn_bwd.cu
+    `smem_bytes`): Q and G of a 128-query group, the K/V ring (4 stages
+    up to D 64, 2 above), the P^T and dS^T buffers (3 up to D 64, 2
+    above), each consumer warpgroup's dV or dK tile, lse and delta, the
+    mbarriers and 1 KB of alignment."""
+    nt = -(-d // 64)
+    chunk = 64 * 128
+    stages, buffers = (4, 3) if nt == 1 else (2, 2)
+    return (4 * nt * chunk + stages * 2 * nt * chunk + buffers * 4 * chunk
+            + 2 * nt * chunk + 2 * K6B_GROUP * 4 + (2 * stages + 2) * 8
+            + 1024)
+
+
+assert _k6b_smem_bytes(128) <= _MAX_SMEM
+
+
 @functools.lru_cache(maxsize=None)
 def _k6b_entry():
     fn = _build.load("kv_tiled_attn_bwd").mico_kv_tiled_attn_bwd
-    fn.argtypes = [_c_void_p] * 10 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [_c_void_p] * 12 + [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
         _c_void_p]
     fn.restype = ctypes.c_int
@@ -873,12 +914,14 @@ def _check_row_stats(q, *stats) -> None:
 
 
 def kv_tiled_attention_bwd(q, k, v, g, lse, delta,
-                           bias: Optional[torch.Tensor], scale: float):
+                           bias: Optional[torch.Tensor], scale: float,
+                           splits: Optional[int] = None):
     """K6b: the gradient (dq, dk, dv) of K6 for the output gradient g, from
     K6's lse and δ = Σ(g·out) (each (B, H, Lq, 1) fp32), the bias replayed
     into the scores and given no gradient. On the card q, k, v and g as K6
-    takes q, k, v; one call launches the dQ and the dK/dV kernels and counts
-    once. CPU tensors take the plain twin."""
+    takes q, k, v; one call launches the split-key pass and the dQ combine
+    (`k6b_plan` lays the splits out; `splits` overrides its count) and
+    counts once. CPU tensors take the plain twin."""
     if not q.is_cuda:
         return kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta, bias,
                                             scale)
@@ -886,16 +929,22 @@ def kv_tiled_attention_bwd(q, k, v, g, lse, delta,
     _check_row_stats(q, lse, delta)
     b, h, lq, d = q.shape
     lk = k.shape[2]
+    nsplit, per = k6b_plan(lk, b * h, _sm_count(q.device.index), splits)
     dq, dk, dv = _heads_out(q, lq), _heads_out(k, lk), _heads_out(v, lk)
     bias, bstrides = _bias_strides(bias, q, lk)
     strides = [s for t in (q, k, v, g, dq, dk, dv)
                for s in t.stride()[:3]] + list(bstrides)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq_part = torch.empty(b * h * nsplit * lq * d, **f32)
+    dkv_acc = (torch.empty(2 * b * h * lk * d, **f32) if lq > K6B_GROUP
+               else None)
     rc = _k6b_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         q.data_ptr() if bias is None else bias.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, lq, lk, d,
-        (ctypes.c_longlong * 25)(*strides), float(scale),
+        dk.data_ptr(), dv.data_ptr(), dq_part.data_ptr(),
+        None if dkv_acc is None else dkv_acc.data_ptr(), b, h, lq, lk, d,
+        nsplit, per, (ctypes.c_longlong * 25)(*strides), float(scale),
         int(bias is not None), _stream(),
     )
     _check(rc, "kv_tiled_attn_bwd")

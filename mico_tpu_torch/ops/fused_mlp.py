@@ -8,7 +8,10 @@ or LayerNorm. The JAX package keeps it in a script and has no fused-MLP
 route in any model (its ViT MLP is linear + bias → GELU → linear + bias,
 `mico_tpu/models/eva_vit.py:379-395`), so neither does the port: the probe
 (`scripts/torch_mlp_probe.py`) and `chip_smoke.py` drive it. Source:
-`csrc/fused_mlp.cu`.
+`csrc/fused_mlp.cu`: two launches of the wgmma + TMA GEMM of
+`csrc/wgmma_gemm.cuh`, fc1 with a GELU epilogue into a bf16 hidden tensor
+h (the wrapper's scratch), fc2 with the residual epilogue. One call counts
+one launch.
 
 A CUDA tensor launches the kernel or raises; only a CPU tensor takes the
 plain twin.
@@ -24,10 +27,6 @@ import torch.nn.functional as F
 
 from mico_tpu_torch.ops import _build
 
-# shared memory one block may take on an H100 (232,448 bytes)
-_MAX_SMEM = 232448
-ROWS_PER_BLOCK = (16, 32)
-
 
 def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor,
                     w2: torch.Tensor) -> torch.Tensor:
@@ -40,16 +39,10 @@ def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor,
     return y + x
 
 
-def _smem_bytes(rows: int, k: int) -> int:
-    """The kernel's dynamic shared memory: the x tile, two 64 x 64 W1
-    slices, two 16 x K W2 slices and the h tile (row strides padded by 8)."""
-    return 2 * (rows * (k + 8) + 2 * 64 * 72 + 2 * 16 * (k + 8) + rows * 72)
-
-
-def _check(x, w1, w2, rows_per_block: int):
+def _check(x, w1, w2):
     """What P1 takes: contiguous bf16 x (M, K), w1 (K, N), w2 (N, K) on one
-    device, K a multiple of 64 up to 1536, N a positive multiple of 64,
-    `rows_per_block` 16 or 32. Returns (M, K, N)."""
+    device, K and N positive multiples of 8 (TMA's 16-byte row strides).
+    Returns (M, K, N)."""
     if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
         raise ValueError("P1: x, w1, w2 must be 2-D")
     m, k = x.shape
@@ -61,41 +54,35 @@ def _check(x, w1, w2, rows_per_block: int):
         raise ValueError(f"P1 takes bf16, got {x.dtype}/{w1.dtype}/{w2.dtype}")
     if not all(t.is_contiguous() and t.device == x.device for t in (x, w1, w2)):
         raise ValueError("P1 needs contiguous x, w1, w2 on one device")
-    if k % 64 or not 64 <= k <= 1536 or n % 64 or n == 0:
-        raise ValueError(f"P1: K={k} must be a multiple of 64 up to 1536 and "
-                         f"N={n} a multiple of 64")
-    if rows_per_block not in ROWS_PER_BLOCK:
-        raise ValueError(f"P1: rows_per_block {rows_per_block} not in "
-                         f"{ROWS_PER_BLOCK}")
-    if _smem_bytes(rows_per_block, k) > _MAX_SMEM:
-        raise ValueError(f"P1: K={k} at {rows_per_block} rows does not fit "
-                         "shared memory")
+    if k % 8 or k == 0 or n % 8 or n == 0:
+        raise ValueError(f"P1: K={k} and N={n} must be positive multiples "
+                         "of 8")
     return m, k, n
 
 
 @functools.lru_cache(maxsize=None)
 def _p1_entry():
     fn = _build.load("fused_mlp").mico_fused_mlp
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def fused_mlp(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-              rows_per_block: int = 32) -> torch.Tensor:
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor,
+              w2: torch.Tensor) -> torch.Tensor:
     """P1: x (M, K), w1 (K, N), w2 (N, K) → (M, K). On the card contiguous
-    bf16 with K a multiple of 64 up to 1536 and N a multiple of 64; M is
-    any. `rows_per_block` (16 or 32) is the row tile one block owns, the
-    counterpart of `pallas_mlp`'s `tile_m`. CPU tensors take the plain twin."""
+    bf16 with K and N multiples of 8; M is any. The hidden h (M, N) is a
+    bf16 scratch tensor of the call. CPU tensors take the plain twin."""
     if not x.is_cuda:
         return fused_mlp_plain(x, w1, w2)
-    m, k, n = _check(x, w1, w2, rows_per_block)
+    m, k, n = _check(x, w1, w2)
     out = torch.empty_like(x)
     if m == 0:
         return out
+    h = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = _p1_entry()(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                     out.data_ptr(), m, k, n, rows_per_block,
+                     h.data_ptr(), out.data_ptr(), m, k, n,
                      torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_mlp: CUDA error {rc}")

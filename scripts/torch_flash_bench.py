@@ -4,6 +4,7 @@ time of a call split into the device's time and the wrapper's host time,
 beside SDPA on the same inputs.
 
     python3 scripts/torch_flash_bench.py [--iters 100] [--sweep]
+    python3 scripts/torch_flash_bench.py --kernel K6b [--iters 100] [--sweep]
 
 The shapes are the ones the port's paths give the two kernels, bf16 of unit
 std from seed 0, q/k/v strided (B, H, L, D) views of (B, L, H, D) tensors
@@ -29,7 +30,15 @@ call (`F.scaled_dot_product_attention`, a yardstick the port never calls).
 `bound_ms` is the larger of the bytes over 3.35 TB/s and the operations
 over 989 TFLOP/s; `roofline_share` is bound_ms / device_ms. `--sweep` also
 times the device over query rows a block, split and key-warp counts at
-each shape (`flash_attention._flash_launch` with the counts given). Prints the
+each shape (`flash_attention._flash_launch` with the counts given).
+
+`--kernel K6b` times K6's backward instead, at the long-context step's
+cross-attention (q, g (2, 12, 128, 64) over 8,224 keys, BERT's layout, from
+K6's lse and δ), with no bias and with a (2, 1, 1, 8224) padding bias: the
+device ms a call in all and by kernel (the split-key pass and the dQ
+combine), event and host ms, beside SDPA's autograd backward alone, pinned
+to each backend (flash, cuDNN, memory-efficient; the fastest is K6b's
+yardstick); `--sweep` adds the device ms over split counts. Prints the
 card's name and power limit, a line per shape and one JSON line. Runs from
 any working directory, against the `mico_tpu_torch` of the tree it lies in
 (a copy of it in an older tree times that tree's kernels).
@@ -145,10 +154,107 @@ def cases(gen):
     ]
 
 
+def device_by_kernel(fn, iters: int) -> dict:
+    """{kernel name: device ms per call} from torch.profiler (as
+    `device_ms`: a kernel recorded in fewer than half the calls counts once
+    a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            per_call = max(round(evt.count / iters), 1)
+            out[evt.key[:90]] = dev_us / evt.count * per_call / 1e3
+    return out
+
+
+def sdpa_backward(q, k, v, go, scale: float) -> dict:
+    """SDPA's autograd backward alone on (q, k, v), one closure for each
+    backend that takes them (pinned with `sdpa_kernel`)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        try:
+            with sdpa_kernel([backend]):
+                o = F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
+                torch.autograd.grad(o, (qq, kk, vv), go, retain_graph=True)
+        except RuntimeError as e:
+            print(f"  SDPA backward, {name}: does not take the shape "
+                  f"({str(e).splitlines()[0][:80]})", flush=True)
+            continue
+        out[name] = (lambda o=o, qq=qq, kk=kk, vv=vv: torch.autograd.grad(
+            o, (qq, kk, vv), go, retain_graph=True))
+    return out
+
+
+def bench_k6b(fa, card: str, iters: int, sweep: bool) -> list:
+    """K6b at the long-context step's cross-attention beside SDPA's
+    backward per pinned backend."""
+    gen = torch.Generator().manual_seed(0)
+    b, h, lq, lk, d = 2, 12, 128, 8224, 64
+    q, k, v = heads_view(gen, b, h, lq, lk, d)
+    go = torch.randn(b, lq, h, d, generator=gen).to(
+        "cuda", torch.bfloat16).transpose(1, 2)
+    scale = d ** -0.5
+    pad = torch.ones(b, lk)
+    pad[1, 6000:] = 0
+    rows = []
+    for label, bias in (("no bias", None), ("(2, 1, 1, 8224) padding bias",
+                                            ((1.0 - pad) * -10000.0)[
+                                                :, None, None, :].cuda())):
+        o, lse = fa.kv_tiled_attention(q, k, v, bias, scale, return_lse=True)
+        delta = (go.float() * o.float()).sum(-1, keepdim=True).contiguous()
+
+        def k6b(**kw):
+            return fa.kv_tiled_attention_bwd(q, k, v, go, lse, delta, bias,
+                                             scale, **kw)
+
+        by = device_by_kernel(k6b, iters)
+        row = dict(name=f"K6b long-context cross-attention, {label}",
+                   shape=[b, h, lq, lk, d], card=card,
+                   device_ms=sum(by.values()), device_ms_by_kernel=by,
+                   ms=event_ms(k6b, iters), host_ms=host_ms(k6b, iters))
+        if bias is None:
+            row["sdpa_backward_device_ms"] = {
+                n: sum(device_by_kernel(fn, iters).values())
+                for n, fn in sdpa_backward(q, k, v, go, scale).items()}
+        if sweep and hasattr(fa, "k6b_plan"):
+            chunks = -(-lk // fa.KV_CHUNK)
+            row["device_ms_by_splits"] = {
+                n: sum(device_by_kernel(lambda n=n: k6b(splits=n),
+                                        iters).values())
+                for n in (1, 2, 3, 4, 5, 6, 8, 11, 16, 22)
+                if n <= chunks}
+        print(f"{row['name']}: device {row['device_ms']:.4f} ms a call "
+              f"({by}), event {row['ms']:.4f}, host {row['host_ms']:.4f}; "
+              f"SDPA backward {row.get('sdpa_backward_device_ms')}; "
+              f"splits {row.get('device_ms_by_splits')} [{card}]",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--kernel", choices=("K2K6", "K6b"), default="K2K6")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_flash_bench: needs a CUDA device", file=sys.stderr)
@@ -168,6 +274,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.kernel == "K6b":
+        rows = bench_k6b(fa, card, args.iters, args.sweep)
+        print(json.dumps({"card": card, "rows": rows}))
+        return 0
     gen = torch.Generator().manual_seed(0)
     rows = []
     for name, (b, h, lq, lk, d), bias, lse in cases(gen):

@@ -54,7 +54,10 @@ GROUPS = (
     ("K4 packed_attn_bwd", ("k4_rows_kernel", "k4_cols_kernel",
                             "k4_dq_cast_kernel")),
     ("K6 kv_tiled", ("true>(mico::flash::FlashArgs",)),
-    ("K6b kv_tiled_bwd", ("dq_kernel", "dkv_kernel")),
+    # K6b's split-key pass and dQ combine (`dq_kernel` and `dkv_kernel`:
+    # its earlier two-launch design, for timing an older tree)
+    ("K6b kv_tiled_bwd", ("k6b_kernel", "k6b::combine_kernel", "dq_kernel",
+                          "dkv_kernel")),
     ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2",
                        "gemv")),

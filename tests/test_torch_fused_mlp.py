@@ -113,33 +113,32 @@ def _bf16(*shape):
 
 
 @pytest.mark.parametrize("what,args,match", [
-    ("fp32", (torch.zeros(8, 64), _bf16(64, 128), _bf16(128, 64), 32),
+    ("fp32", (torch.zeros(8, 64), _bf16(64, 128), _bf16(128, 64)), "bf16"),
+    ("w1 fp32", (_bf16(8, 64), torch.zeros(64, 128), _bf16(128, 64)),
      "bf16"),
-    ("w2 shape", (_bf16(8, 64), _bf16(64, 128), _bf16(64, 128), 32),
+    ("w2 shape", (_bf16(8, 64), _bf16(64, 128), _bf16(64, 128)),
      "do not fit"),
-    ("K % 64", (_bf16(8, 96), _bf16(96, 128), _bf16(128, 96), 32), "K=96"),
-    ("K > 1536", (_bf16(8, 1600), _bf16(1600, 64), _bf16(64, 1600), 16),
-     "K=1600"),
-    ("N % 64", (_bf16(8, 64), _bf16(64, 100), _bf16(100, 64), 32), "N=100"),
-    ("rows", (_bf16(8, 64), _bf16(64, 128), _bf16(128, 64), 64),
-     "rows_per_block"),
-    ("strided", (_bf16(64, 8).T, _bf16(64, 128), _bf16(128, 64), 32),
+    ("K % 8", (_bf16(8, 100), _bf16(100, 128), _bf16(128, 100)), "K=100"),
+    ("N % 8", (_bf16(8, 64), _bf16(64, 100), _bf16(100, 64)), "N=100"),
+    ("1-D x", (_bf16(64), _bf16(64, 128), _bf16(128, 64)), "2-D"),
+    ("strided", (_bf16(64, 8).T, _bf16(64, 128), _bf16(128, 64)),
      "contiguous"),
 ])
 def test_p1_input_checks(what, args, match):
     """What the P1 wrapper refuses before a launch on the card (the checks
-    are device-independent, so they run here on CPU tensors)."""
+    are device-independent, so they run here on CPU tensors): K and N must
+    be multiples of 8, the 16-byte row strides of the GEMMs' tensor maps."""
     with pytest.raises(ValueError, match=match):
         tmlp._check(*args)
 
 
-def test_p1_input_checks_accept_the_probe_geometry():
-    """The probe's x (28784, 1408), W1 (1408, 6144), W2 (6144, 1408) pass
-    at both row tiles and fit one block's shared memory."""
-    for rows in tmlp.ROWS_PER_BLOCK:
-        assert tmlp._check(_bf16(28784, 1408), _bf16(1408, 6144),
-                           _bf16(6144, 1408), rows) == (28784, 1408, 6144)
-    assert tmlp._smem_bytes(32, 1408) == 204288 <= tmlp._MAX_SMEM
+@pytest.mark.parametrize("m,k,n", [(28784, 1408, 6144), (200, 128, 256),
+                                   (8, 1600, 64), (1, 8, 8)])
+def test_p1_input_checks_accept_the_probe_geometry(m, k, n):
+    """The probe's x (28784, 1408), W1 (1408, 6144), W2 (6144, 1408) pass,
+    as do the small check geometry, a K above 1536 (no shared-memory cap:
+    the GEMMs stream K) and the smallest multiples of 8."""
+    assert tmlp._check(_bf16(m, k), _bf16(k, n), _bf16(n, k)) == (m, k, n)
 
 
 def test_probe_chain_on_cpu(probe):
