@@ -128,10 +128,11 @@ Phases, run in order (any failure exits non-zero):
      split and of the K6b split that holds its first key (the gates above,
      the LSE within 1e-3), timed at the first beside the plain versions,
      SDPA (forward; its autograd backward alone, unpinned and pinned to each
-     backend: the fastest backend's device ms is K6b's library_ms) and the
-     bound, K6's device and host time per call, plan and roofline share
-     beside SDPA's as for K2, and K6b's device ms by launch (the split-key
-     pass, the dQ combine) and plan; then five full-width steps of
+     backend: the fastest backend's device ms is K6b's library_ms, null
+     where the profiler recorded none) and the bound, K6's device and host
+     time per call, plan and roofline share beside SDPA's as for K2, and
+     K6b's device ms by launch (the split-key pass, the dQ combine) and
+     plan; then five full-width steps of
      long-context captioning (`scripts/train_bench.py --long-context`:
      cap%tv, B = 2 samples of 32 frames, 8,224 condition tokens, a
      128-token caption; probability dropout 0, so attention stays on the
@@ -327,8 +328,8 @@ def finish_rows(rows: list, errs: dict) -> list:
         row["mean_abs_err"] = max(e["mean_abs_err"] for e in errs[key])
         row["kernel_ms"] = row["ms"]
         log(f"  {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-            f"library {row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
-            f"by {row['bound_by']})")
+            f"library {ms_text(row['library_ms'])}, bound "
+            f"{row['bound_ms']:.4f} by {row['bound_by']})")
     return rows
 
 
@@ -2107,10 +2108,10 @@ def phase_long_kernels(fa) -> list:
         splits=bsplit, chunks_per_split=bper,
         plain_ms=cuda_time_ms(lambda: fa.kv_tiled_attention_bwd_plain(
             q, k, v, g, lse, delta, None, scale), iters=5, warmup=1),
-        # the fastest pinned backend's device ms (the unpinned call's event
-        # ms where the profiler recorded none)
-        library_ms=(min(measured.values()) if measured
-                    else cuda_time_ms(sdpa_bwd)),
+        # the fastest pinned backend's device ms; null where the profiler
+        # recorded none (the unpinned call's event ms is another kind of
+        # number, kept apart)
+        library_ms=min(measured.values()) if measured else None,
         library_device_ms_by_backend=lib,
         library_unpinned_ms=cuda_time_ms(sdpa_bwd),
         roofline_share=None if dev is None else bms / dev,

@@ -101,12 +101,15 @@ constexpr int NB = NT == 1 ? 3 : 2;
 // shared memory of a launch: Q and G of a group (two tiles each), the K/V
 // ring, the P^T and dS^T buffers, each warpgroup's dV or dK tile for the
 // TMA stores, lse and delta, the mbarriers, and the swizzle atoms'
-// alignment (ops/flash_attention.py `_k6b_smem_bytes` mirrors it)
+// alignment
 template <int NT>
 constexpr int smem_bytes() {
   return 4 * NT * CHUNK + STAGES<NT> * 2 * NT * CHUNK + NB<NT> * PDS +
          2 * NT * CHUNK + 2 * GROUP * 4 + (2 * STAGES<NT> + 2) * 8 + 1024;
 }
+static_assert(smem_bytes<1>() <= hop::MAX_SMEM &&
+                  smem_bytes<2>() <= hop::MAX_SMEM,
+              "K6b's shared memory outgrows the SM");
 
 struct Args {
   const float* lse;     // (B, H, Lq)

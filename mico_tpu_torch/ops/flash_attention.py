@@ -510,22 +510,29 @@ def row_warps(lq: int) -> int:
     return -(-min(lq, 128) // 16)
 
 
-def kv_split_plan(lq: int, lk: int, heads: int, sms: int = 132,
-                  splits: Optional[int] = None, rw: Optional[int] = None):
-    """(splits, chunks a split) of K2's and K6's keys for `heads` = B·H.
-    Split s takes the 64-key chunks [s·per, (s+1)·per) ∩ [0, ⌈Lk/64⌉): the
-    splits are contiguous, each starts on a chunk and none is empty; only
-    the last may end inside a chunk (a ragged Lk). Unless `splits` asks for
-    a count, it is the fewest that give about two blocks per SM, with
-    SPLIT_CHUNKS chunks a split at least: a launch and a combine cost more
-    than a warp's chain of one or two chunks (PERF.md §6), so up to two
-    chunks of keys take one split."""
+def chunk_splits(lk: int, splits: int):
+    """(splits, chunks a split) of Lk keys laid out as at most `splits`
+    runs of 64-key chunks: split s takes the chunks [s·per, (s+1)·per) ∩
+    [0, ⌈Lk/64⌉). The splits are contiguous, each starts on a chunk and
+    none is empty; only the last may end inside a chunk (a ragged Lk)."""
     chunks = -(-lk // KV_CHUNK)
-    if splits is None:
-        blocks = heads * -(-lq // (16 * (rw or row_warps(lq))))
-        splits = min(-(-2 * sms // blocks), -(-chunks // SPLIT_CHUNKS))
     per = -(-chunks // max(1, min(splits, chunks)))
     return -(-chunks // per), per
+
+
+def kv_split_plan(lq: int, lk: int, heads: int, sms: int = 132,
+                  splits: Optional[int] = None, rw: Optional[int] = None):
+    """(splits, chunks a split) of K2's and K6's keys for `heads` = B·H, as
+    `chunk_splits` lays them out. Unless `splits` asks for a count, it is
+    the fewest that give about two blocks per SM, with SPLIT_CHUNKS chunks
+    a split at least: a launch and a combine cost more than a warp's chain
+    of one or two chunks (PERF.md §6), so up to two chunks of keys take one
+    split."""
+    if splits is None:
+        chunks = -(-lk // KV_CHUNK)
+        blocks = heads * -(-lq // (16 * (rw or row_warps(lq))))
+        splits = min(-(-2 * sms // blocks), -(-chunks // SPLIT_CHUNKS))
+    return chunk_splits(lk, splits)
 
 
 def flash_plan(lq: int, lk: int, heads: int, d: int, bias_rows: int = 0,
@@ -844,37 +851,14 @@ def kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta,
 K6B_GROUP = 128
 
 
-def k6b_plan(lk: int, heads: int, sms: int = 132,
-             splits: Optional[int] = None):
-    """(splits, chunks a split) of K6b's keys for `heads` = B·H. A block
-    takes an SM (384 threads, 232 registers for each consumer thread), so
-    the plan asks for the fewest splits that fill the card in one wave:
-    ⌊sms / heads⌋, with SPLIT_CHUNKS 64-key chunks a split at least. Split
-    s takes chunks [s·per, (s+1)·per) ∩ [0, ⌈Lk/64⌉): contiguous, none
-    empty, only the last may end inside a chunk (a ragged Lk). `splits`
-    asks for a count."""
-    chunks = -(-lk // KV_CHUNK)
-    if splits is None:
-        splits = min(sms // heads, chunks // SPLIT_CHUNKS)
-    per = -(-chunks // max(1, min(splits, chunks)))
-    return -(-chunks // per), per
-
-
-def _k6b_smem_bytes(d: int) -> int:
-    """K6b's dynamic shared memory (csrc/kv_tiled_attn_bwd.cu
-    `smem_bytes`): Q and G of a 128-query group, the K/V ring (4 stages
-    up to D 64, 2 above), the P^T and dS^T buffers (3 up to D 64, 2
-    above), each consumer warpgroup's dV or dK tile, lse and delta, the
-    mbarriers and 1 KB of alignment."""
-    nt = -(-d // 64)
-    chunk = 64 * 128
-    stages, buffers = (4, 3) if nt == 1 else (2, 2)
-    return (4 * nt * chunk + stages * 2 * nt * chunk + buffers * 4 * chunk
-            + 2 * nt * chunk + 2 * K6B_GROUP * 4 + (2 * stages + 2) * 8
-            + 1024)
-
-
-assert _k6b_smem_bytes(128) <= _MAX_SMEM
+def k6b_plan(lk: int, heads: int, sms: int = 132):
+    """(splits, chunks a split) of K6b's keys for `heads` = B·H, as
+    `chunk_splits` lays them out. A block takes an SM (384 threads, 232
+    registers for each consumer thread), so the plan asks for the fewest
+    splits that fill the card in one wave: ⌊sms / heads⌋, with
+    SPLIT_CHUNKS 64-key chunks a split at least."""
+    return chunk_splits(lk, min(sms // heads,
+                                -(-lk // KV_CHUNK) // SPLIT_CHUNKS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -914,22 +898,30 @@ def _check_row_stats(q, *stats) -> None:
 
 
 def kv_tiled_attention_bwd(q, k, v, g, lse, delta,
-                           bias: Optional[torch.Tensor], scale: float,
-                           splits: Optional[int] = None):
+                           bias: Optional[torch.Tensor], scale: float):
     """K6b: the gradient (dq, dk, dv) of K6 for the output gradient g, from
     K6's lse and δ = Σ(g·out) (each (B, H, Lq, 1) fp32), the bias replayed
     into the scores and given no gradient. On the card q, k, v and g as K6
     takes q, k, v; one call launches the split-key pass and the dQ combine
-    (`k6b_plan` lays the splits out; `splits` overrides its count) and
-    counts once. CPU tensors take the plain twin."""
+    as `k6b_plan` lays the splits out, and counts once. CPU tensors take
+    the plain twin."""
     if not q.is_cuda:
         return kv_tiled_attention_bwd_plain(q, k, v, g, lse, delta, bias,
                                             scale)
+    nsplit, per = k6b_plan(k.shape[2], q.shape[0] * q.shape[1],
+                           _sm_count(q.device.index))
+    return _k6b_launch(q, k, v, g, lse, delta, bias, scale, nsplit, per)
+
+
+def _k6b_launch(q, k, v, g, lse, delta, bias, scale: float, nsplit: int,
+                per: int):
+    """Launch K6b on CUDA tensors in `nsplit` splits of `per` chunks
+    (`k6b_plan`'s, or the benchmark's sweep) and count one launch of the
+    public wrapper's: the split-key pass and the dQ combine."""
     _check_heads("K6b", q, k, v, g)
     _check_row_stats(q, lse, delta)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    nsplit, per = k6b_plan(lk, b * h, _sm_count(q.device.index), splits)
     dq, dk, dv = _heads_out(q, lq), _heads_out(k, lk), _heads_out(v, lk)
     bias, bstrides = _bias_strides(bias, q, lk)
     strides = [s for t in (q, k, v, g, dq, dk, dv)

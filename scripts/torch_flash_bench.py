@@ -91,34 +91,17 @@ def host_ms(fn, iters: int) -> float:
 
 def device_ms(fn, iters: int):
     """(device ms per call, device kernels per call, kernel names) from
-    torch.profiler: for each kernel the calls ran, its mean recorded
-    duration times its launches per call. The profiler now and then loses
-    kernel records, so a sum divided by the calls would read low. The calls
-    are identical, so a kernel recorded in fewer than half of them (cuDNN's
-    memset once: 3 of 50) counts once a call."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler, by `torch_qkv_bench.device_kernels`: for each kernel the
+    calls ran, its mean recorded duration times its launches per call. The
+    profiler now and then loses kernel records, so a sum divided by the
+    calls would read low. The calls are identical, so a kernel recorded in
+    fewer than half of them (cuDNN's memset once: 3 of 50) counts once a
+    call."""
+    from torch_qkv_bench import device_kernels
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us, launches, names = 0.0, 0, set()
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            per_call = max(round(evt.count / iters), 1)
-            total_us += dev_us / evt.count * per_call
-            launches += per_call
-            names.add(evt.key[:90])
-    if not launches:
-        raise RuntimeError("torch.profiler recorded no device kernel")
-    return total_us / 1e3, launches, sorted(names)
+    by = device_kernels(fn, iters)
+    return (sum(ms for ms, _ in by.values()), sum(n for _, n in by.values()),
+            sorted(name[:90] for name in by))
 
 
 def timing(fn, iters: int) -> dict:
@@ -154,58 +137,12 @@ def cases(gen):
     ]
 
 
-def device_by_kernel(fn, iters: int) -> dict:
-    """{kernel name: device ms per call} from torch.profiler (as
-    `device_ms`: a kernel recorded in fewer than half the calls counts once
-    a call)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            per_call = max(round(evt.count / iters), 1)
-            out[evt.key[:90]] = dev_us / evt.count * per_call / 1e3
-    return out
-
-
-def sdpa_backward(q, k, v, go, scale: float) -> dict:
-    """SDPA's autograd backward alone on (q, k, v), one closure for each
-    backend that takes them (pinned with `sdpa_kernel`)."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    out = {}
-    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
-                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
-                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
-        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
-        try:
-            with sdpa_kernel([backend]):
-                o = F.scaled_dot_product_attention(qq, kk, vv, scale=scale)
-                torch.autograd.grad(o, (qq, kk, vv), go, retain_graph=True)
-        except RuntimeError as e:
-            print(f"  SDPA backward, {name}: does not take the shape "
-                  f"({str(e).splitlines()[0][:80]})", flush=True)
-            continue
-        out[name] = (lambda o=o, qq=qq, kk=kk, vv=vv: torch.autograd.grad(
-            o, (qq, kk, vv), go, retain_graph=True))
-    return out
-
-
 def bench_k6b(fa, card: str, iters: int, sweep: bool) -> list:
     """K6b at the long-context step's cross-attention beside SDPA's
-    backward per pinned backend."""
+    backward per pinned backend (`chip_smoke.sdpa_bwd_pinned`)."""
+    from chip_smoke import sdpa_bwd_pinned
+    from torch_qkv_bench import device_kernels
+
     gen = torch.Generator().manual_seed(0)
     b, h, lq, lk, d = 2, 12, 128, 8224, 64
     q, k, v = heads_view(gen, b, h, lq, lk, d)
@@ -221,26 +158,27 @@ def bench_k6b(fa, card: str, iters: int, sweep: bool) -> list:
         o, lse = fa.kv_tiled_attention(q, k, v, bias, scale, return_lse=True)
         delta = (go.float() * o.float()).sum(-1, keepdim=True).contiguous()
 
-        def k6b(**kw):
+        def k6b():
             return fa.kv_tiled_attention_bwd(q, k, v, go, lse, delta, bias,
-                                             scale, **kw)
+                                             scale)
 
-        by = device_by_kernel(k6b, iters)
+        by = {n: ms for n, (ms, _) in device_kernels(k6b, iters).items()}
         row = dict(name=f"K6b long-context cross-attention, {label}",
                    shape=[b, h, lq, lk, d], card=card,
                    device_ms=sum(by.values()), device_ms_by_kernel=by,
                    ms=event_ms(k6b, iters), host_ms=host_ms(k6b, iters))
         if bias is None:
             row["sdpa_backward_device_ms"] = {
-                n: sum(device_by_kernel(fn, iters).values())
-                for n, fn in sdpa_backward(q, k, v, go, scale).items()}
-        if sweep and hasattr(fa, "k6b_plan"):
-            chunks = -(-lk // fa.KV_CHUNK)
-            row["device_ms_by_splits"] = {
-                n: sum(device_by_kernel(lambda n=n: k6b(splits=n),
-                                        iters).values())
-                for n in (1, 2, 3, 4, 5, 6, 8, 11, 16, 22)
-                if n <= chunks}
+                n: device_ms(fn, iters)[0]
+                for n, fn in sdpa_bwd_pinned(lambda: (q, k, v), go,
+                                             scale).items()}
+        if sweep and hasattr(fa, "_k6b_launch"):
+            row["device_ms_by_splits"] = {}
+            for n in (1, 2, 3, 4, 5, 6, 8, 11, 16, 22):
+                plan = fa.chunk_splits(lk, n)
+                row["device_ms_by_splits"].setdefault(plan[0], device_ms(
+                    lambda: fa._k6b_launch(q, k, v, go, lse, delta, bias,
+                                           scale, *plan), iters)[0])
         print(f"{row['name']}: device {row['device_ms']:.4f} ms a call "
               f"({by}), event {row['ms']:.4f}, host {row['host_ms']:.4f}; "
               f"SDPA backward {row.get('sdpa_backward_device_ms')}; "

@@ -86,7 +86,8 @@ sys.path.insert(0, sys.argv[1])
 import torch
 from mico_tpu_torch.ops import flash_attention as fa   # the variant's
 sys.path.insert(1, sys.argv[2])
-from torch_flash_bench import device_by_kernel, heads_view
+from torch_flash_bench import heads_view
+from torch_qkv_bench import device_kernels
 
 gen = torch.Generator().manual_seed(0)
 b, h, lq, lk, d = 2, 12, 128, 8224, 64
@@ -98,11 +99,12 @@ o, lse = fa.kv_tiled_attention_plain(q, k, v, None, scale, return_lse=True)
 delta = (g.float() * o.float()).sum(-1, keepdim=True).contiguous()
 iters = int(sys.argv[4])
 for splits in ([None, 3, 4, 6, 8, 11] if sys.argv[3] == "base" else [None]):
-    by = device_by_kernel(lambda: fa.kv_tiled_attention_bwd(
-        q, k, v, g, lse, delta, None, scale, splits=splits), iters)
-    pas = sum(ms for n, ms in by.items() if "k6b_kernel" in n)
-    comb = sum(ms for n, ms in by.items() if "combine" in n)
-    plan = fa.k6b_plan(lk, b * h, fa._sm_count(0), splits)
+    plan = (fa.k6b_plan(lk, b * h, fa._sm_count(0)) if splits is None
+            else fa.chunk_splits(lk, splits))
+    by = device_kernels(lambda: fa._k6b_launch(
+        q, k, v, g, lse, delta, None, scale, *plan), iters)
+    pas = sum(ms for n, (ms, _) in by.items() if "k6b_kernel" in n)
+    comb = sum(ms for n, (ms, _) in by.items() if "combine" in n)
     print(f"{sys.argv[3]}: splits {plan[0]} x {plan[1]} chunks: pass "
           f"{pas:.4f} ms, combine {comb:.4f} ms a call", flush=True)
 '''

@@ -90,33 +90,6 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(fn, iters: int) -> dict:
-    """{kernel name: device ms per call} from torch.profiler: each kernel's
-    mean recorded duration times its launches per call (a kernel recorded
-    in fewer than half the identical calls counts once a call: the
-    profiler now and then loses records)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            per_call = max(round(evt.count / iters), 1)
-            out[evt.key[:100]] = dev_us / evt.count * per_call / 1e3
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device kernel")
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=10)
@@ -124,6 +97,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_mlp_probe: needs a CUDA device", file=sys.stderr)
         return 2
+    from torch_qkv_bench import device_kernels
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -136,7 +111,8 @@ def main() -> int:
             ("p1", lambda: fused_mlp(x, w1s[0], w2s[0]), mlp_chain),
             ("library", lambda: library_mlp(x, w1s[0], w2s[0]),
              library_chain)):
-        kern = device_kernels(one, args.iters)
+        kern = {n: ms
+                for n, (ms, _) in device_kernels(one, args.iters).items()}
         dev = sum(kern.values())
         ms = event_ms(lambda: chain(x, w1s, w2s), max(1, args.iters // 4))
         result[name] = {"device_ms": dev, "device_ms_by_kernel": kern,
@@ -146,7 +122,7 @@ def main() -> int:
               f"{ms:.3f} ms ({DEPTH * flops / ms / 1e9:.1f} TF/s) [{card}]",
               flush=True)
         for k, v in sorted(kern.items(), key=lambda kv: -kv[1]):
-            print(f"    {v:.4f} ms  {k}", flush=True)
+            print(f"    {v:.4f} ms  {k[:100]}", flush=True)
     print(f"bound {result['bound_ms']:.4f} ms (operations)", flush=True)
     print(json.dumps(result))
     return 0

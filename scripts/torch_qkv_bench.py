@@ -230,38 +230,11 @@ def bench_k9(fa, card: str, it: int) -> dict:
     return {"kernel": "K9", "K9": rows}
 
 
-def sdpa_backward(qkv, g, nh: int, scale: float) -> dict:
-    """{backend: closure running SDPA's autograd backward alone} on the
-    split (B, H, L, D) views of the fused qkv, for each backend that takes
-    them."""
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    b, l, w3 = qkv.shape
-    w = w3 // 3
-    go = g.view(b, l, nh, w // nh).transpose(1, 2)
-    out = {}
-    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
-                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
-                          ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
-        q, k, v = (x.detach().view(b, l, nh, w // nh).transpose(1, 2)
-                   .requires_grad_(True) for x in qkv.split(w, dim=-1))
-        try:
-            with sdpa_kernel([backend]):
-                o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-                torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
-        except RuntimeError as e:
-            print(f"  SDPA backward, {name}: does not take the shape "
-                  f"({str(e).splitlines()[0][:80]})", flush=True)
-            continue
-        out[name] = (lambda o=o, q=q, k=k, v=v:
-                     torch.autograd.grad(o, (q, k, v), go, retain_graph=True))
-    return out
-
-
 def bench_k4(fa, card: str, it: int) -> dict:
     """K4 at the train pass and the long-context pass, by launch, beside
-    SDPA's backward per backend."""
+    SDPA's backward per pinned backend (`chip_smoke.sdpa_bwd_backends`)."""
+    from chip_smoke import sdpa_bwd_backends
+
     gen = torch.Generator().manual_seed(3)
     rows = {}
     for b, l, nh, d in ((32, 257, 16, 88), (64, 257, 16, 88)):
@@ -278,7 +251,7 @@ def bench_k4(fa, card: str, it: int) -> dict:
 
         kern = device_kernels(k4, it)
         lib = {n: device_ms(fn, it) for n, fn in
-               sdpa_backward(qkv, g, nh, scale).items()}
+               sdpa_bwd_backends(qkv, g, nh, scale).items()}
         bms = bound(10.0 * b * nh * l * l * d,
                     2.0 * (2 * qkv.numel() + g.numel()))
         row = dict(ms=event_ms(k4, it),

@@ -1,7 +1,7 @@
-"""K6b's launch plan (`mico_tpu_torch/ops/flash_attention.py` `k6b_plan`,
-`_k6b_smem_bytes`) and the split algorithm of `csrc/kv_tiled_attn_bwd.cu`,
-emulated in torch here, against the JAX package's `_flash_kv_tiled_bwd` in
-interpret mode.
+"""K6b's launch plan (`mico_tpu_torch/ops/flash_attention.py` `k6b_plan`
+and the `chunk_splits` layout it takes) and the split algorithm of
+`csrc/kv_tiled_attn_bwd.cu`, emulated in torch here, against the JAX
+package's `_flash_kv_tiled_bwd` in interpret mode.
 
 The emulation walks what the kernel's blocks do: the keys split into
 contiguous runs of whole 64-key chunks (only the last ends at Lk); a block
@@ -53,14 +53,9 @@ PLAN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("lk,heads", PLAN_CASES)
-@pytest.mark.parametrize("splits", [None, 1, 2, 3, 1000])
-def test_k6b_plan_covers_every_key_once(lk, heads, splits):
+def assert_covers_every_key_once(lk, nsplit, per):
     """No split is empty, the splits are contiguous, start on a chunk and
-    cover [0, Lk) exactly once; only the last may end inside a chunk. The
-    plan's own count fills the card in one wave where the heads allow (a
-    block takes an SM) with two chunks a split at least."""
-    nsplit, per = tfa.k6b_plan(lk, heads, splits=splits)
+    cover [0, Lk) exactly once; only the last may end inside a chunk."""
     chunks = -(-lk // CHUNK)
     assert 1 <= nsplit <= chunks and per >= 1
     assert (nsplit - 1) * per < chunks <= nsplit * per
@@ -73,11 +68,28 @@ def test_k6b_plan_covers_every_key_once(lk, heads, splits):
         covered[start:end] += 1
         prev_end = end
     assert prev_end == lk and (covered == 1).all()
-    if splits is None:
-        assert nsplit * heads <= max(132, heads)
-        assert per >= min(tfa.SPLIT_CHUNKS, chunks)
-    else:
-        assert nsplit <= min(splits, chunks)
+
+
+@pytest.mark.parametrize("lk,heads", PLAN_CASES)
+@pytest.mark.parametrize("sms", [132, 1, 16, 78, 100000])
+def test_k6b_plan_covers_every_key_once(lk, heads, sms):
+    """On a card of `sms` SMs the plan covers every key once and fills the
+    card in one wave where the heads allow (a block takes an SM), with two
+    chunks a split at least."""
+    nsplit, per = tfa.k6b_plan(lk, heads, sms)
+    assert_covers_every_key_once(lk, nsplit, per)
+    assert nsplit * heads <= max(sms, heads)
+    assert per >= min(tfa.SPLIT_CHUNKS, -(-lk // CHUNK))
+
+
+@pytest.mark.parametrize("lk", [1, 65, 300, 8224, 9000])
+@pytest.mark.parametrize("splits", [1, 2, 3, 11, 1000])
+def test_chunk_splits_covers_every_key_once(lk, splits):
+    """The layout the split emulation below and the benchmark's sweep ask
+    for by count: every key once, and no more splits than asked."""
+    nsplit, per = tfa.chunk_splits(lk, splits)
+    assert_covers_every_key_once(lk, nsplit, per)
+    assert nsplit <= min(splits, -(-lk // CHUNK))
 
 
 def test_k6b_plan_at_the_long_context_step():
@@ -85,17 +97,6 @@ def test_k6b_plan_at_the_long_context_step():
     (the last 25, its last chunk 32 keys), 120 blocks on 132 SMs."""
     assert tfa.k6b_plan(8224, 24) == (5, 26)
     assert ranges(8224, 5, 26)[-1] == (4 * 26 * 64, 8224)
-
-
-@pytest.mark.parametrize("d", [8, 64, 72, 88, 128])
-def test_k6b_shared_memory_fits(d):
-    """The formula mirrors the kernel's `smem_bytes`: Q and G of a group,
-    the K/V ring (4 stages up to D 64, 2 above), P^T and dS^T in 3 buffers
-    (2 above D 64), the dV and dK tiles, lse and delta, the barriers, 1 KB
-    of alignment; every D fits 227 KB."""
-    nt = -(-d // 64)
-    want = {1: 215120, 2: 231472}[nt]
-    assert tfa._k6b_smem_bytes(d) == want <= tfa._MAX_SMEM
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +110,7 @@ def split_bwd(q, k, v, g, lse, delta, bias, scale, splits):
     lk = k.shape[2]
     kf, vf = k.float(), v.float()
     qf, gf = q.float(), g.float()
-    nsplit, per = tfa.k6b_plan(lk, 1, splits=splits)
+    nsplit, per = tfa.chunk_splits(lk, splits)
     dk = torch.zeros(kf.shape)
     dv = torch.zeros(vf.shape)
     partials = []
