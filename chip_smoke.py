@@ -23,7 +23,15 @@ Phases, run in order (any failure exits non-zero):
      (2, 12, 128, 128) self-attention with its bias), and at ITM and the
      decode its device time per call (torch.profiler), its host time per
      call, its plan (splits, key warps) and roofline share beside SDPA's
-     device and host time; then K5
+     device and host time; K7 at the four decode shapes (beam vision (64,
+     6, 2056), greedy vision (64, 2, 2056), audio beam (128, 6, 514), one
+     video caption (1, 6, 1028)), at Lq 1, 9 and 16 (the n16 tile), B 8
+     (96 items, fewer than the SMs), B 3 over 257 keys, and on its large
+     plan (Lk 9108 at Lq 6; 6 heads), each labelled with its `k7_plan`,
+     under the absolute gates and mean |d| <= 1e-2 * mean |ref|, and at the
+     beam shape its device and host time per call, plan and roofline share
+     beside the library route's device time by stage (dequantise K, V,
+     SDPA); then K5
      and K8 (the post-norm block's projection-fused attention, and with the
      output projection) at the bigE ViT pass x (112, 257, 1792) 16 x 112,
      at (8, 257, 1408) 16 x 88, at (3, 50, 256) 4 x 64 and at (2, 600,
@@ -459,6 +467,26 @@ def k7_library(q, k8, ks, v8, vs, heads):
     return o.transpose(1, 2).reshape(b, lq, h)
 
 
+def k7_library_stages(q, k8, ks, v8, vs, heads) -> dict:
+    """Device ms of K7's library route, stage by stage: K and V dequantised
+    to bf16, then SDPA on them."""
+    import torch.nn.functional as F
+
+    b, lq, h = q.shape
+    lk, d = k8.shape[1], h // heads
+
+    def dq(x8, s):
+        x = x8.view(b, lk, heads, d) * s[..., None]
+        return x.to(torch.bfloat16).transpose(1, 2)
+
+    kd, vd = dq(k8, ks), dq(v8, vs)
+    qh = q.view(b, lq, heads, d).transpose(1, 2)
+    return {"dequant_k": device_time_ms(lambda: dq(k8, ks)),
+            "dequant_v": device_time_ms(lambda: dq(v8, vs)),
+            "sdpa": device_time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kd, vd, scale=d ** -0.5))}
+
+
 def phase_kernels(fa) -> list:
     from mico_tpu_torch.ops import int8_attention as i8
 
@@ -553,19 +581,38 @@ def phase_kernels(fa) -> list:
 
     log("phase kernels: K7 int8_cross_attention vs int8_cross_attention_plain")
     # beam vision (64 x 3 beams over 8 frames), greedy vision, audio beam
-    # (128 x 2 slices), one caption of a 4-frame video; the first is timed
-    for b, lq, lk, what in ((64, 6, 2056, "beam vision"),
-                            (64, 2, 2056, "greedy vision"),
-                            (128, 6, 514, "audio beam"),
-                            (1, 6, 1028, "one 4-frame video caption")):
-        args = k7_inputs(gen, b, lq, lk)
+    # (128 x 2 slices), one caption of a 4-frame video (the first is timed);
+    # one query row, the n16 tile (Lq 9 and 16), fewer items than SMs, a
+    # ragged Lk of one frame; the large plan by Lk and by head count
+    sms = fa._sm_count(0)
+    routes = set()
+    for b, lq, lk, heads, what in (
+            (64, 6, 2056, 12, "beam vision"),
+            (64, 2, 2056, 12, "greedy vision"),
+            (128, 6, 514, 12, "audio beam"),
+            (1, 6, 1028, 12, "one 4-frame video caption"),
+            (64, 1, 2056, 12, "one query row"),
+            (64, 9, 2056, 12, "Lq 9"),
+            (64, 16, 2056, 12, "Lq 16"),
+            (8, 6, 2056, 12, "B 8, 96 items"),
+            (3, 6, 257, 12, "B 3 over one frame"),
+            (4, 6, 9108, 12, "Lk 9108"),
+            (2, 6, 1028, 6, "6 heads")):
+        args = k7_inputs(gen, b, lq, lk, heads, 64 * heads)
+        plan = i8.k7_plan(b, heads, lq, lk, sms)
+        routes.add(plan.route)
         got = i8.int8_cross_attention(*args)
         want = i8.int8_cross_attention_plain(*args, 0.125)
-        errs["K7"].append(compare(f"K7 {what}: q ({b}, {lq}, 768), "
-                                  f"K/V ({b}, {lk}, 768) int8", got, want))
+        errs["K7"].append(compare(
+            f"K7 {what}: q ({b}, {lq}, {64 * heads}), K/V ({b}, {lk}, "
+            f"{64 * heads}) int8, {plan.route} plan ({plan.ctas} CTAs, "
+            f"n{plan.n_tile}, {plan.stages} stages)", got, want,
+            rel_mean=REL_MEAN_ERR_MAX))
         if b == 64 and lq == 6:
             k7_args = args
-        del got, want
+        del got, want, args
+    if routes != {"fast", "large"}:
+        raise AssertionError(f"K7's cases launched only the {routes} plan")
 
     log("phase kernels: times at the main path's shapes")
     rows = []
@@ -646,18 +693,27 @@ def phase_kernels(fa) -> list:
     nbytes = (k8.numel() + v8.numel() + 4 * (ks.numel() + vs.numel())
               + 2 * 2 * q.numel())
     bms, by = bound_ms(flops, nbytes)
+
+    def k7():
+        return i8.int8_cross_attention(*k7_args)
+
+    dev = device_time_ms(k7)
     rows.append(dict(
         name="K7 int8_cross_attention", route="cuda",
         source="mico_tpu_torch/csrc/int8_cross_attn.cu",
         replaces="mico_tpu/ops/int8_attention.py:86",
         shape=f"q ({b}, {lq}, {h}) bf16, K/V ({b}, {lk}, {h}) int8, "
               f"scales ({b}, {lk}, {heads}) fp32",
-        ms=cuda_time_ms(lambda: i8.int8_cross_attention(*k7_args)),
+        ms=cuda_time_ms(k7),
         plain_ms=cuda_time_ms(
             lambda: i8.int8_cross_attention_plain(*k7_args, 0.125),
             iters=5, warmup=1),
         library_ms=cuda_time_ms(lambda: k7_library(*k7_args)),
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
+        device_ms=dev, host_ms=host_time_ms(k7),
+        plan=i8.k7_plan(b, heads, lq, lk, sms)._asdict(),
+        roofline_share=None if dev is None else bms / dev,
+        library_stages_device_ms=k7_library_stages(*k7_args),
     ))
     finish_rows(rows, errs)
     log(f"  {rows[0]['name']} affine=False: {rows[0]['ms_affine_off']:.4f} ms")
@@ -667,6 +723,13 @@ def phase_kernels(fa) -> list:
         f"{row['decode_library_ms']:.4f}, bound {row['decode_bound_ms']:.4f})")
     for pre, what in (("", "ITM"), ("decode_", "recompute decode")):
         log_split_timing(f"{row['name']} at {what}", row, pre)
+    row = rows[2]
+    log(f"  {row['name']} at the beam decode step: device "
+        f"{ms_text(row['device_ms'])} ms, host {row['host_ms']:.4f} ms a "
+        f"call, plan {row['plan']}, roofline share "
+        f"{ms_text(row['roofline_share'], 3)}; library route device "
+        + ", ".join(f"{k} {ms_text(v)}"
+                    for k, v in row['library_stages_device_ms'].items()))
     return rows
 
 

@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's wgmma kernels (K1, K3, K4, K5, K6b,
-// K8, K9, P1): raw PTX for the Tensor Memory Accelerator (TMA), mbarriers,
-// warpgroup matrix multiplies (wgmma) and register reallocation
-// (setmaxnreg), and the host side's tensor maps. Needs sm_90a.
+// K8, K9, P1) and of K7's TMA ring: raw PTX for the Tensor Memory
+// Accelerator (TMA), mbarriers, warpgroup matrix multiplies (wgmma) and
+// register reallocation (setmaxnreg), and the host side's tensor maps.
+// Needs sm_90a.
 //
 // Shared-memory operands of wgmma use the 128-byte swizzle that TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 bytes (64 bf16), in atoms of 8
@@ -48,23 +49,31 @@ static inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions (innermost first; strides in bytes
-// of dimensions 1..rank-1), boxes `box`, 128-byte swizzle, zeros past the
-// tensor's bounds. cudaErrorSymbolNotFound when the driver has no entry
-// point, cudaErrorInvalidValue when it refuses the map.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+// A tensor map of elements of `type`, `rank` dimensions (innermost first;
+// strides in bytes of dimensions 1..rank-1), boxes `box`, the given swizzle,
+// zeros past the tensor's bounds. cudaErrorSymbolNotFound when the driver
+// has no entry point, cudaErrorInvalidValue when it refuses the map.
+inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
+                            CUtensorMapSwizzle swizzle, const void* base,
+                            int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
+}
+
+// the bf16 map under the 128-byte swizzle that the wgmma operands read
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  CU_TENSOR_MAP_SWIZZLE_128B, base, rank, dims, strides, box);
 }
 
 // The 227 KB dynamic shared memory opt-in of `kernel`, once per kernel and
@@ -144,6 +153,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(saddr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(saddr(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 

@@ -50,7 +50,7 @@ PRESETS = {
 NEW_TOKENS = 40
 
 GROUPS = (
-    ("K7 int8_cross_attn", ("int8_cross_kernel",)),
+    ("K7 int8_cross_attn", ("int8_cross",)),
     ("K2 flash", ("flash_kernel", "combine_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "cutlass", "sm90_xmma", "nvjet", "Kernel2",
                        "gemv")),
