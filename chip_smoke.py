@@ -13,14 +13,18 @@ Phases, run in order (any failure exits non-zero):
      (8, 257, 1408), a ragged (2, 300, 80) with two heads of 40, odd
      counts of 64-column k-steps (2, 40, 48) with two heads of 24 and (4,
      257, 960) with 15 heads of 64, rows of three key blocks (2, 600, 1408)
-     and the bench ViT pass (112, 257, 1408), each with the LN affine on
+     and the bench ViT pass (112, 257, 1408), and the demo's ViT passes (1,
+     2 and 4 x 257 x 1408: a ragged third M-tile of the GEMM, 16 to 64
+     attention blocks), each with the LN affine on
      and off (also mean |d| <= 1e-2 * mean |ref|), and its GEMM stage alone
      (`ln_gemm_bias`) at the bench pass; K1's device ms by stage (statistics, GEMM,
      attention) beside F.layer_norm, F.linear and SDPA; K2 also
      at cases that cross its splits of the keys (one query row over 1028
      keys, 8192 keys, a ragged 8100, the decode with a (1, 1, 1, 1028) bias
      masking every key of its second split, the long-context step's causal
-     (2, 12, 128, 128) self-attention with its bias), and at ITM and the
+     (2, 12, 128, 128) self-attention with its bias, the demo's ITM q (2,
+     12, 30, 64) over 257 keys without a bias as the path runs it and with
+     a padding bias), and at ITM and the
      decode its device time per call (torch.profiler), its host time per
      call, its plan (splits, key warps) and roofline share beside SDPA's
      device and host time; K7 at the four decode shapes (beam vision (64,
@@ -71,6 +75,22 @@ Phases, run in order (any failure exits non-zero):
      (64, 2056, 768) condition, 40 new tokens): beam-3 and top-k-10
      sampling on the bf16 route (packed and split-heads cross K/V) and the
      int8 route, median of 5 after a warm-up;
+  5b. demo: `mico_tpu_torch.inference_demo.run_demo` from a
+     released-layout directory written to a temporary directory
+     (`log/hps.json` of the MiCo-g run, `ckpt/model_step_1200.pt` with all
+     897 entries of `tests/fixtures/mico_vit_g_manifest.json` in fp16,
+     drawn from seed 0: LN weights 1, biases 0, the rest N(0, 0.02); an
+     older `model_step_600.pt` and an unfinished `model_step_2400-tmp`
+     beside it) and media files written beside it (a 320 x 240 PPM image,
+     8 PPM frames, a 10 s 16 kHz WAV): on the card in bf16, each stage
+     counted from 0 (K1 40 for each of the image, video and audio ViT
+     passes, K2 12 for ITM, K7 0; text and the beam-3 caption launch
+     none), every manifest entry but the three non-weights read, then the
+     same directory and files on the CPU in fp32: image, video, audio and
+     text embeddings at cosine >= 0.999, ITM within 1e-2, the card's caption
+     tokens in the vocabulary; it prints the wall time split into load,
+     decode + preprocess and device work, and the host RSS before, at the
+     end of the load and over the run;
   6. bigE: MiCo on EVA02-CLIP-bigE-14-plus (`vision_encoder_type=
      "evaclip02_bige"`: 64 post-norm blocks, width 1792, 16 heads of 112,
      MLP 15360; 4.35 B tower parameters) at full width and depth, fp32
@@ -212,6 +232,8 @@ NEW_TOKENS = 40             # caption length (MiCoConfig.max_caption_len)
 MARGIN_MIN = 0.05           # fp32 top-1 margin above which tokens must agree
 # the captioner deployment shape (scripts/decode_bench.py, preset vision)
 DEPLOY_B, DEPLOY_COND = 64, 2056
+# the demo phase: the ViT batches of its image, audio and video passes
+DEMO_VIT_BATCHES = (1, 2, 4)
 
 
 def log(msg: str) -> None:
@@ -510,6 +532,20 @@ def phase_kernels(fa) -> list:
                 got, want, rel_mean=REL_MEAN_ERR_MAX))
             del got, want
     k1_args = args
+    # the demo's ViT passes (`mico_tpu_torch.inference_demo`): one image,
+    # the audio's two slices and the video's four frames, unfolded (affine
+    # on) as the demo runs them; 257 rows give the GEMM a ragged third
+    # M-tile and the attention a grid of B x 16 blocks. A generator of
+    # their own keeps the other cases' inputs as they were.
+    demo_gen = torch.Generator().manual_seed(13)
+    for b in DEMO_VIT_BATCHES:
+        args = k1_inputs(demo_gen, b)
+        for affine in (True, False):
+            errs["K1"].append(compare(
+                f"K1 demo ({b}, 257, 1408) H=16 D=88 affine={affine}",
+                fa.fused_ln_qkv_self_attention(*args, affine),
+                fa.fused_ln_qkv_plain(*args, affine),
+                rel_mean=REL_MEAN_ERR_MAX))
     # the LayerNorm-prologue GEMM stage alone (statistics + GEMM,
     # `ln_gemm_bias`) at the timed shape
     x, g, b0, w, bias, _, _, eps = k1_args
@@ -570,6 +606,17 @@ def phase_kernels(fa) -> list:
     causal = torch.full((128, 128), -10000.0).triu(1).expand(2, 1, 128, 128)
     cases.append(("causal (2,1,128,128) bias, (2,12,128,64) self-attention",
                   qkv(2, 12, 128, 128), causal.contiguous().cuda()))
+    # the demo's ITM: one image against its two captions, the condition's
+    # 257 tokens of width 768 expanded to both rows; the path passes no
+    # bias (the cross-attention has no encoder mask), the second case a
+    # key-padding bias
+    demo_qkv = itm_cross_qkv(demo_gen, n=2, enc_width=768)
+    cases.append(("demo ITM layout: q (2,12,30,64), k/v (2,12,257,64) "
+                  "strided views of (2,L,12,64), no bias", demo_qkv, None))
+    pad = torch.ones(2, 257)
+    pad[1, 200:] = 0
+    cases.append(("demo ITM layout with a (2,1,1,257) padding bias", demo_qkv,
+                  ((1.0 - pad) * -10000.0)[:, None, None].cuda()))
     for name, (q, k, v), bias in cases:
         got = fa.flash_attention(q, k, v, bias=bias)
         want = fa.flash_attention_plain(q, k, v, bias, q.shape[-1] ** -0.5)
@@ -1283,6 +1330,219 @@ def phase_caption(fa, main: dict, ref, card: str) -> dict:
                 logits_cosine_int8_min=min(cos_i8),
                 margin_checked_steps=checked, int8_token_agreement=agree,
                 deploy=times)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the demo entry from a released-layout checkpoint directory
+# ---------------------------------------------------------------------------
+
+MANIFEST = "tests/fixtures/mico_vit_g_manifest.json"
+# the released checkpoint's entries that hold no weight
+NON_WEIGHTS = {"multimodal_encoder.bert.embeddings.position_ids",
+               "multimodal_encoder.cls.predictions.decoder.bias",
+               "vision_encoder.logit_scale"}
+DEMO_STEP = 1200              # the newest checkpoint; an older one sits beside
+# the released MiCo-g run's config as `tests/test_checkpoints.py` builds it
+DEMO_MODEL_CFG = {"vision_encoder_type": "evaclip01_giant", "contra_dim": 512,
+                  "max_vision_sample_num": 4, "max_audio_sample_num": 2,
+                  "max_depth_sample_num": 2}
+DEMO_STAGES = {"image ViT": {"K1": 40}, "text": {}, "ITM": {"K2": 12},
+               "caption": {}, "video ViT": {"K1": 40},
+               "audio ViT": {"K1": 40}}
+
+
+class RssPeak:
+    """The process's peak resident set, sampled every 5 ms by a thread
+    (/proc/self/statm: file-backed pages of a mapped checkpoint count)."""
+
+    def __init__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self.now()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def now(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, self.now())
+
+    def close(self) -> int:
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.now())
+        return self.peak
+
+
+def released_state_dict(manifest: dict, seed: int) -> dict:
+    """Every manifest entry at its shape in fp16 on the CPU: LayerNorm
+    weights 1, biases 0, the rest N(0, 0.02) drawn on the card from `seed`;
+    the position-id buffer and the temperatures as a checkpoint holds
+    them."""
+    import math
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    sd = {}
+    for k, shape in manifest.items():
+        if k.endswith("position_ids"):
+            sd[k] = torch.arange(shape[-1]).reshape(shape)
+        elif k == "contra_temp":
+            sd[k] = torch.tensor(0.07, dtype=torch.float16)
+        elif k.endswith("logit_scale"):
+            sd[k] = torch.tensor(math.log(1 / 0.07), dtype=torch.float16)
+        elif k.endswith("bias"):
+            sd[k] = torch.zeros(shape, dtype=torch.float16)
+        elif k.endswith(".weight") and (
+                "norm" in k.lower() or (k.startswith("hidden_trans_")
+                                        and k.endswith(".1.weight"))):
+            sd[k] = torch.ones(shape, dtype=torch.float16)
+        else:
+            sd[k] = torch.empty(shape, device="cuda").normal_(
+                0.0, 0.02, generator=gen).half().cpu()
+    return sd
+
+
+def write_demo_inputs(root, seed: int, manifest: dict,
+                      model_cfg: dict) -> dict:
+    """A released-layout directory (`log/hps.json` holding `model_cfg`,
+    `ckpt/model_step_N.pt` with every `manifest` entry, an older
+    `model_step_M.pt` and an unfinished `-tmp` save beside it) and the
+    demo's media: a 320x240 PPM image, a directory of 8 PPM frames and a
+    10 s 16 kHz 16-bit WAV (a chirp plus noise), all drawn from `seed`."""
+    import os
+    import wave
+    from pathlib import Path
+
+    root = Path(root)
+    pre = root / "MiCo-g"
+    (pre / "log").mkdir(parents=True)
+    (pre / "log" / "hps.json").write_text(json.dumps(
+        {"model_cfg": model_cfg}))
+    ckpt = pre / "ckpt"
+    ckpt.mkdir()
+    t0 = time.perf_counter()
+    sd = released_state_dict(manifest, seed)
+    torch.save(sd, ckpt / f"model_step_{DEMO_STEP}.pt")
+    del sd
+    torch.save({"contra_temp": torch.tensor(1.0)},
+               ckpt / f"model_step_{DEMO_STEP // 2}.pt")
+    (ckpt / f"model_step_{2 * DEMO_STEP}-tmp").mkdir()
+    write_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(seed)
+
+    def ppm(path, h=240, w=320):
+        y, x = np.mgrid[0:h, 0:w]
+        img = np.stack([x * 255 // w, y * 255 // h, (x + y) % 256], -1)
+        img = (img + rng.integers(-20, 21, img.shape)).clip(0, 255)
+        with open(path, "wb") as f:
+            f.write(f"P6\n{w} {h}\n255\n".encode())
+            f.write(img.astype(np.uint8).tobytes())
+
+    ppm(root / "image.ppm")
+    frames = root / "frames"
+    frames.mkdir()
+    for i in range(8):
+        ppm(frames / f"{i:04d}.ppm")
+    t = np.arange(10 * 16000) / 16000
+    x = 0.4 * np.sin(2 * np.pi * (200 + 300 * t) * t) \
+        + 0.05 * rng.standard_normal(t.shape)
+    with wave.open(str(root / "audio.wav"), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((x * 32767).clip(-32768, 32767).astype(np.int16)
+                      .tobytes())
+    return dict(pretrain_dir=str(pre), image=str(root / "image.ppm"),
+                video=str(frames), audio=str(root / "audio.wav"),
+                write_s=write_s,
+                ckpt_bytes=os.path.getsize(ckpt / f"model_step_{DEMO_STEP}.pt"))
+
+
+def phase_demo(fa, card: str) -> dict:
+    import tempfile
+    from pathlib import Path
+
+    from mico_tpu_torch.inference_demo import run_demo
+
+    manifest = json.loads((Path(__file__).resolve().parent
+                           / MANIFEST).read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_demo_inputs(tmp, 0, manifest, DEMO_MODEL_CFG)
+        log(f"phase demo: wrote {len(manifest)} fp16 entries "
+            f"({files['ckpt_bytes'] / 2**30:.2f} GiB) in "
+            f"{files['write_s']:.1f} s, a 320x240 PPM, 8 PPM frames and a "
+            f"10 s WAV")
+        args = (files["pretrain_dir"], files["image"], files["video"],
+                files["audio"])
+        paths = {}
+        consumed = set()
+        rss = RssPeak()
+        load_rss = []
+
+        def stage(name, fn):
+            if not load_rss:              # the load has just finished
+                load_rss.append(rss.peak)
+            return run_counted(fa, paths, f"demo {name}", fn,
+                               **DEMO_STAGES[name])
+
+        t0 = time.perf_counter()
+        try:
+            card_out = run_demo(*args, dtype="bfloat16", device="cuda",
+                                consumed=consumed, stage=stage)
+        finally:
+            peak = rss.close()
+        wall = time.perf_counter() - t0
+        leftover = set(manifest) - consumed
+        if leftover != NON_WEIGHTS:
+            raise AssertionError(f"demo: unread checkpoint keys {leftover}, "
+                                 f"expected {NON_WEIGHTS}")
+        times = card_out["times"]
+        log(f"  card run [{card}]: wall {wall:.2f} s = load "
+            f"{times['load']:.2f} s + decode/preprocess "
+            f"{times['preprocess']:.2f} s + device {times['device']:.2f} s "
+            f"(rest {wall - sum(times.values()):.2f} s); host RSS "
+            f"{rss.start / 2**30:.2f} GiB before, peak "
+            f"{load_rss[0] / 2**30:.2f} GiB by the end of the load, "
+            f"{peak / 2**30:.2f} GiB over the run")
+        log(f"  launches by stage (each counted from 0): {paths}")
+        t0 = time.perf_counter()
+        ref = run_demo(*args, dtype="float32", device="cpu")
+        log(f"  CPU fp32 run in {time.perf_counter() - t0:.1f} s "
+            f"(load {ref['times']['load']:.2f} s)")
+    result = {"wall_s": wall, "times_s": times, "rss_before_bytes": rss.start,
+              "rss_peak_load_bytes": load_rss[0], "rss_peak_bytes": peak,
+              "params": card_out["n_params"], "paths": paths}
+    for name in ("image", "video", "audio", "text"):
+        got, want = (torch.from_numpy(o[f"feat_{name}"]) for o in (card_out,
+                                                                   ref))
+        cos = min(torch.nn.functional.cosine_similarity(
+            got.double(), want.double()).tolist())
+        result[f"cosine_{name}"] = cos
+        log(f"  {name} embedding: cosine {cos:.6f} to the CPU fp32 run")
+        if not cos >= COSINE_MIN:
+            raise AssertionError(f"demo {name} cosine {cos} < {COSINE_MIN}")
+    gap = float(np.abs(card_out["itm"] - ref["itm"]).max())
+    result["itm_max_abs_diff"] = gap
+    log(f"  ITM: card {card_out['itm'].tolist()} vs CPU "
+        f"{ref['itm'].tolist()}, max |d| {gap:.3e}")
+    if not gap <= ITM_PROB_TOL:
+        raise AssertionError(f"demo ITM gap {gap} > {ITM_PROB_TOL}")
+    vocab = card_out["cfg"].bert_config.vocab_size
+    check_tokens("demo caption", torch.from_numpy(card_out["caption_tokens"]),
+                 NEW_TOKENS, vocab)
+    result["captions"] = {"card": card_out["captions"],
+                          "cpu": ref["captions"]}
+    log(f"  caption: card {card_out['captions']}, CPU {ref['captions']}")
+    for key in ("sim_t2v", "video_sim", "audio_sim"):
+        result[key] = card_out[key].tolist()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -2514,6 +2774,8 @@ def main() -> int:
     omni = {k: main_out[k] for k in ("step_ms", "step_times", "paths")}
     del main_out, ref
     free_cuda()
+    demo = phase_demo(fa, card)
+    free_cuda()
     bige = phase_bige(fa, card)
     clip = phase_clip(fa, card)
     rows += phase_train_kernels(fa)
@@ -2524,7 +2786,8 @@ def main() -> int:
     long = phase_long_train(fa, card)
     mlp_rows, mlp = phase_mlp(fa, card)
     rows += mlp_rows
-    paths = {**omni["paths"], **caption["paths"], **bige["paths"],
+    paths = {**omni["paths"], **caption["paths"], **demo["paths"],
+             **bige["paths"],
              **clip["paths"],
              "train step": train["launches_per_step"],
              "train gradient check (PACKED_CLS_SPLIT)":
@@ -2545,6 +2808,8 @@ def main() -> int:
                       "launches_by_path": paths, "cosine": cosines,
                       "caption": {k: v for k, v in caption.items()
                                   if k != "paths"},
+                      "demo": {k: v for k, v in demo.items()
+                               if k != "paths"},
                       "bige": {k: v for k, v in bige.items()
                                if k != "paths"},
                       "clip": {k: v for k, v in clip.items()

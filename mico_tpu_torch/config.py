@@ -16,7 +16,8 @@ from typing import Optional, Tuple
 
 import torch
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, queue 1 item 8: other encoders)"
+_NOT_PORTED = ("not ported yet (ROADMAP.md, queue 1: other encoders and "
+               "tokenizers)")
 
 
 @dataclass(frozen=True)

@@ -688,7 +688,8 @@ def _prepare(model: Bert, condition_feat, compute_dtype, generator, mode):
     if mode == "scst":
         raise NotImplementedError(
             "mode='scst' (generate_scst) waits for the training port "
-            "(ROADMAP.md, queue 1 item 8)")
+            "(ROADMAP.md, queue 1: SCST, checkpoints and the rest of the "
+            "training core)")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     dev = next(model.parameters()).device

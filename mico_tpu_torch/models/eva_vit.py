@@ -32,7 +32,7 @@ per-sample DropPath on the linear 0 → `drop_path_rate` schedule, drawn up
 front from a device generator forked from `train_rng`, so a block under
 `torch.utils.checkpoint` (`remat`) recomputes with the same masks.
 EVA02's RoPE, SwiGLU and sub-LN and relative-position bias are not ported
-yet (ROADMAP.md, queue 1 item 2).
+yet (ROADMAP.md, queue 1: EVA02 tower features).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from mico_tpu_torch.ops import flash_attention as fa
 from mico_tpu_torch.ops.attention import multi_head_attention
 from mico_tpu_torch.ops.layers import fork_generator, gelu, layer_norm, linear
 
-_EVA02 = "not ported yet (ROADMAP.md, queue 1 item 2: EVA02 / bigE features)"
+_EVA02 = "not ported yet (ROADMAP.md, queue 1: EVA02 tower features)"
 
 
 def check_supported(cfg: EvaVitConfig) -> None:
@@ -285,10 +285,12 @@ def eva_vit_forward(
     if (remat and remat_policy) or unroll_blocks:
         raise NotImplementedError(
             "remat_policy / unroll_blocks: not ported yet (ROADMAP.md, "
-            "queue 1 item 8); `checkpointing` remats whole blocks")
+            "queue 1: SCST, checkpoints and the rest of the training core); "
+            "`checkpointing` remats whole blocks")
     if pipeline_stages > 1:
         raise NotImplementedError(
-            "pipeline stages: not ported yet (ROADMAP.md, queue 1 item 10)")
+            "pipeline stages: not ported yet (ROADMAP.md, queue 1: "
+            "parallelism)")
     cfg = model.cfg
     x = patch_embed(model.patch_embed, cfg, pixels.to(compute_dtype))
     b = x.shape[0]

@@ -7,6 +7,8 @@ BERT with cross-attention is the language interface for contrastive
 retrieval and ITM. `MiCo` is an `nn.Module` holding the parameters under the
 JAX package's names (see `mico_tpu_torch.convert.params_from_jax`), with the
 reference method surface of `MiCoModel` (mico.py:481-581).
+`mico_from_torch` converts a released checkpoint's state_dict into the
+parameter tree (mico.py:386-470), which `convert.mico_from_jax` places.
 
 The forwards are module-level functions of the model, as in the JAX module
 (`forward_vision_encoder`, `forward_multimodal_encoder`, `contra_head`,
@@ -19,7 +21,7 @@ gradients; the training entry turns `requires_grad` on.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -322,3 +324,84 @@ def frame_embedding(emb: torch.Tensor, n: int) -> torch.Tensor:
     if emb.shape[1] == n:
         return emb
     return interp_nearest_1d(emb.transpose(1, 2), n).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint conversion (mico.py:386-470)
+# ---------------------------------------------------------------------------
+
+
+def remap_legacy_keys(sd: Mapping) -> Dict[str, object]:
+    """Reference key surgery at load time (inference_demo.py:29-40):
+    video→vision, evaclip_model/clip_model→vision_encoder. Values are kept
+    as they are (no copies)."""
+    out = {}
+    for k, v in sd.items():
+        if "video" in k:
+            out[k.replace("video", "vision")] = v
+        elif "evaclip_model" in k:
+            out[k.replace("evaclip_model", "vision_encoder")] = v
+        elif "clip_model" in k:
+            out[k.replace("clip_model", "vision_encoder")] = v
+        else:
+            out[k] = v
+    return out
+
+
+def mico_from_torch(sd: Mapping, cfg: MiCoConfig,
+                    consumed: Optional[set] = None) -> dict:
+    """A full MiCo checkpoint (a flat torch state_dict, possibly legacy-keyed)
+    → the parameter tree of JAX's `mico_from_torch`, with the frame
+    embeddings' nearest and the positional embedding's bilinear resize of
+    the reference loader (inference_demo.py:42-97). Leaves are torch tensors
+    in the checkpoint's dtype.
+
+    consumed: optional set collecting every (post-legacy-remap) key read —
+    callers diff it against the checkpoint to surface leftovers instead of
+    dropping tensors silently."""
+    from mico_tpu_torch import convert
+
+    sd = convert._TrackedDict(
+        {k: convert.as_tensor(v) for k, v in remap_legacy_keys(sd).items()},
+        consumed)
+    t = convert._t
+
+    def lin(name, bias=True):
+        p = {"kernel": t(sd[f"{name}.weight"])}
+        if bias:
+            p["bias"] = sd[f"{name}.bias"]
+        return p
+
+    def trans(name):
+        return {"kernel": t(sd[f"{name}.0.weight"]), "bias": sd[f"{name}.0.bias"],
+                "ln_w": sd[f"{name}.1.weight"], "ln_b": sd[f"{name}.1.bias"]}
+
+    params = {
+        "vision_encoder": convert.eva_vit_from_torch(
+            sd, cfg.eva_config, prefix="vision_encoder.visual.",
+            consumed=consumed),
+        "bert": convert.bert_from_torch(
+            sd, cfg.bert_config, prefix="multimodal_encoder.",
+            consumed=consumed),
+        "contra_temp": sd["contra_temp"].float(),
+        "itm_head": {
+            "fc1_w": t(sd["itm_head.linear1.weight"]),
+            "fc1_b": sd["itm_head.linear1.bias"],
+            "ln_w": sd["itm_head.layernorm.weight"],
+            "ln_b": sd["itm_head.layernorm.bias"],
+            "fc2_w": t(sd["itm_head.linear2.weight"]),
+            "fc2_b": sd["itm_head.linear2.bias"],
+        },
+    }
+    for m in MODALITIES:
+        params[f"{m}_frame_embedding"] = convert.resize_frame_embedding(
+            sd[f"{m}_frame_embedding"], getattr(cfg, f"max_{m}_sample_num"))
+    for m in (*MODALITIES, "subtitle"):
+        params[f"hidden_trans_{m}"] = trans(f"hidden_trans_{m}_multimodal")
+    for m in ("t", "s", "v", "a", "d"):
+        params[f"contra_head_{m}"] = lin(f"contra_head_{m}.linear", bias=False)
+    for m in ("va", "id", "vs", "vas"):
+        params[f"contra_head_{m}"] = lin(f"contra_head_{m}")
+    for m in (*MODALITIES, "subtitle"):
+        params[f"{m}_type_embeddings"] = sd[f"{m}_type_embeddings"]
+    return params

@@ -1,15 +1,12 @@
 """Omni-modal embedding serving pipeline (counterpart of `mico_tpu/serve.py`).
 
-A thread pool prepares items on the host; ready items are packed into
-fixed-size batches (the last one padded) and copied to the card through
-pinned host buffers with `non_blocking=True`, so the copy of batch i+1 is
-queued behind the compute of batch i; every modality of a batch folds into
-one shared-encoder pass (image = 1-frame video, audio tiled to 3 channels).
-Failed items come back as zero rows, with their indices in `last_failures`.
-
-The media processors (image/video decode, fbank) are not ported yet
-(ROADMAP.md, queue 1 item 5): `embed_images/videos/depth/audio` raise, and
-`_run(items, proc, device_fn)` takes already decoded arrays through `proc`.
+A thread pool decodes and preprocesses items on the host (the processors
+of `media/`); ready items are packed into fixed-size batches (the last one
+padded) and copied to the card through pinned host buffers with
+`non_blocking=True`, so the copy of batch i+1 is queued behind the compute
+of batch i; every modality of a batch folds into one shared-encoder pass
+(image = 1-frame video, audio tiled to 3 channels). Failed items come back
+as zero rows, with their indices in `last_failures`.
 """
 
 from __future__ import annotations
@@ -23,10 +20,9 @@ import numpy as np
 import torch
 
 from mico_tpu_torch.config import MiCoConfig
+from mico_tpu_torch.media import AudioProcessor, ImageProcessor, VideoProcessor
+from mico_tpu_torch.media.video_io import video_format
 from mico_tpu_torch.models.mico import MiCo, pool_frames_for_contra, resolve_device
-
-_NO_MEDIA = ("media processors are not ported yet (ROADMAP.md, queue 1 item 5: "
-             "host media for the card's machine); feed decoded arrays to _run")
 
 
 def _l2_normalize(feat: torch.Tensor) -> torch.Tensor:
@@ -66,12 +62,16 @@ class EmbeddingPipeline:
     """Batched omni-modal embedding extraction.
 
     >>> pipe = EmbeddingPipeline(model, cfg, tokenizer)
-    >>> out = pipe.embed_texts(strings)             # (N, contra_dim)
+    >>> out = pipe.embed_images(paths)              # (N, contra_dim)
+    >>> out = pipe.embed_videos(paths)
+    >>> out = pipe.embed_audio(paths)
+    >>> out = pipe.embed_texts(strings)
     Failed items come back as zero rows + indices in `pipe.last_failures`.
 
     `model` is a `MiCo`; with `fold_constants` (the default) the pipeline
     serves a folded copy of an EVA tower, so the caller's model keeps its
     canonical layout (a CLIP tower's folded copy is the model itself).
+    A video given as a directory is read as its frame images.
     """
 
     def __init__(
@@ -100,7 +100,16 @@ class EmbeddingPipeline:
         if io_workers is None:
             io_workers = max(2, min(32, os.cpu_count() or 1))
         self.pool = ThreadPoolExecutor(max_workers=io_workers)
-        self.audio_geometry = (melbins, target_length, resize_melbin_num)
+        self.image_proc = ImageProcessor(
+            cfg.vision_resolution, cfg.vision_encoder_type, training=False)
+        self.video_procs = {fmt: VideoProcessor(
+            cfg.vision_resolution, cfg.vision_encoder_type,
+            sample_num=cfg.max_vision_sample_num, data_format=fmt,
+            training=False) for fmt in ("raw", "frame")}
+        self.audio_proc = AudioProcessor(
+            melbins=melbins, target_length=target_length,
+            resize_melbin_num=resize_melbin_num,
+            sample_num=cfg.max_audio_sample_num, training=False)
         self.stager = _PinnedStager(self.device)
         self.last_failures: List[int] = []
 
@@ -183,16 +192,22 @@ class EmbeddingPipeline:
         return feats
 
     def embed_images(self, paths: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(f"embed_images: {_NO_MEDIA}")
+        return self._run(   # (1, 3, R, R): an image is a 1-frame video
+            paths, self.image_proc,
+            lambda model, x: self._embed_pixels(model, x, head="v"))
 
     def embed_videos(self, paths: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(f"embed_videos: {_NO_MEDIA}")
+        return self._run(
+            paths, lambda p: self.video_procs[video_format(p)](p),
+            lambda model, x: self._embed_pixels(model, x, head="v"))
 
     def embed_depth(self, paths: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(f"embed_depth: {_NO_MEDIA}")
+        return self._run(
+            paths, self.image_proc,
+            lambda model, x: self._embed_pixels(model, x, head="d"))
 
     def embed_audio(self, paths: Sequence[str]) -> np.ndarray:
-        raise NotImplementedError(f"embed_audio: {_NO_MEDIA}")
+        return self._run(paths, self.audio_proc, self._embed_audio)
 
     def embed_texts(self, texts: Sequence[str], max_length: int = 30
                     ) -> np.ndarray:

@@ -12,7 +12,7 @@
 `compute_features` memoizes each tower in a per-step cache, so each
 encoder runs once per step however many subtasks read it. Only
 `axis_name=None` is supported: the cross-device gathers wait for the
-port's data parallelism (ROADMAP.md, queue 1 item 10). Randomness comes
+port's parallelism (ROADMAP.md, queue 1: parallelism). Randomness comes
 from a CPU `torch.Generator` (`train_rng`); `Draws` hands recorded masks
 and negative indices to the steps that would draw them, in call order.
 """
@@ -32,7 +32,7 @@ from mico_tpu_torch.ops.layers import fork_generator, split_generator
 from mico_tpu_torch.train.masker import mask_tokens
 
 _DATA_PARALLEL = ("cross-device gathers (axis_name): not ported yet "
-                  "(ROADMAP.md, queue 1 item 10)")
+                  "(ROADMAP.md, queue 1: parallelism)")
 
 @dataclass
 class Draws:
@@ -69,8 +69,8 @@ def compute_features(model: MiCo, cfg: MiCoConfig,
     `cache` (one per step) memoizes each tower."""
     if cfg.shard_condition_sequence:
         raise NotImplementedError(
-            "shard_condition_sequence: not ported yet (ROADMAP.md, queue 1 "
-            "item 10)")
+            "shard_condition_sequence: not ported yet (ROADMAP.md, queue 1: "
+            "parallelism)")
     out: Dict[str, torch.Tensor] = {}
     pooled = {}
     cache = {} if cache is None else cache

@@ -4,8 +4,8 @@ the AdamW update. Parameters stay fp32 (master weights) and the model
 computes in `cfg.compute_dtype` (bf16 on the card): each matmul casts its
 weight, so the gradients arrive in fp32. The total is checked for
 finiteness every step, and a non-finite loss raises before the update.
-Data parallelism and ZeRO-1 (`mesh`, `zero1`) wait for ROADMAP.md queue 1
-item 10.
+Data parallelism and ZeRO-1 (`mesh`, `zero1`) wait for ROADMAP.md queue 1,
+parallelism.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ def make_train_step(cfg: MiCoConfig, optimizer: Optimizer, task: str,
     `torch.Generator` the step's draws come from."""
     if mesh is not None or zero1:
         raise NotImplementedError(
-            "mesh / zero1: not ported yet (ROADMAP.md, queue 1 item 10)")
+            "mesh / zero1: not ported yet (ROADMAP.md, queue 1: parallelism)")
 
     def step(model, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator],

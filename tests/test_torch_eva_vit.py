@@ -253,10 +253,11 @@ def test_regularized_training_forward_and_remat():
 
 
 @pytest.mark.parametrize("kw,item", [(dict(remat=True, remat_policy="dots"),
-                                      "item 8"),
-                                     (dict(unroll_blocks=True), "item 8"),
-                                     (dict(pipeline_stages=2), "item 10")])
+                                      "SCST, checkpoints"),
+                                     (dict(unroll_blocks=True),
+                                      "SCST, checkpoints"),
+                                     (dict(pipeline_stages=2), "parallelism")])
 def test_unported_training_options_raise(towers, kw, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
+    with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
         tvit.eva_vit_forward(towers[2].vision_encoder,
                              torch.zeros(1, 3, 28, 28), **kw)

@@ -1,7 +1,8 @@
 """The port's serving pipeline (`mico_tpu_torch/serve.py`) against
 `mico_tpu.serve.EmbeddingPipeline` on the CPU: text embeddings through the
 tokenizer, and `_run`'s fixed-size padded batches with failed items as zero
-rows, fed decoded arrays (the media processors are not ported yet)."""
+rows, fed decoded arrays. The media entry points against JAX's on files are
+in `tests/test_torch_media.py`."""
 
 from pathlib import Path
 
@@ -121,7 +122,18 @@ def test_postnorm_pipeline_serves_a_folded_copy(rng):
 
 @pytest.mark.parametrize("method", ["embed_images", "embed_videos",
                                     "embed_depth", "embed_audio"])
-def test_media_entry_points_raise(pipes, method):
+def test_media_entry_points_raise(pipes, method, tmp_path, capsys):
+    """An item whose decoder raises (a container the port cannot decode yet,
+    a file no reader takes) is caught by its processor, which prints the
+    reason, and comes back as a zero row in `last_failures`."""
     _, tpipe, _ = pipes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tpipe, method)(["x.jpg"])
+    name = {"embed_videos": "x.mp4", "embed_audio": "x.flac"}.get(method,
+                                                                 "x.jpg")
+    bad = tmp_path / name
+    bad.write_bytes(b"\x00 not media")
+    got = getattr(tpipe, method)([str(bad)])
+    assert tpipe.last_failures == [0]
+    assert got.shape == (1, 32) and not got.any()
+    said = capsys.readouterr().out
+    assert ("ROADMAP" in said if method in ("embed_videos", "embed_audio")
+            else "cannot decode image" in said)

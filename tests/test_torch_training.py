@@ -397,9 +397,9 @@ def test_train_step_raises_on_non_finite_loss():
         step(model, batch, torch.Generator().manual_seed(0))
     assert opt.count == 0
     assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1: parallelism"):
         make_train_step(tcfg, opt, "ret%tv", zero1=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="queue 1: parallelism"):
         objectives.itc_loss(torch.ones(2, 4), torch.ones(2, 4),
                             torch.tensor(1.0), axis_name="data")
 

@@ -127,3 +127,199 @@ def no_launch(fn):
     out = fn()
     assert tfa.launch_counts() == before
     return out
+
+
+# ---------------------------------------------------------------------------
+# released-layout checkpoints
+# ---------------------------------------------------------------------------
+
+# the reference state_dict's names of the BERT layer and EVA block leaves
+_BERT_LINEARS = {
+    "q": "attention.self.query", "k": "attention.self.key",
+    "v": "attention.self.value", "attn_out": "attention.output.dense",
+    "inter": "intermediate.dense", "out": "output.dense",
+    "xq": "crossattention.self.query", "xk": "crossattention.self.key",
+    "xv": "crossattention.self.value",
+    "x_out": "crossattention.output.dense",
+}
+_BERT_LNS = {"attn_ln": "attention.output.LayerNorm",
+             "out_ln": "output.LayerNorm",
+             "x_ln": "crossattention.output.LayerNorm"}
+_EVA = {"norm1_w": "norm1.weight", "norm1_b": "norm1.bias",
+        "norm2_w": "norm2.weight", "norm2_b": "norm2.bias",
+        "q_bias": "attn.q_bias", "v_bias": "attn.v_bias",
+        "proj_b": "attn.proj.bias", "fc1_b": "mlp.fc1.bias",
+        "fc2_b": "mlp.fc2.bias"}
+_EVA_LINEARS = {"qkv_w": "attn.qkv.weight", "proj_w": "attn.proj.weight",
+                "fc1_w": "mlp.fc1.weight", "fc2_w": "mlp.fc2.weight"}
+# the three checkpoint entries that hold no weight (tests/test_checkpoints.py)
+NON_WEIGHTS = {"multimodal_encoder.bert.embeddings.position_ids",
+               "multimodal_encoder.cls.predictions.decoder.bias",
+               "vision_encoder.logit_scale"}
+
+
+def reference_state_dict(params: dict, legacy: bool = False) -> dict:
+    """The released checkpoint's state_dict (numpy fp32, torch layouts:
+    linears (out, in), a conv patch embed) holding the canonical JAX
+    `params`, plus the three non-weights; the inverse of JAX's
+    `mico_from_torch`. legacy: some keys under the names the legacy-key
+    surgery maps (video → vision, evaclip_model / clip_model →
+    vision_encoder)."""
+    p = jax.tree.map(lambda a: np.array(a, np.float32), params)
+    sd = {}
+    v = p["vision_encoder"]
+    pre = "vision_encoder.visual."
+    k = v["patch_embed"]["kernel"]                       # (3·p·p, w)
+    patch = int(round((k.shape[0] / 3) ** 0.5))
+    sd[pre + "patch_embed.proj.weight"] = k.T.reshape(-1, 3, patch, patch)
+    sd[pre + "patch_embed.proj.bias"] = v["patch_embed"]["bias"]
+    for name in ("cls_token", "pos_embed"):
+        sd[pre + name] = v[name]
+    sd[pre + "norm.weight"], sd[pre + "norm.bias"] = v["norm_w"], v["norm_b"]
+    sd[pre + "head.weight"] = v["head"]["kernel"].T
+    sd[pre + "head.bias"] = v["head"]["bias"]
+    for i in range(v["blocks"]["qkv_w"].shape[0]):
+        for leaf, name in _EVA.items():
+            sd[f"{pre}blocks.{i}.{name}"] = v["blocks"][leaf][i]
+        for leaf, name in _EVA_LINEARS.items():
+            sd[f"{pre}blocks.{i}.{name}"] = v["blocks"][leaf][i].T
+    sd["vision_encoder.logit_scale"] = np.float32(4.6)
+
+    b = p["bert"]
+    pre = "multimodal_encoder."
+    emb = pre + "bert.embeddings."
+    for leaf, name in (("word", "word_embeddings.weight"),
+                       ("position", "position_embeddings.weight"),
+                       ("token_type", "token_type_embeddings.weight"),
+                       ("ln_w", "LayerNorm.weight"),
+                       ("ln_b", "LayerNorm.bias")):
+        sd[emb + name] = b["embeddings"][leaf]
+    sd[emb + "position_ids"] = np.arange(
+        b["embeddings"]["position"].shape[0], dtype=np.int64)[None]
+    for i in range(b["layers"]["q_w"].shape[0]):
+        lay = f"{pre}bert.encoder.layer.{i}."
+        for leaf, name in _BERT_LINEARS.items():
+            sd[f"{lay}{name}.weight"] = b["layers"][f"{leaf}_w"][i].T
+            sd[f"{lay}{name}.bias"] = b["layers"][f"{leaf}_b"][i]
+        for leaf, name in _BERT_LNS.items():
+            sd[f"{lay}{name}.weight"] = b["layers"][f"{leaf}_w"][i]
+            sd[f"{lay}{name}.bias"] = b["layers"][f"{leaf}_b"][i]
+    head = pre + "cls.predictions."
+    m = b["mlm_head"]
+    sd[head + "transform.dense.weight"] = m["dense_w"].T
+    sd[head + "transform.dense.bias"] = m["dense_b"]
+    sd[head + "transform.LayerNorm.weight"] = m["ln_w"]
+    sd[head + "transform.LayerNorm.bias"] = m["ln_b"]
+    sd[head + "decoder.weight"] = m["decoder_w"].T
+    sd[head + "bias"] = sd[head + "decoder.bias"] = m["decoder_b"]
+
+    sd["contra_temp"] = p["contra_temp"]
+    ih = p["itm_head"]
+    sd["itm_head.linear1.weight"], sd["itm_head.linear1.bias"] = (
+        ih["fc1_w"].T, ih["fc1_b"])
+    sd["itm_head.layernorm.weight"], sd["itm_head.layernorm.bias"] = (
+        ih["ln_w"], ih["ln_b"])
+    sd["itm_head.linear2.weight"], sd["itm_head.linear2.bias"] = (
+        ih["fc2_w"].T, ih["fc2_b"])
+    for m in ("vision", "audio", "depth", "subtitle"):
+        t = p[f"hidden_trans_{m}"]
+        name = f"hidden_trans_{m}_multimodal"
+        sd[f"{name}.0.weight"], sd[f"{name}.0.bias"] = t["kernel"].T, t["bias"]
+        sd[f"{name}.1.weight"], sd[f"{name}.1.bias"] = t["ln_w"], t["ln_b"]
+        sd[f"{m}_type_embeddings"] = p[f"{m}_type_embeddings"]
+        if m != "subtitle":
+            sd[f"{m}_frame_embedding"] = p[f"{m}_frame_embedding"]
+    for m in ("t", "s", "v", "a", "d"):
+        sd[f"contra_head_{m}.linear.weight"] = p[f"contra_head_{m}"]["kernel"].T
+    for m in ("va", "id", "vs", "vas"):
+        sd[f"contra_head_{m}.weight"] = p[f"contra_head_{m}"]["kernel"].T
+        sd[f"contra_head_{m}.bias"] = p[f"contra_head_{m}"]["bias"]
+    sd = {k: np.array(a, order="C") for k, a in sd.items()}
+    if legacy:
+        def old(key):
+            if key.startswith("vision_encoder.visual.blocks.0."):
+                return key.replace("vision_encoder", "clip_model")
+            if key.startswith("vision_encoder.visual."):
+                return key.replace("vision_encoder", "evaclip_model")
+            return key.replace("vision", "video")
+        sd = {old(k): a for k, a in sd.items()}
+    return sd
+
+
+def torch_state_dict(sd: dict, dtype=torch.float32) -> dict:
+    """The numpy state_dict as torch tensors (integer buffers kept)."""
+    out = {}
+    for k, a in sd.items():
+        t = torch.from_numpy(np.array(a))
+        out[k] = t.to(dtype) if t.is_floating_point() else t
+    return out
+
+
+def tiny_model_cfg(**over) -> dict:
+    """The tiny config as a `log/hps.json` model_cfg (both packages' loaders
+    lift the override dicts)."""
+    return {"eva_override": dict(TINY["eva"]),
+            "bert_override": dict(TINY["bert"]), **TINY["mico"],
+            "max_vision_sample_num": 4, "max_audio_sample_num": 2,
+            "max_depth_sample_num": 2, **over}
+
+
+def write_hps(root, model_cfg: dict) -> None:
+    import json
+    import os
+
+    os.makedirs(os.path.join(root, "log"), exist_ok=True)
+    with open(os.path.join(root, "log", "hps.json"), "w") as f:
+        json.dump({"model_cfg": model_cfg}, f)
+
+
+def write_pnm(path, img: np.ndarray, comment: bool = False) -> None:
+    """uint8 (H, W, 3) as binary PPM, or (H, W) as binary PGM."""
+    h, w = img.shape[:2]
+    magic = b"P6" if img.ndim == 3 else b"P5"
+    note = b"# written by a test\n" if comment else b""
+    with open(path, "wb") as f:
+        f.write(magic + b"\n" + note + f"{w} {h}\n255\n".encode())
+        f.write(np.ascontiguousarray(img, np.uint8).tobytes())
+
+
+def write_wav(path, samples: np.ndarray, sr: int = 16000) -> None:
+    """int16 (n,) or (n, channels) samples as PCM WAV."""
+    import wave
+
+    samples = np.asarray(samples, np.int16)
+    ch = 1 if samples.ndim == 1 else samples.shape[1]
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(ch)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(samples.tobytes())
+
+
+def chirp_wav(path, seconds: float, seed: int = 0, sr: int = 16000) -> None:
+    """A chirp plus noise drawn from `seed`, 16-bit mono."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = 0.4 * np.sin(2 * np.pi * (200 + 300 * t) * t)
+    x = x + 0.05 * rng.standard_normal(t.shape)
+    write_wav(path, np.clip(x * 32767, -32768, 32767).astype(np.int16), sr)
+
+
+def media_files(root, seed: int = 0, size=(40, 52), frames: int = 6,
+                seconds: float = 1.2) -> dict:
+    """{image, video (a directory of PPM frames), audio (WAV)} under root,
+    drawn from `seed`."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    image = os.path.join(root, "image.ppm")
+    write_pnm(image, rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    video = os.path.join(root, "frames")
+    os.makedirs(video, exist_ok=True)
+    for i in range(frames):
+        write_pnm(os.path.join(video, f"{i:04d}.ppm"),
+                  rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    audio = os.path.join(root, "audio.wav")
+    chirp_wav(audio, seconds, seed)
+    return {"image": image, "video": video, "audio": audio}
