@@ -135,7 +135,9 @@ Phases, run in order (any failure exits non-zero):
      the same draws every step), each counted from 0 (K3 80 and K4 80 per
      step, K1/K2/K7 0), finite losses, the last step's total below the
      second's (the first with a non-zero learning rate), ms/step,
-     samples/s, model TFLOP/s and peak memory; then the gradient check: at
+     samples/s, model TFLOP/s and peak memory, and one more step under
+     torch.profiler (device busy ms and the idle share of the median
+     step); then the gradient check: at
      B = 2 with every rate 0 and the draws injected, the card in bf16 (K3,
      K4, K2 and its backward) and in bf16 with `PACKED_CLS_SPLIT` on (K9 80,
      K3 0, K4 80 over the vision and audio passes) against the card in fp32
@@ -183,7 +185,29 @@ Phases, run in order (any failure exits non-zero):
      P1's device ms by launch (fc1 with the GELU epilogue, fc2 with the
      residual one);
      then the probe's chain of 8 calls (`scripts/torch_mlp_probe.py` at its
-     0.02-scale data), counted from 0 (P1 8).
+     0.02-scale data), counted from 0 (P1 8);
+ 10. run: `mico_tpu_torch.run.main` (the entry of `python -m
+     mico_tpu_torch.run`) on `configs/pretrain-omni.json` at full width
+     over an `annoindexed` corpus written to a temporary directory (32
+     clips of 8 cv2 JPEG frames of 256 x 320 and a 5 s 16 kHz WAV, with
+     captions, questions and answers, and one clip of corrupt JPEGs that
+     the dataset resamples past), with CLI overrides: the data paths,
+     `video_frame`, B 8, a `ret%tva` val set with the ITM re-rank on and a
+     `cap%tv` one, the shared tower's audio at 224 x 224. It trains 4 steps
+     (`valid_freq` 1: evaluations and saves at steps 3 and 4), tests from
+     that directory (`mode=testing`, `--pretrain_dir`: the same retrieval
+     metrics as the step-4 evaluation within 1e-6), then checks resume at
+     ViT-g width with 4 blocks (a 4-step run, then `resume=true` to step 6:
+     it starts at 4, reloads the weights bitwise, and removes step 4's
+     files only after step 6's are committed). Each stage is counted from
+     0 and held to its own launches (K3 and K4 2 x blocks a train step; K1
+     blocks x ViT passes and K2 12 x re-rank passes an evaluation; none in
+     saves and loads), no plain twin may run on a card tensor, the losses
+     are finite, retrieval metrics in [0, 1] and caption tokens in the
+     vocabulary; it prints each stage's seconds (data wait and step, eval,
+     save with the host RSS over it, load), the loader-fed step's cycle
+     and the card's idle share in it (one step's device time under
+     torch.profiler) beside phase train's synthetic step.
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -2147,19 +2171,27 @@ def phase_train_steps(fa, card: str) -> dict:
             f"loss_total at step {TRAIN_STEPS} {losses[-1]['loss_total']} is "
             f"not below step 2's {losses[1]['loss_total']}")
     step_ms = statistics.median(times[-4:])
+    # one more step under torch.profiler: the device's busy time against
+    # the median step, the synthetic batch's idle share
+    _, busy, _ = profiled(
+        lambda: step(model, batch, torch.Generator().manual_seed(1)))
+    idle = None if busy is None else 1.0 - busy / step_ms
     flops = pretrain_step_flops(cfg, TRAIN_B)
     result = dict(
         task=PRETRAIN_TASK, batch=TRAIN_B, losses=losses, step_times_ms=times,
         step_ms=step_ms, samples_per_s=1e3 * TRAIN_B / step_ms,
         model_flops_per_step=flops,
         model_tflops_per_s=flops / (step_ms * 1e-3) / 1e12,
-        peak_memory_bytes=peak, n_params=n_params,
+        peak_memory_bytes=peak, n_params=n_params, busy_ms=busy,
+        idle_share=idle,
         launches_per_step=paths[f"train step {TRAIN_STEPS}"], paths=paths)
     log(f"  train step B={TRAIN_B}: median {step_ms:.2f} ms of the last 4 "
         f"({[round(x, 2) for x in times]}), {result['samples_per_s']:.3f} "
         f"samples/s, {result['model_tflops_per_s']:.2f} model TFLOP/s "
-        f"({flops / 1e12:.3f} TFLOP/step), peak memory {peak / 2 ** 30:.2f} GiB "
-        f"[{card}]")
+        f"({flops / 1e12:.3f} TFLOP/step), peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"one more step under torch.profiler: busy {ms_text(busy, 2)} ms, "
+        f"idle share {'not measured' if idle is None else f'{idle:.3f}'} "
+        f"of the median [{card}]")
     del model, opt, step, batch
     free_cuda()
     return result
@@ -2746,6 +2778,552 @@ def phase_mlp(fa, card: str) -> tuple:
     return [row], dict(chain_ms=chain_ms, paths=paths)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the train/test entry, `python -m mico_tpu_torch.run`
+# ---------------------------------------------------------------------------
+
+RUN_ITEMS = 32              # clips of the synthetic corpus (and one corrupt)
+RUN_FRAMES = 8              # JPEG frames written per clip; 4 are sampled
+RUN_B = 8
+RUN_STEPS, RUN_RESUME_STEPS = 4, 6
+# the resume check runs at ViT-g width with this many blocks: a full-depth
+# model and optimizer file is 14.4 GB, and saving and loading it again
+# would take the phase well past 150 s on an H100 (PERF.md)
+RUN_RESUME_LAYERS = 4
+# valid_steps = num_train_steps // valid_freq - 1 (`data/build.py`, as
+# JAX's): evaluations at steps 3 and 4, then at step 6 alone
+RUN_VALID_FREQ, RUN_RESUME_VALID_FREQ = 1, 2
+RUN_WORDS = ("a man woman dog cat is are skiing running playing singing on "
+             "in the a snowy sunny park street beach day night with red "
+             "blue ball guitar two three children").split()
+# the train step of the full-width run whose device time torch.profiler
+# takes (steps 2 and 3, before the first evaluation, time the loop)
+RUN_PROFILED_STEP = 4
+
+
+def write_run_corpus(root, seed: int) -> dict:
+    """An `annoindexed` corpus under root: RUN_ITEMS clips, each a directory
+    of RUN_FRAMES cv2 JPEG frames of 256 x 320 and a 5 s 16 kHz 16-bit WAV,
+    with a caption, a question and answers (a list for every other clip),
+    and one clip whose frames are corrupt JPEGs (the dataset resamples past
+    it); all drawn from `seed`."""
+    import os
+    import wave
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    frames_dir = os.path.join(root, "frames")
+    wav_dir = os.path.join(root, "wav")
+    os.makedirs(frames_dir)
+    os.makedirs(wav_dir)
+    y, x = np.mgrid[0:256, 0:320]
+    annos = []
+
+    def words(n):
+        return " ".join(rng.choice(RUN_WORDS, n))
+
+    for i in range(RUN_ITEMS + 1):
+        cid = f"clip{i:03d}" if i < RUN_ITEMS else "corrupt"
+        os.makedirs(os.path.join(frames_dir, cid))
+        for k in range(RUN_FRAMES):
+            path = os.path.join(frames_dir, cid, f"{k:04d}.jpg")
+            if cid == "corrupt":
+                with open(path, "wb") as f:
+                    f.write(b"\xff\xd8 not a jpeg")
+                continue
+            base = np.stack([(x + 9 * i + 3 * k) % 256, (y * 2 + 5 * i) % 256,
+                             (x + y + 11 * k) % 256], -1)
+            img = (base + rng.integers(-30, 31, base.shape)).clip(0, 255)
+            cv2.imwrite(path, img.astype(np.uint8))
+        t = np.arange(5 * 16000) / 16000
+        wav = (0.3 * np.sin(2 * np.pi * (150 + 40 * i) * t)
+               + 0.05 * rng.standard_normal(t.shape))
+        with wave.open(os.path.join(wav_dir, f"{cid}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(16000)
+            f.writeframes((wav * 32767).clip(-32768, 32767).astype(np.int16)
+                          .tobytes())
+        annos.append({"video_id": cid, "caption": words(8),
+                      "question": words(5) + "?",
+                      "answer": ([words(1), words(1), words(2)] if i % 2
+                                 else words(1)),
+                      "question_id": i})
+    txt = os.path.join(root, "annos.json")
+    with open(txt, "w") as f:
+        json.dump(annos, f)
+    return dict(txt=txt, vision=frames_dir, audio=wav_dir)
+
+
+def run_argv(corpus: dict, out: str) -> list:
+    """`python -m mico_tpu_torch.run`'s arguments for
+    configs/pretrain-omni.json on the synthetic corpus: the data paths, `video_frame`, B 8, and a
+    `ret%tva` (ITM re-rank on) and a `cap%tv` val set; the shared tower's
+    audio at the ViT's 224 x 224."""
+    clip = {"type": "annoindexed", "txt": corpus["txt"],
+            "vision": corpus["vision"], "vision_format": "video_frame",
+            "vision_sample_num": 4, "n_workers": 4, "batch_size": RUN_B}
+    audio = {"audio": corpus["audio"], "audio_sample_num": 2}
+    train = [{**clip, **audio, "training": True, "name": "synthetic",
+              "task": "ret%tva_cap%tva"}]
+    val = [{**clip, **audio, "training": False, "name": "synthetic",
+            "task": "ret%tva"},
+           {**clip, "training": False, "name": "synthcap", "task": "cap%tv"}]
+    return ["--config", "configs/pretrain-omni.json", "--output_dir", out,
+            "--device", "cuda", "--data_cfg.train", json.dumps(train),
+            "--data_cfg.val", json.dumps(val), "run_cfg.seed=0",
+            "run_cfg.first_eval=false", "run_cfg.itm_rerank=true",
+            "run_cfg.log_every=1", "model_cfg.audio_melbins=224",
+            "model_cfg.audio_target_length=224"]
+
+
+class Patches:
+    """Attribute (or dict entry) replacements undone on close."""
+
+    def __init__(self):
+        self.undo = []
+
+    def set(self, obj, name, value):
+        if isinstance(obj, dict):
+            self.undo.append((obj, name, obj[name]))
+            obj[name] = value
+            return
+        self.undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def close(self):
+        for obj, name, value in reversed(self.undo):
+            if isinstance(obj, dict):
+                obj[name] = value
+            else:
+                setattr(obj, name, value)
+        self.undo = []
+
+
+def profiled(fn):
+    """(fn(), device busy ms, wall ms) of one call under torch.profiler:
+    busy is the sum of the kernels' own device time (None when none was
+    recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy = 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if (dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            busy += dev_us / 1e3
+    return out, (busy or None), wall
+
+
+class RunProbe:
+    """Instruments `run.main` from outside: each stage (train step,
+    evaluation, save, load) runs with the launch counts set to 0 just
+    before it and is held to its own counts (K3 and K4 2 x blocks a train
+    step; K1 one per block a ViT pass and K2 12 a re-rank pass in an
+    evaluation; nothing in saves and loads); every plain twin of the
+    kernel wrappers is watched for calls on card tensors; saves and loads
+    are timed with the host's peak RSS over them."""
+
+    def __init__(self, fa, layers: int):
+        import mico_tpu_torch.evaluation as ev
+        import mico_tpu_torch.models.mico as mico_mod
+        import mico_tpu_torch.pipeline as pipeline
+        import mico_tpu_torch.run as run_mod
+        import mico_tpu_torch.train.checkpoints as ckpt
+        from mico_tpu_torch.data import AnnoIndexedDataset
+
+        self.fa, self.layers = fa, layers
+        self.stages, self.events, self.tokens = [], [], []
+        self.plain_on_card = {}
+        self.vit = self.rerank = self.n_steps = 0
+        self.profile_step = None
+        self.model = None
+        self.resamples = 0
+        self.p = p = Patches()
+
+        def counting(module, name, attr):
+            fn = getattr(module, name)
+
+            def wrapped(*a, **kw):
+                setattr(self, attr, getattr(self, attr) + 1)
+                return fn(*a, **kw)
+            p.set(module, name, wrapped)
+
+        counting(mico_mod, "forward_vision_encoder", "vit")
+        counting(ev, "compute_slice_scores", "rerank")
+        resample = AnnoIndexedDataset._resample
+
+        def resampled(ds, *a, **kw):
+            self.resamples += 1
+            return resample(ds, *a, **kw)
+        p.set(AnnoIndexedDataset, "_resample", resampled)
+        for name in dir(fa):
+            if name.endswith("_plain") and callable(getattr(fa, name)):
+                p.set(fa, name, self._watch_plain(name, getattr(fa, name)))
+        generate = ev.generate
+
+        def gen(*a, **kw):
+            out = generate(*a, **kw)
+            self.tokens.append(out)
+            return out
+        p.set(ev, "generate", gen)
+
+        make_step = pipeline.make_train_step
+
+        def make_train_step(cfg, optimizer, task, **kw):
+            step = make_step(cfg, optimizer, task, **kw)
+
+            def counted(model, batch, generator, draws=None):
+                self.model = model
+                self.n_steps += 1
+
+                def call():
+                    return step(model, batch, generator, draws)
+                n = 2 * self.layers
+                if self.n_steps != self.profile_step:
+                    return self.stage("train step", call, K3=n, K4=n)
+                out, busy, wall = self.stage(
+                    "train step", lambda: profiled(call), K3=n, K4=n)
+                self.stages[-1].update(busy_ms=busy, profiled_ms=wall)
+                return out
+            return counted
+        p.set(pipeline, "make_train_step", make_train_step)
+
+        evaluate = ev.evaluation_registry["evaluation_mm"]
+
+        def evaluation_mm(evaluator, loaders, run_cfg, step):
+            self.vit = self.rerank = 0
+            out = self.stage("eval", lambda: evaluate(evaluator, loaders,
+                                                      run_cfg, step),
+                             expect=lambda: {"K1": self.layers * self.vit,
+                                             "K2": 12 * self.rerank})
+            self.stages[-1].update(step=step, vit_passes=self.vit,
+                                   rerank_passes=self.rerank, metrics=out)
+            return out
+        p.set(ev.evaluation_registry, "evaluation_mm", evaluation_mm)
+
+        for cls, name in ((ckpt.ModelSaver, "save"),
+                          (ckpt.ModelSaver, "save_best")):
+            p.set(cls, name, self._timed(name, getattr(cls, name)))
+        for name in ("resume_latest", "load_latest_opt_state",
+                     "load_from_pretrained_dir", "mico_from_jax"):
+            p.set(run_mod, name, self._timed(name, getattr(run_mod, name)))
+        commit, remove = ckpt._commit, ckpt._remove
+
+        def committed(tmp, final):
+            self.events.append(("commit", final.rsplit("/", 1)[-1]))
+            commit(tmp, final)
+
+        def removed(path):
+            self.events.append(("remove", path.rsplit("/", 1)[-1]))
+            remove(path)
+        p.set(ckpt, "_commit", committed)
+        p.set(ckpt, "_remove", removed)
+
+    def _watch_plain(self, name, fn):
+        def watched(*a, **kw):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in list(a) + list(kw.values())):
+                self.plain_on_card[name] = self.plain_on_card.get(name, 0) + 1
+            return fn(*a, **kw)
+        return watched
+
+    def _timed(self, name, fn):
+        def timed(*a, **kw):
+            rss = RssPeak()
+            out = self.stage(name, lambda: fn(*a, **kw))
+            peak = rss.close()
+            self.stages[-1].update(rss_start=rss.start, rss_peak=peak)
+            return out
+        return timed
+
+    def stage(self, kind, fn, expect=None, **want):
+        self.fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = self.fa.launch_counts()
+        want = expect() if expect else want
+        full = {k: want.get(k, 0) for k in got}
+        self.stages.append(dict(kind=kind, seconds=seconds, launches=got,
+                                expected=full))
+        if set(want) - set(got) or got != full:
+            raise AssertionError(f"run {kind}: launches {got}, expected "
+                                 f"{full}")
+        return out
+
+    def close(self):
+        self.p.close()
+
+
+def phase_run(fa, card: str, train_step: dict) -> dict:
+    """`mico_tpu_torch.run.main` on configs/pretrain-omni.json at full
+    width over a corpus on disk: train 4 steps with evaluations and saves,
+    resume to step 6, then test from the run directory."""
+    import os
+    import shutil
+    import tempfile
+
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.run import main as run_main
+
+    layers = MiCoConfig().eva_config.layers
+    root = tempfile.mkdtemp(prefix="mico_run_")
+    try:
+        t0 = time.perf_counter()
+        corpus = write_run_corpus(root, seed=0)
+        log(f"phase run: wrote {RUN_ITEMS} clips + 1 corrupt ({RUN_FRAMES} "
+            f"JPEG frames of 256x320 and a 5 s WAV each) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out = os.path.join(root, "out")
+        argv = run_argv(corpus, out)
+        probe = RunProbe(fa, layers)
+        probe.profile_step = RUN_PROFILED_STEP
+        try:
+            result = run_entry(probe, run_main, argv, out, layers, card,
+                               train_step)
+        finally:
+            probe.close()
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_cuda()
+
+
+def stage_lines(stages: list, record: dict) -> None:
+    waits = {s["step"]: s["data_wait_s"] for s in record["steps"]}
+    steps = [s for s in stages if s["kind"] == "train step"]
+    for s, st in zip(steps, record["steps"]):
+        s.update(step=st["step"], data_wait_s=waits[st["step"]],
+                 losses=st["losses"])
+    for s in stages:
+        extra = ""
+        if s["kind"] == "train step":
+            extra = f"{s['step']}: data wait {s['data_wait_s']:.4f} s, step"
+        elif s["kind"] == "eval":
+            extra = (f"step {s['step']}: {s['vit_passes']} ViT passes, "
+                     f"{s['rerank_passes']} re-rank passes,")
+        if "rss_peak" in s:
+            extra += (f" RSS {s['rss_start'] / 2**30:.2f} -> peak "
+                      f"{s['rss_peak'] / 2**30:.2f} GiB,")
+        log(f"  {s['kind']} {extra} {s['seconds']:.3f} s; launches "
+            f"{ {k: v for k, v in s['launches'].items() if v} }")
+
+
+def check_run_dir(out: str, step: int, files: list) -> None:
+    import os
+
+    for name in (f"model_step_{step}.npz", f"optimizer_step_{step}.npz",
+                 "best_video_r1_synthetic.npz"):
+        if name not in files:
+            raise AssertionError(f"run: {name} missing from {files}")
+    if not os.path.exists(os.path.join(out, "log", "hps.json")):
+        raise AssertionError("run: log/hps.json missing")
+
+
+def run_entry(probe, run_main, argv, out, layers, card, train_step) -> dict:
+    """The full-width training run, the testing run from its directory,
+    then the resume check at ViT-g width with RUN_RESUME_LAYERS blocks."""
+    import os
+
+    import mico_tpu_torch.run as run_mod
+    from mico_tpu_torch.config import MiCoConfig
+
+    def ckpt_files(d):
+        return sorted(os.listdir(os.path.join(d, "ckpt")))
+
+    # -- training: 4 steps, evaluations and saves at steps 3 and 4 --
+    t0 = time.perf_counter()
+    rec = run_main(argv + [f"run_cfg.num_train_steps={RUN_STEPS}",
+                           f"run_cfg.valid_freq={RUN_VALID_FREQ}"])
+    train_s = time.perf_counter() - t0
+    first = list(probe.stages)
+    log(f"  training run: {train_s:.1f} s (model, {RUN_STEPS} steps, "
+        f"evaluations, saves)")
+    stage_lines(first, rec)
+    files = ckpt_files(out)
+    log(f"  ckpt/: {files}")
+    check_run_dir(out, RUN_STEPS, files)
+    probe.model = None
+    free_cuda()
+
+    # -- testing from the run directory --
+    probe.stages.clear()
+    t0 = time.perf_counter()
+    logs = run_main(argv + ["run_cfg.mode=testing", "--pretrain_dir", out,
+                            "--output_dir", out + "_test"])
+    test_s = time.perf_counter() - t0
+    third = list(probe.stages)
+    log(f"  testing run from {os.path.basename(out)}: {test_s:.1f} s")
+    stage_lines(third, {"steps": []})
+    free_cuda()
+
+    # -- resume: a run of 4 steps and its resume to 6, at ViT-g width with
+    # RUN_RESUME_LAYERS blocks (full-depth saves and loads are timed above)
+    cut = dict(MiCoConfig().eva_config.__dict__, layers=RUN_RESUME_LAYERS)
+    out_cut = out + "_resume"
+    argv_cut = [a if a != out else out_cut for a in argv] + [
+        f"model_cfg.eva_override={json.dumps(cut)}"]
+    log(f"  resume check: cut to ViT-g width with {RUN_RESUME_LAYERS} of "
+        f"{layers} blocks (full-depth saves and loads above)")
+    probe.layers = RUN_RESUME_LAYERS
+    probe.profile_step = None
+    probe.stages.clear()
+    rec_c = run_main(argv_cut + [f"run_cfg.num_train_steps={RUN_STEPS}",
+                                 f"run_cfg.valid_freq={RUN_VALID_FREQ}"])
+    cut_first = list(probe.stages)
+    stage_lines(cut_first, rec_c)
+    check_run_dir(out_cut, RUN_STEPS, ckpt_files(out_cut))
+    saved = {k: v.detach().clone()
+             for k, v in probe.model.state_dict().items()}
+    probe.model = None
+    probe.stages.clear()
+    probe.events.clear()
+    loaded = {}
+    load = run_mod.resume_latest
+
+    def resume_and_compare(output_dir, m):
+        step = load(output_dir, m)
+        loaded["equal"] = all(torch.equal(v, saved[k])
+                              for k, v in m.state_dict().items())
+        loaded["step"] = step
+        return step
+    run_mod.resume_latest = resume_and_compare
+    try:
+        t0 = time.perf_counter()
+        rec2 = run_main(argv_cut + [
+            f"run_cfg.num_train_steps={RUN_RESUME_STEPS}",
+            f"run_cfg.valid_freq={RUN_RESUME_VALID_FREQ}",
+            "run_cfg.resume=true"])
+        resume_s = time.perf_counter() - t0
+    finally:
+        run_mod.resume_latest = load
+    del saved
+    probe.model = None
+    second = list(probe.stages)
+    log(f"  resume run: {resume_s:.1f} s (load, steps 5-6, evaluation, "
+        f"save; {RUN_RESUME_LAYERS} blocks)")
+    stage_lines(second, rec2)
+    files2 = ckpt_files(out_cut)
+    ev = list(probe.events)
+    log(f"  ckpt/: {files2}; commits and removals {ev}")
+    if rec2["start_step"] != RUN_STEPS or rec2["end_step"] != RUN_RESUME_STEPS:
+        raise AssertionError(f"resume: steps {rec2['start_step']} -> "
+                             f"{rec2['end_step']}")
+    if loaded.get("step") != RUN_STEPS or not loaded.get("equal"):
+        raise AssertionError(f"resume: loaded step {loaded.get('step')}, "
+                             f"weights bitwise equal {loaded.get('equal')}")
+    if (f"model_step_{RUN_RESUME_STEPS}.npz" not in files2
+            or any(f.startswith((f"model_step_{RUN_STEPS}",
+                                 f"optimizer_step_{RUN_STEPS}"))
+                   for f in files2)):
+        raise AssertionError(f"resume: ckpt/ {files2}")
+    for prefix in ("model", "optimizer"):
+        c = ev.index(("commit", f"{prefix}_step_{RUN_RESUME_STEPS}.npz"))
+        r = ev.index(("remove", f"{prefix}_step_{RUN_STEPS}.npz"))
+        if not c < r:
+            raise AssertionError(f"{prefix}_step_{RUN_STEPS} removed before "
+                                 f"step {RUN_RESUME_STEPS} was committed: {ev}")
+
+    # -- checks --
+    all_steps = rec["steps"] + rec_c["steps"] + rec2["steps"]
+    for s in all_steps:
+        bad = [k for k, v in s["losses"].items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"run step {s['step']}: non-finite {bad}")
+    last_eval = [s for s in first if s["kind"] == "eval"][-1]["metrics"]
+    evals = [s for s in first + third + cut_first + second
+             if s["kind"] == "eval"]
+    for s in evals:
+        for name, metrics in s["metrics"].items():
+            if name.startswith("ret"):
+                bad = {k: v for k, v in metrics.items()
+                       if not 0.0 <= v <= 1.0}
+                if bad:
+                    raise AssertionError(f"{name}: outside [0, 1]: {bad}")
+    ret = "ret%tva--synthetic"
+    gaps = {k: abs(logs[ret][k] - last_eval[ret][k]) for k in last_eval[ret]}
+    if logs[ret].keys() != last_eval[ret].keys() or max(gaps.values()) > 1e-6:
+        raise AssertionError(f"testing run {logs[ret]} vs the step-"
+                             f"{RUN_STEPS} evaluation {last_eval[ret]}")
+    vocab = MiCoConfig().bert_config.vocab_size
+    for toks in probe.tokens:
+        if int(toks.min()) < 0 or int(toks.max()) >= vocab:
+            raise AssertionError(f"caption tokens outside [0, {vocab})")
+    if probe.plain_on_card:
+        raise AssertionError(f"plain twins ran on the card: "
+                             f"{probe.plain_on_card}")
+    if not probe.resamples:
+        raise AssertionError("the corrupt clip was never resampled")
+
+    # the loader-fed step: a cycle is the wait for the batch, then
+    # tokenising, the copies and the step up to its losses on the host
+    # (the record's); the steady steps of the full-width run are those
+    # after the first, not profiled and before the first evaluation
+    prof = next(s for s in first if "busy_ms" in s)
+    if prof["busy_ms"] is None:
+        raise AssertionError("torch.profiler recorded no kernel of the "
+                             "profiled train step")
+    first_eval = min(s["step"] for s in first if s["kind"] == "eval")
+    steady = [r for r in rec["steps"]
+              if 1 < r["step"] <= first_eval and r["step"] != prof["step"]]
+    cycle_ms = statistics.median(1e3 * (r["data_wait_s"] + r["step_s"])
+                                 for r in steady)
+    idle = 1.0 - prof["busy_ms"] / cycle_ms
+
+    def io(stages, kinds):
+        return [{k: s[k] for k in ("kind", "seconds", "rss_start",
+                                   "rss_peak")}
+                for s in stages if s["kind"] in kinds]
+    result = dict(
+        train_s=train_s, test_s=test_s, resume_s=resume_s,
+        resume_layers=RUN_RESUME_LAYERS,
+        samples_per_s=1e3 * RUN_B / cycle_ms, cycle_ms=cycle_ms,
+        steady_steps=[r["step"] for r in steady],
+        data_wait_s=[r["data_wait_s"] for r in rec["steps"]],
+        step_s=[r["step_s"] for r in rec["steps"]],
+        resamples=probe.resamples,
+        profiled_step=dict(step=prof["step"], busy_ms=prof["busy_ms"],
+                           wall_ms=prof["profiled_ms"]),
+        idle_share=idle, synthetic_step_ms=train_step["step_ms"],
+        synthetic_busy_ms=train_step.get("busy_ms"),
+        synthetic_idle_share=train_step.get("idle_share"),
+        eval_s={s["step"]: s["seconds"] for s in first if s["kind"] == "eval"},
+        test_eval_s=[s["seconds"] for s in third if s["kind"] == "eval"],
+        saves=io(first, ("save", "save_best")),
+        loads=io(third, ("load_from_pretrained_dir", "mico_from_jax")),
+        resume_cut=dict(saves=io(cut_first + second, ("save", "save_best")),
+                        loads=io(second, ("resume_latest",
+                                          "load_latest_opt_state"))),
+        losses=[s["losses"] for s in all_steps],
+        metrics_last_eval=last_eval, metrics_testing=logs,
+        launches={"train step": [s for s in first
+                                 if s["kind"] == "train step"][0]["launches"],
+                  "eval": {s["step"]: dict(s["launches"],
+                                           vit_passes=s["vit_passes"],
+                                           rerank_passes=s["rerank_passes"])
+                           for s in first if s["kind"] == "eval"}},
+        plain_on_card=probe.plain_on_card)
+    log(f"  run path: {cycle_ms:.1f} ms a loader-fed step (data wait + "
+        f"step, median of steps {result['steady_steps']}), "
+        f"{result['samples_per_s']:.2f} samples/s; step {prof['step']} under "
+        f"the profiler: busy {prof['busy_ms']:.1f} ms, idle share "
+        f"{idle:.3f}; phase train's synthetic step {train_step['step_ms']:.1f}"
+        f" ms, busy (ms) {ms_text(train_step.get('busy_ms'), 1)}, idle share "
+        f"{ms_text(train_step.get('idle_share'), 3)} [{card}]")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -2786,6 +3364,7 @@ def main() -> int:
     long = phase_long_train(fa, card)
     mlp_rows, mlp = phase_mlp(fa, card)
     rows += mlp_rows
+    run = phase_run(fa, card, train)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
              **clip["paths"],
@@ -2795,7 +3374,11 @@ def main() -> int:
              "long-context train step": long["launches_per_step"],
              "long-context no-grad forward":
                  long["paths"]["long-context no-grad forward"],
-             **mlp["paths"]}
+             **mlp["paths"],
+             "run train step": run["launches"]["train step"],
+             **{f"run eval (step {step})": {k: v for k, v in c.items()
+                                           if k.startswith(("K", "P"))}
+                for step, c in run["launches"]["eval"].items()}}
     for row in rows:
         key = row["name"].split()[0]
         path = KERNEL_PATH[key]
@@ -2818,7 +3401,8 @@ def main() -> int:
                       "train": {k: v for k, v in train.items()
                                 if k != "paths"},
                       "long_context": {k: v for k, v in long.items()
-                                       if k != "paths"}}))
+                                       if k != "paths"},
+                      "run": run}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -111,6 +111,54 @@ def params_from_jax(params: Mapping, cfg: MiCoConfig, device="cpu"
     return _place(params, cfg, device)[0]
 
 
+def jax_leaves(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig):
+    """The JAX tree's leaves of a port state_dict, in its order, without
+    copying: (path, tensors, stacked) triples, where the tensors are the
+    rows of a stacked leaf (`vision_encoder/blocks/*` of an EVA tower,
+    `bert/layers/*`) in depth order, or the one tensor of any other leaf.
+    A CLIP tower's blocks stay per block (`vision_encoder/blocks/<i>/*`),
+    the list JAX keeps for them."""
+    stacked = [g for g in STACKED
+               if cfg.is_eva or g != "vision_encoder/blocks"]
+    groups: Dict[str, Dict[int, torch.Tensor]] = {}
+    out: Dict[str, list] = {}
+    for key, t in state_dict.items():
+        path = key.replace(".", "/")
+        for g in stacked:
+            prefix = g + "/"
+            if path.startswith(prefix):
+                i, _, name = path[len(prefix):].partition("/")
+                rows = groups.setdefault(f"{g}/{name}", {})
+                rows[int(i)] = t
+                out.setdefault(f"{g}/{name}", rows)
+                break
+        else:
+            out[path] = t
+    return [(path, [v[i] for i in range(len(v))], True) if isinstance(v, dict)
+            else (path, [v], False) for path, v in out.items()]
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig
+                  ) -> Dict:
+    """The inverse of `params_from_jax`: the JAX package's params tree
+    (nested dicts of fp32 numpy leaves, the depth axis stacked; a CLIP
+    tower's blocks as a list) of a port state_dict of `cfg`."""
+    tree: Dict = {}
+    for path, rows, stacked in jax_leaves(state_dict, cfg):
+        arrs = [r.detach().to("cpu", torch.float32).numpy() for r in rows]
+        leaf = np.stack(arrs) if stacked else arrs[0]
+        node = tree
+        parts = path.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    if not cfg.is_eva and "blocks" in tree.get("vision_encoder", {}):
+        blocks = tree["vision_encoder"]["blocks"]
+        tree["vision_encoder"]["blocks"] = [blocks[str(i)]
+                                            for i in range(len(blocks))]
+    return tree
+
+
 def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",
                   dtype=None) -> MiCo:
     """A MiCo holding the params tree (JAX's, or a converted checkpoint's),

@@ -1,0 +1,142 @@
+"""Train / test orchestration (counterpart of `mico_tpu/pipeline.py`).
+
+The reference pipeline (data/utils/pipeline.py:17-180):
+  - train: iterate the MetaLoader, one train step function per task,
+    RunningMeter EMA losses logged every `log_every` steps, the evaluation
+    registry every `valid_steps` steps and at the last, then a checkpoint
+    save and best-metric snapshots (CIDEr / accuracy / video_r1);
+  - test: the evaluation registry once over the val loaders.
+
+On one card, eagerly: the LR schedule is set on the optimizer's groups
+before each update (`train/optim.py`), gradient accumulation is the
+optimizer's (`optax.MultiSteps`' semantics), and batches reach the card
+through the loader's CUDA prefetcher. The loop reads `run_cfg.valid_steps`
+as the JAX loop does (`create_train_dataloaders` sets it). SCST tasks are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional
+
+import torch
+
+from mico_tpu_torch.config import MiCoConfig
+from mico_tpu_torch.data.tokenize_collate import BatchTokenizer, device_batch
+from mico_tpu_torch.evaluation import Evaluator, evaluation_registry
+from mico_tpu_torch.train.checkpoints import ModelSaver
+from mico_tpu_torch.train.train_step import make_train_step
+from mico_tpu_torch.utils.logger import LOGGER, RunningMeter
+
+SCST = ("SCST tasks: not ported yet (ROADMAP.md, queue 1: SCST, checkpoints "
+        "and the rest of the training core)")
+
+
+def get_best_name(task: str) -> Optional[str]:
+    """Metric that defines 'best' for a task (reference
+    pipeline.py:168-179)."""
+    head = task.split("%")[0].split("_")[0]
+    return {"cap": "CIDEr", "qa": "accuracy", "ret": "video_r1"}.get(head)
+
+
+def train(cfg: MiCoConfig, model, optimizer, meta_loader,
+          val_loaders: Dict, run_cfg, tokenizer, start_step: int = 0) -> dict:
+    """Run the training loop on `model` in place (its device is the
+    run's); → the run's record: per step the task, the loss values, the
+    seconds waiting for data and in the step; per evaluation its metrics
+    and seconds; per save its seconds.
+
+    start_step: the global step to count from (the resumed checkpoint's,
+    reference build_model.py:106-124), so periodic saves continue the
+    numbering."""
+    device = next(model.parameters()).device
+    num_steps = int(run_cfg.get("num_train_steps", 1000))
+    valid_steps = int(run_cfg.get("valid_steps", num_steps))
+    log_every = int(run_cfg.get("log_every", 50))
+    saver = ModelSaver(
+        run_cfg.get("output_dir", "./output"),
+        remove_before_ckpt=bool(run_cfg.get("remove_before_ckpt", True)),
+        backend=run_cfg.get("checkpoint_backend", "npz"))
+    batch_tok = BatchTokenizer(
+        tokenizer,
+        max_caption_len=cfg.max_caption_len,
+        max_omni_caption_len=cfg.max_omni_caption_len,
+        max_subtitle_len=cfg.max_subtitle_len)
+    evaluate_fn = evaluation_registry[
+        run_cfg.get("evaluation_type", "evaluation_mm")]
+    step_fns: Dict[str, callable] = {}
+    meters: Dict[str, RunningMeter] = {}
+    best_indicator: Dict[str, float] = {}
+    # the steps' draws: one CPU generator from the run's seed
+    generator = torch.Generator().manual_seed(int(run_cfg.get("seed", 0)))
+    record = {"start_step": int(start_step), "steps": [], "evals": [],
+              "saves": []}
+
+    global_step = int(start_step)
+    t_start = time.perf_counter()
+    loader = iter(meta_loader)
+    while True:
+        t_wait = time.perf_counter()
+        try:
+            name, batch = next(loader)
+        except StopIteration:
+            break
+        data_wait_s = time.perf_counter() - t_wait
+        if global_step >= num_steps:
+            break
+        task = name.split("--")[0]
+        if task.startswith("scst"):
+            raise NotImplementedError(SCST)
+        if task not in step_fns:
+            step_fns[task] = make_train_step(cfg, optimizer, task)
+        t_step = time.perf_counter()
+        arrays = device_batch(batch_tok(batch, task), device)
+        losses = step_fns[task](model, arrays, generator)
+        global_step += 1
+        values = {k: float(v) for k, v in losses.items()}  # waits for the step
+        record["steps"].append(dict(
+            step=global_step, task=task, losses=values,
+            data_wait_s=data_wait_s,
+            step_s=time.perf_counter() - t_step))
+        for k, v in values.items():
+            key = f"{task}/{k}"
+            meters.setdefault(key, RunningMeter(key))(v)
+        if global_step % log_every == 0:
+            LOGGER.info("step %d/%d (%.1f s): %s", global_step, num_steps,
+                        time.perf_counter() - t_start,
+                        " ".join(str(m) for m in meters.values()))
+        if global_step % valid_steps == 0 or global_step == num_steps:
+            t0 = time.perf_counter()
+            evaluator = Evaluator(cfg, model, tokenizer, run_cfg)
+            eval_log = evaluate_fn(evaluator, val_loaders, run_cfg,
+                                   global_step)
+            record["evals"].append(dict(step=global_step, metrics=eval_log,
+                                        eval_s=time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            saver.save(global_step, model, optimizer)
+            save = dict(step=global_step, save_s=time.perf_counter() - t0,
+                        best={})
+            for loader_name, metrics in eval_log.items():
+                best_name = get_best_name(loader_name.split("--")[0])
+                if best_name and best_name in metrics:
+                    if metrics[best_name] > best_indicator.get(loader_name,
+                                                               -1):
+                        best_indicator[loader_name] = metrics[best_name]
+                        metric = (f"{best_name}_"
+                                  f"{loader_name.split('--')[-1]}")
+                        t0 = time.perf_counter()
+                        saver.save_best(metric, model)
+                        save["best"][metric] = time.perf_counter() - t0
+                    LOGGER.info("best %s for %s: %.4f", best_name,
+                                loader_name, best_indicator[loader_name])
+            record["saves"].append(save)
+    record["end_step"] = global_step
+    return record
+
+
+def test(cfg: MiCoConfig, model, val_loaders, run_cfg, tokenizer):
+    evaluator = Evaluator(cfg, model, tokenizer, run_cfg)
+    evaluate_fn = evaluation_registry[
+        run_cfg.get("evaluation_type", "evaluation_mm")]
+    return evaluate_fn(evaluator, val_loaders, run_cfg, 0)

@@ -1,33 +1,48 @@
-"""Checkpoint loading (counterpart of the load side of
+"""Checkpoint save, resume and load (counterpart of
 `mico_tpu/train/checkpoints.py`).
 
-`load_from_pretrained_dir` reads a released-layout directory, as the
-reference inference entry does (inference_demo.py:14-116,
-data/utils/build_model.py:65-103): `log/hps.json` for the config, then the
-newest HF-trainer `checkpoint-N/pytorch_model*.bin`, or else the newest
-`ckpt/model_step_N` — a PyTorch `.pt` state_dict (converted by
-`models.mico.mico_from_torch`, with the legacy-key surgery, the embedding
-resizes and an audit of the keys it did not read) or this framework's
+Save side (`ModelSaver`, the reference contract data/utils/save.py:9-41,
+build_model.py:106-124): `ckpt/model_step_N.npz` (+ the optimizer's
+`optimizer_step_N.npz`) under the output dir, `best_<metric>.npz`
+snapshots, and resume from the newest committed step.
+  - The model file is the JAX package's flat npz layout (`flatten_pytree`:
+    `a/b/c` keys, the depth axis stacked, fp32), so either package reads
+    the other's model files. It is written leaf by leaf from the card (one
+    block's rows at a time), never as a whole host copy.
+  - A save writes `<name>-tmp`, renames it into place to commit, and only
+    then deletes the previous step's files; the JAX package deletes first
+    (`checkpoints.py:142-151`), which can lose every committed checkpoint
+    when a save is killed.
+  - The optimizer file is the port's own layout (AdamW's moments and step
+    per parameter name, the update count, an open accumulation window):
+    the JAX package cannot resume it, nor the port JAX's.
+
+Load side (`load_from_pretrained_dir`, as the reference inference entry,
+inference_demo.py:14-116, data/utils/build_model.py:65-103): `log/hps.json`
+for the config, then the newest HF-trainer `checkpoint-N/pytorch_model*.bin`,
+or else the newest `ckpt/model_step_N`: a PyTorch `.pt` state_dict
+(converted by `models.mico.mico_from_torch`, with the legacy-key surgery,
+the embedding resizes and an audit of the keys it did not read) or a
 native `.npz` tree. `.orbax` checkpoints need a JAX library and raise.
-Saving and resume (`ModelSaver`) are not ported yet (ROADMAP.md, queue 1:
-SCST, checkpoints and the rest of the training core).
 """
 
 from __future__ import annotations
 
 import glob
-import logging
 import os
+import queue
 import re
-from typing import Any, Dict, Optional, Tuple
+import threading
+import zipfile
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mico_tpu_torch.config import MiCoConfig, mico_config_from_dict
 from mico_tpu_torch.utils.config_io import load_hps
+from mico_tpu_torch.utils.logger import LOGGER
 
-LOGGER = logging.getLogger(__name__)
 SEP = "/"
 _ORBAX = ("loading .orbax checkpoints needs a JAX library: not ported yet "
           "(ROADMAP.md, queue 1: native media decoders and .orbax loading)")
@@ -160,3 +175,281 @@ def load_from_pretrained_dir(
     if path.endswith((".npz", ".orbax")):
         return finish(load_checkpoint_path(path))
     return finish(convert_with_audit(load_torch_state_dict(path)))
+
+
+# ---------------------------------------------------------------------------
+# save side: streamed npz files, ModelSaver, resume
+# ---------------------------------------------------------------------------
+
+_OPT_LAYOUT = "mico_tpu_torch.adamw/1"
+_ORBAX_SAVE = ("checkpoint_backend orbax: not ported yet (ROADMAP.md, queue "
+               "1: native media decoders and .orbax loading)")
+
+
+def _host_dtype(t: torch.Tensor) -> np.dtype:
+    """The npz dtype of a tensor: fp32 for every floating dtype (numpy has
+    no bfloat16; the widening is exact), the tensor's own otherwise."""
+    if t.is_floating_point():
+        return np.dtype(np.float32)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def _host_bytes(t: torch.Tensor) -> memoryview:
+    """A tensor's bytes in host memory (fp32 for a floating tensor)."""
+    t = t.detach()
+    if t.is_floating_point():
+        t = t.float()
+    return memoryview(t.cpu().contiguous().numpy()).cast("B")
+
+
+def write_npz(path: str, leaves: Iterable[Tuple[str, list, bool]]) -> None:
+    """A `.npz` (numpy's zip of `.npy` members, uncompressed, as
+    `np.savez` writes it) of (key, rows, stacked) triples: the member `key`
+    is the rows stacked on a new first axis when `stacked`, else the one
+    tensor of a one-element list. Each row goes from its device to
+    the host on its own while a writer thread puts the previous one in the
+    file, so the host holds two rows at a time."""
+    work: "queue.Queue" = queue.Queue(maxsize=2)
+    failed = []
+
+    def writer():
+        zf = f = None
+        try:
+            zf = zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                                 allowZip64=True)
+            while True:
+                kind, item = work.get()
+                if kind == "end":
+                    break
+                if failed:               # drain until the producer stops
+                    continue
+                try:
+                    if kind == "open":
+                        key, header = item
+                        f = zf.open(key + ".npy", "w", force_zip64=True)
+                        np.lib.format.write_array_header_2_0(f, header)
+                    elif kind == "data":
+                        f.write(item)
+                    else:
+                        f.close()
+                        f = None
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    failed.append(e)
+        finally:
+            for handle in (f, zf):
+                try:
+                    if handle is not None:
+                        handle.close()
+                except BaseException as e:  # noqa: BLE001
+                    failed.append(e)
+
+    thread = threading.Thread(target=writer, daemon=True)
+    thread.start()
+    try:
+        for key, rows, stacked in leaves:
+            if failed:
+                break
+            shape = ((len(rows),) + tuple(rows[0].shape) if stacked
+                     else tuple(rows[0].shape))
+            work.put(("open", (key, {
+                "descr": np.lib.format.dtype_to_descr(_host_dtype(rows[0])),
+                "fortran_order": False, "shape": shape})))
+            for r in rows:
+                work.put(("data", _host_bytes(r)))
+            work.put(("close", None))
+    finally:
+        work.put(("end", None))
+        thread.join()
+    if failed:
+        raise failed[0]
+
+
+def model_leaves(model):
+    """(JAX flat key, rows, stacked) of a port model: the JAX package's
+    npz layout."""
+    from mico_tpu_torch.convert import jax_leaves
+
+    return jax_leaves(model.state_dict(), model.cfg)
+
+
+def load_model_npz(path: str, model) -> None:
+    """Copy a model checkpoint in the JAX package's npz layout into the
+    parameters of `model`, leaf by leaf (cast to each parameter's dtype on
+    its device). Raises on a leaf with no parameter, a parameter with no
+    leaf, and a shape that differs."""
+    sd = model.state_dict()
+    filled = set()
+    with np.load(path) as z:
+        for key in z.files:
+            arr = z[key]
+            group, _, name = key.rpartition(SEP)
+            stacked = group == "bert/layers" or (
+                group == "vision_encoder/blocks" and model.cfg.is_eva)
+            if stacked:
+                targets = [(f"{group.replace(SEP, '.')}.{i}.{name}", arr[i])
+                           for i in range(arr.shape[0])]
+            else:
+                targets = [(key.replace(SEP, "."), arr)]
+            for k, a in targets:
+                if k not in sd:
+                    raise KeyError(f"{path}: leaf {key} has no parameter {k}")
+                if tuple(sd[k].shape) != a.shape:
+                    raise ValueError(f"{path}: {k} {a.shape} vs "
+                                     f"{tuple(sd[k].shape)}")
+                with torch.no_grad():
+                    sd[k].copy_(torch.from_numpy(np.asarray(a)))
+                filled.add(k)
+            del arr, targets, a          # one leaf on the host at a time
+    missing = sorted(set(sd) - filled)
+    if missing:
+        raise KeyError(f"{path}: parameters with no leaf: {missing[:8]}")
+
+
+def _commit(tmp: str, final: str) -> None:
+    os.replace(tmp, final)
+    LOGGER.info("checkpoint committed: %s", final)
+
+
+def _remove(path: str) -> None:
+    os.remove(path)
+    LOGGER.info("checkpoint removed: %s", path)
+
+
+class ModelSaver:
+    """npz checkpoints of a port model and its optimizer under
+    `<output_dir>/ckpt`, each written to `<name>-tmp` and renamed into
+    place; the previous step's files go only after the new ones are
+    committed (`remove_before_ckpt`). The orbax backend is not ported."""
+
+    def __init__(self, output_dir: str, remove_before_ckpt: bool = True,
+                 backend: str = "npz"):
+        if backend == "orbax":
+            raise NotImplementedError(_ORBAX_SAVE)
+        if backend != "npz":
+            raise ValueError(f"unknown checkpoint_backend {backend!r}")
+        self.ckpt_dir = os.path.join(output_dir, "ckpt")
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.remove_before_ckpt = remove_before_ckpt
+        self.backend = backend
+
+    def _write(self, name: str, leaves) -> str:
+        final = os.path.join(self.ckpt_dir, name)
+        tmp = final + "-tmp"
+        try:
+            write_npz(tmp, leaves)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+        return tmp, final
+
+    def save(self, step: int, model, optimizer=None) -> None:
+        """Write model_step_<step> (and optimizer_step_<step>), commit the
+        optimizer's file then the model's, then delete older steps."""
+        writes = [self._write(f"model_step_{step}.npz", model_leaves(model))]
+        if optimizer is not None:
+            writes.append(self._write(f"optimizer_step_{step}.npz",
+                                      optimizer_leaves(optimizer)))
+        for tmp, final in reversed(writes):
+            _commit(tmp, final)
+        if self.remove_before_ckpt:
+            for prefix in ("model", "optimizer"):
+                for p in glob.glob(os.path.join(self.ckpt_dir,
+                                                f"{prefix}_step_*.npz")):
+                    m = re.fullmatch(rf"{prefix}_step_(\d+)\.npz",
+                                     os.path.basename(p))
+                    if m and int(m.group(1)) != step:
+                        _remove(p)
+
+    def save_best(self, metric: str, model) -> None:
+        """Best-metric snapshot (reference save.py:33-41), replaced in one
+        rename."""
+        _commit(*self._write(f"best_{metric}.npz", model_leaves(model)))
+
+
+def optimizer_leaves(optimizer):
+    """(key, rows, stacked) of the port's optimizer file: AdamW's state
+    per parameter name, the update count, and an open accumulation
+    window's summed gradients."""
+    leaves = [("__layout__", torch.tensor(list(_OPT_LAYOUT.encode()),
+                                          dtype=torch.uint8)),
+              ("count", torch.tensor(optimizer.count, dtype=torch.int64)),
+              ("mini_step", torch.tensor(optimizer.mini_step,
+                                         dtype=torch.int64))]
+    state = optimizer.torch_optimizer.state
+    for name, p in zip(optimizer.names, optimizer.params):
+        for field, v in state.get(p, {}).items():
+            leaves.append((f"state/{name}/{field}", torch.as_tensor(v)))
+        if optimizer.mini_step and p.grad is not None:
+            leaves.append((f"grad/{name}", p.grad))
+    return [(key, [t], False) for key, t in leaves]
+
+
+def load_optimizer_npz(path: str, optimizer) -> None:
+    """Restore the port's optimizer file into `optimizer` (its parameters
+    already hold the checkpoint's weights)."""
+    with np.load(path) as z:
+        layout = (bytes(z["__layout__"].tolist()).decode()
+                  if "__layout__" in z.files else None)
+        if layout != _OPT_LAYOUT:
+            raise ValueError(
+                f"{path} is not the port's optimizer file (layout "
+                f"{layout!r}): the optimizer state of the JAX package "
+                "cannot be resumed by the port")
+        index = {name: i for i, name in enumerate(optimizer.names)}
+        params = dict(zip(optimizer.names, optimizer.params))
+        state: Dict[int, Dict[str, torch.Tensor]] = {}
+        grads = {}
+        for key in z.files:
+            kind, _, rest = key.partition(SEP)
+            if kind not in ("state", "grad"):
+                continue
+            name, _, field = (rest.rpartition(SEP) if kind == "state"
+                              else (rest, "", ""))
+            # one leaf on the host at a time: each goes to its parameter's
+            # device as it is read (the step count stays where it is)
+            leaf = torch.from_numpy(z[key])
+            if field != "step":
+                leaf = leaf.to(params[name].device, params[name].dtype)
+            if kind == "state":
+                state.setdefault(index[name], {})[field] = leaf
+            else:
+                grads[name] = leaf
+        sd = optimizer.torch_optimizer.state_dict()
+        sd["state"] = state
+        optimizer.torch_optimizer.load_state_dict(sd)
+        optimizer.count = int(z["count"])
+        optimizer.mini_step = int(z["mini_step"])
+    for name, p in zip(optimizer.names, optimizer.params):
+        p.grad = grads.get(name)
+
+
+def resume_latest(output_dir: str, model) -> int:
+    """Load the newest committed `model_step_N` into `model`; → N, or 0
+    when there is none."""
+    step, path = _latest_step(os.path.join(output_dir, "ckpt"), "model")
+    if step is None:
+        return 0
+    if path.endswith(".orbax"):
+        raise NotImplementedError(f"{path}: {_ORBAX}")
+    load_model_npz(path, model)
+    LOGGER.info("resumed from %s (step %d)", path, step)
+    return step
+
+
+def load_latest_opt_state(output_dir: str, optimizer,
+                          step: Optional[int] = None) -> bool:
+    """Restore `optimizer_step_<step>` (the newest when `step` is None)
+    into `optimizer`; False when that file is absent. Resume passes the
+    model's step, so a save cut between its two commits never pairs a
+    model with another step's moments."""
+    ckpt_dir = os.path.join(output_dir, "ckpt")
+    if step is None:
+        _, path = _latest_step(ckpt_dir, "optimizer")
+    else:
+        path = os.path.join(ckpt_dir, f"optimizer_step_{step}.npz")
+    if not path or not os.path.exists(path):
+        return False
+    load_optimizer_npz(path, optimizer)
+    LOGGER.info("optimizer state from %s (update %d)", path, optimizer.count)
+    return True

@@ -16,7 +16,12 @@ defaults:
   - weight decay is decoupled and multiplied by the learning rate (AdamW's
     p ← p − lr·wd·p), and a parameter without a gradient this step is
     updated with a zero gradient, as JAX's dense gradients give it;
-  - master weights and moments are fp32 (the parameters' dtype).
+  - moments take the parameters' dtype: fp32 master weights, or
+    `run_cfg.param_dtype`'s cast (bf16 parameters give bf16 moments, as
+    optax's do);
+  - `accum_steps` > 1 has `optax.MultiSteps`' semantics: the mean of k
+    micro-batch gradients, one update every k-th call, and a schedule that
+    counts updates.
 On the card the update runs as torch's fused AdamW (one multi-tensor
 kernel, the same rule).
 """
@@ -24,7 +29,7 @@ kernel, the same rule).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -82,21 +87,30 @@ def param_group_labels(model: nn.Module, new_params_name: Sequence[str] = (),
 
 class Optimizer:
     """The param-group AdamW of one model. `clip_()` then `step()` after
-    the backward; `zero_grad()` before it."""
+    the backward; `zero_grad()` before it. With `accum_steps` = k the
+    backward of k calls sums into the gradients (`mini_step` counts them)
+    and `accumulate()` updates on the k-th with their mean."""
 
-    def __init__(self, model: nn.Module, cfg: OptimConfig = OptimConfig()):
+    def __init__(self, model: nn.Module, cfg: OptimConfig = OptimConfig(),
+                 accum_steps: int = 1):
         self.cfg = cfg
+        self.accum_steps = int(accum_steps)
+        self.mini_step = 0
         self.labels = param_group_labels(model, cfg.new_params_name,
                                          cfg.frozen_prefixes)
         init_lr = {"basic": cfg.learning_rate, "vision": cfg.clip_lr,
                    "new": cfg.new_lr}
         groups: Dict[str, list] = {}
+        names: Dict[str, list] = {}
         for name, p in model.named_parameters():
             label = self.labels[name]
             p.requires_grad_(label != "frozen")
             if label != "frozen":
                 groups.setdefault(label, []).append(p)
+                names.setdefault(label, []).append(name)
+        # in torch's order of the state: group by group
         self.params = [p for ps in groups.values() for p in ps]
+        self.names = [n for ns in names.values() for n in ns]
         fused = all(p.is_cuda for p in self.params)
         self.torch_optimizer = torch.optim.AdamW(
             [dict(params=ps, name=label, lr=0.0,
@@ -135,9 +149,25 @@ class Optimizer:
         self.torch_optimizer.step()
         self.count += 1
 
+    def accumulate(self) -> Optional[torch.Tensor]:
+        """After a backward: count it in the window; on its k-th, scale
+        the summed gradients to their mean, clip, update and close the
+        window (the next step's `zero_grad` clears them).
+        → the norm before clipping when it updated, else None."""
+        self.mini_step += 1
+        if self.mini_step < self.accum_steps:
+            return None
+        if self.accum_steps > 1:
+            grads = [p.grad for p in self.params if p.grad is not None]
+            torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+        norm = self.clip_()
+        self.step()
+        self.mini_step = 0
+        return norm
 
-def build_optimizer(model: nn.Module,
-                    cfg: OptimConfig = OptimConfig()) -> Optimizer:
+
+def build_optimizer(model: nn.Module, cfg: OptimConfig = OptimConfig(),
+                    accum_steps: int = 1) -> Optimizer:
     """The training entry: turns `requires_grad` on for every parameter
     outside `frozen_prefixes` and returns their optimizer."""
-    return Optimizer(model, cfg)
+    return Optimizer(model, cfg, accum_steps)

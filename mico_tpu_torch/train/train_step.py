@@ -1,8 +1,9 @@
 """The training step (counterpart of `mico_tpu/train/train_step.py`) on one
 card: the task losses, their total, the backward, the global-norm clip and
-the AdamW update. Parameters stay fp32 (master weights) and the model
-computes in `cfg.compute_dtype` (bf16 on the card): each matmul casts its
-weight, so the gradients arrive in fp32. The total is checked for
+the AdamW update (every `accum_steps`-th call when the optimizer
+accumulates, with `optax.MultiSteps`' mean). Parameters stay fp32 (master
+weights) and the model computes in `cfg.compute_dtype` (bf16 on the card):
+each matmul casts its weight, so the gradients arrive in fp32. The total is checked for
 finiteness every step, and a non-finite loss raises before the update.
 Data parallelism and ZeRO-1 (`mesh`, `zero1`) wait for ROADMAP.md queue 1,
 parallelism.
@@ -31,18 +32,22 @@ def make_train_step(cfg: MiCoConfig, optimizer: Optimizer, task: str,
     def step(model, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator],
              draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
+        if optimizer.mini_step == 0:
+            optimizer.zero_grad()
         losses = task_losses(model, cfg, batch, task, generator, draws=draws)
         total = sum(losses.values())
         total.backward()
         if not torch.isfinite(total).item():
             optimizer.zero_grad()
+            optimizer.mini_step = 0
             raise FloatingPointError(
                 f"non-finite loss at update {optimizer.count}: "
                 f"{ {k: v.item() for k, v in losses.items()} }")
-        norm = optimizer.clip_()
-        optimizer.step()
+        norm = optimizer.accumulate()
         out = {k: v.detach() for k, v in losses.items()}
-        return dict(out, loss_total=total.detach(), grad_norm=norm)
+        out["loss_total"] = total.detach()
+        if norm is not None:
+            out["grad_norm"] = norm
+        return out
 
     return step

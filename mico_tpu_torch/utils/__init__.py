@@ -1,1 +1,2 @@
-"""Utilities of the port: the `hps.json` reader of a run directory."""
+"""Utilities of the port: the layered run config and `hps.json`, logging
+and the running loss meters."""
