@@ -186,6 +186,37 @@ Phases, run in order (any failure exits non-zero):
      residual one);
      then the probe's chain of 8 calls (`scripts/torch_mlp_probe.py` at its
      0.02-scale data), counted from 0 (P1 8);
+  9b. scst: K1's, K5's and K8's differentiated routes (autograd through
+     the wrappers) at x (8, 257, 1408) 16 x 88 and (8, 257, 1792) 16 x
+     112, bf16 on unit-std x: the output and every input's gradient
+     against the card's fp32 plain autograd of the same composition under
+     the relative mean gate, each call's launches held (K1 and K5: K3 1,
+     then K4 1; K8: K8 1, then K3 1 and K4 1), timed beside the bf16 plain
+     autograd; then `mico_tpu_torch.run.main` on configs/pretrain-omni.json
+     (MiCo-g at full width) over an `annoindexed` corpus written to a
+     temporary directory (64 clips of 8 JPEG frames with 2-3 reference
+     captions, one corrupt clip), task `scst%tv` at B 64 x 8 frames (2056
+     condition tokens), 40-token captions, 3 steps, no validation set,
+     saves left out (phase run times them): each step counted from 0 (K1
+     40, the rollout's ViT pass; nothing else), finite losses, BERT with a
+     gradient and the vision tower without one, the seconds of each stage
+     (rollout encoder, sample decode, greedy decode, reward, update,
+     optimizer), the rewards, peak memory, and the last step under
+     torch.profiler (the device alone: busy ms and the idle share); each
+     sample's references also hold the model's own greedy caption, so
+     that a random-weight model's advantages are not all 0. Then one
+     `finetune_encoder=True` step at B 4 (K1 40, K3 40, K4 40; a vision
+     gradient); the REINFORCE loss at B 2 with the tokens and advantages
+     injected, the card in bf16 against the card in fp32 on the plain
+     routes (loss within 2e-2, cosine >= 0.99 per optimizer group and for
+     the first and last block's qkv_w); the recompute `generate_scst`
+     under grad at B 4 over 2056 condition tokens on the cached route's
+     tokens (K2 480, summed logp within 2e-2 of the cached route's, a
+     gradient in every layer's cross-attention K weight); and one ViT-g
+     training-route step at B 8 frames with no remat, a plain checkpoint,
+     `save:attn_out` and `dots_with_no_batch_dims_saveable` (memory held
+     for the backward, peak, K3/K4 launches, ms; gradient cosine >= 0.99
+     per group against the run without remat, max |d|);
  10. run: `mico_tpu_torch.run.main` (the entry of `python -m
      mico_tpu_torch.run`) on `configs/pretrain-omni.json` at full width
      over an `annoindexed` corpus written to a temporary directory (32
@@ -2801,12 +2832,14 @@ RUN_WORDS = ("a man woman dog cat is are skiing running playing singing on "
 RUN_PROFILED_STEP = 4
 
 
-def write_run_corpus(root, seed: int) -> dict:
-    """An `annoindexed` corpus under root: RUN_ITEMS clips, each a directory
+def write_run_corpus(root, seed: int, items: int = RUN_ITEMS,
+                     refs: bool = False) -> dict:
+    """An `annoindexed` corpus under root: `items` clips, each a directory
     of RUN_FRAMES cv2 JPEG frames of 256 x 320 and a 5 s 16 kHz 16-bit WAV,
-    with a caption, a question and answers (a list for every other clip),
-    and one clip whose frames are corrupt JPEGs (the dataset resamples past
-    it); all drawn from `seed`."""
+    with a caption (with `refs`, a list of 2 or 3 reference captions), a
+    question and answers (a list for every other clip), and one clip whose
+    frames are corrupt JPEGs (the dataset resamples past it); all drawn
+    from `seed`."""
     import os
     import wave
 
@@ -2823,8 +2856,8 @@ def write_run_corpus(root, seed: int) -> dict:
     def words(n):
         return " ".join(rng.choice(RUN_WORDS, n))
 
-    for i in range(RUN_ITEMS + 1):
-        cid = f"clip{i:03d}" if i < RUN_ITEMS else "corrupt"
+    for i in range(items + 1):
+        cid = f"clip{i:03d}" if i < items else "corrupt"
         os.makedirs(os.path.join(frames_dir, cid))
         for k in range(RUN_FRAMES):
             path = os.path.join(frames_dir, cid, f"{k:04d}.jpg")
@@ -2845,7 +2878,9 @@ def write_run_corpus(root, seed: int) -> dict:
             f.setframerate(16000)
             f.writeframes((wav * 32767).clip(-32768, 32767).astype(np.int16)
                           .tobytes())
-        annos.append({"video_id": cid, "caption": words(8),
+        caption = ([words(8) for _ in range(2 + i % 2)] if refs
+                   else words(8))
+        annos.append({"video_id": cid, "caption": caption,
                       "question": words(5) + "?",
                       "answer": ([words(1), words(1), words(2)] if i % 2
                                  else words(1)),
@@ -2901,15 +2936,17 @@ class Patches:
         self.undo = []
 
 
-def profiled(fn):
+def profiled(fn, cpu: bool = True):
     """(fn(), device busy ms, wall ms) of one call under torch.profiler:
     busy is the sum of the kernels' own device time (None when none was
-    recorded)."""
+    recorded). cpu=False traces the device alone: a step of many small ops
+    (the SCST update's decode under grad) ran 25x slower with the host's
+    ops traced too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if cpu else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3324,6 +3361,553 @@ def run_entry(probe, run_main, argv, out, layers, card, train_step) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 9b: SCST caption fine-tuning (the differentiated K1, K5, K8 routes)
+# ---------------------------------------------------------------------------
+
+SCST_ITEMS = 64             # clips of the SCST corpus, 2-3 captions each
+SCST_B = 64                 # the captioner deployment shape (PERF.md §2)
+SCST_FRAMES = 8             # 8 x 257 = 2056 condition tokens a sample
+SCST_STEPS = 3              # the last one under torch.profiler
+SCST_FT_B = 4               # the finetune_encoder step's samples
+SCST_GRAD_B = 2
+SCST_RECOMPUTE_B = 4
+SCST_ADV = (1.0, -0.5)      # the gradient check's injected advantages
+REMAT_B = 8                 # ViT-g frames of the remat comparison
+REMAT_RUNS = (("none", False, None), ("full", True, None),
+              ("save:attn_out", True, "save:attn_out"),
+              ("dots_with_no_batch_dims_saveable", True,
+               "dots_with_no_batch_dims_saveable"))
+
+
+def rel_mean_check(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """mean |d| <= REL_MEAN_ERR_MAX * mean |want| (gradients summed over
+    thousands of rows are far beyond the absolute gates)."""
+    diff = (got.float() - want.float()).abs()
+    ref = want.float().abs().mean().item()
+    err = dict(max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+               mean_abs_ref=ref)
+    log(f"  {name}: max|d| {err['max_abs_err']:.3e}  mean|d| "
+        f"{err['mean_abs_err']:.3e}  (mean |ref| {ref:.3e})")
+    if not err["mean_abs_err"] <= REL_MEAN_ERR_MAX * ref:
+        raise AssertionError(f"{name}: mean |d| {err['mean_abs_err']:.3e} > "
+                             f"{REL_MEAN_ERR_MAX} * mean |ref| {ref:.3e}")
+    return err
+
+
+def phase_scst_routes(fa, paths: dict) -> dict:
+    """K1's, K5's and K8's differentiated routes at full width in bf16 on
+    unit-std x (weights at the init std 0.02): the output and every input's
+    gradient against the card's fp32 plain autograd of the same
+    composition, each call's launches held (forward, then backward)."""
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+    cases = (
+        ("K1", 16, 88, ("x", "g", "b0", "w", "bias"),
+         lambda a, nh, s: fa.fused_ln_qkv_self_attention(
+             *a, nh, s, 1e-6, True),
+         lambda a, nh, s: fa.fused_ln_qkv_plain(*a, nh, s, 1e-6, True),
+         dict(K3=1), dict(K4=1)),
+        ("K5", 16, 112, ("x", "w", "bias"),
+         lambda a, nh, s: fa.fused_qkv_self_attention(*a, nh, s),
+         lambda a, nh, s: fa.fused_qkv_plain(*a, nh, s),
+         dict(K3=1), dict(K4=1)),
+        ("K8", 16, 112, ("x", "w", "bias", "wp", "bp"),
+         lambda a, nh, s: fa.fused_qkv_attn_proj(*a, nh, s),
+         lambda a, nh, s: fa.fused_qkv_attn_proj_plain(*a, nh, s),
+         dict(K8=1), dict(K3=1, K4=1)))
+    for name, nh, d, names, call, plain, want_fwd, want_bwd in cases:
+        a = fused_qkv_inputs(gen, 8, 257, nh, d)
+        w = nh * d
+        a["g"] = (1.0 + 0.1 * torch.randn(w, generator=gen)).cuda()
+        a["b0"] = (0.1 * torch.randn(w, generator=gen)).cuda()
+        cot = torch.randn(8, 257, w, generator=gen).to("cuda", torch.bfloat16)
+        scale = d ** -0.5
+        ins = [a[n].detach().requires_grad_(True) for n in names]
+
+        def fwd_bwd(fn, args):
+            o = fn(args, nh, scale)
+            return o, torch.autograd.grad((o.float() * cot.float()).sum(),
+                                          args)
+
+        what = f"{name} route (autograd)"
+        o = run_counted(fa, paths, f"{what} forward",
+                        lambda: call(ins, nh, scale), **want_fwd)
+        grads = run_counted(fa, paths, f"{what} backward",
+                            lambda: torch.autograd.grad(
+                                (o.float() * cot.float()).sum(), ins),
+                            **want_bwd)
+        ref_ins = [a[n].detach().float().requires_grad_(True) for n in names]
+        ro, rgrads = fwd_bwd(plain, ref_ins)
+        errs = {"out": rel_mean_check(f"{what} out, {tuple(o.shape)}", o, ro)}
+        for n, g, rg in zip(names, grads, rgrads):
+            errs[n] = rel_mean_check(f"{what} d{n}", g, rg)
+        plain_ins = [a[n].detach().requires_grad_(True) for n in names]
+        ms = cuda_time_ms(lambda: fwd_bwd(call, ins), iters=5, warmup=1)
+        plain_ms = cuda_time_ms(lambda: fwd_bwd(plain, plain_ins), iters=5,
+                                warmup=1)
+        log(f"  {what} at x {tuple(a['x'].shape)} {nh}x{d}: forward + "
+            f"backward {ms:.3f} ms (bf16 plain autograd {plain_ms:.3f} ms)")
+        out[name] = dict(errors=errs, ms=ms, plain_ms=plain_ms,
+                         shape=list(a["x"].shape), heads=nh, head_dim=d)
+        del a, ins, ref_ins, plain_ins, o, ro, grads, rgrads
+    free_cuda()
+    return out
+
+
+def own_greedy_refs(model, tokenizer, batch, refs) -> list:
+    """Each sample's references (none when `refs` is None) and the model's
+    own greedy caption of it: with random weights the corpus's references
+    share no n-gram with the model's captions, and every advantage would
+    be 0."""
+    from mico_tpu_torch.generation import cached_generate
+    from mico_tpu_torch.train.objectives import compute_features
+
+    with torch.no_grad():
+        cond = compute_features(model, model.cfg, batch,
+                                "v")["condition_feats_v"]
+        own = tokenizer.batch_decode(cached_generate(
+            model.bert, cond, max_new_tokens=40,
+            compute_dtype=model.compute_dtype).cpu().numpy())
+    if refs is None:
+        return own
+    return [(r if isinstance(r, list) else [r]) + [o]
+            for r, o in zip(refs, own)]
+
+
+def scst_argv(corpus: dict, out: str) -> list:
+    """`python -m mico_tpu_torch.run` on configs/pretrain-omni.json (MiCo-g)
+    for an `scst%tv` task over the SCST corpus: B 64 clips of 8 frames,
+    40-token captions, no validation set."""
+    train = [{"type": "annoindexed", "txt": corpus["txt"],
+              "vision": corpus["vision"], "vision_format": "video_frame",
+              "vision_sample_num": SCST_FRAMES, "n_workers": 6,
+              "batch_size": SCST_B, "training": True, "name": "synthetic",
+              "task": "scst%tv"}]
+    return ["--config", "configs/pretrain-omni.json", "--output_dir", out,
+            "--device", "cuda", "--data_cfg.train", json.dumps(train),
+            "run_cfg.seed=0", "run_cfg.first_eval=false",
+            "run_cfg.log_every=1", f"run_cfg.num_train_steps={SCST_STEPS}",
+            f"run_cfg.valid_freq=1", "model_cfg.max_caption_len=40",
+            "run_cfg.scst_finetune_encoder=false"]
+
+
+def scst_run(fa, card: str, paths: dict) -> tuple:
+    """SCST through `run.main` (`pipeline.train`, decoder-only): each step
+    counted from 0 (K1 = blocks, the rollout's ViT pass; nothing else), a
+    gradient in BERT and none in the vision tower, the seconds of each
+    stage, the last step under torch.profiler (the device alone). Each
+    sample's references also hold the model's own greedy caption, decoded
+    before the step (`own_greedy_refs`). Saves are left out (phase run
+    times them). → (result, the trained model and optimizer)."""
+    import os
+    import shutil
+    import tempfile
+
+    import mico_tpu_torch.pipeline as pipeline
+    import mico_tpu_torch.run as run_mod
+    import mico_tpu_torch.train.checkpoints as ckpt
+    from mico_tpu_torch.config import MiCoConfig
+
+    layers = MiCoConfig().eva_config.layers
+    root = tempfile.mkdtemp(prefix="mico_scst_")
+    seen, steps, saves = {}, [], []
+    p = Patches()
+    try:
+        t0 = time.perf_counter()
+        corpus = write_run_corpus(root, seed=1, items=SCST_ITEMS, refs=True)
+        log(f"phase scst: wrote {SCST_ITEMS} clips + 1 corrupt with 2-3 "
+            f"captions each in {time.perf_counter() - t0:.1f} s")
+        make = pipeline.make_scst_step
+
+        def make_scst_step(cfg, optimizer, task, tokenizer, **kw):
+            step = make(cfg, optimizer, task, tokenizer, **kw)
+
+            def counted(model, batch, generator, refs):
+                seen.update(model=model, optimizer=optimizer,
+                            tokenizer=tokenizer)
+                timings, i = {}, len(steps) + 1
+                refs = own_greedy_refs(model, tokenizer, batch, refs)
+
+                def call():
+                    return step(model, batch, generator, refs,
+                                timings=timings)
+                what = f"scst step {i}"
+                busy = wall = None
+                if i == SCST_STEPS:
+                    out, busy, wall = run_counted(
+                        fa, paths, what, lambda: profiled(call, cpu=False),
+                        K1=layers)
+                else:
+                    out = run_counted(fa, paths, what, call, K1=layers)
+
+                def grad_norm(module):
+                    return torch.sqrt(sum(
+                        q.grad.float().square().sum()
+                        for q in module.parameters()
+                        if q.grad is not None)).item()
+                steps.append(dict(step=i, stages_s=timings, busy_ms=busy,
+                                  profiled_ms=wall,
+                                  bert_grad_norm=grad_norm(model.bert),
+                                  vision_grad_norm=grad_norm(
+                                      model.vision_encoder),
+                                  launches=paths[what]))
+                return out
+            return counted
+        p.set(pipeline, "make_scst_step", make_scst_step)
+        p.set(ckpt.ModelSaver, "save",
+              lambda self, step, model, optimizer=None: saves.append(step))
+        train = run_mod.train
+
+        def spy_train(cfg, model, *a, **kw):
+            seen["bert_before"] = {n: q.detach().clone()
+                                   for n, q in model.bert.named_parameters()}
+            return train(cfg, model, *a, **kw)
+        p.set(run_mod, "train", spy_train)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec = run_mod.main(scst_argv(corpus, os.path.join(root, "out")))
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        p.close()
+        shutil.rmtree(root, ignore_errors=True)
+    model = seen["model"]
+    losses = [s["losses"] for s in rec["steps"]]
+    for s in losses:
+        if not all(np.isfinite(v) for v in s.values()):
+            raise AssertionError(f"scst: non-finite losses {s}")
+    moved = max((q.detach() - seen["bert_before"][n]).abs().max().item()
+                for n, q in model.bert.named_parameters())
+    del seen["bert_before"]
+    if not moved > 0:
+        raise AssertionError("scst: the BERT parameters did not move")
+    if len(steps) != SCST_STEPS:
+        raise AssertionError(f"scst: {len(steps)} steps ran")
+    for s in steps:
+        if s["vision_grad_norm"] != 0.0 or not s["bert_grad_norm"] > 0:
+            raise AssertionError(
+                f"scst step {s['step']} (decoder-only): gradient norm of "
+                f"BERT {s['bert_grad_norm']}, of the vision tower "
+                f"{s['vision_grad_norm']}")
+    # the step's own seconds (its stages), and the loop's cycle, as phase
+    # run takes it: the wait for the batch and the loop's step (the
+    # references' greedy decode and the step), at step 2, neither the
+    # first nor the profiled; samples/s and the idle share are the cycle's
+    step_s = [sum(s["stages_s"].values()) for s in steps]
+    steady = rec["steps"][1]
+    cycle_s = steady["data_wait_s"] + steady["step_s"]
+    last = steps[-1]
+    idle = (None if last["busy_ms"] is None
+            else 1.0 - last["busy_ms"] / (1e3 * cycle_s))
+    stage_names = ("rollout_encoder", "sample_decode", "greedy_decode",
+                   "reward", "update", "optimizer")
+    result = dict(
+        batch=SCST_B, frames=SCST_FRAMES, condition_tokens=SCST_FRAMES * 257,
+        max_caption_len=40, run_s=run_s, step_s=step_s,
+        loop_step_s=[r["step_s"] for r in rec["steps"]],
+        data_wait_s=[r["data_wait_s"] for r in rec["steps"]],
+        grad_norms=[{k: s[k] for k in ("bert_grad_norm", "vision_grad_norm")}
+                    for s in steps],
+        samples_per_s=SCST_B / cycle_s, cycle_s=cycle_s,
+        step_only_samples_per_s=SCST_B / step_s[1],
+        stages_s=[{k: s["stages_s"].get(k) for k in stage_names}
+                  for s in steps],
+        losses=losses, bert_max_move=moved, peak_memory_bytes=peak,
+        profiled_step=dict(busy_ms=last["busy_ms"],
+                           wall_ms=last["profiled_ms"]),
+        idle_share=idle, saves_left_out=saves)
+    log(f"  scst%tv through run.main: {run_s:.1f} s (model, data, "
+        f"{SCST_STEPS} steps); step s {[round(x, 3) for x in step_s]}; "
+        f"{result['samples_per_s']:.2f} samples/s over step 2's cycle of "
+        f"{cycle_s:.3f} s (data wait {steady['data_wait_s']:.3f} s; "
+        f"{result['step_only_samples_per_s']:.2f} over the step alone); "
+        f"peak memory "
+        f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    for s in steps:
+        log(f"  scst step {s['step']}: " + ", ".join(
+            f"{k} {s['stages_s'].get(k, float('nan')):.3f} s"
+            for k in stage_names) + f"; rewards sample "
+            f"{losses[s['step'] - 1]['reward_sample']:.4f} greedy "
+            f"{losses[s['step'] - 1]['reward_greedy']:.4f}, loss "
+            f"{losses[s['step'] - 1]['loss_scst']:.4f}")
+    log(f"  step {SCST_STEPS} under torch.profiler (device only): busy "
+        f"{ms_text(last['busy_ms'], 1)} ms, idle share "
+        f"{ms_text(idle, 3)} of step 2's cycle, {1e3 * cycle_s:.1f} ms "
+        f"(wall {last['profiled_ms']:.1f} ms profiled); gradient norms "
+        f"{result['grad_norms']} [{card}]")
+    return result, seen
+
+
+def scst_finetune(fa, seen: dict, paths: dict) -> dict:
+    """One `finetune_encoder=True` step at B 4 x 8 frames on the trained
+    model (references: its own greedy captions, `own_greedy_refs`): K1 =
+    blocks in the rollout, K3 = K4 = blocks in the update, and the vision
+    tower gets a gradient."""
+    from mico_tpu_torch.train.scst import make_scst_step
+
+    model, opt, tok = seen["model"], seen["optimizer"], seen["tokenizer"]
+    layers = model.cfg.eva_config.layers
+    gen = torch.Generator().manual_seed(5)
+    batch = {"vision_pixels": torch.randn(
+        SCST_FT_B, SCST_FRAMES, 3, 224, 224, generator=gen).cuda()}
+    refs = own_greedy_refs(model, tok, batch, None)
+    step = make_scst_step(model.cfg, opt, "scst%tv", tok,
+                          finetune_encoder=True)
+    timings = {}
+    t0 = time.perf_counter()
+    out = run_counted(fa, paths, "scst finetune_encoder step",
+                      lambda: step(model, batch, torch.Generator().manual_seed(
+                          6), refs, timings=timings),
+                      K1=layers, K3=layers, K4=layers)
+    seconds = time.perf_counter() - t0
+    vals = {k: v.item() for k, v in out.items()}
+    norm = torch.sqrt(sum(q.grad.float().square().sum()
+                          for q in model.vision_encoder.parameters()
+                          if q.grad is not None)).item()
+    if not (np.isfinite(vals["loss_scst"]) and norm > 0):
+        raise AssertionError(f"scst finetune step: {vals}, vision gradient "
+                             f"norm {norm}")
+    log(f"  scst finetune_encoder step B={SCST_FT_B}x{SCST_FRAMES}: {vals}; "
+        f"vision gradient norm after the clip {norm:.4e}; {seconds:.2f} s "
+        f"({ {k: round(v, 3) for k, v in timings.items()} })")
+    del batch, step
+    return dict(losses=vals, vision_grad_norm=norm, seconds=seconds,
+                stages_s=timings)
+
+
+def scst_grad_check(fa, model, paths: dict) -> dict:
+    """The REINFORCE loss with the encoder under grad at B 2 x 8 frames,
+    tokens (a bf16 sample) and advantages injected: the card in bf16 (K1's
+    differentiated route: K3, K4) against the card in fp32 on the plain
+    routes; the loss within LOSS_RTOL and the gradient cosine >=
+    GRAD_COSINE_MIN for each optimizer group and the first and last block's
+    qkv_w (phase train's gates)."""
+    from mico_tpu_torch.generation import generate_scst
+    from mico_tpu_torch.train.objectives import compute_features
+    from mico_tpu_torch.train.optim import param_group_labels
+
+    base = model.cfg
+    cfg32 = dataclasses.replace(base, compute_dtype="float32",
+                                use_flash_attention=False)
+    gen = torch.Generator().manual_seed(7)
+    batch = {"vision_pixels": torch.randn(
+        SCST_GRAD_B, SCST_FRAMES, 3, 224, 224, generator=gen).cuda()}
+    adv = torch.tensor(SCST_ADV, device="cuda")
+    with torch.no_grad():
+        cond = compute_features(model, base, batch, "v")["condition_feats_v"]
+        tokens, _ = generate_scst(
+            model.bert, cond, max_new_tokens=40, compute_dtype=torch.bfloat16,
+            generator=torch.Generator("cuda").manual_seed(8), use_cache=True)
+    del cond
+    runs = {}
+    try:
+        for label, cfg in (("bf16", base), ("fp32", cfg32)):
+            model.cfg = cfg
+            model.zero_grad(set_to_none=True)
+            fa.reset_launch_counts()
+            cond = compute_features(model, cfg, batch,
+                                    "v")["condition_feats_v"]
+            _, logp = generate_scst(model.bert, cond, max_new_tokens=40,
+                                    compute_dtype=model.compute_dtype,
+                                    use_cache=True, tokens=tokens)
+            loss = -(adv * logp.sum(-1)).mean()
+            loss.backward()
+            torch.cuda.synchronize()
+            runs[label] = dict(
+                loss=loss.item(), launches=fa.launch_counts(),
+                grads={n: q.grad.detach().float().clone()
+                       for n, q in model.named_parameters()
+                       if q.grad is not None})
+            del cond, logp, loss
+            model.zero_grad(set_to_none=True)
+    finally:
+        model.cfg = base
+    paths["scst gradient check (bf16)"] = runs["bf16"]["launches"]
+    layers = base.eva_config.layers
+    a, b = runs["bf16"], runs["fp32"]
+    if (a["launches"]["K3"], a["launches"]["K4"], a["launches"]["K1"]) != (
+            layers, layers, 0) or any(b["launches"].values()):
+        raise AssertionError(f"scst gradient check launches: bf16 "
+                             f"{a['launches']}, fp32 {b['launches']}")
+    if not abs(a["loss"] - b["loss"]) <= LOSS_RTOL * abs(b["loss"]):
+        raise AssertionError(f"scst loss bf16 {a['loss']} vs fp32 "
+                             f"{b['loss']}")
+
+    def cos(x, y):
+        return torch.nn.functional.cosine_similarity(
+            x.double().flatten(), y.double().flatten(), dim=0).item()
+
+    labels = param_group_labels(model)
+    groups = {}
+    for n in a["grads"]:
+        if b["grads"][n].abs().max() > 0:
+            groups.setdefault(labels[n], []).append(n)
+    group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
+                        torch.cat([b["grads"][n].flatten() for n in ns]))
+                 for g, ns in groups.items()}
+    held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
+        "vision_encoder.blocks.0.qkv_w",
+        f"vision_encoder.blocks.{layers - 1}.qkv_w")}
+    log(f"  scst gradient check B={SCST_GRAD_B}: loss bf16 {a['loss']:.5f} "
+        f"fp32 {b['loss']:.5f}; cosine by group {group_cos}; {held}")
+    for name, c in {**group_cos, **held}.items():
+        if not c >= GRAD_COSINE_MIN:
+            raise AssertionError(f"scst gradient cosine {name} {c} < "
+                                 f"{GRAD_COSINE_MIN}")
+    del runs
+    free_cuda()
+    return dict(loss_bf16=a["loss"], loss_fp32=b["loss"],
+                group_cosine=group_cos, qkv_w_cosine=held,
+                launches_bf16=a["launches"])
+
+
+def scst_recompute(fa, model, paths: dict) -> dict:
+    """The recompute `generate_scst` under grad at B 4 over 2056 condition
+    tokens on the cached route's tokens: K2 once per layer and step (12 x
+    40), the summed logp within LOSS_RTOL of the cached route's, and the
+    backward reaches the cross-attention weights."""
+    from mico_tpu_torch.generation import generate_scst
+
+    bert = model.bert
+    gen = torch.Generator().manual_seed(9)
+    cond = torch.randn(SCST_RECOMPUTE_B, DEPLOY_COND, 768,
+                       generator=gen).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        tokens, lp_cached = generate_scst(
+            bert, cond, max_new_tokens=40, compute_dtype=torch.bfloat16,
+            generator=torch.Generator("cuda").manual_seed(10),
+            use_cache=True)
+    model.zero_grad(set_to_none=True)
+    nl = bert.cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    tok_r, lp = run_counted(fa, paths, "scst recompute generate_scst",
+                            lambda: generate_scst(
+                                bert, cond, max_new_tokens=40,
+                                compute_dtype=torch.bfloat16,
+                                use_cache=False, tokens=tokens),
+                            K2=nl * 40)
+    lp.sum().backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want, got = lp_cached.sum().item(), lp.sum().item()
+    xgrad = min(bert.layers[i].get("xk_w").grad.abs().max().item()
+                for i in range(nl))
+    log(f"  recompute generate_scst B={SCST_RECOMPUTE_B} x {DEPLOY_COND} "
+        f"condition tokens: summed logp {got:.4f} (cached route {want:.4f}); "
+        f"min over layers of max |d xk_w| {xgrad:.3e}; forward + backward "
+        f"{seconds:.2f} s; launches {paths['scst recompute generate_scst']}")
+    if not torch.equal(tok_r, tokens):
+        raise AssertionError("recompute generate_scst changed the tokens")
+    if not abs(got - want) <= LOSS_RTOL * abs(want):
+        raise AssertionError(f"recompute summed logp {got} vs cached {want}")
+    if not xgrad > 0:
+        raise AssertionError("the recompute backward missed a cross-attention "
+                             "weight")
+    model.zero_grad(set_to_none=True)
+    del cond, lp
+    free_cuda()
+    return dict(logp_sum=got, logp_sum_cached=want, seconds=seconds)
+
+
+def scst_remat(fa, model, card: str, paths: dict) -> dict:
+    """One ViT-g training-route step at B 8 frames (backward of a fixed
+    random projection of the tokens) with no remat, a plain checkpoint,
+    `save:attn_out` and `dots_with_no_batch_dims_saveable`: peak memory,
+    K3/K4 launches and ms of each; gradients against the run without remat
+    (cosine >= GRAD_COSINE_MIN per optimizer group, max |d|)."""
+    from mico_tpu_torch.models.eva_vit import eva_vit_forward
+    from mico_tpu_torch.train.optim import param_group_labels
+
+    vit = model.vision_encoder
+    gen = torch.Generator().manual_seed(12)
+    px = torch.randn(REMAT_B, 3, 224, 224, generator=gen).cuda()
+    cot = torch.randn(REMAT_B, 257, 1408, generator=gen).to("cuda",
+                                                            torch.bfloat16)
+    labels = {n[len("vision_encoder."):]: g
+              for n, g in param_group_labels(model).items()
+              if n.startswith("vision_encoder.")}
+    out, ref = {}, None
+    for label, remat, policy in REMAT_RUNS:
+        model.zero_grad(set_to_none=True)
+        free_cuda()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        y = eva_vit_forward(vit, px, compute_dtype=torch.bfloat16,
+                            attn_impl="flash", remat=remat,
+                            remat_policy=policy,
+                            train_rng=torch.Generator().manual_seed(3))
+        saved = torch.cuda.memory_allocated() - base_mem
+        (y.float() * cot.float()).sum().backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        launches = fa.launch_counts()
+        paths[f"remat {label} ViT-g step"] = launches
+        grads = {n: q.grad.float().clone() for n, q in vit.named_parameters()
+                 if q.grad is not None}
+        del y
+        row = dict(saved_for_backward_bytes=saved,
+                   peak_above_resident_bytes=peak, ms=ms,
+                   K3=launches["K3"], K4=launches["K4"])
+        if ref is None:
+            ref = grads
+        else:
+            groups = {}
+            for n in ref:
+                groups.setdefault(labels[n], []).append(n)
+            row["group_cosine"] = {
+                g: torch.nn.functional.cosine_similarity(
+                    torch.cat([grads[n].flatten() for n in ns]).double(),
+                    torch.cat([ref[n].flatten() for n in ns]).double(),
+                    dim=0).item() for g, ns in groups.items()}
+            row["max_abs_diff"] = max((grads[n] - ref[n]).abs().max().item()
+                                      for n in ref)
+            bad = {g: c for g, c in row["group_cosine"].items()
+                   if not c >= GRAD_COSINE_MIN}
+            if bad or grads.keys() != ref.keys():
+                raise AssertionError(f"remat {label}: cosine {bad}")
+        out[label] = row
+        del grads
+        log(f"  remat {label}: step {ms:.1f} ms, held for the backward "
+            f"{saved / 2 ** 30:.3f} GiB, peak "
+            f"{peak / 2 ** 30:.2f} GiB above the resident "
+            f"{base_mem / 2 ** 30:.2f} GiB, K3 {launches['K3']} K4 "
+            f"{launches['K4']}" + ("" if "group_cosine" not in row else
+                                   f", cosine {row['group_cosine']}, max |d| "
+                                   f"{row['max_abs_diff']:.3e}") + f" [{card}]")
+    model.zero_grad(set_to_none=True)
+    del ref, px, cot
+    free_cuda()
+    return out
+
+
+def phase_scst(fa, card: str) -> dict:
+    """The differentiated routes, SCST through the train entry, one
+    finetune_encoder step, the gradient check, the recompute
+    generate_scst and the remat policies."""
+    paths = {}
+    t0 = time.perf_counter()
+    routes = phase_scst_routes(fa, paths)
+    run, seen = scst_run(fa, card, paths)
+    model = seen["model"]
+    result = dict(routes=routes, run=run,
+                  finetune=scst_finetune(fa, seen, paths),
+                  gradient_check=scst_grad_check(fa, model, paths),
+                  recompute=scst_recompute(fa, model, paths),
+                  remat=scst_remat(fa, model, card, paths))
+    seen.clear()
+    del model
+    free_cuda()
+    result["phase_s"] = time.perf_counter() - t0
+    log(f"  phase scst: {result['phase_s']:.1f} s")
+    result["paths"] = paths
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -3364,6 +3948,7 @@ def main() -> int:
     long = phase_long_train(fa, card)
     mlp_rows, mlp = phase_mlp(fa, card)
     rows += mlp_rows
+    scst = phase_scst(fa, card)
     run = phase_run(fa, card, train)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
@@ -3375,6 +3960,7 @@ def main() -> int:
              "long-context no-grad forward":
                  long["paths"]["long-context no-grad forward"],
              **mlp["paths"],
+             **scst["paths"],
              "run train step": run["launches"]["train step"],
              **{f"run eval (step {step})": {k: v for k, v in c.items()
                                            if k.startswith(("K", "P"))}
@@ -3402,6 +3988,8 @@ def main() -> int:
                                 if k != "paths"},
                       "long_context": {k: v for k, v in long.items()
                                        if k != "paths"},
+                      "scst": {k: v for k, v in scst.items()
+                               if k != "paths"},
                       "run": run}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,8 @@ The reference decodes by appending a [MASK] probe each step and growing a
 1110-1143). That mask is causal, so the decode runs over one fixed-length
 token buffer with a lower-triangular mask, writing token t at slot t+1 and
 reading the logits at the [MASK] slot. Modes: greedy, top-k sampling (the
-VAST captioner's) and beam search with HF's length penalty (score =
-logp_sum / len**penalty).
+VAST captioner's), full-softmax sampling (`scst`, the SCST rule) and beam
+search with HF's length penalty (score = logp_sum / len**penalty).
 
 Two paths give the same tokens:
   - recompute (`use_cache=False`): the whole buffer goes through
@@ -27,7 +27,16 @@ The step loop is a Python loop over a fixed number of steps (JAX's scan
 always runs `max_new_tokens` steps), with no host synchronisation inside.
 Top-k selections break ties toward the lower index, as `jax.lax.top_k`
 does. Sampling draws from a `torch.Generator`, whose stream is not JAX's.
-SCST sampling (`generate_scst`, `mode="scst"`) waits for the training port.
+
+`generate_scst` (generation.py:931-977) is differentiable: it returns each
+sampled token's fp32 log-probability, zeroed after [SEP], with its
+gradient, on either path. When autograd records the decode (grad mode on
+and the condition or a decoder parameter requiring a gradient, decided
+once a call) the cached path writes its self K/V caches out of place
+(`index_copy`), so that autograd keeps every step's caches; otherwise they
+are written in place as before, with the same values. `teacher_tokens`
+commits given tokens in place of drawn ones (to score a trajectory again,
+as the SCST update does).
 """
 
 from __future__ import annotations
@@ -53,10 +62,11 @@ from mico_tpu_torch.models.bert import (
     mlm_logits,
 )
 from mico_tpu_torch.ops.int8_attention import int8_cross_attention, quantize_kv
-from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+from mico_tpu_torch.ops.layers import (gelu, layer_norm, linear, matmul_f32,
+                                      records_grad)
 
 NEG_INF = -1.0e7
-MODES = ("greedy", "sample", "beam")
+MODES = ("greedy", "sample", "beam", "scst")
 
 # Store the per-layer cross K/V split per head, (B, nh, Lk, hd) contiguous,
 # so each (batch, head) panel is read in one run instead of strided across
@@ -72,17 +82,44 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _gumbel_argmax(x: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """A draw from softmax(x) over the last axis by the Gumbel-max rule, as
+    `jax.random.categorical` draws."""
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    return torch.argmax(x + gumbel, dim=-1)
+
+
 def _next_token(logits: torch.Tensor, mode: str, top_k: int,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Greedy argmax (first maximum), or a draw from the top-k logits by
-    the Gumbel-max rule, as `jax.random.categorical` draws."""
+    """Greedy argmax (first maximum), a draw from the whole softmax
+    (`scst`, generation.py:545-548), or a draw from the top-k logits."""
     if mode == "greedy":
         return torch.argmax(logits, dim=-1)
+    if mode == "scst":
+        return _gumbel_argmax(logits.detach(), generator)
     vals, idx = _top_k(logits, top_k)
-    u = torch.rand(vals.shape, generator=generator, device=vals.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    choice = torch.argmax(vals + gumbel, dim=-1, keepdim=True)
-    return idx.gather(-1, choice)[:, 0]
+    choice = _gumbel_argmax(vals, generator)
+    return idx.gather(-1, choice[:, None])[:, 0]
+
+
+def _token_logp(logits: torch.Tensor, nxt: torch.Tensor,
+                finished: torch.Tensor) -> torch.Tensor:
+    """log softmax(logits)[nxt] in fp32, 0 where the row had finished
+    (generation.py:550-553)."""
+    logp = torch.log_softmax(logits.float(), dim=-1).gather(
+        1, nxt[:, None])[:, 0]
+    return torch.where(finished, 0.0, logp)
+
+
+def _choose(logits, t: int, mode: str, top_k: int, generator,
+            teacher_tokens: Optional[torch.Tensor]) -> torch.Tensor:
+    """Step t's token: teacher_tokens[:, t] when given, else drawn."""
+    if teacher_tokens is not None:
+        return teacher_tokens[:, t].to(logits.device, torch.long)
+    return _next_token(logits, mode, top_k, generator)
+
 
 
 def _length_penalty(n: int, penalty: float, device) -> torch.Tensor:
@@ -91,19 +128,6 @@ def _length_penalty(n: int, penalty: float, device) -> torch.Tensor:
     a host-to-device copy, which would synchronise the step loop."""
     pen = np.power(np.float32(n), np.float32(penalty), dtype=np.float32)
     return torch.full((), float(pen), dtype=torch.float32, device=device)
-
-
-def _scores_f32(qh: torch.Tensor, kh: torch.Tensor) -> torch.Tensor:
-    """q·kᵀ with an fp32 result from operands in the compute dtype, as the
-    JAX einsums' preferred_element_type=float32: on the card a bf16 product
-    with an fp32 output, elsewhere fp32 operands."""
-    if not qh.is_cuda or qh.dtype == torch.float32:
-        return torch.matmul(qh.float(), kh.float().transpose(-1, -2))
-    *batch, lq, d = qh.shape
-    lk = kh.shape[-2]
-    s = torch.bmm(qh.reshape(-1, lq, d), kh.reshape(-1, lk, d).transpose(1, 2),
-                  out_dtype=torch.float32)
-    return s.view(*batch, lq, lk)
 
 
 def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
@@ -167,9 +191,20 @@ def _decode_logits(model: Bert, tokens: torch.Tensor, slot: int,
     return mlm_logits(model, seq[:, slot:slot + 1])[:, 0].float()
 
 
+def _records_grad(model: Bert, cond: torch.Tensor) -> bool:
+    """Whether autograd records a decode: grad mode is on and the condition
+    or a decoder parameter requires a gradient. Decided once a call: the
+    step functions take it as an argument."""
+    return records_grad(cond, *model.parameters())
+
+
 def _sequential_generate(model: Bert, cond, max_new: int, mode: str,
                          top_k: int, generator, compute_dtype,
-                         prefix_ids=None, prefix_mask=None) -> torch.Tensor:
+                         prefix_ids=None, prefix_mask=None,
+                         teacher_tokens: Optional[torch.Tensor] = None,
+                         return_logp: bool = False):
+    """The recompute loop; with return_logp also each step's token logp
+    (B, max_new), differentiable (the recompute `generate_scst`)."""
     b, dev = cond.shape[0], cond.device
     lq = 0 if prefix_ids is None else prefix_ids.shape[1]
     l = lq + max_new + 2               # [prefix] [CLS] + max_new + [MASK] slot
@@ -178,18 +213,25 @@ def _sequential_generate(model: Bert, cond, max_new: int, mode: str,
         tokens[:, :lq] = prefix_ids
     tokens[:, lq] = BERT_CLS_ID
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    record = _records_grad(model, cond)
+    logps = []
     for t in range(max_new):
         slot = lq + t + 1
         # slots past `slot` are never attended (causal), so the probe is
         # written into the buffer itself and overwritten by the token
         tokens[:, slot] = BERT_MASK_ID
-        logits = _decode_logits(model, tokens, slot, cond, None,
+        # a recorded embedding saves its ids: give it its own copy
+        ids = tokens.clone() if record else tokens
+        logits = _decode_logits(model, ids, slot, cond, None,
                                 compute_dtype, prefix_mask=prefix_mask)
-        nxt = _next_token(logits, mode, top_k, generator)
+        nxt = _choose(logits, t, mode, top_k, generator, teacher_tokens)
+        if return_logp:
+            logps.append(_token_logp(logits, nxt, finished))
         nxt = torch.where(finished, BERT_PAD_ID, nxt)
         tokens[:, slot] = nxt
-        finished |= nxt == BERT_SEP_ID
-    return tokens[:, lq:lq + max_new + 1]
+        finished = finished | (nxt == BERT_SEP_ID)   # a where saved it
+    out = tokens[:, lq:lq + max_new + 1]
+    return (out, torch.stack(logps, dim=1)) if return_logp else out
 
 
 def _beam_step(logits: torch.Tensor, k: int, slot: int, length: int,
@@ -295,7 +337,8 @@ def _beam_generate(model: Bert, cond, max_new: int, k: int,
 def _mha(q, k, v, bias, cfg: BertConfig) -> torch.Tensor:
     """Plain MHA of (B, Lq, H) over (B, Lk, H) with an additive fp32 bias."""
     nh, hd = cfg.num_attention_heads, cfg.head_dim
-    s = _scores_f32(_heads(q, nh), _heads(k, nh)) * hd ** -0.5
+    kt = _heads(k, nh).transpose(-1, -2)
+    s = matmul_f32(_heads(q, nh), kt) * hd ** -0.5
     if bias is not None:
         s = s + bias
     return _merge_heads(_softmax_pv(s, _heads(v, nh)))
@@ -307,7 +350,7 @@ def _cross_mha(q, k, v, cfg: BertConfig) -> torch.Tensor:
     the same math either way."""
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     kh, vh = (k, v) if k.dim() == 4 else (_heads(k, nh), _heads(v, nh))
-    s = _scores_f32(_heads(q, nh), kh) * hd ** -0.5
+    s = matmul_f32(_heads(q, nh), kh.transpose(-1, -2)) * hd ** -0.5
     return _merge_heads(_softmax_pv(s, vh))
 
 
@@ -322,31 +365,41 @@ def _group_mha(q, k, v, bias, cfg: BertConfig, n_rep: int) -> torch.Tensor:
     qh = _heads(q.reshape(bg, n_rep * 2, h), nh)       # (bg, nh, kq·2, hd)
     kh = _heads(k.reshape(bg, n_rep * S, h), nh)       # (bg, nh, kc·S, hd)
     vh = _heads(v.reshape(bg, n_rep * S, h), nh)
-    s = _scores_f32(qh, kh) * hd ** -0.5
+    s = matmul_f32(qh, kh.transpose(-1, -2)) * hd ** -0.5
     s = s + bias.reshape(bg, 1, n_rep * 2, n_rep * S)
     return _merge_heads(_softmax_pv(s, vh)).reshape(b, 2, h)
 
 
 def _cached_layer_step(x, lp, ck, cv, xk, xv, t: int, cfg: BertConfig,
-                       self_bias, n_rep: int = 1, group_bias=None):
+                       self_bias, n_rep: int = 1, group_bias=None,
+                       record: bool = False):
     """One decoder layer over the (B, 2, H) [committed, probe] pair.
 
-    ck/cv: (B, S, H) self K/V caches, updated in place: the committed K/V
-    go to slot t, the probe's to the last slot S-1. xk/xv: (B/n_rep, Lk, H)
-    cross K/V (or split per head), or an (int8, scales) pair each, which
-    routes the cross-attention to K7. With n_rep > 1 (beam search) the
-    cross K/V stay per batch element and the beams fold into the query
-    rows, so the condition projections are never replicated per beam;
+    ck/cv: (B, S, H) self K/V caches: the committed K/V go to slot t, the
+    probe's to the last slot S-1, in place, or into new tensors
+    (`index_copy`) when autograd records the decode (`record`). xk/xv:
+    (B/n_rep, Lk, H) cross K/V (or split per head), or an (int8, scales)
+    pair each, which routes the cross-attention to K7. With n_rep > 1
+    (beam search) the cross K/V stay per batch element and the beams fold
+    into the query rows, so the condition projections are never
+    replicated per beam;
     group_bias (B/n_rep, kq, 2, kc, S) then routes self-attention through
-    the ancestry-masked in-group product. Returns x."""
+    the ancestry-masked in-group product. Returns (x, ck, cv)."""
     b, _, h = x.shape
     q = linear(x, lp.get("q_w"), lp.get("q_b"))
     k_new = linear(x, lp.get("k_w"), lp.get("k_b"))
     v_new = linear(x, lp.get("v_w"), lp.get("v_b"))
-    ck[:, t] = k_new[:, 0]
-    cv[:, t] = v_new[:, 0]
-    ck[:, -1] = k_new[:, 1]
-    cv[:, -1] = v_new[:, 1]
+    if record:
+        # a later in-place write would change a tensor an earlier step
+        # saved for the backward
+        slots = torch.tensor([t, ck.shape[1] - 1], device=x.device)
+        ck = ck.index_copy(1, slots, k_new)
+        cv = cv.index_copy(1, slots, v_new)
+    else:
+        ck[:, t] = k_new[:, 0]
+        cv[:, t] = v_new[:, 0]
+        ck[:, -1] = k_new[:, 1]
+        cv[:, -1] = v_new[:, 1]
     if group_bias is not None:
         o = _group_mha(q, ck, cv, group_bias, cfg, n_rep)
     else:
@@ -369,9 +422,9 @@ def _cached_layer_step(x, lp, ck, cv, xk, xv, t: int, cfg: BertConfig,
     x = layer_norm(x + linear(o, lp.get("x_out_w"), lp.get("x_out_b")),
                    lp.get("x_ln_w"), lp.get("x_ln_b"), cfg.layer_norm_eps)
     y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
-    return layer_norm(x + linear(y, lp.get("out_w"), lp.get("out_b")),
-                      lp.get("out_ln_w"), lp.get("out_ln_b"),
-                      cfg.layer_norm_eps)
+    x = layer_norm(x + linear(y, lp.get("out_w"), lp.get("out_b")),
+                   lp.get("out_ln_w"), lp.get("out_ln_b"), cfg.layer_norm_eps)
+    return x, ck, cv
 
 
 def _cross_kv(model: Bert, cond: torch.Tensor):
@@ -385,12 +438,14 @@ def _cross_kv(model: Bert, cond: torch.Tensor):
 
 
 def _unrolled_layers(x, model: Bert, ck, cv, xk, xv, t: int, cfg, bias,
-                     n_rep: int = 1, group_bias=None) -> torch.Tensor:
-    """The decoder stack for one cached step over per-layer caches and
-    cross K/V; the caches are updated in place."""
+                     n_rep: int = 1, group_bias=None,
+                     record: bool = False) -> torch.Tensor:
+    """The decoder stack for one cached step over the lists of per-layer
+    caches and cross K/V; each list entry takes the layer's updated cache."""
     for l, lp in enumerate(model.layers):
-        x = _cached_layer_step(x, lp, ck[l], cv[l], xk[l], xv[l], t, cfg,
-                               bias, n_rep, group_bias=group_bias)
+        x, ck[l], cv[l] = _cached_layer_step(
+            x, lp, ck[l], cv[l], xk[l], xv[l], t, cfg, bias, n_rep,
+            group_bias=group_bias, record=record)
     return x
 
 
@@ -431,25 +486,31 @@ def cached_generate(model: Bert, condition_feat: torch.Tensor, *,
                     compute_dtype: torch.dtype = torch.float32,
                     int8_cross_kv: bool = False,
                     teacher_tokens: Optional[torch.Tensor] = None,
-                    return_logits: bool = False):
-    """KV-cached greedy or top-k sampling decode, the same tokens as
-    `generate(mode=greedy|sample, use_cache=False)` at two positions per
-    step. → (B, max_new_tokens + 1) starting with [CLS].
+                    return_logits: bool = False, return_logp: bool = False):
+    """KV-cached greedy, top-k or full-softmax (`scst`) sampling decode, the
+    same tokens as `generate(mode=..., use_cache=False)` at two positions
+    per step. → (B, max_new_tokens + 1) starting with [CLS].
 
     teacher_tokens (B, max_new_tokens) are committed at each step in place
-    of the chosen ones (teacher forcing, to score a given caption), and
+    of the chosen ones (teacher forcing, to score a given caption).
     return_logits=True also returns each step's fp32 logits
-    (B, max_new_tokens, V)."""
-    if mode not in ("greedy", "sample"):
-        raise ValueError(f"cached_generate mode {mode!r}: greedy or sample")
+    (B, max_new_tokens, V), and return_logp=True each step's token logp
+    (B, max_new_tokens), zeroed after [SEP] and differentiable (the cached
+    `generate_scst`), in that order after the tokens."""
+    if mode not in ("greedy", "sample", "scst"):
+        raise ValueError(
+            f"cached_generate mode {mode!r}: greedy, sample or scst")
     cfg = model.cfg
     b, dev = condition_feat.shape[0], condition_feat.device
     h, lmax = cfg.hidden_size, max_new_tokens + 1
     n_layers = cfg.num_hidden_layers
 
     cond = condition_feat.to(compute_dtype)
+    record = _records_grad(model, cond)
     xk, xv = _cross_kv(model, cond)
-    split = CROSS_KV_SPLIT_HEADS and not int8_cross_kv
+    # a recorded decode always takes the per-head layout: the PV product of
+    # the packed layout would save a contiguous copy of V every step
+    split = (CROSS_KV_SPLIT_HEADS or record) and not int8_cross_kv
     xk = _maybe_split_heads(xk, cfg, split)
     xv = _maybe_split_heads(xv, cfg, split)
     xk, xv = _maybe_quantize_cross(xk, xv, cfg, int8_cross_kv)
@@ -463,7 +524,7 @@ def cached_generate(model: Bert, condition_feat: torch.Tensor, *,
     probe_ids = torch.full_like(committed, BERT_MASK_ID)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     cols = torch.arange(lmax + 1, device=dev)
-    logits_all = []
+    logits_all, logps = [], []
     for t in range(max_new_tokens):
         ids = torch.stack([committed, probe_ids], dim=1)
         x = bert_embeddings(model.embeddings, cfg, ids,
@@ -474,21 +535,21 @@ def cached_generate(model: Bert, condition_feat: torch.Tensor, *,
         row_c = torch.where(cols <= t, 0.0, NEG_INF)
         row_p = torch.where((cols <= t) | (cols == lmax), 0.0, NEG_INF)
         bias = torch.stack([row_c, row_p])[None, None]
-        x = _unrolled_layers(x, model, ck, cv, xk, xv, t, cfg, bias)
+        x = _unrolled_layers(x, model, ck, cv, xk, xv, t, cfg, bias,
+                             record=record)
         logits = mlm_logits(model, x[:, 1:2])[:, 0].float()
         if return_logits:
             logits_all.append(logits)
-        if teacher_tokens is not None:
-            nxt = teacher_tokens[:, t].to(dev, torch.long)
-        else:
-            nxt = _next_token(logits, mode, top_k, generator)
+        nxt = _choose(logits, t, mode, top_k, generator, teacher_tokens)
+        if return_logp:
+            logps.append(_token_logp(logits, nxt, finished))
         nxt = torch.where(finished, BERT_PAD_ID, nxt)
         tokens[:, t + 1] = nxt
-        finished |= nxt == BERT_SEP_ID
+        finished = finished | (nxt == BERT_SEP_ID)   # a where saved it
         committed = nxt
-    if return_logits:
-        return tokens, torch.stack(logits_all, dim=1)
-    return tokens
+    outs = ([tokens] + [torch.stack(x, dim=1) for x, want in (
+        (logits_all, return_logits), (logps, return_logp)) if want])
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def _prefill_prefix(model: Bert, prefix_ids, prefix_mask, cond,
@@ -685,11 +746,6 @@ def cached_beam_generate(model: Bert, condition_feat: torch.Tensor, *,
 
 
 def _prepare(model: Bert, condition_feat, compute_dtype, generator, mode):
-    if mode == "scst":
-        raise NotImplementedError(
-            "mode='scst' (generate_scst) waits for the training port "
-            "(ROADMAP.md, queue 1: SCST, checkpoints and the rest of the "
-            "training core)")
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     dev = next(model.parameters()).device
@@ -715,8 +771,9 @@ def generate(model: Bert, condition_feat: torch.Tensor, *,
 
     Every mode runs on the KV-cached path by default; use_cache=False runs
     the recompute loop (same tokens). int8_cross_kv applies to the cached
-    path, whose cross-attention then takes K7. Sampling draws from
-    `generator` (default: seeded 0 on the model's device)."""
+    path, whose cross-attention then takes K7. Sampling ('sample': top-k;
+    'scst': the whole softmax) draws from `generator` (default: seeded 0 on
+    the model's device)."""
     cond, compute_dtype, generator = _prepare(model, condition_feat,
                                               compute_dtype, generator, mode)
     if mode == "beam":
@@ -778,3 +835,33 @@ def generate_answers(model: Bert, question_ids: torch.Tensor,
                                 generator, compute_dtype,
                                 prefix_ids=question_ids,
                                 prefix_mask=question_mask)
+
+
+def generate_scst(model: Bert, condition_feat: torch.Tensor, *,
+                  max_new_tokens: int = 40,
+                  generator: Optional[torch.Generator] = None,
+                  compute_dtype: Optional[torch.dtype] = None,
+                  use_cache: bool = False,
+                  tokens: Optional[torch.Tensor] = None):
+    """Self-critical (SCST) sampling (generation.py:931-977): a multinomial
+    decode over the whole softmax that also returns the log-probability of
+    each sampled token with its gradient. → (tokens (B, max_new_tokens + 1)
+    starting with [CLS], logp (B, max_new_tokens) fp32, zeroed after
+    [SEP]); only logp carries a gradient (the score-function estimator).
+    Unlike `generate`, it is not wrapped in `no_grad`.
+
+    use_cache=True takes the KV-cached path (the same tokens and logp);
+    the recompute path's cross-attention takes K2 once Lq·Lk > 64·64.
+    `tokens` (B, max_new_tokens + 1), a previous call's tokens, are
+    committed instead of new draws: the same trajectory scored again."""
+    cond, compute_dtype, generator = _prepare(model, condition_feat,
+                                              compute_dtype, generator, "scst")
+    teacher = None if tokens is None else tokens[:, 1:]
+    if use_cache:
+        return cached_generate(
+            model, cond, max_new_tokens=max_new_tokens, mode="scst",
+            generator=generator, compute_dtype=compute_dtype,
+            teacher_tokens=teacher, return_logp=True)
+    return _sequential_generate(model, cond, max_new_tokens, "scst", 0,
+                                generator, compute_dtype,
+                                teacher_tokens=teacher, return_logp=True)

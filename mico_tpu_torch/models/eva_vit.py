@@ -31,12 +31,23 @@ Training also runs PatchDropout (top-k of uniform scores, CLS exempt) and
 per-sample DropPath on the linear 0 → `drop_path_rate` schedule, drawn up
 front from a device generator forked from `train_rng`, so a block under
 `torch.utils.checkpoint` (`remat`) recomputes with the same masks.
+
+`remat` checkpoints each block; `remat_policy` chooses what the backward
+keeps (eva_vit.py:569-580): `save:<names>` keeps the products of the
+tagged linears (`qkv`, `attn_out`, `mlp_hidden`, tagged where JAX's
+`checkpoint_name` tags them) and recomputes the rest, their weight casts
+included (K8's fused `attn_out` is no product of torch's: that route
+recomputes it), and the names of `jax.checkpoint_policies` that take no
+argument map to torch's selective checkpointing (`remat_context`).
+`unroll_blocks` is a compile strategy of XLA's; the block loop here is
+unrolled already, so it changes nothing.
 EVA02's RoPE, SwiGLU and sub-LN and relative-position bias are not ported
 yet (ROADMAP.md, queue 1: EVA02 tower features).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -51,6 +62,68 @@ from mico_tpu_torch.ops.attention import multi_head_attention
 from mico_tpu_torch.ops.layers import fork_generator, gelu, layer_norm, linear
 
 _EVA02 = "not ported yet (ROADMAP.md, queue 1: EVA02 tower features)"
+
+# the names a block tags for a `save:` remat policy (eva_vit.py:340-390)
+REMAT_TAGS = ("qkv", "attn_out", "mlp_hidden")
+# the tag of the ops running now (None between tagged calls)
+_TAG = [None]
+# the aten products of `linear`: what a `save:` policy keeps of a tagged call
+_PRODUCTS = frozenset((torch.ops.aten.mm, torch.ops.aten.addmm))
+# jax.checkpoint_policies names that take no argument → the aten products
+# whose outputs the backward keeps
+_DOT_POLICIES = {
+    "nothing_saveable": (),
+    "dots_saveable": ("mm", "addmm", "bmm", "baddbmm"),
+    "checkpoint_dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+    "checkpoint_dots_with_no_batch_dims": ("mm", "addmm"),
+}
+
+
+def _tagged(name: str, fn, *args):
+    """fn(*args), a `linear`, with the ops it runs tagged `name` (JAX's
+    `checkpoint_name`): a `save:` policy naming it keeps its product."""
+    prev, _TAG[0] = _TAG[0], name
+    try:
+        return fn(*args)
+    finally:
+        _TAG[0] = prev
+
+
+def remat_context(policy: Optional[str]):
+    """The `context_fn` of `torch.utils.checkpoint` for a remat policy, or
+    None for a plain checkpoint (recompute everything). `save:a,b` keeps
+    the products (`_PRODUCTS`) tagged a or b, not the casts of their
+    operands; a `jax.checkpoint_policies` name keeps the
+    products it names (`_DOT_POLICIES`). `everything_saveable` needs no
+    checkpoint (`eva_vit_forward` runs the blocks plainly). Any other name
+    raises ValueError."""
+    if not policy or policy == "nothing_saveable":
+        return None
+    if policy.startswith("save:"):
+        names = frozenset(policy[5:].split(","))
+
+        def saved(op):
+            return _TAG[0] in names and op.overloadpacket in _PRODUCTS
+    elif policy in _DOT_POLICIES:
+        ops = frozenset(getattr(torch.ops.aten, n)
+                        for n in _DOT_POLICIES[policy])
+
+        def saved(op):
+            return op.overloadpacket in ops
+    else:
+        raise ValueError(
+            f"remat_policy {policy!r} has no torch counterpart: use "
+            f"'save:<{'|'.join(REMAT_TAGS)}>,...', 'everything_saveable' or "
+            f"one of {sorted(_DOT_POLICIES)}")
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if saved(op)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 def check_supported(cfg: EvaVitConfig) -> None:
@@ -119,7 +192,8 @@ class EvaBlock(ParamGroup):
                     cfg.head_dim ** -0.5, eps, g1 is not None)
             o = (fa.fused_ln_qkv_self_attention(*args) if fa.kernel_route(x)
                  else fa.fused_ln_qkv_plain(*args))
-            y = linear(o, self.get("proj_w"), self.get("proj_b"))
+            y = _tagged("attn_out", linear, o, self.get("proj_w"),
+                        self.get("proj_b"))
         else:
             y = self._attention(layer_norm(x, g1, b1, eps), cfg, attn_impl,
                                 is_train)
@@ -146,19 +220,21 @@ class EvaBlock(ParamGroup):
             o = (fa.fused_qkv_self_attention(*args) if kernel
                  else fa.fused_qkv_plain(*args))
         elif attn_impl == "flash":
-            o = fa.packed_qkv_self_attention(linear(h, w_qkv, bias), nh,
-                                             hd ** -0.5)
+            o = fa.packed_qkv_self_attention(
+                _tagged("qkv", linear, h, w_qkv, bias), nh, hd ** -0.5)
         else:
             b, l, w = h.shape
-            qkv = linear(h, w_qkv, bias)
+            qkv = _tagged("qkv", linear, h, w_qkv, bias)
             q, k, v = qkv.reshape(b, l, 3, nh, hd).permute(2, 0, 3, 1, 4)
             o = multi_head_attention(q, k, v, scale=hd ** -0.5, impl=attn_impl)
             o = o.transpose(1, 2).reshape(b, l, w)
-        return linear(o, self.get("proj_w"), self.get("proj_b"))
+        return _tagged("attn_out", linear, o, self.get("proj_w"),
+                       self.get("proj_b"))
 
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        return linear(gelu(linear(h, self.get("fc1_w"), self.get("fc1_b"))),
-                      self.get("fc2_w"), self.get("fc2_b"))
+        hidden = _tagged("mlp_hidden", linear, h, self.get("fc1_w"),
+                         self.get("fc1_b"))
+        return linear(gelu(hidden), self.get("fc2_w"), self.get("fc2_b"))
 
     def _scaled(self, y: torch.Tensor, key: str) -> torch.Tensor:
         gamma = self.get(key)
@@ -281,12 +357,13 @@ def eva_vit_forward(
     """pixels (B, 3, H, W) → (B, seq_len, width) when return_all_features,
     else the pooled (B, width) (eva_vit.py:484-646). With `train_rng` (a CPU
     generator) the training route runs: PatchDropout, DropPath and the
-    K3/K4 attention. `remat` checkpoints each block."""
-    if (remat and remat_policy) or unroll_blocks:
-        raise NotImplementedError(
-            "remat_policy / unroll_blocks: not ported yet (ROADMAP.md, "
-            "queue 1: SCST, checkpoints and the rest of the training core); "
-            "`checkpointing` remats whole blocks")
+    K3/K4 attention. `remat` checkpoints each block, keeping what
+    `remat_policy` names (`remat_context`; an unknown name raises
+    ValueError); `unroll_blocks` is accepted with the same math."""
+    del unroll_blocks        # the loop below is unrolled already
+    if remat_policy == "everything_saveable":
+        remat = False                # keep everything: no checkpoint
+    context_fn = remat_context(remat_policy) if remat else None
     if pipeline_stages > 1:
         raise NotImplementedError(
             "pipeline stages: not ported yet (ROADMAP.md, queue 1: "
@@ -308,8 +385,10 @@ def eva_vit_forward(
             keeps = list(zip(u < keep_prob[:, None, None], keep_prob))
     for blk, keep in zip(model.blocks, keeps):
         if remat:
+            kw = {} if context_fn is None else dict(context_fn=context_fn)
             x = torch.utils.checkpoint.checkpoint(
-                blk, x, cfg, attn_impl, is_train, keep, use_reentrant=False)
+                blk, x, cfg, attn_impl, is_train, keep, use_reentrant=False,
+                **kw)
         else:
             x = blk(x, cfg, attn_impl, is_train, keep)
     if not cfg.global_average_pool:

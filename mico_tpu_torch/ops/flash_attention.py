@@ -68,9 +68,17 @@ caller's: `kernel_route`). Each carries a `launches` count that grows by
 one per call that launches its kernel (K6b launches two, its pass and the
 dQ combine, and K2 and K6 past one split of the keys a second, the
 combine).
-K1, K5 and K8 have no backward: their wrappers raise
-when autograd records a call whose inputs require a gradient, on any
-device, rather than drop the gradient.
+When autograd records a call whose inputs require a gradient, K1, K5 and
+K8 take their differentiated routes, as JAX's custom VJPs do
+(`_fused_ln_qkv_vjp_fwd` :1703, `_fused_qkv_vjp_fwd` / `_bwd` :1345-1380,
+`_fused_qkv_attn_proj_vjp_fwd` / `_bwd` :1522-1554): K5's forward is the
+unfused composition (the qkv projection, then K3) and its backward K4 and
+the projection's gradients; K1's is the LayerNorm of `ops/layers.py`
+feeding K5's route, with autograd through the LayerNorm; K8's forward
+launches K8 and saves its inputs, and its backward recomputes qkv and K3's
+output, then runs K4 and the three linear gradients. No kernel is added:
+the backward work is K3's and K4's. Under `no_grad` the kernels run as
+before. K7 has no backward and refuses autograd (`refuse_grad`).
 """
 
 from __future__ import annotations
@@ -83,6 +91,7 @@ from typing import Dict, Optional
 import torch
 
 from mico_tpu_torch.ops import _build
+from mico_tpu_torch.ops.layers import layer_norm, matmul_f32, records_grad
 
 LOG2E = 1.4426950408889634
 # beyond this many KV rows the JAX package leaves the resident kernel
@@ -129,8 +138,7 @@ def _require(cond: bool, msg: str) -> None:
 def refuse_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
     """Raise when autograd records this call and an input requires a
     gradient: the kernel has no backward, and its output would carry none."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if records_grad(*tensors):
         raise RuntimeError(
             f"{kernel} has no backward: call it under torch.no_grad(), or "
             "take the training route (a train generator selects the "
@@ -313,8 +321,14 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
     x (B, L, W); w (W, 3W) and bias (3W,) the packed projection; g/b0 the LN
     affine (ignored, and may be None, when affine is False). Returns
     (B, L, W). The kernel takes bf16 x and w; the vectors go in as fp32.
-    Inference only: raises under autograd when an input requires a grad."""
-    refuse_grad("K1 (fused_ln_qkv_self_attention)", x, g, b0, w, bias)
+    Under autograd (`_fused_ln_qkv_vjp_fwd`, :1703): `layer_norm` of
+    `ops/layers.py` (fp32 statistics) feeding K5's differentiated route, so
+    the work is K3 and, in the backward, K4; K1 does not launch."""
+    if records_grad(x, g, b0, w, bias):
+        if x.is_cuda:
+            _check_fused_qkv("K1", x, w, bias, num_heads)
+        xn = layer_norm(x, g if affine else None, b0 if affine else None, eps)
+        return _FusedQKV.apply(xn, w, bias, num_heads, float(scale))
     if not x.is_cuda:
         return fused_ln_qkv_plain(x, g, b0, w, bias, num_heads, scale, eps,
                                   affine)
@@ -438,9 +452,12 @@ def fused_qkv_self_attention(x, w, bias, num_heads: int,
     """K5: qkv projection + packed self-attention on the block input x
     (B, L, W), not normalised first; w (W, 3W) and bias (3W,) the packed
     projection. Returns (B, L, W), ready for the output projection. The
-    kernel takes bf16 x and w; the bias goes in as fp32. Inference only:
-    raises under autograd when an input requires a grad."""
-    refuse_grad("K5 (fused_qkv_self_attention)", x, w, bias)
+    kernel takes bf16 x and w; the bias goes in as fp32. Under autograd the
+    differentiated route `_FusedQKV` runs instead (K3, then K4)."""
+    if records_grad(x, w, bias):
+        if x.is_cuda:
+            _check_fused_qkv("K5", x, w, bias, num_heads)
+        return _FusedQKV.apply(x, w, bias, num_heads, float(scale))
     if not x.is_cuda:
         return fused_qkv_plain(x, w, bias, num_heads, scale)
     b, l, wd, _ = _check_fused_qkv("K5", x, w, bias, num_heads)
@@ -463,9 +480,12 @@ def fused_qkv_attn_proj(x, w, bias, wp, bp, num_heads: int,
                         scale: float) -> torch.Tensor:
     """K8: K5 followed by the output projection, ·wp (W, W) + bp (W,),
     computed in the kernel's own GEMM. Returns (B, L, W). Takes what K5
-    takes, and bf16 contiguous wp; the biases go in as fp32. Inference
-    only, as K5."""
-    refuse_grad("K8 (fused_qkv_attn_proj)", x, w, bias, wp, bp)
+    takes, and bf16 contiguous wp; the biases go in as fp32. Under
+    autograd `_FusedQKVAttnProj` launches K8 and recomputes through K3 and
+    K4 in the backward."""
+    if records_grad(x, w, bias, wp, bp):
+        return _FusedQKVAttnProj.apply(x, w, bias, wp, bp, num_heads,
+                                       float(scale))
     if not x.is_cuda:
         return fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads, scale)
     b, l, wd, _ = _check_fused_qkv("K8", x, w, bias, num_heads)
@@ -1205,38 +1225,122 @@ def kernel_route(x: torch.Tensor) -> bool:
     return not x.is_cuda or x.dtype == torch.bfloat16
 
 
+def _packed_qkv_forward(qkv, num_heads: int, scale: float) -> torch.Tensor:
+    """K3 over the column slices of the fused qkv, or K9 under
+    `PACKED_CLS_SPLIT` at L = 128k + 1 (`_packed_qkv_fwd`, :1144); the
+    plain twin off the kernel route."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    if not kernel_route(qkv):
+        return packed_attention_plain(q, k, v, num_heads, scale)
+    l = qkv.shape[1]
+    if PACKED_CLS_SPLIT and l > 128 and l % 128 == 1:
+        return packed_qkv_cls_attention(qkv, num_heads, scale)
+    return packed_attention(q, k, v, num_heads, scale)
+
+
+def _packed_qkv_backward(qkv, g, num_heads: int,
+                         scale: float) -> torch.Tensor:
+    """K4 (its plain twin off the kernel route) into one (B, L, 3W)
+    gradient of the fused qkv."""
+    q, k, v = qkv.chunk(3, dim=-1)
+    g = g.contiguous()
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    if kernel_route(qkv):
+        packed_attention_bwd(q, k, v, g, num_heads, scale, dqkv)
+    else:
+        grads = packed_attention_bwd_plain(q, k, v, g, num_heads, scale)
+        torch.cat(grads, dim=-1, out=dqkv)
+    return dqkv
+
+
 class _PackedQKV(torch.autograd.Function):
-    """Forward K3 over the column slices of the fused qkv, or K9 under
-    `PACKED_CLS_SPLIT` at L = 128k + 1 (`_packed_qkv_fwd`, :1144); saves
-    qkv and not the output (`_packed_qkv_vjp_fwd`, :1195); backward K4
-    into one (B, L, 3W) gradient on either forward (JAX has no K9
-    backward)."""
+    """Forward K3 (or K9, `_packed_qkv_forward`); saves qkv and not the
+    output (`_packed_qkv_vjp_fwd`, :1195); backward K4 into one (B, L, 3W)
+    gradient on either forward (JAX has no K9 backward)."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(qkv)
-        q, k, v = qkv.chunk(3, dim=-1)
-        if not kernel_route(qkv):
-            return packed_attention_plain(q, k, v, num_heads, scale)
-        l = qkv.shape[1]
-        if PACKED_CLS_SPLIT and l > 128 and l % 128 == 1:
-            return packed_qkv_cls_attention(qkv, num_heads, scale)
-        return packed_attention(q, k, v, num_heads, scale)
+        return _packed_qkv_forward(qkv, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        q, k, v = qkv.chunk(3, dim=-1)
-        g = g.contiguous()
-        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        if kernel_route(qkv):
-            packed_attention_bwd(q, k, v, g, ctx.num_heads, ctx.scale, dqkv)
-        else:
-            grads = packed_attention_bwd_plain(q, k, v, g, ctx.num_heads,
-                                               ctx.scale)
-            torch.cat(grads, dim=-1, out=dqkv)
-        return dqkv, None, None
+        return _packed_qkv_backward(qkv, g, ctx.num_heads, ctx.scale), None, None
+
+
+def _projection(x, w, bias) -> torch.Tensor:
+    """x (..., K) · w (K, N) + bias in fp32, rounded once to x's dtype (the
+    differentiated forward's qkv, `_fused_qkv_vjp_fwd`, :1345)."""
+    y = matmul_f32(x.reshape(-1, x.shape[-1]), w) + bias.float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], w.shape[1])
+
+
+def _projection_grads(x, w, bias, dy, needs):
+    """(dx, dw, dbias) of `_projection` for its output gradient dy
+    (`_fused_qkv_vjp_bwd`, :1362): dx = dy·wᵀ and dw = xᵀ·dy with fp32
+    accumulation, rounded to x's and w's dtypes; dbias = Σ dy in fp32,
+    rounded to the bias's dtype. `needs` marks which are wanted."""
+    x2 = x.reshape(-1, x.shape[-1])
+    dy2 = dy.reshape(-1, dy.shape[-1]).to(x.dtype)
+    dx = dw = db = None
+    if needs[0]:
+        dx = matmul_f32(dy2, w.t()).to(x.dtype).reshape(x.shape)
+    if needs[1]:
+        dw = matmul_f32(x2.t(), dy2).to(w.dtype)
+    if needs[2]:
+        db = dy2.float().sum(dim=0).to(bias.dtype)
+    return dx, dw, db
+
+
+class _FusedQKV(torch.autograd.Function):
+    """K5's differentiated route (`_fused_qkv_vjp_fwd` / `_bwd`,
+    :1345-1380): forward the unfused composition, qkv = x·w + bias (fp32
+    accumulation, one rounding) into K3, saving (x, w, bias, qkv);
+    backward K4 for dqkv, then the projection's gradients. The plain twins
+    off the kernel route."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, num_heads, scale):
+        qkv = _projection(x, w, bias)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(x, w, bias, qkv)
+        return _packed_qkv_forward(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, qkv = ctx.saved_tensors
+        dqkv = _packed_qkv_backward(qkv, g.to(qkv.dtype), ctx.num_heads,
+                                    ctx.scale)
+        return (*_projection_grads(x, w, bias, dqkv, ctx.needs_input_grad),
+                None, None)
+
+
+class _FusedQKVAttnProj(torch.autograd.Function):
+    """K8's differentiated route (`_fused_qkv_attn_proj_vjp_fwd` / `_bwd`,
+    :1522-1554): forward K8 itself (its plain twin on the CPU), saving only
+    the inputs; backward recomputes qkv and K3's output o, then the
+    out-projection's gradients (do = g·wpᵀ, dwp = oᵀ·g, dbp = Σ g), K4 for
+    dqkv and the qkv projection's gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, wp, bp, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(x, w, bias, wp, bp)
+        return fused_qkv_attn_proj(x, w, bias, wp, bp, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, wp, bp = ctx.saved_tensors
+        nh, scale = ctx.num_heads, ctx.scale
+        needs = ctx.needs_input_grad
+        qkv = _projection(x, w, bias)
+        o = _packed_qkv_forward(qkv, nh, scale)
+        do, dwp, dbp = _projection_grads(o, wp, bp, g, (True,) + needs[3:5])
+        dqkv = _packed_qkv_backward(qkv, do, nh, scale)
+        return (*_projection_grads(x, w, bias, dqkv, needs[:3]), dwp, dbp,
+                None, None)
 
 
 class _Packed(torch.autograd.Function):

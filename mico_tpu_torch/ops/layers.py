@@ -4,6 +4,10 @@
   input dtype. On the card a bf16 product goes to cuBLAS with its bias
   epilogue (fp32 accumulate + bias, one rounding); elsewhere the product is
   taken in fp32 and rounded once.
+- `matmul_f32`: a product with an fp32 result from operands in the compute
+  dtype (JAX's preferred_element_type=float32), differentiable: the
+  decoder's attention scores and the projections of K1/K5/K8's
+  differentiated routes.
 - `layer_norm`: fp32 statistics, biased variance, output in the input dtype,
   optional affine. `LN_STATS_DTYPE` (JAX `layers.py:22`, a perf_lab knob)
   set to bf16 computes the statistics and the affine in bf16 instead.
@@ -100,6 +104,64 @@ def linear(
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+def records_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd records a call on these inputs: grad mode is on
+    and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _mm_out_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (…, M, K) · b (…, K, N) in their reduced dtype on the card with
+    an fp32 output: `mm`, or `bmm` over the leading dims (b keeps its
+    layout: a transposed K stays a transposed operand)."""
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    *batch, m, k = a.shape
+    n = b.shape[-1]
+    bt = b.transpose(-1, -2).reshape(-1, n, k).transpose(1, 2)
+    return torch.bmm(a.reshape(-1, m, k), bt,
+                     out_dtype=torch.float32).view(*batch, m, n)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """`_mm_out_f32` with a derivative (the product with an fp32 output has
+    none of its own). It saves the operands as they are, not fp32 copies
+    (the decoder's scores would otherwise keep one of every step's cross
+    K). The backward takes the fp32 cotangent against the operands in fp32
+    and rounds to their dtypes, as JAX's transpose of a dot with
+    preferred_element_type=float32."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_out_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return da, db
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (…, M, K) · b (…, K, N) with fp32 accumulation and an fp32
+    result, as JAX's preferred_element_type=float32: on the card a product
+    in a's reduced dtype with an fp32 output (b cast to it), elsewhere
+    fp32 operands. Differentiable; a call autograd does not record (the
+    no-grad decode, host-bound) takes the product without `_MatmulF32`."""
+    if not a.is_cuda or a.dtype == torch.float32:
+        return torch.matmul(a.float(), b.float())
+    b = b.to(a.dtype)
+    if records_grad(a, b):
+        return _MatmulF32.apply(a, b)
+    return _mm_out_f32(a, b)
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -11,8 +11,9 @@ On one card, eagerly: the LR schedule is set on the optimizer's groups
 before each update (`train/optim.py`), gradient accumulation is the
 optimizer's (`optax.MultiSteps`' semantics), and batches reach the card
 through the loader's CUDA prefetcher. The loop reads `run_cfg.valid_steps`
-as the JAX loop does (`create_train_dataloaders` sets it). SCST tasks are
-not ported yet.
+as the JAX loop does (`create_train_dataloaders` sets it). An `scst%…`
+task takes `train/scst.py`'s step (with `run_cfg.scst_finetune_encoder`)
+and the batch's reference captions, `raw_captions`.
 """
 
 from __future__ import annotations
@@ -26,11 +27,9 @@ from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.data.tokenize_collate import BatchTokenizer, device_batch
 from mico_tpu_torch.evaluation import Evaluator, evaluation_registry
 from mico_tpu_torch.train.checkpoints import ModelSaver
+from mico_tpu_torch.train.scst import make_scst_step
 from mico_tpu_torch.train.train_step import make_train_step
 from mico_tpu_torch.utils.logger import LOGGER, RunningMeter
-
-SCST = ("SCST tasks: not ported yet (ROADMAP.md, queue 1: SCST, checkpoints "
-        "and the rest of the training core)")
 
 
 def get_best_name(task: str) -> Optional[str]:
@@ -86,13 +85,21 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
         if global_step >= num_steps:
             break
         task = name.split("--")[0]
-        if task.startswith("scst"):
-            raise NotImplementedError(SCST)
+        is_scst = task.startswith("scst")
         if task not in step_fns:
-            step_fns[task] = make_train_step(cfg, optimizer, task)
+            step_fns[task] = (
+                make_scst_step(cfg, optimizer, task, tokenizer,
+                               finetune_encoder=bool(run_cfg.get(
+                                   "scst_finetune_encoder", False)))
+                if is_scst else make_train_step(cfg, optimizer, task))
         t_step = time.perf_counter()
-        arrays = device_batch(batch_tok(batch, task), device)
-        losses = step_fns[task](model, arrays, generator)
+        tb = batch_tok(batch, task)
+        arrays = device_batch(tb, device)
+        if is_scst:
+            refs = tb.get("raw_captions") or batch.get("raw_captions")
+            losses = step_fns[task](model, arrays, generator, refs)
+        else:
+            losses = step_fns[task](model, arrays, generator)
         global_step += 1
         values = {k: float(v) for k, v in losses.items()}  # waits for the step
         record["steps"].append(dict(

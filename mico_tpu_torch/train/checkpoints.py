@@ -14,8 +14,11 @@ snapshots, and resume from the newest committed step.
     (`checkpoints.py:142-151`), which can lose every committed checkpoint
     when a save is killed.
   - The optimizer file is the port's own layout (AdamW's moments and step
-    per parameter name, the update count, an open accumulation window):
-    the JAX package cannot resume it, nor the port JAX's.
+    per parameter name, the update count, an open accumulation window).
+    The port also resumes the JAX package's `optimizer_step_N.npz`, whose
+    leaves are the optax state's by position (`jax_optimizer_leaves`
+    rebuilds their order from the parameter names); the JAX package cannot
+    resume the port's.
 
 Load side (`load_from_pretrained_dir`, as the reference inference entry,
 inference_demo.py:14-116, data/utils/build_model.py:65-103): `log/hps.json`
@@ -385,17 +388,116 @@ def optimizer_leaves(optimizer):
     return [(key, [t], False) for key, t in leaves]
 
 
+# the groups of the JAX package's `build_optimizer` (train/optim.py:85-129)
+# that hold state, in `multi_transform`'s order (sorted by name); "frozen"
+# (set_to_zero) has none
+_JAX_GROUPS = ("basic", "basic_nd", "new", "new_nd", "vision", "vision_nd")
+
+
+def _tree_key(path: str):
+    """The sort key of a JAX flat path: dict keys sort as strings, list
+    indices (a CLIP tower's blocks) as numbers."""
+    return tuple(int(p) if p.isdigit() else p for p in path.split(SEP))
+
+
+def jax_optimizer_leaves(optimizer) -> list:
+    """The leaves of the JAX package's optimizer state for `optimizer`'s
+    model, in `jax.tree_util.tree_flatten`'s order, as (kind, rows):
+    `optax.chain(masked(set_to_zero), clip_by_global_norm,
+    multi_transform(groups))` leaves, per group in sorted order, adam's
+    count, μ and ν over the group's parameters in tree order, and the
+    schedule's count (masked parameters and the empty states have none);
+    under `accum_steps` > 1, `optax.MultiSteps` adds its mini_step and
+    gradient_step first and the accumulated gradients of every parameter
+    last. rows: the port names of a stacked leaf's rows in depth order,
+    the one name (a str) of another leaf, None for the counts."""
+    from mico_tpu_torch.convert import jax_leaves
+
+    cfg = optimizer.model_cfg
+    if cfg is None:
+        raise ValueError("the JAX optimizer layout needs the model's config")
+    names = {n: n for n in optimizer.labels}
+    leaves = sorted(((path, rows if stacked else rows[0])
+                     for path, rows, stacked in jax_leaves(names, cfg)),
+                    key=lambda pr: _tree_key(pr[0]))
+    inner = []
+    for group in _JAX_GROUPS:
+        mine = [rows for _, rows in leaves
+                if optimizer.labels[rows if isinstance(rows, str)
+                                    else rows[0]] == group]
+        inner += ([("count", None)] + [("mu", rows) for rows in mine]
+                  + [("nu", rows) for rows in mine] + [("schedule", None)])
+    if optimizer.accum_steps <= 1:
+        return inner
+    return ([("mini_step", None), ("gradient_step", None)] + inner
+            + [("acc", rows) for _, rows in leaves])
+
+
+def _load_jax_optimizer(path: str, z, optimizer) -> None:
+    """The JAX package's positional optimizer leaves (`{str(i): leaf}`,
+    checkpoints.py:165-172) into the port's AdamW: μ, ν and the count per
+    parameter, the update count, and an open MultiSteps window as summed
+    gradients (its running mean times mini_step)."""
+    leaves = jax_optimizer_leaves(optimizer)
+    if len(z.files) != len(leaves):
+        raise ValueError(
+            f"{path} holds {len(z.files)} leaves; the JAX optimizer state of "
+            f"this model and optimizer (accum_steps {optimizer.accum_steps}) "
+            f"has {len(leaves)}")
+    params = dict(zip(optimizer.names, optimizer.params))
+    index = {name: i for i, name in enumerate(optimizer.names)}
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    counts, acc, mini_step = set(), {}, 0
+    for i, (kind, rows) in enumerate(leaves):
+        leaf = z[str(i)]
+        if kind in ("count", "schedule", "gradient_step"):
+            counts.add(int(leaf))
+            continue
+        if kind == "mini_step":
+            mini_step = int(leaf)
+            continue
+        rows = [(rows, leaf)] if isinstance(rows, str) else zip(rows, leaf)
+        for name, a in rows:
+            if kind == "acc" and name not in params:
+                continue            # a frozen parameter's: never applied
+            p = params[name]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{path}: leaf {i} ({kind} of {name}) has "
+                                 f"shape {a.shape}, the parameter "
+                                 f"{tuple(p.shape)}")
+            # np.array, not ascontiguousarray: a 0-d leaf stays 0-d
+            t = torch.from_numpy(np.array(a)).to(p.device, p.dtype)
+            if kind == "acc":
+                acc[name] = t
+            else:
+                field = "exp_avg" if kind == "mu" else "exp_avg_sq"
+                state.setdefault(index[name], {})[field] = t
+    count = max(counts)
+    for s in state.values():
+        s["step"] = torch.tensor(float(count), dtype=torch.float32)
+    sd = optimizer.torch_optimizer.state_dict()
+    sd["state"] = state
+    optimizer.torch_optimizer.load_state_dict(sd)
+    optimizer.count = count
+    optimizer.mini_step = mini_step
+    for name, p in params.items():
+        p.grad = acc[name] * mini_step if mini_step and name in acc else None
+
+
 def load_optimizer_npz(path: str, optimizer) -> None:
-    """Restore the port's optimizer file into `optimizer` (its parameters
-    already hold the checkpoint's weights)."""
+    """Restore an optimizer file into `optimizer` (its parameters already
+    hold the checkpoint's weights): the port's own layout, or the JAX
+    package's positional one (`_load_jax_optimizer`)."""
     with np.load(path) as z:
         layout = (bytes(z["__layout__"].tolist()).decode()
                   if "__layout__" in z.files else None)
+        if layout is None and all(k.isdigit() for k in z.files):
+            _load_jax_optimizer(path, z, optimizer)
+            return
         if layout != _OPT_LAYOUT:
             raise ValueError(
-                f"{path} is not the port's optimizer file (layout "
-                f"{layout!r}): the optimizer state of the JAX package "
-                "cannot be resumed by the port")
+                f"{path} is neither the port's optimizer file nor the JAX "
+                f"package's (layout {layout!r})")
         index = {name: i for i, name in enumerate(optimizer.names)}
         params = dict(zip(optimizer.names, optimizer.params))
         state: Dict[int, Dict[str, torch.Tensor]] = {}

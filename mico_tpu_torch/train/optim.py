@@ -98,6 +98,10 @@ class Optimizer:
         self.mini_step = 0
         self.labels = param_group_labels(model, cfg.new_params_name,
                                          cfg.frozen_prefixes)
+        # every parameter's name (frozen ones too) and the model's config:
+        # the leaf order of the JAX package's optimizer state
+        # (`checkpoints.jax_optimizer_leaves`)
+        self.model_cfg = getattr(model, "cfg", None)
         init_lr = {"basic": cfg.learning_rate, "vision": cfg.clip_lr,
                    "new": cfg.new_lr}
         groups: Dict[str, list] = {}

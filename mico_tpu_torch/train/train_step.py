@@ -36,13 +36,7 @@ def make_train_step(cfg: MiCoConfig, optimizer: Optimizer, task: str,
             optimizer.zero_grad()
         losses = task_losses(model, cfg, batch, task, generator, draws=draws)
         total = sum(losses.values())
-        total.backward()
-        if not torch.isfinite(total).item():
-            optimizer.zero_grad()
-            optimizer.mini_step = 0
-            raise FloatingPointError(
-                f"non-finite loss at update {optimizer.count}: "
-                f"{ {k: v.item() for k, v in losses.items()} }")
+        backward_checked(optimizer, total, losses)
         norm = optimizer.accumulate()
         out = {k: v.detach() for k, v in losses.items()}
         out["loss_total"] = total.detach()
@@ -51,3 +45,16 @@ def make_train_step(cfg: MiCoConfig, optimizer: Optimizer, task: str,
         return out
 
     return step
+
+
+def backward_checked(optimizer: Optimizer, total: torch.Tensor,
+                     losses: Dict[str, torch.Tensor]) -> None:
+    """The backward of `total`, then the finiteness check: a non-finite
+    total clears the accumulation window and raises before any update."""
+    total.backward()
+    if not torch.isfinite(total).item():
+        optimizer.zero_grad()
+        optimizer.mini_step = 0
+        raise FloatingPointError(
+            f"non-finite loss at update {optimizer.count}: "
+            f"{ {k: v.item() for k, v in losses.items()} }")

@@ -327,3 +327,99 @@ def test_to_numpy_matches_jax():
     for k in want:
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# ---------------------------------------------------------------------------
+# resuming the JAX package's optimizer file
+# ---------------------------------------------------------------------------
+
+# Adam's eps raised so that the update is not scale-free (a gradient that
+# is zero up to rounding moves nothing); a new group, a frozen prefix and
+# the three updates' clip
+OPT = dict(learning_rate=1e-2, clip_lr=5e-3, new_lr=2e-2,
+           new_params_name=("contra_head",), frozen_prefixes=("itm_head",),
+           weight_decay=0.1, eps=1e-3, grad_norm=1.0, num_train_steps=10,
+           warmup_ratio=0.2)
+
+
+def _jax_run(params, accum, calls, seed=0):
+    """`calls` micro-steps of the JAX optimizer (`optax.MultiSteps` over it
+    when accum > 1) with seeded gradients → (params, state, the next
+    call's gradients)."""
+    import optax
+
+    from mico_tpu.train import optim as joptim
+
+    opt = joptim.build_optimizer(params, joptim.OptimConfig(**OPT))
+    if accum > 1:
+        opt = optax.MultiSteps(opt, every_k_schedule=accum)
+    rng = np.random.default_rng(seed)
+
+    def grads():
+        return jax.tree.map(lambda a: jnp.asarray(
+            rng.standard_normal(a.shape).astype(np.float32)), params)
+
+    @jax.jit
+    def update(state, p, g):
+        import optax
+
+        u, state = opt.update(g, state, p)
+        return state, optax.apply_updates(p, u)
+
+    state, p = opt.init(params), params
+    for _ in range(calls):
+        state, p = update(state, p, grads())
+    return p, state, grads(), update
+
+
+@pytest.mark.parametrize("accum,calls", [(1, 3), (2, 3), (2, 4)],
+                         ids=["plain", "multisteps_open", "multisteps_closed"])
+def test_jax_optimizer_file_resumes(tmp_path, accum, calls):
+    """JAX's `ModelSaver` writes the model and its optax state (leaves by
+    position) after `calls` micro-steps; the port loads both
+    (`resume_latest`, `load_latest_opt_state`), and one more micro-step on
+    the same gradients gives JAX's parameters, update count and, mid-window,
+    its accumulation."""
+    from mico_tpu_torch.train import optim as toptim
+
+    jcfg, tcfg = configs()
+    params = perturbed_params(jcfg, seed=5)
+    p, state, g_next, update = _jax_run(params, accum, calls)
+    jax_ckpt.ModelSaver(str(tmp_path)).save(calls, p, state)
+    model = MiCo(tcfg, device="cpu", init_weights=True)
+    assert checkpoints.resume_latest(str(tmp_path), model) == calls
+    topt = toptim.build_optimizer(model, toptim.OptimConfig(**OPT),
+                                  accum_steps=accum)
+    assert checkpoints.load_latest_opt_state(str(tmp_path), topt, step=calls)
+    want_count = calls // accum
+    assert topt.count == want_count and topt.mini_step == calls % accum
+    state, p = update(state, p, g_next)
+    tg = convert.params_from_jax(jax.tree.map(np.asarray, g_next), tcfg)
+    named = dict(model.named_parameters())
+    if topt.mini_step == 0:
+        topt.zero_grad()
+    for name in topt.names:
+        prm = named[name]
+        prm.grad = tg[name].clone() if prm.grad is None else prm.grad + tg[name]
+    topt.accumulate()
+    assert topt.count == (calls + 1) // accum
+    want = convert.params_from_jax(jax.tree.map(np.asarray, p), tcfg)
+    for name, prm in named.items():
+        np.testing.assert_allclose(prm.detach().numpy(), want[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_jax_optimizer_leaf_count_must_match(tmp_path):
+    """A JAX optimizer file of another chain (MultiSteps against a port
+    optimizer without accumulation) raises, naming both counts."""
+    from mico_tpu_torch.train import optim as toptim
+
+    jcfg, tcfg = configs()
+    params = perturbed_params(jcfg, seed=5)
+    p, state, _, _ = _jax_run(params, 2, 1)
+    jax_ckpt.ModelSaver(str(tmp_path)).save(1, p, state)
+    model = MiCo(tcfg, device="cpu")
+    topt = toptim.build_optimizer(model, toptim.OptimConfig(**OPT))
+    n = len(jax.tree.leaves(state))
+    with pytest.raises(ValueError, match=f"holds {n} leaves.*accum_steps 1"):
+        checkpoints.load_latest_opt_state(str(tmp_path), topt, step=1)

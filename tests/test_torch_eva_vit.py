@@ -252,11 +252,7 @@ def test_regularized_training_forward_and_remat():
     assert evaluated.shape == (4, 5, 64)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(remat=True, remat_policy="dots"),
-                                      "SCST, checkpoints"),
-                                     (dict(unroll_blocks=True),
-                                      "SCST, checkpoints"),
-                                     (dict(pipeline_stages=2), "parallelism")])
+@pytest.mark.parametrize("kw,item", [(dict(pipeline_stages=2), "parallelism")])
 def test_unported_training_options_raise(towers, kw, item):
     with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
         tvit.eva_vit_forward(towers[2].vision_encoder,

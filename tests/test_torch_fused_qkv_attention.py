@@ -1,7 +1,8 @@
 """The plain versions of the port's K5 (`fused_qkv_self_attention`) and K8
 (`fused_qkv_attn_proj`) in `mico_tpu_torch/ops/flash_attention.py` against
 the JAX package's Pallas kernels run in interpret mode and their plain
-references; the wrappers on CPU tensors launch nothing and refuse autograd;
+references; the wrappers on CPU tensors launch nothing (their
+differentiated routes are held to `jax.grad` in `tests/test_torch_scst.py`);
 the input checks the wrappers make before a launch on the card."""
 
 import jax.numpy as jnp
@@ -67,25 +68,35 @@ def test_k8_plain_is_k5_then_projection(rng):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kernel", ["K5", "K8"])
-def test_wrappers_refuse_autograd(rng, kernel):
-    """K5 and K8 have no backward: a call that autograd records with an
-    input that requires a gradient raises (on any device); under no_grad
-    the same call runs."""
-    x, wq, bias, wp, bp = (t(a) for a in _inputs(rng, 1, 9, 2, 16))
-    args = (x.requires_grad_(True), wq, bias)
-    if kernel == "K5":
-        fn = tfa.fused_qkv_self_attention
-    else:
-        fn, args = tfa.fused_qkv_attn_proj, args + (wp, bp)
-    with pytest.raises(RuntimeError, match=f"{kernel}.*no backward"):
-        fn(*args, 2, 0.25)
-    with torch.no_grad():
-        assert fn(*args, 2, 0.25).shape == (1, 9, 32)
-
-
 def _bf16(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card: what a wrapper does
+    with a card tensor, short of a launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K8"])
+def test_differentiated_routes_check_card_inputs(rng, kernel):
+    """Under autograd a card tensor the kernels do not take (fp32 here)
+    raises in the wrapper, as the same call does under no_grad: the
+    differentiated route never computes the plain twin on the card."""
+    x, wq, bias, wp, bp = (t(a) for a in _inputs(rng, 1, 9, 2, 16))
+    x = x.as_subclass(_OnCard).requires_grad_(True)
+    fn = {"K1": lambda: tfa.fused_ln_qkv_self_attention(
+              x, None, None, wq, bias, 2, 0.25, 1e-6, False),
+          "K5": lambda: tfa.fused_qkv_self_attention(x, wq, bias, 2, 0.25),
+          "K8": lambda: tfa.fused_qkv_attn_proj(x, wq, bias, wp, bp, 2,
+                                                0.25)}[kernel]
+    for grad in (True, False):
+        with torch.set_grad_enabled(grad), pytest.raises(
+                ValueError, match=f"{kernel} takes bf16 x and w"):
+            fn()
 
 
 @pytest.mark.parametrize("what,args,match", [

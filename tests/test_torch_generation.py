@@ -193,12 +193,6 @@ def test_top_k_breaks_ties_toward_the_lower_index():
     assert idx.tolist() == np.asarray(want).tolist()
 
 
-def test_scst_waits_for_the_training_port(decoders):
-    _, _, model, cond = decoders
-    with pytest.raises(NotImplementedError, match="training"):
-        tgen.generate(model, t(cond), mode="scst")
-
-
 def test_slice_end_to_end():
     """Pixels → the port's MiCo (vision tower, condition) → beam caption,
     against the same flow through the JAX package: same tokens."""

@@ -39,7 +39,8 @@ def test_sources_found():
             "int8_attention.py", "torch_decode_bench.py",
             "chip_smoke.py", "run.py", "pipeline.py", "loader.py",
             "mappers.py", "anno_dataset.py", "metrics.py",
-            "config_io.py", "logger.py", "checkpoints.py"} <= names
+            "config_io.py", "logger.py", "checkpoints.py",
+            "scst.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

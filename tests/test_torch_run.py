@@ -13,7 +13,7 @@ test (cv2 JPEGs, 16 kHz WAVs, captions, questions and answers):
   - gradient accumulation (k = 2 over two micro-batches) equals one step on
     their union (rates 0, draws injected);
   - the caption-generation config's testing shape, `param_dtype`, and what
-    the port refuses (no card, parallelism, SCST, orbax).
+    the port refuses (no card, parallelism, orbax).
 """
 
 import json
@@ -409,7 +409,3 @@ def test_refusals(corpus, tmp_path):
                         ("run_cfg.checkpoint_backend=orbax", "orbax")):
         with pytest.raises(NotImplementedError, match=match):
             trun.main(cpu + [over])
-    data = json.loads(cfg_path.read_text())["data_cfg"]["train"]
-    data[0]["task"] = "scst%tv"
-    with pytest.raises(NotImplementedError, match="SCST"):
-        trun.main(cpu + ["--data_cfg.train", json.dumps(data)])

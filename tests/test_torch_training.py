@@ -3,7 +3,7 @@ on the CPU at the tiny fp32 config: `task_losses` values and gradients for
 'ret%tva_cap%tva' and 'qa%tv' with JAX's own draws injected, the masker
 contract, the schedules, the param groups, three AdamW updates against the
 optax chain, a descending step, the long-context caption loss on the
-KV-tiled route (K6, K6b); and the repairs: K1 and K7 refuse to run under
+KV-tiled route (K6, K6b); and the repairs: K7 refuses to run under
 autograd, K2 has the gradient of `_flash_diff`."""
 
 import jax
@@ -23,6 +23,7 @@ from mico_tpu_torch.convert import params_from_jax
 from mico_tpu_torch.models.mico import MiCo
 from mico_tpu_torch.ops import flash_attention as tfa
 from mico_tpu_torch.ops import int8_attention as ti8
+from mico_tpu_torch.ops import layers as tlayers
 from mico_tpu_torch.train import masker, objectives, optim, sched
 from mico_tpu_torch.train.train_step import make_train_step
 
@@ -422,12 +423,30 @@ def test_causal_masks_match_jax():
 
 
 def test_k1_and_k7_refuse_autograd():
-    x = torch.randn(1, 5, 16, requires_grad=True)
-    w = torch.randn(16, 48)
+    """K7 has no backward and refuses a call that autograd records; K1
+    takes its differentiated route there (LayerNorm, then K5's route: the
+    projection and K3, K4 in the backward), whose output and gradient are
+    autograd's of that plain composition (`ops/layers.layer_norm`, the
+    projection, the packed attention's plain twin; not K1's plain twin,
+    whose rounding points are the fused kernel's). The weights take the
+    1/sqrt(fan-in) scale: with unit-std weights the scores saturate the
+    softmax, the input gradient reaches 1e3, and its small elements sit
+    below both routes' fp32 error (each ~1e-6 of the largest against fp64)
+    at rtol 1e-4."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 5, 16, generator=gen).requires_grad_(True)
+    w = torch.randn(16, 48, generator=gen) * 16 ** -0.5
     bias = torch.zeros(48)
-    with pytest.raises(RuntimeError, match="K1.*no backward"):
-        tfa.fused_ln_qkv_self_attention(x, None, None, w, bias, 2, 0.25,
-                                        1e-6, False)
+    out = no_launch(lambda: tfa.fused_ln_qkv_self_attention(
+        x, None, None, w, bias, 2, 0.25, 1e-6, False))
+    (gx,) = torch.autograd.grad(out.square().sum(), x)
+    xr = x.detach().requires_grad_(True)
+    qkv = (tlayers.layer_norm(xr, None, None, 1e-6) @ w + bias)
+    ref = tfa.packed_attention_plain(*qkv.chunk(3, dim=-1), 2, 0.25)
+    (want,) = torch.autograd.grad(ref.square().sum(), xr)
+    torch.testing.assert_close(out.detach(), ref.detach(), rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(gx, want, rtol=1e-4, atol=1e-6)
     with torch.no_grad():
         tfa.fused_ln_qkv_self_attention(x, None, None, w, bias, 2, 0.25,
                                         1e-6, False)
