@@ -238,7 +238,27 @@ Phases, run in order (any failure exits non-zero):
      vocabulary; it prints each stage's seconds (data wait and step, eval,
      save with the host RSS over it, load), the loader-fed step's cycle
      and the card's idle share in it (one step's device time under
-     torch.profiler) beside phase train's synthetic step.
+     torch.profiler) beside phase train's synthetic step;
+ 11. captioner: the data half's captioners on VAST, the JAX package's
+     default model (configs/default_model_cfg.json: ViT-g/14 at 40 blocks,
+     BEATs AS2M, BERT-base), at full width with random weights from seed 0:
+     a native `.npz` pretrained directory written from the card
+     (`log/hps.json`, `ckpt/model_step_1.npz`) and a corpus in a temporary
+     directory (128 16 kHz WAVs of 30 s: 3 slices of 1024 x 64 fbank, 768
+     condition tokens; 64 mp4s written by cv2, `mp4v`, 12 frames of 256 x
+     320); one clip's BEATs tokens and its `EmbeddingPipeline.embed_audio`
+     embedding, the card in bf16 against the port on the CPU in fp32
+     (cosine >= 0.999 each), BEATs' forward ms at B 128 x 3 slices and its
+     largest kernels by device time; then `mico_tpu_torch.run.main` on
+     configs/caption-generation-audio.json (B 128) and -vision.json (B 64,
+     8 frames, `video_rawvideo` through cv2) with `--pretrain_dir` and
+     `run_cfg.generate_nums=3`, and a `ret%tva` evaluation with the ITM
+     re-rank over vision + BEATs tokens (B 8), each evaluation counted from
+     0 and held to its launches (K1 40 a ViT pass, K2 12 a re-rank pass,
+     nothing else: K7 0; the audio captioner none), the annotation JSON (3
+     captions a clip) and the tokens checked; the seconds of each
+     evaluation split into the towers, the decode and the rest, captions/s,
+     and the cv2 decode + preprocess of the 64 clips on one thread.
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -3908,6 +3928,362 @@ def phase_scst(fa, card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the data half's captioners on VAST (ViT-g, BEATs, BERT)
+# ---------------------------------------------------------------------------
+
+CAP_AUDIO_CLIPS = 128       # configs/caption-generation-audio.json's B
+CAP_AUDIO_S = 30            # 3 slices of 1024 x 64 fbank: 768 tokens
+CAP_VIDEO_CLIPS = 64        # configs/caption-generation-vision.json's B
+CAP_VIDEO_FRAMES = 12       # written per mp4; the config samples 8
+CAP_RET_CLIPS = 8           # the ret%tva evaluation: one batch
+CAP_GENERATE_NUMS = 3       # the configs' model_cfg.generate_nums
+CAP_VAST_STEP = 1
+
+
+def write_captioner_corpus(root, seed: int) -> dict:
+    """Under root: CAP_AUDIO_CLIPS 16 kHz 16-bit mono WAVs of CAP_AUDIO_S
+    s (a tone plus noise), CAP_VIDEO_CLIPS mp4s written by cv2 (`mp4v`,
+    CAP_VIDEO_FRAMES frames of 256 x 320), the two captioners' `meta.json`
+    (ids) and the ret%tva set's annotations (the first CAP_RET_CLIPS clips
+    with a caption), all drawn from `seed`."""
+    import os
+    import wave
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    audios, videos = os.path.join(root, "audios"), os.path.join(root, "videos")
+    os.makedirs(audios)
+    os.makedirs(videos)
+    t = np.arange(CAP_AUDIO_S * 16000) / 16000
+    for i in range(CAP_AUDIO_CLIPS):
+        wav = (0.3 * np.sin(2 * np.pi * (120 + 13 * i) * t)
+               + 0.05 * rng.standard_normal(t.shape))
+        with wave.open(os.path.join(audios, f"clip{i:03d}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(16000)
+            f.writeframes((wav * 32767).clip(-32768, 32767).astype(np.int16)
+                          .tobytes())
+    y, x = np.mgrid[0:256, 0:320]
+    for i in range(CAP_VIDEO_CLIPS):
+        out = cv2.VideoWriter(os.path.join(videos, f"clip{i:03d}.mp4"),
+                              cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (320, 256))
+        if not out.isOpened():
+            raise AssertionError("cv2.VideoWriter cannot write mp4v")
+        for k in range(CAP_VIDEO_FRAMES):
+            base = np.stack([(x + 9 * i + 7 * k) % 256, (y * 2 + 5 * i) % 256,
+                             (x + y + 11 * k) % 256], -1)
+            img = (base + rng.integers(-30, 31, base.shape)).clip(0, 255)
+            out.write(img.astype(np.uint8))
+        out.release()
+    files = {}
+    for name, n, caption in (("audio", CAP_AUDIO_CLIPS, False),
+                             ("video", CAP_VIDEO_CLIPS, False),
+                             ("ret", CAP_RET_CLIPS, True)):
+        annos = [{"video_id": f"clip{i:03d}"} for i in range(n)]
+        for a in annos if caption else ():
+            a["caption"] = " ".join(rng.choice(RUN_WORDS, 8))
+        files[name] = os.path.join(root, f"{name}_meta.json")
+        with open(files[name], "w") as f:
+            json.dump(annos, f)
+    return dict(files, audios=audios, videos=videos)
+
+
+def write_vast_dir(root, seed: int):
+    """A pretrained run's directory of configs/default_model_cfg.json (VAST:
+    EVA01-CLIP-g/14 at 40 blocks, BEATs AS2M, BERT-base) at full width, its
+    weights drawn from `seed`: `log/hps.json` and the native
+    `ckpt/model_step_1.npz`, written from the card. → (the model on the
+    card, its model_cfg dict)."""
+    from mico_tpu_torch.config import mico_config_from_dict
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.train.checkpoints import ModelSaver
+    from mico_tpu_torch.utils.config_io import dump_hps
+
+    with open("configs/default_model_cfg.json") as f:
+        model_cfg = json.load(f)
+    model = MiCo(mico_config_from_dict(model_cfg), device="cuda", seed=seed)
+    dump_hps({"model_cfg": model_cfg}, root)
+    ModelSaver(root).save(CAP_VAST_STEP, model)
+    return model, model_cfg
+
+
+@torch.no_grad()
+def captioner_cosines(model, model_cfg: dict, corpus: dict, card: str) -> dict:
+    """One clip's BEATs tokens (the mapper's 3 slices) and its
+    `EmbeddingPipeline.embed_audio` embedding (the pipeline's 4 slices of
+    1024 x 64, B 1), the card in bf16 against the port on the CPU in fp32
+    on the same weights; then BEATs forward ms at the audio captioner's
+    batch (B 128 x 3 slices), median of 3 after a warm-up."""
+    import os
+
+    from mico_tpu_torch.data.mappers import AudioMapper
+    from mico_tpu_torch.models import audio as audio_mod
+    from mico_tpu_torch.serve import EmbeddingPipeline
+
+    cfg = model.cfg
+    spec = AudioMapper({"audio": corpus["audios"], "audio_sample_num": 3,
+                        "training": False}, model_cfg).read("clip000")
+    x = torch.from_numpy(spec)[None]
+    card_tokens = model.forward_audio_encoder(x.cuda()).float().cpu()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu_model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    ref_tokens = audio_mod.beats_forward(cpu_model.audio_encoder, x[0],
+                                         torch.float32)[None]
+    sizes = dict(batch_size=1, io_workers=2, melbins=cfg.audio_melbins,
+                 target_length=cfg.audio_target_length,
+                 resize_melbin_num=cfg.audio_melbins, fold_constants=False)
+    wav = [os.path.join(corpus["audios"], "clip000.wav")]
+    card_pipe = EmbeddingPipeline(model, cfg, device="cuda", **sizes)
+    cpu_pipe = EmbeddingPipeline(cpu_model, cpu_model.cfg, device="cpu",
+                                 **sizes)
+    emb = {"card": card_pipe.embed_audio(wav), "cpu": cpu_pipe.embed_audio(wav)}
+    card_pipe.close()
+    cpu_pipe.close()
+    del cpu_model, cpu_pipe
+    out = dict(
+        tokens_shape=list(card_tokens.shape),
+        beats_tokens_cosine=cosine(card_tokens, ref_tokens),
+        beats_tokens_min_row_cosine=min_row_cosine(
+            card_tokens.reshape(-1, card_tokens.shape[-1]),
+            ref_tokens.reshape(-1, ref_tokens.shape[-1])),
+        embed_audio_cosine=cosine(torch.from_numpy(emb["card"]),
+                                  torch.from_numpy(emb["cpu"])))
+    log(f"  BEATs tokens {out['tokens_shape']}, card bf16 vs CPU fp32: "
+        f"cosine {out['beats_tokens_cosine']:.6f} (least row "
+        f"{out['beats_tokens_min_row_cosine']:.6f}); embed_audio cosine "
+        f"{out['embed_audio_cosine']:.6f} [{card}]")
+    for key in ("beats_tokens_cosine", "embed_audio_cosine"):
+        if not out[key] >= COSINE_MIN:
+            raise AssertionError(f"captioner {key} {out[key]:.6f} < "
+                                 f"{COSINE_MIN}")
+    batch = x.expand(CAP_AUDIO_CLIPS, -1, -1, -1).cuda()
+    times = timed_runs(lambda: model.forward_audio_encoder(batch), 3)
+    out["beats_forward_ms"] = statistics.median(times)
+    out["beats_forward_times_ms"] = times
+    log(f"  BEATs forward at B {CAP_AUDIO_CLIPS} x 3 slices (x "
+        f"{tuple(batch.shape[2:])}): {out['beats_forward_ms']:.2f} ms, median "
+        f"of {times} [{card}]")
+    kern = device_time_ms(lambda: model.forward_audio_encoder(batch),
+                          iters=3, warmup=1, by_kernel=True)
+    if kern is not None:
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+        out["beats_device_ms"] = sum(kern.values())
+        out["beats_top_kernels_ms"] = {n[:80]: ms for n, ms in top}
+        log(f"  BEATs device {out['beats_device_ms']:.2f} ms a call [{card}]; "
+            f"the largest kernels (ms): " + "; ".join(
+                f"{n[:60]} {ms:.2f}" for n, ms in top))
+    return out
+
+
+def captioner_argv(config: str, vast: str, out: str, val: list) -> list:
+    """`python -m mico_tpu_torch.run`'s arguments for a captioner config:
+    the pretrained directory, the corpus's val set and three captions a
+    clip (`evaluation_mm` reads `run_cfg.generate_nums`, as JAX's does;
+    the configs set `model_cfg.generate_nums`)."""
+    return ["--config", f"configs/{config}", "--pretrain_dir", vast,
+            "--output_dir", out, "--device", "cuda",
+            "--data_cfg.val", json.dumps(val),
+            f"run_cfg.generate_nums={CAP_GENERATE_NUMS}"]
+
+
+def captioner_val(config: str, **paths) -> list:
+    with open(f"configs/{config}") as f:
+        item = json.load(f)["data_cfg"]["val"][0]
+    item.update(paths)
+    return [item]
+
+
+def captioner_run(probe, spent: dict, run_main, name: str, argv: list,
+                  out: str, clips: int, card: str) -> dict:
+    """One run of the entry in testing mode, its stages held by the probe,
+    the seconds of its tower and decode calls (`spent`); for a captioner
+    its annotation JSON and tokens checked."""
+    import os
+
+    from mico_tpu_torch.config import MiCoConfig
+
+    probe.stages.clear()
+    probe.tokens.clear()
+    spent.clear()
+    t0 = time.perf_counter()
+    logs = run_main(argv)
+    wall = time.perf_counter() - t0
+    stages = list(probe.stages)
+    log(f"  {name}: {wall:.1f} s through the run entry [{card}]")
+    stage_lines([dict(s, step=0) if s["kind"] == "eval" else s
+                 for s in stages], {"steps": []})
+    (ev,) = [s for s in stages if s["kind"] == "eval"]
+    parts = {k: sum(v) for k, v in spent.items()}
+    log(f"  {name}: evaluation {ev['seconds']:.3f} s = " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items())
+        + f", the rest (loader wait, host) "
+        f"{ev['seconds'] - sum(parts.values()):.3f} [{card}]")
+    result = dict(wall_s=wall, eval_s=ev["seconds"], eval_parts_s=parts,
+                  logs=logs,
+                  launches=dict(ev["launches"], vit_passes=ev["vit_passes"],
+                                rerank_passes=ev["rerank_passes"]),
+                  loads={s["kind"]: s["seconds"] for s in stages
+                         if s["kind"] != "eval"})
+    vocab = MiCoConfig().bert_config.vocab_size
+    for toks in probe.tokens:
+        if int(toks.min()) < 0 or int(toks.max()) >= vocab:
+            raise AssertionError(f"{name}: caption tokens outside "
+                                 f"[0, {vocab})")
+    if name.startswith("cap"):
+        task = name.split()[0]
+        (key,) = logs
+        path = os.path.join(out, f"annotations_step0_{key}.json")
+        with open(path) as f:
+            ann = json.load(f)
+        sub = task.split("%")[1]
+        if (len(ann) != clips or logs[key]["num_annotated"] != clips
+                or any(len(a[f"{sub}_captions"]) != CAP_GENERATE_NUMS
+                       for a in ann)):
+            raise AssertionError(f"{name}: {len(ann)} annotations in {path}")
+        n_tok = sum(int(t.shape[0]) for t in probe.tokens)
+        if n_tok != clips * CAP_GENERATE_NUMS:
+            raise AssertionError(f"{name}: {n_tok} sampled rows")
+        result.update(captions=clips * CAP_GENERATE_NUMS,
+                      captions_per_s=clips * CAP_GENERATE_NUMS / ev["seconds"],
+                      first=ann[0])
+        log(f"  {name}: {clips} clips x {CAP_GENERATE_NUMS} captions in "
+            f"{ev['seconds']:.2f} s of evaluation: "
+            f"{result['captions_per_s']:.2f} captions/s [{card}]; "
+            f"{ann[0]['clip_id']}: {ann[0][f'{sub}_captions']}")
+    else:
+        bad = {k: v for m in logs.values() for k, v in m.items()
+               if not 0.0 <= v <= 1.0}
+        if bad:
+            raise AssertionError(f"{name}: outside [0, 1]: {bad}")
+    if probe.plain_on_card:
+        raise AssertionError(f"plain twins ran on the card: "
+                             f"{probe.plain_on_card}")
+    return result
+
+
+def phase_captioner(fa, card: str) -> dict:
+    """The data half's captioners (configs/caption-generation-audio.json,
+    -vision.json) and a ret%tva ITM re-rank through `python -m
+    mico_tpu_torch.run`, from a native pretrained directory of the default
+    VAST model at full width, over a corpus written to a temporary
+    directory."""
+    import os
+    import shutil
+    import tempfile
+
+    import mico_tpu_torch.evaluation as ev
+    import mico_tpu_torch.models.mico as mico_mod
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.data.mappers import VisionMapper
+    from mico_tpu_torch.run import main as run_main
+
+    layers = MiCoConfig().eva_config.layers
+    root = tempfile.mkdtemp(prefix="mico_captioner_")
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        corpus = write_captioner_corpus(root, seed=0)
+        corpus_s = time.perf_counter() - t0
+        vast = os.path.join(root, "vast")
+        t0 = time.perf_counter()
+        model, model_cfg = write_vast_dir(vast, seed=0)
+        vast_s = time.perf_counter() - t0
+        log(f"phase captioner: corpus ({CAP_AUDIO_CLIPS} WAVs of "
+            f"{CAP_AUDIO_S} s, {CAP_VIDEO_CLIPS} mp4s of {CAP_VIDEO_FRAMES} "
+            f"frames) {corpus_s:.1f} s; VAST directory (init on the card "
+            f"and the npz) {vast_s:.1f} s [{card}]")
+        result = dict(corpus_s=corpus_s, vast_dir_s=vast_s,
+                      **captioner_cosines(model, model_cfg, corpus, card))
+        del model
+        free_cuda()
+
+        probe = RunProbe(fa, layers)
+        # seconds of the towers and the decode inside each evaluation, each
+        # call ending in a synchronize; the rest of an evaluation is the
+        # loader's wait and the host's work
+        spent = {}
+
+        def timed(module, name, key):
+            fn = getattr(module, name)
+
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                spent.setdefault(key, []).append(time.perf_counter() - t)
+                return out
+            probe.p.set(module, name, call)
+        timed(mico_mod, "forward_audio_encoder", "audio_tower_s")
+        timed(mico_mod, "forward_vision_encoder", "vision_tower_s")
+        timed(ev, "generate", "decode_s")
+        runs = {}
+        try:
+            audio_val = captioner_val(
+                "caption-generation-audio.json", txt=corpus["audio"],
+                audio=corpus["audios"])
+            runs["audio"] = captioner_run(
+                probe, spent, run_main, "cap%ta captioner", captioner_argv(
+                    "caption-generation-audio.json", vast,
+                    os.path.join(root, "out_a"), audio_val),
+                os.path.join(root, "out_a"), CAP_AUDIO_CLIPS, card)
+            free_cuda()
+            vision_val = captioner_val(
+                "caption-generation-vision.json", txt=corpus["video"],
+                vision=corpus["videos"])
+            runs["vision"] = captioner_run(
+                probe, spent, run_main, "cap%tv captioner", captioner_argv(
+                    "caption-generation-vision.json", vast,
+                    os.path.join(root, "out_v"), vision_val),
+                os.path.join(root, "out_v"), CAP_VIDEO_CLIPS, card)
+            free_cuda()
+            ret_val = captioner_val(
+                "caption-generation-vision.json", txt=corpus["ret"],
+                vision=corpus["videos"], audio=corpus["audios"],
+                audio_sample_num=3, task="ret%tva",
+                batch_size=CAP_RET_CLIPS)
+            runs["ret"] = captioner_run(
+                probe, spent, run_main, "ret%tva ITM re-rank", captioner_argv(
+                    "caption-generation-vision.json", vast,
+                    os.path.join(root, "out_r"), ret_val)
+                + ["run_cfg.itm_rerank=true"],
+                os.path.join(root, "out_r"), CAP_RET_CLIPS, card)
+        finally:
+            probe.close()
+        free_cuda()
+        # the vision captioner's host work alone: cv2 decode of the 8
+        # middle frames and the resize + normalize, clip by clip
+        mapper = VisionMapper(vision_val[0], model_cfg)
+        t0 = time.perf_counter()
+        for i in range(CAP_VIDEO_CLIPS):
+            mapper.read(f"clip{i:03d}")
+        decode_s = time.perf_counter() - t0
+        log(f"  cv2 decode + preprocess of {CAP_VIDEO_CLIPS} clips x 8 "
+            f"frames (256 x 320 -> 224), one thread: {decode_s:.2f} s "
+            f"[{card}]")
+        want = {"audio": dict(vit_passes=0, rerank_passes=0),
+                "vision": dict(vit_passes=1, rerank_passes=0),
+                "ret": dict(vit_passes=1, rerank_passes=CAP_RET_CLIPS)}
+        for key, w in want.items():
+            got = {k: runs[key]["launches"][k] for k in w}
+            if got != w:
+                raise AssertionError(f"captioner {key}: {got}, expected {w}")
+        result.update(runs=runs, cv2_decode_preprocess_s=decode_s,
+                      phase_s=time.perf_counter() - t_phase)
+        log(f"  phase captioner: {result['phase_s']:.1f} s [{card}]")
+        result["paths"] = {
+            f"captioner {key} eval": {k: v for k, v in r["launches"].items()
+                                      if k.startswith(("K", "P"))}
+            for key, r in runs.items()}
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_cuda()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -3950,6 +4326,7 @@ def main() -> int:
     rows += mlp_rows
     scst = phase_scst(fa, card)
     run = phase_run(fa, card, train)
+    captioner = phase_captioner(fa, card)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
              **clip["paths"],
@@ -3964,7 +4341,8 @@ def main() -> int:
              "run train step": run["launches"]["train step"],
              **{f"run eval (step {step})": {k: v for k, v in c.items()
                                            if k.startswith(("K", "P"))}
-                for step, c in run["launches"]["eval"].items()}}
+                for step, c in run["launches"]["eval"].items()},
+             **captioner["paths"]}
     for row in rows:
         key = row["name"].split()[0]
         path = KERNEL_PATH[key]
@@ -3990,7 +4368,9 @@ def main() -> int:
                                        if k != "paths"},
                       "scst": {k: v for k, v in scst.items()
                                if k != "paths"},
-                      "run": run}, default=str))
+                      "run": run,
+                      "captioner": {k: v for k, v in captioner.items()
+                                    if k != "paths"}}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

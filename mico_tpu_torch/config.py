@@ -3,9 +3,10 @@
 PyTorch counterpart of `mico_tpu/config.py`: the same field names, defaults
 and registry entries, with torch dtypes in `MiCoConfig.dtypes()`. Only the
 towers this package implements (the EVA01 and post-norm EVA ViTs, and the
-OpenAI-CLIP ViTs of `models/clip_vit.py`, with the shared audio route) are
-buildable; asking for another tower raises `NotImplementedError` naming the
-ROADMAP queue that ports it.
+OpenAI-CLIP ViTs of `models/clip_vit.py`; for audio the shared route and
+the BEATs and AST towers of `models/audio.py`) are buildable; asking for
+another tower raises `NotImplementedError` naming the ROADMAP queue that
+ports it.
 """
 
 from __future__ import annotations
@@ -142,6 +143,12 @@ CLIP_TOWER_NAMES = {
 }
 
 
+# audio_encoder_type → the tower's output width; "shared" is MiCo's audio
+# through the vision ViT, "beats" and "ast" are VAST's separate towers
+# (`mico_tpu/config.py:151-154`)
+AUDIO_ENCODER_DIMS = {"shared": None, "beats": 768, "ast": 768}
+
+
 def eva_config_for_encoder_type(
     vision_encoder_type: str, image_size: Optional[int] = None
 ) -> EvaVitConfig:
@@ -247,10 +254,14 @@ class MiCoConfig:
 
     @property
     def audio_dim(self) -> int:
+        """The vision width for the shared route; a separate tower's
+        `encoder_embed_dim` (BEATs) or `hidden_size` (AST) from
+        `audio_override`, else its registry width."""
         if self.audio_encoder_type != "shared":
-            raise NotImplementedError(
-                f"audio tower {self.audio_encoder_type!r}: {_NOT_PORTED}"
-            )
+            if self.audio_override is not None:
+                ov = self.audio_override
+                return getattr(ov, "encoder_embed_dim", None) or ov.hidden_size
+            return AUDIO_ENCODER_DIMS[self.audio_encoder_type]
         return self.vision_dim
 
     @property
@@ -288,11 +299,19 @@ class MiCoConfig:
 
     @property
     def audio_tower_config(self):
+        """The separate audio tower's config (None for "shared"):
+        `audio_override`, else BEATs' AS2M defaults for "beats" and an AST
+        at this config's mel bins and target length otherwise."""
         if self.audio_encoder_type == "shared":
             return None
-        raise NotImplementedError(
-            f"audio tower {self.audio_encoder_type!r}: {_NOT_PORTED}"
-        )
+        if self.audio_override is not None:
+            return self.audio_override
+        from mico_tpu_torch.models.audio import AstConfig, BeatsConfig
+
+        if self.audio_encoder_type == "beats":
+            return BeatsConfig()
+        return AstConfig(audio_melbins=self.audio_melbins,
+                         audio_target_length=self.audio_target_length)
 
     @property
     def bert_config(self) -> BertConfig:

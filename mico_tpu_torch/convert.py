@@ -6,8 +6,9 @@ released PyTorch checkpoints.
 port's `state_dict`: the path `a/b/c` becomes the key `a.b.c`, and the
 stacked depth axis of `vision_encoder/blocks/*` and `bert/layers/*` is
 written out as a ModuleList index (`vision_encoder.blocks.3.qkv_w`). A list
-of per-block dicts (the CLIP tower's `blocks`, `init_clip_vit`) maps onto
-the same ModuleList keys by its list index. Layouts are unchanged (linears
+of per-block dicts (the CLIP tower's `blocks`, `init_clip_vit`; an audio
+tower's `layers`, `init_beats`/`init_ast`) maps onto the same ModuleList
+keys by its list index. Layouts are unchanged (linears
 stay (in, out)).
 
 `eva_vit_from_torch` and `bert_from_torch` (with `models.mico.
@@ -116,8 +117,9 @@ def jax_leaves(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig):
     copying: (path, tensors, stacked) triples, where the tensors are the
     rows of a stacked leaf (`vision_encoder/blocks/*` of an EVA tower,
     `bert/layers/*`) in depth order, or the one tensor of any other leaf.
-    A CLIP tower's blocks stay per block (`vision_encoder/blocks/<i>/*`),
-    the list JAX keeps for them."""
+    A CLIP tower's blocks and an audio tower's layers stay per block
+    (`vision_encoder/blocks/<i>/*`, `audio_encoder/layers/<i>/*`), the
+    lists JAX keeps for them."""
     stacked = [g for g in STACKED
                if cfg.is_eva or g != "vision_encoder/blocks"]
     groups: Dict[str, Dict[int, torch.Tensor]] = {}
@@ -142,7 +144,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig
                   ) -> Dict:
     """The inverse of `params_from_jax`: the JAX package's params tree
     (nested dicts of fp32 numpy leaves, the depth axis stacked; a CLIP
-    tower's blocks as a list) of a port state_dict of `cfg`."""
+    tower's blocks and an audio tower's layers as lists) of a port
+    state_dict of `cfg`."""
     tree: Dict = {}
     for path, rows, stacked in jax_leaves(state_dict, cfg):
         arrs = [r.detach().to("cpu", torch.float32).numpy() for r in rows]
@@ -152,10 +155,12 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
-    if not cfg.is_eva and "blocks" in tree.get("vision_encoder", {}):
-        blocks = tree["vision_encoder"]["blocks"]
-        tree["vision_encoder"]["blocks"] = [blocks[str(i)]
-                                            for i in range(len(blocks))]
+    # JAX keeps a CLIP tower's blocks and an audio tower's layers as lists
+    for tower, group in (("vision_encoder", "blocks"),
+                         ("audio_encoder", "layers")):
+        items = tree.get(tower, {}).get(group)
+        if isinstance(items, dict) and all(k.isdigit() for k in items):
+            tree[tower][group] = [items[str(i)] for i in range(len(items))]
     return tree
 
 

@@ -5,15 +5,16 @@ Rebuilds of the reference mappers, on the port's host media code:
   - VisionMapper (reference data/data/vision_mapper.py:16-211): formats
     `video_frame` (sorted image directories), `image_rawimage` (extension
     fallback, zeros for a missing file), `video_feats` (h5/npy clip
-    features with mean-pool bucketing) and `video_rawvideo`, whose
-    container decoding goes through `media/video_io.py` and is not ported
-    (it raises, naming the ROADMAP item);
+    features with mean-pool bucketing) and `video_rawvideo` (containers
+    decoded by `media/video_io.py`'s cv2 route, the JAX module's fallback;
+    extension fallback);
   - DepthMapper: per-id depth maps through the shared vision tower;
-  - AudioMapper (reference data/data/audio_mapper.py:9-94): the shared
-    tower's fbank (16 kHz, 2**15 scaling, Kaldi defaults, the BEATs mean
-    and std, as the JAX package's `beats` branch computes it), zero-pad +
-    fixed-window slicing, chunk sampling, zeros on a missing file. The
-    separate BEATs and AST towers are not ported and raise.
+  - AudioMapper (reference data/data/audio_mapper.py:9-94): the fbank of
+    the configured tower (`media.processors.encoder_fbank`: BEATs at 16
+    kHz, 2**15 scaling, Kaldi defaults; AST at the file's own rate, a
+    mean-centred wave, a Hanning window; the shared ViT as BEATs), its
+    mean and std, zero-pad + fixed-window slicing, chunk sampling, zeros
+    on a missing file.
 Every draw comes from the mapper's own `random.Random(seed)`, in the JAX
 module's order, so one corpus and seed give the JAX package's samples.
 """
@@ -28,25 +29,21 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from mico_tpu_torch.media.audio_io import load_waveform
 from mico_tpu_torch.media.chunking import sample_chunk_indices
 from mico_tpu_torch.media.image_io import load_image_chw
 from mico_tpu_torch.media.processors import (
+    AUDIO_ENCODER_STATS,
     _random_resized_crop,
     _resize_normalize_host,
     _resize_short_center_crop,
     _stats_for,
+    encoder_fbank,
 )
 from mico_tpu_torch.media.video_io import read_frames_chw, video_num_frames
-from mico_tpu_torch.ops.fbank import FbankConfig, kaldi_fbank_np
 
 VIDEO_EXT_FALLBACK = ("", ".mp4", ".avi", ".webm", ".mkv")
 IMAGE_EXT_FALLBACK = ("", ".jpg", ".JPEG")
 AUDIO_EXT_FALLBACK = ("", ".wav", ".mp3", ".mkv")
-
-_OTHER_AUDIO = ("not ported yet (ROADMAP.md, queue 1: other encoders and "
-                "tokenizers); the port's audio runs through the shared ViT "
-                "(model_cfg.audio_encoder_type=shared)")
 
 
 class DecodeCache:
@@ -80,6 +77,13 @@ class DecodeCache:
 
 def _inline(fn, *args):
     return fn(*args)
+
+
+def middle_frames(path: str, sample_num: int) -> np.ndarray:
+    """The evaluation frames of a container: the middle frame of each of
+    `sample_num` chunks (no draw), decoded by `video_io`."""
+    idx = sample_chunk_indices(video_num_frames(path), sample_num, False)
+    return read_frames_chw(path, idx)
 
 
 def _resolve_path(base: str, id_: str, fallbacks) -> Optional[str]:
@@ -118,7 +122,13 @@ class VisionMapper:
 
     def prefetch(self, id_, pool: ThreadPoolExecutor, cache: DecodeCache):
         """Submit the decodes `read(id_)` will ask for (every frame of a
-        training video: its draws pick them later)."""
+        training video: its draws pick them later; an evaluation
+        container's middle frames, which need no draw)."""
+        if self.vision_format == "video_rawvideo":
+            path = _resolve_path(self.vision, id_, VIDEO_EXT_FALLBACK)
+            if path and not self.training and not self.dense_extraction:
+                cache.submit(pool, middle_frames, path, self.sample_num)
+            return
         if self.vision_format == "image_rawimage":
             path = _resolve_path(self.vision, id_, IMAGE_EXT_FALLBACK)
             paths = [path] if path else []
@@ -171,8 +181,8 @@ class VisionMapper:
             if self.vision_format == "video_feats":
                 return self._read_feats(id_)
             raise NotImplementedError(self.vision_format)
-        except NotImplementedError:
-            raise
+        except (NotImplementedError, ImportError):
+            raise           # a configuration error, not a corrupt sample
         except Exception as e:  # noqa: BLE001 — corrupt sample → resample
             print(e, id_)
             return None
@@ -184,13 +194,10 @@ class VisionMapper:
         return self._read_rawvideo_path(path)
 
     def _read_rawvideo_path(self, path: str) -> np.ndarray:
-        try:
-            n = video_num_frames(path)
-        except IOError as e:
-            # no container decoder: a configuration error, not a corrupt
-            # sample to resample past
-            raise NotImplementedError(f"vision_format video_rawvideo: {e}"
-                                      ) from None
+        if not self.training and not self.dense_extraction:
+            return self._transform(self.decode(middle_frames, path,
+                                               self.sample_num))
+        n = video_num_frames(path)
         sample_num = self.sample_num
         if self.dense_extraction:
             import cv2
@@ -294,13 +301,15 @@ class DepthMapper:
 
 class AudioMapper:
     """d_cfg keys: audio (root dir), training, audio_sample_num; model_cfg
-    keys: audio_melbins, audio_target_length, audio_encoder_type (only
-    `shared`), vision_resolution. The shared ViT reads a slice as a
-    (target_length, melbins) image, so both must equal the resolution."""
+    keys: audio_melbins, audio_target_length, audio_encoder_type ("beats",
+    "ast" or "shared"), vision_resolution. A slice is (target_length,
+    melbins); the shared ViT reads it as an image, so there both must
+    equal the resolution."""
 
-    # the shared tower takes the BEATs fbank statistics
-    # (reference audio_mapper.py:19-26; model/audioprocessor.py)
-    MEAN, STD = 15.41663, 6.55582
+    # audio_encoder_type → (mean, std) (reference audio_mapper.py:19-26);
+    # the shared tower takes BEATs' fbank and statistics
+    ENCODER_STATS = {**AUDIO_ENCODER_STATS,
+                     "shared": AUDIO_ENCODER_STATS["beats"]}
 
     def __init__(self, d_cfg: dict, model_cfg: dict,
                  seed: Optional[int] = None):
@@ -310,33 +319,26 @@ class AudioMapper:
         self.melbins = int(model_cfg.get("audio_melbins", 64))
         self.target_length = int(model_cfg.get("audio_target_length", 1024))
         self.audio_encoder_type = model_cfg.get("audio_encoder_type", "beats")
-        if self.audio_encoder_type != "shared":
+        if self.audio_encoder_type not in self.ENCODER_STATS:
             raise NotImplementedError(
-                f"audio_encoder_type {self.audio_encoder_type!r}: "
-                f"{_OTHER_AUDIO}")
+                f"audio_encoder_type {self.audio_encoder_type!r}")
         r = int(model_cfg.get("vision_resolution", 224))
-        if (self.target_length, self.melbins) != (r, r):
+        if (self.audio_encoder_type == "shared"
+                and (self.target_length, self.melbins) != (r, r)):
             raise ValueError(
                 f"the shared ViT reads an audio slice as a (target_length, "
                 f"melbins) = ({self.target_length}, {self.melbins}) image; "
                 f"set model_cfg.audio_target_length and audio_melbins to the "
                 f"vision resolution {r}")
-        self.mean, self.std = self.MEAN, self.STD
+        self.mean, self.std = self.ENCODER_STATS[self.audio_encoder_type]
         self._rng = random.Random(seed)
         self.decode = _inline
 
     def prefetch(self, id_, pool: ThreadPoolExecutor, cache: DecodeCache):
         path = _resolve_path(self.audio_dir, id_, AUDIO_EXT_FALLBACK)
         if path is not None:
-            cache.submit(pool, self._fbank, path)
-
-    def _fbank(self, path: str) -> np.ndarray:
-        # 16 kHz, int16 scale, Kaldi defaults (the JAX module's `beats`
-        # branch); loader threads run the numpy twin
-        wave, _ = load_waveform(path, target_sr=16000)
-        wave = wave * 2.0**15
-        cfg = FbankConfig(num_mel_bins=self.melbins)
-        return kaldi_fbank_np(np.asarray(wave, np.float32), cfg)
+            cache.submit(pool, encoder_fbank, path, self.audio_encoder_type,
+                         self.melbins)
 
     def read(self, id_) -> Optional[np.ndarray]:
         path = _resolve_path(self.audio_dir, id_, AUDIO_EXT_FALLBACK)
@@ -345,7 +347,8 @@ class AudioMapper:
             return np.zeros((self.sample_num, self.target_length,
                              self.melbins), np.float32)
         try:
-            fb = self.decode(self._fbank, path)
+            fb = self.decode(encoder_fbank, path, self.audio_encoder_type,
+                             self.melbins)
             fb = (fb - self.mean) / (self.std * 2)
             src = fb.shape[0]
             t = self.target_length

@@ -33,13 +33,14 @@ def load_wav_stdlib(path: str) -> Tuple[np.ndarray, int]:
 
 
 def load_waveform(path: str, target_sr: int = 16000) -> Tuple[np.ndarray, int]:
-    """→ (float32 mono waveform at target_sr, source sample rate)."""
+    """→ (float32 mono waveform at target_sr, source sample rate);
+    `target_sr` 0 keeps the file's own rate (the AST branch's request)."""
     try:
         wav, sr = load_wav_stdlib(path)
     except (wave.Error, EOFError) as e:
         raise IOError(f"{path} is not a PCM WAV file ({e}); other containers "
                       f"need decoding: {NATIVE_DECODERS}") from None
-    if sr != target_sr:
+    if target_sr and sr != target_sr:
         raise IOError(f"{path} is at {sr} Hz, not {target_sr}; resampling: "
                       f"{NATIVE_DECODERS}")
     return wav, sr

@@ -66,6 +66,30 @@ def _wave_to_fbank_host(wave, melbins: int, resize_melbin_num: int, mean, std):
     return (fb - mean) / (2.0 * std)
 
 
+# audio_encoder_type → the mean and std that normalize its fbank
+# (reference audio_mapper.py:19-26); the shared ViT takes BEATs'
+AUDIO_ENCODER_STATS = {"ast": (-4.2677393, 4.5689974),
+                       "beats": (15.41663, 6.55582)}
+
+
+def encoder_fbank(path: str, encoder_type: str, melbins: int) -> np.ndarray:
+    """An audio file's raw (frames, melbins) Kaldi fbank as the data
+    mapper computes it for `encoder_type` (`mico_tpu/data/mappers.py:
+    245-266`): "ast" at the file's own rate, the wave mean-centred, a
+    Hanning window; "beats" (and the shared ViT) at 16 kHz, scaled by
+    2**15, the Kaldi defaults. No mel-axis resize."""
+    if encoder_type == "ast":
+        wave, sr = load_waveform(path, target_sr=0)
+        wave = wave - wave.mean()
+        cfg = FbankConfig(num_mel_bins=melbins, sample_frequency=float(sr),
+                          window_type="hanning")
+    else:
+        wave, _ = load_waveform(path, target_sr=16000)
+        wave = wave * 2.0**15
+        cfg = FbankConfig(num_mel_bins=melbins)
+    return kaldi_fbank_np(np.asarray(wave, np.float32), cfg)
+
+
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
     """Keys' cubic convolution kernel with a = -0.5."""
     out = ((1.5 * x - 2.5) * x) * x + 1.0

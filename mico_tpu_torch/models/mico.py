@@ -2,9 +2,10 @@
 
 One shared ViT (EVA, or the OpenAI-CLIP tower of `models/clip_vit.py`)
 encodes every knowledge modality — video frames, images (1-frame videos),
-audio fbank slices tiled to 3 channels, depth maps — and a
-BERT with cross-attention is the language interface for contrastive
-retrieval and ITM. `MiCo` is an `nn.Module` holding the parameters under the
+audio fbank slices tiled to 3 channels, depth maps — unless the config
+names one of VAST's separate audio towers (BEATs or AST, `models/audio.py`,
+held as `audio_encoder`); a BERT with cross-attention is the language
+interface for contrastive retrieval and ITM. `MiCo` is an `nn.Module` holding the parameters under the
 JAX package's names (see `mico_tpu_torch.convert.params_from_jax`), with the
 reference method surface of `MiCoModel` (mico.py:481-581).
 `mico_from_torch` converts a released checkpoint's state_dict into the
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from mico_tpu_torch.config import MiCoConfig
+from mico_tpu_torch.models import audio as audio_mod
 from mico_tpu_torch.models import bert as bert_mod
 from mico_tpu_torch.models import clip_vit as clip_mod
 from mico_tpu_torch.models import eva_vit as vit_mod
@@ -83,6 +85,11 @@ class MiCo(nn.Module):
             self.vision_encoder = clip_mod.ClipVisionTransformer(
                 cfg.vision_tower_config, init)
         self.bert = bert_mod.Bert(cfg.bert_config, init)
+        if cfg.audio_encoder_type != "shared":   # _init_audio_tower, :125-131
+            tower = (audio_mod.BeatsEncoder
+                     if cfg.audio_encoder_type.startswith("beats")
+                     else audio_mod.AstEncoder)
+            self.audio_encoder = tower(cfg.audio_tower_config, init)
         for m, in_dim in (("t", md), ("s", md), ("v", vd), ("a", cfg.audio_dim),
                           ("d", vd)):
             setattr(self, f"contra_head_{m}",
@@ -162,7 +169,7 @@ class MiCo(nn.Module):
         return pool_frames_for_contra(feature)
 
     def pool_audio_for_contra(self, feature: torch.Tensor) -> torch.Tensor:
-        return pool_frames_for_contra(feature)
+        return pool_audio_for_contra(self.cfg, feature)
 
     def pool_depth_for_contra(self, feature: torch.Tensor) -> torch.Tensor:
         return pool_frames_for_contra(feature)
@@ -227,10 +234,25 @@ def forward_vision_encoder(model: MiCo, pixels: torch.Tensor,
 def forward_audio_encoder(model: MiCo, spectrograms: torch.Tensor,
                           train_rng: Optional[torch.Generator] = None
                           ) -> torch.Tensor:
-    """(b, n, T, M) fbank slices → (b, n, seq, C) through the shared ViT,
-    tiled to 3 channels (mico.py:199-210)."""
-    x = spectrograms[:, :, None].expand(-1, -1, 3, -1, -1)
-    return forward_vision_encoder(model, x, train_rng=train_rng)
+    """(b, n, T, M) fbank slices → (b, n, seq, C) (mico.py:199-229):
+    through the shared ViT, tiled to 3 channels, or the separate tower with
+    the slices folded into its batch in the compute dtype (AST reads each
+    slice transposed to (M, T))."""
+    cfg = model.cfg
+    if cfg.audio_encoder_type == "shared":
+        x = spectrograms[:, :, None].expand(-1, -1, 3, -1, -1)
+        return forward_vision_encoder(model, x, train_rng=train_rng)
+    b, n = spectrograms.shape[:2]
+    flat = spectrograms.reshape(b * n, *spectrograms.shape[2:])
+    if cfg.audio_encoder_type.startswith("ast"):
+        tokens = audio_mod.ast_forward(
+            model.audio_encoder, flat.transpose(1, 2),
+            compute_dtype=model.compute_dtype, train_rng=train_rng)
+    else:
+        tokens = audio_mod.beats_forward(
+            model.audio_encoder, flat, compute_dtype=model.compute_dtype,
+            train_rng=train_rng)
+    return tokens.reshape(b, n, *tokens.shape[1:])
 
 
 def forward_depth_encoder(model: MiCo, depth_pixels: torch.Tensor,
@@ -312,10 +334,21 @@ def subtitle_condition_input(model: MiCo,
     return out + model.subtitle_type_embeddings.to(out.dtype)
 
 
-def pool_frames_for_contra(feature: torch.Tensor) -> torch.Tensor:
-    """(b, n, x, c): the CLS token of each frame, then the mean over frames
-    (the EVA rule of mico.py:274-281)."""
-    return feature[:, :, 0].mean(dim=1)
+def pool_frames_for_contra(feature: torch.Tensor,
+                           patch_mean: bool = False) -> torch.Tensor:
+    """(b, n, x, c): the CLS token of each frame (the CLIP/EVA rule), or
+    with `patch_mean` the mean over its tokens, then the mean over frames
+    (mico.py:274-281)."""
+    per_frame = feature.mean(dim=2) if patch_mean else feature[:, :, 0]
+    return per_frame.mean(dim=1)
+
+
+def pool_audio_for_contra(cfg: MiCoConfig,
+                          feature: torch.Tensor) -> torch.Tensor:
+    """BEATs has no CLS token: the mean over its tokens; AST and the shared
+    ViT keep their CLS (mico.py:291-296)."""
+    return pool_frames_for_contra(
+        feature, patch_mean=cfg.audio_encoder_type.startswith("beats"))
 
 
 def frame_embedding(emb: torch.Tensor, n: int) -> torch.Tensor:
@@ -358,9 +391,22 @@ def mico_from_torch(sd: Mapping, cfg: MiCoConfig,
 
     consumed: optional set collecting every (post-legacy-remap) key read —
     callers diff it against the checkpoint to surface leftovers instead of
-    dropping tensors silently."""
+    dropping tensors silently.
+
+    A config with a separate audio tower raises ValueError: JAX's converter
+    reads no `audio_encoder.*` key, so neither package fills that tower
+    from a released checkpoint (`models.audio.beats_from_torch` and
+    `ast_from_torch` convert the towers' own releases); such a model
+    loads from a native `.npz` checkpoint."""
     from mico_tpu_torch import convert
 
+    if cfg.audio_encoder_type != "shared":
+        raise ValueError(
+            f"audio tower {cfg.audio_encoder_type!r}: the released-checkpoint "
+            "converter reads no audio_encoder.* key (as JAX's "
+            "mico_from_torch), so it would leave the tower at random "
+            "weights; load a separate audio tower from a native .npz "
+            "checkpoint")
     sd = convert._TrackedDict(
         {k: convert.as_tensor(v) for k, v in remap_legacy_keys(sd).items()},
         consumed)

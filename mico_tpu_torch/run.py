@@ -67,7 +67,13 @@ def get_args(argv=None):
     parser.add_argument("--vocab", default=None)
     parser.add_argument("--device", default="cuda")
     known, overrides = parser.parse_known_args(argv)
-    args = load_layered_config(known.config, argv=overrides)
+    # the pretrained run's inherited model keys come from its hps.json
+    # (`load_layered_config`); JAX's get_args keeps `--pretrain_dir` from
+    # it, so a directory named on the command line passes on none
+    inherit = (["--pretrain_dir", known.pretrain_dir] if known.pretrain_dir
+               else [])
+    args = load_layered_config(known.config, argv=overrides + inherit)
+    args.pop("pretrain_dir", None)      # the flag read as a top-level key
     if known.pretrain_dir:
         args.run_cfg["pretrain_dir"] = known.pretrain_dir
     if known.output_dir:

@@ -4,9 +4,11 @@ A thread pool decodes and preprocesses items on the host (the processors
 of `media/`); ready items are packed into fixed-size batches (the last one
 padded) and copied to the card through pinned host buffers with
 `non_blocking=True`, so the copy of batch i+1 is queued behind the compute
-of batch i; every modality of a batch folds into one shared-encoder pass
-(image = 1-frame video, audio tiled to 3 channels). Failed items come back
-as zero rows, with their indices in `last_failures`.
+of batch i; every modality of a batch folds into one encoder pass (image =
+1-frame video; audio tiled to 3 channels through the shared ViT, or
+through the config's separate BEATs/AST tower, whose fbank size the caller
+passes as `melbins`, `target_length` and `resize_melbin_num`). Failed items
+come back as zero rows, with their indices in `last_failures`.
 """
 
 from __future__ import annotations
@@ -125,7 +127,8 @@ class EmbeddingPipeline:
 
     def _embed_audio(self, model: MiCo, spectrograms: torch.Tensor) -> torch.Tensor:
         tokens = model.forward_audio_encoder(spectrograms)
-        return _l2_normalize(model.contra_head("a", pool_frames_for_contra(tokens)))
+        return _l2_normalize(model.contra_head(
+            "a", model.pool_audio_for_contra(tokens)))
 
     def _embed_text(self, model: MiCo, ids: torch.Tensor,
                     mask: torch.Tensor) -> torch.Tensor:

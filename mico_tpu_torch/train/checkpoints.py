@@ -31,8 +31,10 @@ native `.npz` tree. `.orbax` checkpoints need a JAX library and raise.
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import os
+import pickle
 import queue
 import re
 import threading
@@ -62,9 +64,50 @@ def unflatten_pytree(flat: Dict[str, Any]):
     return tree
 
 
+# what a pickled numpy array may name: the array's own reconstruction
+_ARRAY_PICKLE = {(m, n) for m in ("numpy.core.multiarray",
+                                  "numpy._core.multiarray")
+                 for n in ("_reconstruct", "scalar")} | {
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+    ("numpy.core.numeric", "_frombuffer"),
+    ("numpy._core.numeric", "_frombuffer")}
+
+
+class _ArrayUnpickler(pickle.Unpickler):
+    """Unpickles numpy arrays, dicts and lists, and refuses any other
+    class a pickle names (an npz member may be any pickle)."""
+
+    def find_class(self, module, name):
+        if (module, name) in _ARRAY_PICKLE:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"{module}.{name}: an npz member here holds numpy arrays only")
+
+
+def npz_member(z, key: str):
+    """A member of an open npz: its array, or, for an object member, the
+    list it holds. The JAX package's `save_pytree_npz` writes a list of
+    per-block dicts (a CLIP tower's blocks, an audio tower's layers) as an
+    object array, which `np.savez` pickles and `np.load` refuses without
+    `allow_pickle`; it is read here by `_ArrayUnpickler`, which builds
+    nothing but arrays, dicts and lists."""
+    try:
+        return z[key]
+    except ValueError:
+        with z.zip.open(key + ".npy") as f:
+            version = np.lib.format.read_magic(f)
+            read_header = (np.lib.format.read_array_header_1_0
+                           if version == (1, 0)
+                           else np.lib.format.read_array_header_2_0)
+            _, _, dtype = read_header(f)
+            if not dtype.hasobject:
+                raise
+            return _ArrayUnpickler(f).load().tolist()
+
+
 def load_pytree_npz(path: str):
     with np.load(path) as z:
-        return unflatten_pytree({k: z[k] for k in z.files})
+        return unflatten_pytree({k: npz_member(z, k) for k in z.files})
 
 
 def load_checkpoint_path(path: str):
@@ -125,6 +168,21 @@ def _hf_trainer_state_dict(pretrain_dir: str):
     return None
 
 
+def _fit_frame_tables(params: dict, cfg: MiCoConfig) -> MiCoConfig:
+    """`cfg` with each `max_<m>_sample_num` at the length of the native
+    tree's frame-embedding table. JAX places such a tree as it is and
+    resizes a table to a sample's frame count when it runs
+    (`mico.py:320-326`, as the port's `frame_embedding` does), so a
+    captioner whose datasets give another count than the pretrained run's
+    loads the table unchanged."""
+    over = {}
+    for m in ("vision", "audio", "depth"):
+        table = params.get(f"{m}_frame_embedding")
+        if table is not None:
+            over[f"max_{m}_sample_num"] = int(np.shape(table)[1])
+    return dataclasses.replace(cfg, **over)
+
+
 def load_from_pretrained_dir(
     pretrain_dir: str,
     video_resolution: int = 224,
@@ -176,7 +234,9 @@ def load_from_pretrained_dir(
         raise FileNotFoundError(f"no model_step_* checkpoint in {ckpt_dir}")
     LOGGER.info("load_from_pretrained: %s", path)
     if path.endswith((".npz", ".orbax")):
-        return finish(load_checkpoint_path(path))
+        params = load_checkpoint_path(path)
+        cfg = _fit_frame_tables(params, cfg)
+        return finish(params)
     return finish(convert_with_audit(load_torch_state_dict(path)))
 
 
@@ -276,19 +336,23 @@ def model_leaves(model):
 
 
 def load_model_npz(path: str, model) -> None:
-    """Copy a model checkpoint in the JAX package's npz layout into the
-    parameters of `model`, leaf by leaf (cast to each parameter's dtype on
-    its device). Raises on a leaf with no parameter, a parameter with no
+    """Copy a model checkpoint in the JAX package's npz layout (the port's
+    file, or one the JAX package wrote) into the parameters of `model`,
+    leaf by leaf (cast to each parameter's dtype on its device). Raises on a leaf with no parameter, a parameter with no
     leaf, and a shape that differs."""
     sd = model.state_dict()
     filled = set()
     with np.load(path) as z:
         for key in z.files:
-            arr = z[key]
+            arr = npz_member(z, key)
             group, _, name = key.rpartition(SEP)
             stacked = group == "bert/layers" or (
                 group == "vision_encoder/blocks" and model.cfg.is_eva)
-            if stacked:
+            if isinstance(arr, list):       # JAX's list of per-block dicts
+                targets = [(f"{key.replace(SEP, '.')}.{i}.{leaf}", a)
+                           for i, block in enumerate(arr)
+                           for leaf, a in block.items()]
+            elif stacked:
                 targets = [(f"{group.replace(SEP, '.')}.{i}.{name}", arr[i])
                            for i in range(arr.shape[0])]
             else:

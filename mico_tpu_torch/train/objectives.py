@@ -79,7 +79,9 @@ def compute_features(model: MiCo, cfg: MiCoConfig,
     def tower(name, run):
         if name not in cache:
             tokens = run()
-            cache[name] = (pool_frames_for_contra(tokens),
+            pooled = (mico_mod.pool_audio_for_contra(cfg, tokens)
+                      if name == "audio" else pool_frames_for_contra(tokens))
+            cache[name] = (pooled,
                            mico_mod.condition_input(model, tokens, name))
         return cache[name]
 

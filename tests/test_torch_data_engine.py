@@ -22,6 +22,7 @@ import glob
 import io
 import json
 import os
+import sys
 import tarfile
 import wave as wave_mod
 
@@ -322,9 +323,14 @@ def test_layered_config_matches_jax(config, tmp_path):
         json.dumps(got))
 
 
-def test_mappers_refuse_what_is_not_ported(corpus):
-    with pytest.raises(NotImplementedError, match="other encoders"):
-        AudioMapper(d_cfg(corpus), JAX_MODEL_CFG, seed=0)
+def test_mappers_refuse_what_is_not_ported(corpus, monkeypatch, capsys):
+    """Still refused: an audio tower neither package has, the shared ViT at
+    a slice that is not its resolution, and `video_rawvideo` without cv2.
+    A container cv2 cannot open is a corrupt sample (None: the dataset
+    resamples past it)."""
+    with pytest.raises(NotImplementedError, match="clap"):
+        AudioMapper(d_cfg(corpus), {**JAX_MODEL_CFG,
+                                    "audio_encoder_type": "clap"}, seed=0)
     with pytest.raises(ValueError, match="vision resolution"):
         AudioMapper(d_cfg(corpus), {**PORT_MODEL_CFG, "audio_melbins": 64},
                     seed=0)
@@ -333,8 +339,94 @@ def test_mappers_refuse_what_is_not_ported(corpus):
     m = VisionMapper({**d_cfg(corpus), "vision": str(corpus / "videos"),
                       "vision_format": "video_rawvideo"}, PORT_MODEL_CFG,
                      seed=0)
-    with pytest.raises(NotImplementedError, match="native media decoders"):
+    assert m.read("s0") is None
+    assert "cannot open video" in capsys.readouterr().out
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(ImportError):
         m.read("s0")
+
+
+def stdlib_waveform(path, target_sr=16000):
+    """JAX's `load_waveform` on the stdlib WAV reader: the file's rate
+    for `target_sr` 0, no resampling."""
+    from mico_tpu.media.audio_io import load_wav_stdlib
+
+    wav, sr = load_wav_stdlib(path)
+    assert target_sr in (0, sr)
+    return wav, sr
+
+
+@pytest.mark.parametrize("encoder,sr,training", [
+    ("beats", 16000, False), ("beats", 16000, True), ("ast", 8000, False),
+    ("ast", 16000, True)])
+def test_audio_mapper_matches_jax(tmp_path, monkeypatch, encoder, sr,
+                                  training):
+    """The separate towers' fbank branches (once refused here) against
+    JAX's `AudioMapper`: BEATs at 16 kHz, AST at the file's own rate (8
+    kHz read as it is), the tower's statistics, the slicing and the chunk
+    draws; JAX reads the WAV through the stdlib reader too."""
+    import mico_tpu.data.mappers as jmappers
+
+    monkeypatch.setattr(jmappers, "load_waveform", stdlib_waveform)
+    rng = np.random.default_rng(sr)
+    (tmp_path / "wav").mkdir()
+    x = (rng.standard_normal(int(sr * 2.7)) * 0.1).clip(-1, 1)
+    with wave_mod.open(str(tmp_path / "wav" / "a.wav"), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes((x * 32767).astype(np.int16).tobytes())
+    d = {"audio": str(tmp_path / "wav"), "audio_sample_num": 3,
+         "training": training}
+    cfg = {"audio_melbins": 16, "audio_target_length": 32,
+           "audio_encoder_type": encoder}
+    got = AudioMapper(d, cfg, seed=3).read("a")
+    want = jmappers.AudioMapper(d, cfg, seed=3).read("a")
+    assert got.shape == want.shape == (3, 32, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    missing = AudioMapper(d, cfg, seed=3).read("absent")
+    assert missing.shape == (3, 32, 16) and not missing.any()
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_rawvideo_mapper_matches_jax(tmp_path, monkeypatch, training):
+    """`video_rawvideo` (once refused here) through the port's cv2 route
+    against JAX's `VisionMapper` on its cv2 route: the same frames, drawn
+    or middle, resized and normalized; the port's eval read decodes ahead
+    through the dataset's cache."""
+    import cv2
+
+    import mico_tpu.data.mappers as jmappers
+    from mico_tpu.media import video_io as jvideo
+
+    from mico_tpu_torch.data.mappers import DecodeCache
+
+    monkeypatch.setattr(jmappers, "read_frames_chw", jvideo._read_frames_cv2)
+    rng = np.random.default_rng(1)
+    (tmp_path / "videos").mkdir()
+    for i, n in enumerate((10, 3, 17)):
+        out = cv2.VideoWriter(str(tmp_path / "videos" / f"v{i}.mp4"),
+                              cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (44, 36))
+        for _ in range(n):
+            out.write(rng.integers(0, 256, (36, 44, 3), dtype=np.uint8))
+        out.release()
+    d = {"vision": str(tmp_path / "videos"), "vision_format":
+         "video_rawvideo", "vision_sample_num": 4, "training": training}
+    port = VisionMapper(d, PORT_MODEL_CFG, seed=2)
+    jax_m = jmappers.VisionMapper(d, PORT_MODEL_CFG, seed=2)
+    cache = DecodeCache()
+    if not training:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(2) as pool:
+            for i in range(3):
+                port.prefetch(f"v{i}", pool, cache)
+        port.decode = cache
+    for i in range(3):
+        got, want = port.read(f"v{i}"), jax_m.read(f"v{i}")
+        assert got.shape == (4, 3, RES, RES)
+        np.testing.assert_allclose(got, want, rtol=0, atol=ARRAY_TOL)
+    assert not cache._futures          # every prefetched decode was taken
 
 
 def test_world_refuses_process_groups():

@@ -206,10 +206,63 @@ def test_unported_containers_raise(tmp_path):
         audio_io.load_waveform(str(flac))
     with pytest.raises(IOError, match="8000 Hz.*resampling.*ROADMAP"):
         audio_io.load_waveform(str(wav8k))
-    with pytest.raises(IOError, match="ROADMAP"):
-        video_io.video_num_frames("clip.mp4")
-    with pytest.raises(IOError, match="ROADMAP"):
-        video_io.read_frames_chw("clip.mp4", [0, 1])
+    # containers go through cv2 now: a file it cannot open raises IOError
+    junk = tmp_path / "clip.mp4"
+    junk.write_bytes(b"\x00 not a video")
+    for path in (junk, tmp_path / "missing.mp4"):
+        with pytest.raises(IOError, match="cannot open video"):
+            video_io.video_num_frames(str(path))
+        with pytest.raises(IOError, match="cannot open video"):
+            video_io.read_frames_chw(str(path), [0, 1])
+
+
+def write_mp4(path, frames: np.ndarray, fps: float = 10.0) -> None:
+    """uint8 (n, H, W, 3) BGR frames as an mp4 (cv2's `mp4v`)."""
+    import cv2
+
+    n, h, w, _ = frames.shape
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                          (w, h))
+    assert out.isOpened()
+    for f in frames:
+        out.write(np.ascontiguousarray(f))
+    out.release()
+
+
+@pytest.mark.parametrize("indices", [[0, 1, 2], [9, 3, 3, 0, 11], [5]])
+def test_cv2_video_route_matches_jax(tmp_path, indices):
+    """The cv2 route (`video_num_frames`, `read_frames_chw`) gives JAX's
+    `video_num_frames` and `_read_frames_cv2` exactly on an mp4 written
+    here: the frame count, RGB order, /255, repeats and the order of the
+    indices, seeks across gaps."""
+    from mico_tpu.media import video_io as jax_video_io
+
+    rng = np.random.default_rng(len(indices))
+    frames = rng.integers(0, 256, (12, 48, 64, 3), dtype=np.uint8)
+    path = str(tmp_path / "clip.mp4")
+    write_mp4(path, frames)
+    assert video_io.video_num_frames(path) == 12
+    assert jax_video_io.video_num_frames(path) == 12
+    got = video_io.read_frames_chw(path, indices)
+    want = jax_video_io._read_frames_cv2(path, indices)
+    assert got.shape == (len(indices), 3, 48, 64) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    assert 0.0 <= got.min() and got.max() <= 1.0
+    with pytest.raises(IOError, match="failed to read frame 12"):
+        video_io.read_frames_chw(path, [1, 12])
+
+
+def test_ast_reads_the_files_own_rate(tmp_path):
+    """`target_sr=0` (JAX's AST branch) keeps the file's rate; another
+    rate than the file's still raises (resampling is not ported)."""
+    path = tmp_path / "a.wav"
+    chirp_wav(path, 0.5, sr=8000)
+    got, sr = audio_io.load_waveform(str(path), target_sr=0)
+    want, jsr = jax_audio_io.load_waveform(str(path), target_sr=0)
+    assert sr == jsr == 8000 and got.shape == want.shape == (4000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1 / 32768)
+    with pytest.raises(IOError, match="resampling"):
+        audio_io.load_waveform(str(path), target_sr=16000)
 
 
 # ---------------------------------------------------------------------------

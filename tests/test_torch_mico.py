@@ -5,6 +5,8 @@ interp), video (n = 4), shared-route audio and depth embeddings, text
 embeddings, similarity and ITM scores; and a tiny post-norm MiCo (the
 EVA02-CLIP-bigE block) from canonical and folded trees."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -274,12 +276,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
 @pytest.mark.parametrize("kw,attr", [
     (dict(vision_encoder_type="videoswin_base"), "vision_dim"),
     (dict(vision_encoder_type="swin_base"), "vision_tower_config"),
-    (dict(audio_encoder_type="beats"), "audio_dim"),
-    (dict(audio_encoder_type="ast"), "audio_tower_config"),
 ])
 def test_unported_towers_raise(kw, attr):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(tconfig.MiCoConfig(**kw), attr)
+
+
+@pytest.mark.parametrize("kw,attr", [
+    (dict(audio_encoder_type="beats"), "audio_dim"),
+    (dict(audio_encoder_type="ast", audio_melbins=128,
+          audio_target_length=512), "audio_tower_config"),
+])
+def test_audio_towers_configure_as_jax(kw, attr):
+    """The separate towers (once refused here) take JAX's widths and
+    configs: every field of the tower's config, BEATs' AS2M defaults and
+    an AST at the config's mel bins and target length."""
+    from mico_tpu.config import MiCoConfig as JaxConfig
+
+    ours, theirs = getattr(tconfig.MiCoConfig(**kw), attr), getattr(
+        JaxConfig(**kw), attr)
+    if attr == "audio_dim":
+        assert ours == theirs == 768
+    else:
+        assert type(ours).__name__ == type(theirs).__name__ == "AstConfig"
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.tokens_per_frame == 256
 
 
 def test_config_from_dict_matches_jax():

@@ -123,9 +123,9 @@ def test_postnorm_pipeline_serves_a_folded_copy(rng):
 @pytest.mark.parametrize("method", ["embed_images", "embed_videos",
                                     "embed_depth", "embed_audio"])
 def test_media_entry_points_raise(pipes, method, tmp_path, capsys):
-    """An item whose decoder raises (a container the port cannot decode yet,
-    a file no reader takes) is caught by its processor, which prints the
-    reason, and comes back as a zero row in `last_failures`."""
+    """An item whose decoder raises (an audio container the port cannot
+    decode yet, a file no reader takes) is caught by its processor, which
+    prints the reason, and comes back as a zero row in `last_failures`."""
     _, tpipe, _ = pipes
     name = {"embed_videos": "x.mp4", "embed_audio": "x.flac"}.get(method,
                                                                  "x.jpg")
@@ -135,5 +135,6 @@ def test_media_entry_points_raise(pipes, method, tmp_path, capsys):
     assert tpipe.last_failures == [0]
     assert got.shape == (1, 32) and not got.any()
     said = capsys.readouterr().out
-    assert ("ROADMAP" in said if method in ("embed_videos", "embed_audio")
-            else "cannot decode image" in said)
+    assert {"embed_videos": "cannot open video",
+            "embed_audio": "ROADMAP"}.get(method, "cannot decode image") \
+        in said

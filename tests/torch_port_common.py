@@ -11,6 +11,7 @@ The port runs in fp32 on the CPU; inputs come from
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,13 @@ from mico_tpu import config as jax_config
 from mico_tpu.models import mico as jax_mico
 from mico_tpu_torch import config as torch_config
 from mico_tpu_torch.convert import mico_from_jax
+
+# pytest-xdist runs the suite in several workers on one host: torch's
+# OpenMP pool at the host's cores divided by the workers keeps their
+# threads from spinning against each other, which with every worker at
+# every core about doubled the port tests' time
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 # per-op and whole-model tolerances (fp32 on the CPU; the two frameworks
 # sum in other orders)
