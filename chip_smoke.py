@@ -24,10 +24,17 @@ Phases, run in order (any failure exits non-zero):
      masking every key of its second split, the long-context step's causal
      (2, 12, 128, 128) self-attention with its bias, the demo's ITM q (2,
      12, 30, 64) over 257 keys without a bias as the path runs it and with
-     a padding bias), and at ITM and the
+     a padding bias), and as the EVA02 towers' self-attention (q, k, v of
+     EVA02-L's bench pass (112, 16, 257, 64) with v a strided view of the
+     (112, 257, 3072) qkv product, without and with a unit-std (1, 16, 257,
+     257) fp32 relative bias; EVA02-L-336's (16, 16, 577, 64); EVA02-B's
+     (16, 12, 197, 64); also mean |d| <= 1e-2 * mean |ref|, each labelled
+     with its plan: row warps, key warps, splits), and at ITM and the
      decode its device time per call (torch.profiler), its host time per
      call, its plan (splits, key warps) and roofline share beside SDPA's
-     device and host time; K7 at the four decode shapes (beam vision (64,
+     device and host time, and at the EVA02-L pass (with and without the
+     bias) its event and device ms beside its plain version, SDPA's (the
+     bias as a float mask) and the bound; K7 at the four decode shapes (beam vision (64,
      6, 2056), greedy vision (64, 2, 2056), audio beam (128, 6, 514), one
      video caption (1, 6, 1028)), at Lq 1, 9 and 16 (the n16 tile), B 8
      (96 items, fewer than the SMs), B 3 over 257 keys, and on its large
@@ -117,6 +124,30 @@ Phases, run in order (any failure exits non-zero):
      `PACKED_CLS_SPLIT` on (K9 24, K3 0); each route's embeddings at cosine
      >= 0.999 and its ITM within 1e-2 of the same one-sample inputs through
      the fp32 weights on the plain routes on the card (TF32 off);
+  6c. EVA02: MiCo on EVA02-CLIP-L-14 (`vision_encoder_type=
+     "evaclip02_large"`: 24 pre-norm blocks, width 1024, 16 heads of 64,
+     SwiGLU 2730, sub-LN, RoPE, 257 tokens) at full width and depth, fp32
+     weights drawn once from seed 0 and a bf16 copy: the omni step (K2 24,
+     every other kernel 0; median ms of 5, samples/s, peak memory, the
+     device ms of one step split into K2 and the rest), ITM (K2 24 + 12),
+     `EmbeddingPipeline._run` over 20 images with one failure on the folded
+     copy (K2 3 x 24), each embedding at cosine >= 0.999 and ITM within 1e-2
+     of the fp32 weights on the plain routes on the card (TF32 off); three
+     `ret%tva_cap%tva` steps at B 8 on the fp32 weights in bf16 (K2 48 a
+     step: its forward under autograd, the plain recompute backward; finite
+     losses; ms/step, peak memory); the gradient check at B 2 (rates 0,
+     draws injected): bf16 (K2 alone) against fp32 on the plain routes,
+     each loss within 2e-2 relative, cosine >= 0.99 per optimizer group and
+     for the first and last block's qkv_w;
+  6d. swin: MiCo on Swin-B (`swin_base_patch4_window7_224_22k`) and on
+     VideoSwin-B (`videoswin_base`) at full width (embed 128, depths
+     2/2/18/2, heads 4/8/16/32, windows 7 and (8, 7, 7)): `_run` over 16
+     images and over 16 4-frame videos and `embed_texts` (no launch: the
+     towers have no kernel), ITM on a 4-frame video (K2 12: 30 x 196
+     condition tokens) and on an image (30 x 49: plain math, no launch);
+     the image, video and text embeddings at cosine >= 0.999 and the video
+     ITM within 1e-2 of the fp32 weights on the card; ms per embedded
+     batch of 8 and peak memory;
   7. train: K3 and K4 against their plain versions on the card in bf16 at
      the train step's vision pass (32, 257, 16 x 88), at (3, 50, 4 x 64),
      at (2, 600, 16 x 88) (rows of three key blocks) and at the
@@ -269,6 +300,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -700,6 +732,7 @@ def phase_kernels(fa) -> list:
     if plan_of(fa, *dec_qkv[:2])[2] < 2:
         raise AssertionError("K2's decode shape takes one split: the masked "
                              "split case checks nothing")
+    vit_cases = phase_k2_vit(fa, gen, errs)
 
     log("phase kernels: K7 int8_cross_attention vs int8_cross_attention_plain")
     # beam vision (64 x 3 beams over 8 frames), greedy vision, audio beam
@@ -791,6 +824,9 @@ def phase_kernels(fa) -> list:
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
         **split_timing(fa, k2, sdpa, q, k, bms),
     ))
+    # ... at the EVA02-L ViT pass's self-attention, with and without the
+    # relative bias (compared in `phase_k2_vit`)
+    rows[-1].update(k2_vit_timing(fa, vit_cases))
     # ... and at the recompute caption decode's cross-attention
     q, k, v = dec_qkv
     k2, sdpa = k2_and_sdpa(fa, q, k, v)
@@ -845,6 +881,16 @@ def phase_kernels(fa) -> list:
         f"{row['decode_library_ms']:.4f}, bound {row['decode_bound_ms']:.4f})")
     for pre, what in (("", "ITM"), ("decode_", "recompute decode")):
         log_split_timing(f"{row['name']} at {what}", row, pre)
+    log(f"  {row['name']} at the EVA02-L ViT pass {row['vit_shape']}: "
+        f"{row['vit_ms']:.4f} ms (device {ms_text(row['vit_device_ms'])}; "
+        f"plain {row['vit_plain_ms']:.4f}; SDPA {row['vit_library_ms']:.4f}, "
+        f"device {ms_text(row['vit_library_device_ms'])}; bound "
+        f"{row['vit_bound_ms']:.4f} by {row['vit_bound_by']}); with the "
+        f"(1, 16, 257, 257) relative bias {row['vit_bias_ms']:.4f} ms "
+        f"(device {ms_text(row['vit_bias_device_ms'])}; SDPA with the bias "
+        f"as a float mask {row['vit_bias_library_ms']:.4f}, device "
+        f"{ms_text(row['vit_bias_library_device_ms'])}; bound "
+        f"{row['vit_bias_bound_ms']:.4f}); plan {row['vit_plan']}")
     row = rows[2]
     log(f"  {row['name']} at the beam decode step: device "
         f"{ms_text(row['device_ms'])} ms, host {row['host_ms']:.4f} ms a "
@@ -853,6 +899,88 @@ def phase_kernels(fa) -> list:
         + ", ".join(f"{k} {ms_text(v)}"
                     for k, v in row['library_stages_device_ms'].items()))
     return rows
+
+
+# K2 as the EVA02 towers' self-attention: (B, H, L) of EVA02-L's bench pass
+# (16 samples x 7 frames), of EVA02-L-336 at 16 frames and of EVA02-B
+K2_VIT_SHAPES = ((S * 7, 16, 257), (16, 16, 577), (16, 12, 197))
+
+
+def vit_qkv(gen, b, h, l, d=64):
+    """Unit-std bf16 q, k, v (B, H, L, D) as the EVA02 block hands them to
+    K2: q and k the contiguous RoPE outputs, v a strided view of the
+    (B, L, 3·H·D) qkv product."""
+    def r(*s):
+        return torch.randn(*s, generator=gen).to("cuda", torch.bfloat16)
+    qkv = r(b, l, 3 * h * d).view(b, l, 3, h, d)
+    return r(b, h, l, d), r(b, h, l, d), qkv[:, :, 2].transpose(1, 2)
+
+
+def flash_plan_text(fa, q, k, bias=None) -> str:
+    rw, kw, nsplit, per = plan_of(fa, q, k, bias)
+    return (f"{rw} row warp(s), {kw} key warp(s), {nsplit} split(s) of "
+            f"{per} chunk(s)")
+
+
+def phase_k2_vit(fa, gen, errs) -> dict:
+    """K2 against its plain version at the EVA02 towers' self-attention
+    (Lq = Lk, D 64, v a strided view), the bench pass also with a (1, H, L,
+    L) fp32 relative bias, under the K2 gates and mean |d| <= 1e-2 * mean
+    |ref|; returns the bench pass's inputs for timing."""
+    log("phase kernels: K2 as ViT self-attention (EVA02-L, -L-336, -B)")
+    out = {}
+    for b, h, l in K2_VIT_SHAPES:
+        q, k, v = vit_qkv(gen, b, h, l)
+        biases = [None]
+        if (b, h, l) == K2_VIT_SHAPES[0]:
+            biases.append(torch.randn(1, h, l, l, generator=gen).cuda())
+            out = dict(qkv=(q, k, v), bias=biases[1])
+        for bias in biases:
+            got = fa.flash_attention(q, k, v, bias=bias)
+            want = fa.flash_attention_plain(q, k, v, bias, 0.125)
+            what = "no bias" if bias is None else f"bias {tuple(bias.shape)}"
+            errs["K2"].append(compare(
+                f"K2 ViT q/k/v ({b}, {h}, {l}, 64), v strided, {what}; "
+                f"{flash_plan_text(fa, q, k, bias)}", got, want,
+                rel_mean=REL_MEAN_ERR_MAX))
+            del got, want
+        if (b, h, l) != K2_VIT_SHAPES[0]:
+            del q, k, v
+    return out
+
+
+def k2_vit_timing(fa, cases: dict) -> dict:
+    """K2's event and device ms at the EVA02-L bench pass beside its plain
+    version, SDPA (the bias as a float mask) and the bound: each input read
+    once and the output written once, and 4·B·H·L²·D operations."""
+    import torch.nn.functional as F
+
+    q, k, v = cases["qkv"]
+    bias = cases["bias"]
+    b, h, l, d = q.shape
+    flops = 4 * b * h * l * l * d
+    nbytes = 2 * 4 * q.numel()
+    bms, by = bound_ms(flops, nbytes)
+    bbms, _ = bound_ms(flops, nbytes + 4 * bias.numel())
+    res = dict(vit_shape=f"q/k/v ({b}, {h}, {l}, {d}) bf16, v a strided view "
+                         f"of ({b}, {l}, {3 * h * d})",
+               vit_bound_ms=bms, vit_bound_by=by, vit_flops=flops,
+               vit_bytes=nbytes, vit_bias_bound_ms=bbms,
+               vit_plan=flash_plan_text(fa, q, k),
+               vit_bias_plan=flash_plan_text(fa, q, k, bias))
+    for pre, bb in (("vit_", None), ("vit_bias_", bias)):
+        k2 = functools.partial(fa.flash_attention, q, k, v, bias=bb)
+        sdpa = functools.partial(F.scaled_dot_product_attention, q, k, v,
+                                 attn_mask=None if bb is None
+                                 else bb.to(torch.bfloat16), scale=0.125)
+        res.update({
+            f"{pre}ms": cuda_time_ms(k2),
+            f"{pre}device_ms": device_time_ms(k2, iters=20),
+            f"{pre}plain_ms": cuda_time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, bb, 0.125), iters=5, warmup=1),
+            f"{pre}library_ms": cuda_time_ms(sdpa),
+            f"{pre}library_device_ms": device_time_ms(sdpa, iters=20)})
+    return res
 
 
 def ms_text(x, digits: int = 4) -> str:
@@ -1055,8 +1183,6 @@ def omni_inputs(seed: int = 0):
 def omni_step(model, image, video, audio, ids, mask):
     """bench.py's step: every frame in one ViT pass, heads v/v/a/t, the
     similarity of each text to every image, video and audio embedding."""
-    from mico_tpu_torch.models.mico import pool_frames_for_contra
-
     aud3 = audio[:, :, None].expand(-1, -1, 3, -1, -1)
     frames = torch.cat([image, video, aud3], dim=1)
     tokens = model.forward_vision_encoder(frames)
@@ -1065,9 +1191,11 @@ def omni_step(model, image, video, audio, ids, mask):
         f = model.contra_head(name, pooled).float()
         return f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
 
-    feats = {name: head(h, pool_frames_for_contra(tokens[:, lo:hi]))
-             for name, h, lo, hi in (("image", "v", 0, 1), ("video", "v", 1, 5),
-                                     ("audio", "a", 5, 7))}
+    feats = {name: head(h, pool(tokens[:, lo:hi]))
+             for name, h, pool, lo, hi in (
+                 ("image", "v", model.pool_vision_for_contra, 0, 1),
+                 ("video", "v", model.pool_vision_for_contra, 1, 5),
+                 ("audio", "a", model.pool_audio_for_contra, 5, 7))}
     seq = model.forward_multimodal_encoder(ids, mask)
     feats["text"] = head("t", model.pool_text_for_contra(seq))
     feats["sims"] = feats["text"] @ torch.cat(
@@ -1885,6 +2013,301 @@ def phase_clip(fa, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: MiCo on EVA02-CLIP-L/14 (RoPE, SwiGLU, sub-LN: K2 as the ViT's
+# self-attention)
+# ---------------------------------------------------------------------------
+
+EVA02_TRAIN_STEPS = 3
+
+
+def k2_device_split(fn, iters: int = 3) -> dict:
+    """Device ms of one call of fn by torch.profiler, split into K2's
+    kernels (the split kernel and its combine) and the rest, with the
+    rest's six largest kernels by name."""
+    by = device_time_ms(fn, iters=iters, warmup=1, by_kernel=True)
+    if by is None:
+        return dict(device_ms=None, k2_device_ms=None, other_device_ms=None,
+                    top_other_ms={})
+    k2 = sum(ms for name, ms in by.items()
+             if "flash_kernel" in name or "combine_kernel" in name)
+    total = sum(by.values())
+    other = sorted(((ms, name) for name, ms in by.items()
+                    if "flash_kernel" not in name
+                    and "combine_kernel" not in name), reverse=True)
+    return dict(device_ms=total, k2_device_ms=k2, other_device_ms=total - k2,
+                top_other_ms={name[:90]: ms for ms, name in other[:6]})
+
+
+def embed_cosines(what: str, out: dict, want: dict, itm, itm_want,
+                  names=("image", "video", "audio", "text")) -> dict:
+    """Each embedding's cosine to the fp32 reference (>= COSINE_MIN) and
+    the ITM probabilities' gap (<= ITM_PROB_TOL)."""
+    cos = {name: min_row_cosine(out[name][:1], want[name]) for name in names}
+    gap = (itm - itm_want).abs().max().item()
+    log(f"  {what}: card bf16 vs card fp32 cosine {cos}; ITM max |d| "
+        f"{gap:.3e} (bf16 {itm.tolist()}, fp32 {itm_want.tolist()})")
+    for name, c in cos.items():
+        if not c >= COSINE_MIN:
+            raise AssertionError(f"{what} {name} cosine {c} < {COSINE_MIN}")
+    if not gap <= ITM_PROB_TOL:
+        raise AssertionError(f"{what} ITM gap {gap} > {ITM_PROB_TOL}")
+    return dict(cosine=cos, itm_max_abs_diff=gap)
+
+
+def phase_eva02(fa, card: str) -> dict:
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.serve import EmbeddingPipeline
+    from mico_tpu_torch.text import BertWordPieceTokenizer
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mico_tpu_torch.train.train_step import make_train_step
+    from mico_tpu_torch.train.workload import PRETRAIN_TASK, synthetic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MiCoConfig(vision_encoder_type="evaclip02_large",
+                     max_vision_sample_num=4, max_audio_sample_num=2)
+    eva = cfg.eva_config
+    nlayers, nbert = eva.layers, cfg.bert_config.num_hidden_layers
+    t0 = time.perf_counter()
+    # one draw of the fp32 weights; the bf16 model is a copy of them
+    model32 = MiCo(cfg, device="cuda", seed=0)
+    model = copy.deepcopy(model32).to(dtype=torch.bfloat16)
+    build_s = time.perf_counter() - t0
+    n_vit = sum(p.numel() for p in model.vision_encoder.parameters())
+    log(f"phase EVA02: MiCo on EVA02-CLIP-L-14 ('{cfg.vision_encoder_type}': "
+        f"{nlayers} pre-norm blocks, width {eva.width}, {eva.num_heads} heads "
+        f"of {eva.head_dim}, SwiGLU {eva.mlp_hidden}, sub-LN, RoPE, "
+        f"{eva.seq_len} tokens; {n_vit / 1e9:.3f} B tower parameters; BERT "
+        f"{nbert} layers), fp32 drawn and a bf16 copy made on the card in "
+        f"{build_s:.1f} s")
+    inp = omni_inputs()
+    dev = {k: torch.from_numpy(v).cuda() for k, v in inp.items()}
+    tok = BertWordPieceTokenizer()
+    enc = tok(CAPTIONS, max_length=TEXT_LEN)
+    cap_ids = torch.from_numpy(enc["input_ids"]).long().cuda()
+    cap_mask = torch.from_numpy(enc["attention_mask"]).long().cuda()
+    paths = {}
+
+    out = run_counted(fa, paths, "EVA02 omni step",
+                      lambda: omni_step(model, **dev), K2=nlayers)
+    for name in ("image", "video", "audio", "text"):
+        check_unit(f"EVA02 omni {name}", out[name])
+    torch.cuda.reset_peak_memory_stats()
+    times = timed_runs(lambda: omni_step(model, **dev), runs=5)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    split = k2_device_split(lambda: omni_step(model, **dev))
+    log(f"  EVA02 omni step S={S} (K2 x {nlayers}): median {step_ms:.2f} ms "
+        f"of {len(times)} ({[round(x, 2) for x in times]}), "
+        f"{1e3 * S / step_ms:.2f} samples/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; device {ms_text(split['device_ms'], 2)} "
+        f"ms a step, of it K2 {ms_text(split['k2_device_ms'], 2)} and the "
+        f"rest {ms_text(split['other_device_ms'], 2)} [{card}]; the rest's "
+        "largest kernels (ms a step): " + "; ".join(
+            f"{k} {v:.2f}" for k, v in split["top_other_ms"].items()))
+
+    itm = run_counted(
+        fa, paths, "EVA02 ITM",
+        lambda: itm_probs(model, dev["image"][:1], cap_ids, cap_mask),
+        K2=nlayers + nbert)
+    if itm.shape != (3,) or not torch.isfinite(itm).all():
+        raise AssertionError(f"EVA02 ITM probabilities {itm}")
+
+    pipe = EmbeddingPipeline(model, cfg, tok, batch_size=8, io_workers=4)
+    try:
+        if pipe.model.vision_encoder.blocks[0].get("inner_attn_ln_w") is not None:
+            raise AssertionError("the served EVA02 copy kept its sub-LN")
+        images = [inp["image"][i % S] for i in range(20)]
+        images[5] = None
+        feats = run_counted(
+            fa, paths, "EVA02 _run 20 images",
+            lambda: pipe._run(images, lambda a: a,
+                              lambda m, x: pipe._embed_pixels(m, x, head="v")),
+            K2=3 * nlayers)
+    finally:
+        pipe.close()
+    check_run_20(pipe, feats, cfg)
+    del pipe
+    folded_cos = float(feats[0] @ out["image"][0].cpu().numpy())
+    log(f"  EVA02 pipeline: folded vs canonical image cosine {folded_cos:.6f}")
+    if not folded_cos >= COSINE_MIN:
+        raise AssertionError(f"EVA02 folded pipeline cosine {folded_cos}")
+
+    # the reference: the same one-sample inputs through the fp32 weights on
+    # the plain routes, on the card
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                use_flash_attention=False)
+    model32.cfg = cfg32
+    one = {k: v[:1] for k, v in dev.items()}
+    want = run_counted(fa, paths, "EVA02 fp32 plain reference",
+                       lambda: omni_step(model32, **one))
+    itm_want = itm_probs(model32, one["image"], cap_ids, cap_mask)
+    gates = embed_cosines("EVA02", out, want, itm, itm_want)
+    del model
+    free_cuda()
+
+    # training: three steps of the pretraining task on the fp32 weights
+    # (bf16 compute), K2 forward under autograd and its plain backward
+    model32.cfg = cfg
+    opt = build_optimizer(model32, OptimConfig(num_train_steps=10))
+    step = make_train_step(cfg, opt, PRETRAIN_TASK)
+    batch = synthetic_batch(TRAIN_B, seed=0)
+    losses, train_times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(EVA02_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        vals = run_counted(
+            fa, paths, f"EVA02 train step {i + 1}",
+            lambda: step(model32, batch, torch.Generator().manual_seed(1)),
+            K2=2 * nlayers)
+        train_times.append(1e3 * (time.perf_counter() - t0))
+        losses.append({k: v.item() for k, v in vals.items()})
+        bad = [k for k, v in losses[-1].items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"EVA02 train step {i + 1}: non-finite {bad}")
+    train_peak = torch.cuda.max_memory_allocated()
+    train_ms = statistics.median(train_times[1:])
+    log(f"  EVA02 train steps B={TRAIN_B} ({PRETRAIN_TASK}): losses "
+        f"{[round(x['loss_total'], 5) for x in losses]}, "
+        f"{[round(x, 1) for x in train_times]} ms, median of the last "
+        f"{EVA02_TRAIN_STEPS - 1} {train_ms:.1f} ms/step, peak memory "
+        f"{train_peak / 2 ** 30:.2f} GiB [{card}]")
+    del opt, step, batch
+    free_cuda()
+
+    # the gradient check: the same weights, bf16 on the kernel routes
+    # against fp32 on the plain routes
+    cfg16 = dataclasses.replace(cfg, bert_override=dataclasses.replace(
+        cfg.bert_config, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0))
+    runs = grad_runs(fa, model32, {
+        "bf16": (cfg16, False),
+        "fp32": (dataclasses.replace(cfg16, compute_dtype="float32",
+                                     use_flash_attention=False), False)})
+    got = runs["bf16"]["launches"]
+    if got["K2"] == 0 or any(v for k, v in got.items() if k != "K2"):
+        raise AssertionError(f"EVA02 bf16 gradient run launches {got}: K2 "
+                             "alone expected")
+    if any(runs["fp32"]["launches"].values()):
+        raise AssertionError(f"EVA02 fp32 run launched kernels: "
+                             f"{runs['fp32']['launches']}")
+    grads = hold_grads(model32, "EVA02 bf16", runs["bf16"], runs["fp32"],
+                       nlayers - 1)
+    paths["EVA02 gradient check (bf16)"] = got
+    del model32, runs
+    free_cuda()
+    return dict(build_s=build_s, tower_params=n_vit, step_ms=step_ms,
+                step_times_ms=times, samples_per_s=1e3 * S / step_ms,
+                peak_memory_bytes=peak, step_device=split,
+                folded_cosine=folded_cos, **gates, train_losses=losses,
+                train_times_ms=train_times, train_ms=train_ms,
+                train_peak_memory_bytes=train_peak, gradient_check=grads,
+                paths=paths)
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: MiCo on Swin-B and VideoSwin-B (no kernel in the towers; K2 in
+# ITM where the condition is long enough)
+# ---------------------------------------------------------------------------
+
+SWIN_TOWERS = ("swin_base_patch4_window7_224_22k", "videoswin_base")
+
+
+def phase_swin(fa, card: str) -> dict:
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.serve import EmbeddingPipeline
+    from mico_tpu_torch.text import BertWordPieceTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tok = BertWordPieceTokenizer()
+    enc = tok(CAPTIONS, max_length=TEXT_LEN)
+    cap_ids = torch.from_numpy(enc["input_ids"]).long().cuda()
+    cap_mask = torch.from_numpy(enc["attention_mask"]).long().cuda()
+    inp = omni_inputs()
+    nbert = MiCoConfig().bert_config.num_hidden_layers
+    result, paths = {}, {}
+    for vtype in SWIN_TOWERS:
+        cfg = MiCoConfig(vision_encoder_type=vtype, max_vision_sample_num=4,
+                         max_audio_sample_num=2)
+        tower = cfg.vision_tower_config
+        name = "VideoSwin" if vtype.startswith("videoswin") else "Swin"
+        t0 = time.perf_counter()
+        model32 = MiCo(cfg, device="cuda", seed=0)
+        model = copy.deepcopy(model32).to(dtype=torch.bfloat16)
+        build_s = time.perf_counter() - t0
+        n_vit = sum(p.numel() for p in model.vision_encoder.parameters())
+        log(f"phase swin: MiCo on {name}-B ('{vtype}': embed {tower.embed_dim},"
+            f" depths {tower.depths}, heads {tower.num_heads}, window "
+            f"{tower.window_size}; {n_vit / 1e6:.1f} M tower parameters), fp32 "
+            f"drawn and a bf16 copy made on the card in {build_s:.1f} s")
+        pipe = EmbeddingPipeline(model, cfg, tok, batch_size=8, io_workers=4)
+        images = [inp["image"][i % S] for i in range(16)]
+        videos = [inp["video"][i % S] for i in range(16)]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            feats, ms = {}, {}
+            for what, items in (("images", images), ("4-frame videos", videos)):
+                fn = functools.partial(
+                    pipe._run, items, lambda a: a,
+                    lambda m, x: pipe._embed_pixels(m, x, head="v"))
+                feats[what] = run_counted(fa, paths, f"{name} _run 16 {what}",
+                                          fn)
+                check_unit(f"{name} {what}", torch.from_numpy(feats[what]))
+                ms[what] = statistics.median(timed_runs(fn, runs=3)) / 2
+            text = run_counted(fa, paths, f"{name} embed_texts",
+                               lambda: pipe.embed_texts(CAPTIONS))
+        finally:
+            pipe.close()
+        peak = torch.cuda.max_memory_allocated()
+        video = torch.from_numpy(inp["video"][:1]).cuda()
+        image = torch.from_numpy(inp["image"][:1]).cuda()
+        itm = run_counted(fa, paths, f"{name} ITM, 4-frame video",
+                          lambda: itm_probs(model, video, cap_ids, cap_mask),
+                          K2=nbert)
+        itm_image = run_counted(
+            fa, paths, f"{name} ITM, image",
+            lambda: itm_probs(model, image, cap_ids, cap_mask))
+        for probs in (itm, itm_image):
+            if probs.shape != (3,) or not torch.isfinite(probs).all():
+                raise AssertionError(f"{name} ITM probabilities {probs}")
+        model32.cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                                          use_flash_attention=False)
+
+        def embed(m, x):
+            f = m.contra_head("v", m.pool_vision_for_contra(
+                m.forward_vision_encoder(x))).float()
+            return f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+
+        with torch.no_grad():
+            want = {"image": embed(model32, image), "video": embed(model32,
+                                                                   video)}
+            seq = model32.forward_multimodal_encoder(cap_ids[:1],
+                                                     cap_mask[:1])
+            t32 = model32.contra_head("t", seq[:, 0]).float()
+            want["text"] = t32 / torch.linalg.vector_norm(t32, dim=-1,
+                                                          keepdim=True)
+        itm_want = itm_probs(model32, video, cap_ids, cap_mask)
+        out = {"image": torch.from_numpy(feats["images"][:1]).cuda(),
+               "video": torch.from_numpy(feats["4-frame videos"][:1]).cuda(),
+               "text": torch.from_numpy(text[:1]).cuda()}
+        gates = embed_cosines(name, out, want, itm, itm_want,
+                              names=("image", "video", "text"))
+        log(f"  {name}: ms per embedded batch of 8: images "
+            f"{ms['images']:.2f}, 4-frame videos {ms['4-frame videos']:.2f};"
+            f" peak memory {peak / 2 ** 30:.2f} GiB; ITM image "
+            f"{[round(x, 5) for x in itm_image.tolist()]} [{card}]")
+        result[name] = dict(build_s=build_s, tower_params=n_vit,
+                            batch_ms=ms, peak_memory_bytes=peak, **gates)
+        del model, model32
+        free_cuda()
+    result["paths"] = paths
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the pretraining step
 # ---------------------------------------------------------------------------
 
@@ -2248,31 +2671,21 @@ def phase_train_steps(fa, card: str) -> dict:
     return result
 
 
-def phase_train_grads(fa) -> dict:
-    from mico_tpu_torch.config import MiCoConfig
-    from mico_tpu_torch.models.mico import MiCo
+def grad_runs(fa, model, cfgs: dict) -> dict:
+    """{label: losses, launches and gradients} of `PRETRAIN_TASK`'s summed
+    losses at GRAD_B with every rate 0 and the draws injected (seed 1's
+    batch, seed 2's masks, negatives the next sample), for each label's
+    (config, PACKED_CLS_SPLIT) on the same weights."""
     from mico_tpu_torch.train.masker import mask_tokens
     from mico_tpu_torch.train.objectives import Draws, task_losses
-    from mico_tpu_torch.train.optim import param_group_labels
     from mico_tpu_torch.train.workload import PRETRAIN_TASK, synthetic_batch
 
-    base = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
-    eva = dataclasses.replace(base.eva_config, drop_path_rate=0.0)
-    bert = dataclasses.replace(base.bert_config, hidden_dropout_prob=0.0,
-                               attention_probs_dropout_prob=0.0)
-    cfg16 = dataclasses.replace(base, eva_override=eva, bert_override=bert)
-    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32",
-                                use_flash_attention=False)
-    model = MiCo(cfg16, device="cuda", seed=0).requires_grad_(True)
     batch = synthetic_batch(GRAD_B, seed=1)
     masked = mask_tokens(batch["caption_ids"], 0.6,
                          torch.Generator().manual_seed(2))
     flip = torch.arange(GRAD_B, device="cuda").roll(1)
-    names = [n for n, _ in model.named_parameters()]
     runs = {}
-    for label, cfg, split in (("bf16", cfg16, False),
-                              ("bf16 K9", cfg16, True),
-                              ("fp32", cfg32, False)):
+    for label, (cfg, split) in cfgs.items():
         model.cfg = cfg
         model.zero_grad(set_to_none=True)
         fa.reset_launch_counts()
@@ -2295,6 +2708,62 @@ def phase_train_grads(fa) -> dict:
         model.zero_grad(set_to_none=True)
         log(f"  gradient check, card {label}: losses {runs[label]['losses']}, "
             f"launches {runs[label]['launches']}")
+    return runs
+
+
+def hold_grads(model, label: str, a: dict, b: dict, last: int) -> dict:
+    """Run `a` against the fp32 run `b`: each loss within LOSS_RTOL, the
+    gradient cosine >= GRAD_COSINE_MIN per optimizer group and for the
+    first and last block's qkv_w (`last` its index)."""
+    from mico_tpu_torch.train.optim import param_group_labels
+
+    def cos(x, y):
+        return torch.nn.functional.cosine_similarity(
+            x.double().flatten(), y.double().flatten(), dim=0).item()
+
+    for k, v in b["losses"].items():
+        if not abs(a["losses"][k] - v) <= LOSS_RTOL * abs(v):
+            raise AssertionError(f"{k}: {label} {a['losses'][k]} vs fp32 {v}")
+    labels = param_group_labels(model)
+    groups = {}
+    for n, _ in model.named_parameters():
+        if n in a["grads"]:
+            groups.setdefault(labels[n], []).append(n)
+    group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
+                        torch.cat([b["grads"][n].flatten() for n in ns]))
+                 for g, ns in groups.items()}
+    held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
+        "vision_encoder.blocks.0.qkv_w",
+        f"vision_encoder.blocks.{last}.qkv_w")}
+    per_tensor = {n: cos(a["grads"][n], b["grads"][n])
+                  for n in a["grads"] if b["grads"][n].abs().max() > 0}
+    worst = min(per_tensor, key=per_tensor.get)
+    log(f"  gradient cosine {label} vs fp32 by group {group_cos}; "
+        f"{held}; lowest per tensor {worst} {per_tensor[worst]:.6f}")
+    for name, c in {**group_cos, **held}.items():
+        if not c >= GRAD_COSINE_MIN:
+            raise AssertionError(f"{label} gradient cosine {name} {c} < "
+                                 f"{GRAD_COSINE_MIN}")
+    return dict(losses=a["losses"], launches=a["launches"],
+                group_cosine=group_cos, qkv_w_cosine=held,
+                lowest_tensor=worst, lowest_tensor_cosine=per_tensor[worst])
+
+
+def phase_train_grads(fa) -> dict:
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+
+    base = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    eva = dataclasses.replace(base.eva_config, drop_path_rate=0.0)
+    bert = dataclasses.replace(base.bert_config, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    cfg16 = dataclasses.replace(base, eva_override=eva, bert_override=bert)
+    cfg32 = dataclasses.replace(cfg16, compute_dtype="float32",
+                                use_flash_attention=False)
+    model = MiCo(cfg16, device="cuda", seed=0).requires_grad_(True)
+    runs = grad_runs(fa, model, {"bf16": (cfg16, False),
+                                 "bf16 K9": (cfg16, True),
+                                 "fp32": (cfg32, False)})
     b = runs["fp32"]
     passes = 2 * base.eva_config.layers        # the vision and audio passes
     a, k9 = runs["bf16"], runs["bf16 K9"]["launches"]
@@ -2306,43 +2775,9 @@ def phase_train_grads(fa) -> dict:
                              f"{passes}, K3 0, K4 {passes}")
     if any(v for v in b["launches"].values()):
         raise AssertionError(f"fp32 run launched kernels: {b['launches']}")
-
-    def cos(x, y):
-        return torch.nn.functional.cosine_similarity(
-            x.double().flatten(), y.double().flatten(), dim=0).item()
-
-    labels = param_group_labels(model)
     last = base.eva_config.layers - 1
-    out = {}
-    for label in ("bf16", "bf16 K9"):
-        a = runs[label]
-        for k, v in b["losses"].items():
-            if not abs(a["losses"][k] - v) <= LOSS_RTOL * abs(v):
-                raise AssertionError(f"{k}: {label} {a['losses'][k]} vs "
-                                     f"fp32 {v}")
-        groups = {}
-        for n in names:
-            if n in a["grads"]:
-                groups.setdefault(labels[n], []).append(n)
-        group_cos = {g: cos(torch.cat([a["grads"][n].flatten() for n in ns]),
-                            torch.cat([b["grads"][n].flatten() for n in ns]))
-                     for g, ns in groups.items()}
-        held = {n: cos(a["grads"][n], b["grads"][n]) for n in (
-            "vision_encoder.blocks.0.qkv_w",
-            f"vision_encoder.blocks.{last}.qkv_w")}
-        per_tensor = {n: cos(a["grads"][n], b["grads"][n])
-                      for n in a["grads"] if b["grads"][n].abs().max() > 0}
-        worst = min(per_tensor, key=per_tensor.get)
-        log(f"  gradient cosine {label} vs fp32 by group {group_cos}; "
-            f"{held}; lowest per tensor {worst} {per_tensor[worst]:.6f}")
-        for name, c in {**group_cos, **held}.items():
-            if not c >= GRAD_COSINE_MIN:
-                raise AssertionError(f"{label} gradient cosine {name} {c} < "
-                                     f"{GRAD_COSINE_MIN}")
-        out[label] = dict(losses=a["losses"], launches=a["launches"],
-                          group_cosine=group_cos, qkv_w_cosine=held,
-                          lowest_tensor=worst,
-                          lowest_tensor_cosine=per_tensor[worst])
+    out = {label: hold_grads(model, label, runs[label], b, last)
+           for label in ("bf16", "bf16 K9")}
     del model, runs
     free_cuda()
     return dict(losses_fp32=b["losses"], **{
@@ -4316,6 +4751,8 @@ def main() -> int:
     free_cuda()
     bige = phase_bige(fa, card)
     clip = phase_clip(fa, card)
+    eva02 = phase_eva02(fa, card)
+    swin = phase_swin(fa, card)
     rows += phase_train_kernels(fa)
     rows += phase_cls_kernels(fa)
     train = phase_train_steps(fa, card)
@@ -4329,7 +4766,7 @@ def main() -> int:
     captioner = phase_captioner(fa, card)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
-             **clip["paths"],
+             **clip["paths"], **eva02["paths"], **swin["paths"],
              "train step": train["launches_per_step"],
              "train gradient check (PACKED_CLS_SPLIT)":
                  train["gradient_check"]["bf16_k9"]["launches"],
@@ -4360,6 +4797,10 @@ def main() -> int:
                       "bige": {k: v for k, v in bige.items()
                                if k != "paths"},
                       "clip": {k: v for k, v in clip.items()
+                               if k != "paths"},
+                      "eva02": {k: v for k, v in eva02.items()
+                                if k != "paths"},
+                      "swin": {k: v for k, v in swin.items()
                                if k != "paths"},
                       "mlp_probe_chain_ms": mlp["chain_ms"],
                       "train": {k: v for k, v in train.items()

@@ -1,12 +1,13 @@
 """Model configuration dataclasses and the EVA-CLIP config registry.
 
 PyTorch counterpart of `mico_tpu/config.py`: the same field names, defaults
-and registry entries, with torch dtypes in `MiCoConfig.dtypes()`. Only the
-towers this package implements (the EVA01 and post-norm EVA ViTs, and the
-OpenAI-CLIP ViTs of `models/clip_vit.py`; for audio the shared route and
-the BEATs and AST towers of `models/audio.py`) are buildable; asking for
-another tower raises `NotImplementedError` naming the ROADMAP queue that
-ports it.
+and registry entries, with torch dtypes in `MiCoConfig.dtypes()`. Every
+vision tower of the JAX package builds: the EVA ViTs (EVA01, EVA02 with
+RoPE, SwiGLU, sub-LN and relative-position bias, and the post-norm bigE),
+the OpenAI-CLIP ViTs of `models/clip_vit.py` and the Swin and VideoSwin
+towers of `models/swin.py`; for audio the shared route and the BEATs and
+AST towers of `models/audio.py`. Asking for another tower raises
+`NotImplementedError` naming the ROADMAP queue that ports it.
 """
 
 from __future__ import annotations
@@ -124,12 +125,14 @@ VISION_ENCODER_TYPES = {
 }
 
 
-# non-EVA vision towers the port builds, with their widths (the CLIP entries
-# of `mico_tpu/config.py` ALT_VISION_DIMS); Swin and VideoSwin are not ported
+# non-EVA vision towers, with their widths (`mico_tpu/config.py`
+# ALT_VISION_DIMS)
 ALT_VISION_DIMS = {
     "clip_vit_base_16": 768,
     "clip_vit_base_32": 768,
     "clip_vit_large_14_336px": 1024,
+    "swin_base_patch4_window7_224_22k": 1024,   # 128 * 2**3
+    "videoswin_base": 1024,
 }
 
 # vision_encoder_type → CLIP_VIT_CONFIGS entry, JAX's map as it is
@@ -241,9 +244,36 @@ class MiCoConfig:
                      or self.vision_encoder_type.startswith("evaclip")))
 
     @property
+    def vision_family(self) -> str:
+        """The vision tower's module: "eva", "clip", "swin" or
+        "videoswin" — by `vision_override`'s class when one is given, else
+        by the type's prefix, as JAX's `_init_vision_tower` dispatches."""
+        if self.is_eva:
+            return "eva"
+        from mico_tpu_torch.models.clip_vit import ClipVitConfig
+        from mico_tpu_torch.models.swin import SwinConfig, VideoSwinConfig
+
+        ov = self.vision_override
+        for cls, family in ((ClipVitConfig, "clip"), (SwinConfig, "swin"),
+                            (VideoSwinConfig, "videoswin")):
+            if isinstance(ov, cls):
+                return family
+        if ov is not None:
+            raise NotImplementedError(
+                f"vision_override {type(ov).__name__}: {_NOT_PORTED}")
+        t = self.vision_encoder_type
+        for prefix in ("clip", "videoswin", "swin"):
+            if t.startswith(prefix):
+                return prefix
+        raise NotImplementedError(f"vision tower {t!r}: {_NOT_PORTED}")
+
+    @property
     def vision_dim(self) -> int:
+        """The tower's output width: an EVA or CLIP tower's `width`, a Swin
+        or VideoSwin tower's `num_features` (`mico_tpu/config.py:280-290`)."""
         if not self.is_eva:
-            return self.vision_tower_config.width
+            tower = self.vision_tower_config
+            return getattr(tower, "num_features", None) or tower.width
         return self.eva_config.width
 
     @property
@@ -278,24 +308,28 @@ class MiCoConfig:
 
     @property
     def vision_tower_config(self):
-        """The config of the vision tower: an `EvaVitConfig`, or a
-        `ClipVitConfig` (`vision_override`, or the registry entry of JAX's
-        name map for a `clip*` type). Other families raise."""
-        from mico_tpu_torch.models.clip_vit import (CLIP_VIT_CONFIGS,
-                                                    ClipVitConfig)
-
-        if self.vision_override is not None:
-            if not isinstance(self.vision_override, ClipVitConfig):
-                raise NotImplementedError(
-                    f"vision_override {type(self.vision_override).__name__}: "
-                    f"{_NOT_PORTED}")
-            return self.vision_override
-        if self.is_eva:
+        """The config of the vision tower (`mico_tpu/config.py:322-347`):
+        an `EvaVitConfig`, `vision_override` (a `ClipVitConfig`,
+        `SwinConfig` or `VideoSwinConfig`), or the registry entry of the
+        type: JAX's name map for `clip*`, Swin-B for `swin*`, VideoSwin-B
+        for `videoswin*`. Other types and overrides raise."""
+        family = self.vision_family
+        if family == "eva":
             return self.eva_config
+        if self.vision_override is not None:
+            return self.vision_override
         t = self.vision_encoder_type
-        if t in CLIP_TOWER_NAMES:
+        if family == "clip":
+            from mico_tpu_torch.models.clip_vit import CLIP_VIT_CONFIGS
+
+            if t not in CLIP_TOWER_NAMES:
+                raise NotImplementedError(f"vision tower {t!r}: {_NOT_PORTED}")
             return CLIP_VIT_CONFIGS[CLIP_TOWER_NAMES[t]]
-        raise NotImplementedError(f"vision tower {t!r}: {_NOT_PORTED}")
+        from mico_tpu_torch.models.swin import SWIN_CONFIGS, VIDEOSWIN_CONFIGS
+
+        if family == "videoswin":
+            return VIDEOSWIN_CONFIGS["videoswin_base"]
+        return SWIN_CONFIGS["swin_base_patch4_window7_224_22k"]
 
     @property
     def audio_tower_config(self):

@@ -7,9 +7,11 @@ port's `state_dict`: the path `a/b/c` becomes the key `a.b.c`, and the
 stacked depth axis of `vision_encoder/blocks/*` and `bert/layers/*` is
 written out as a ModuleList index (`vision_encoder.blocks.3.qkv_w`). A list
 of per-block dicts (the CLIP tower's `blocks`, `init_clip_vit`; an audio
-tower's `layers`, `init_beats`/`init_ast`) maps onto the same ModuleList
-keys by its list index. Layouts are unchanged (linears
-stay (in, out)).
+tower's `layers`, `init_beats`/`init_ast`), and the Swin towers' nested
+lists (`layers[i]` → `blocks[j]` → `attn`/`mlp`, `init_swin` /
+`init_videoswin`), map onto the same ModuleList keys by their list indices;
+a None leaf (Swin's `qkv_b` without a qkv bias) is no parameter. Layouts
+are unchanged (linears stay (in, out)).
 
 `eva_vit_from_torch` and `bert_from_torch` (with `models.mico.
 mico_from_torch`) build that same nested tree from a released checkpoint's
@@ -46,7 +48,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
             v = {str(i): item for i, item in enumerate(v)}
         if isinstance(v, Mapping):
             out.update(_flatten(v, path + "/"))
-        else:
+        elif v is not None:
             out[path] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
@@ -117,9 +119,10 @@ def jax_leaves(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig):
     copying: (path, tensors, stacked) triples, where the tensors are the
     rows of a stacked leaf (`vision_encoder/blocks/*` of an EVA tower,
     `bert/layers/*`) in depth order, or the one tensor of any other leaf.
-    A CLIP tower's blocks and an audio tower's layers stay per block
-    (`vision_encoder/blocks/<i>/*`, `audio_encoder/layers/<i>/*`), the
-    lists JAX keeps for them."""
+    A CLIP tower's blocks, an audio tower's layers and a Swin tower's
+    stages and blocks stay per block (`vision_encoder/blocks/<i>/*`,
+    `audio_encoder/layers/<i>/*`, `vision_encoder/layers/<i>/blocks/<j>/*`),
+    the lists JAX keeps for them."""
     stacked = [g for g in STACKED
                if cfg.is_eva or g != "vision_encoder/blocks"]
     groups: Dict[str, Dict[int, torch.Tensor]] = {}
@@ -144,8 +147,8 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig
                   ) -> Dict:
     """The inverse of `params_from_jax`: the JAX package's params tree
     (nested dicts of fp32 numpy leaves, the depth axis stacked; a CLIP
-    tower's blocks and an audio tower's layers as lists) of a port
-    state_dict of `cfg`."""
+    tower's blocks, an audio tower's layers and a Swin tower's stages and
+    blocks as lists) of a port state_dict of `cfg`."""
     tree: Dict = {}
     for path, rows, stacked in jax_leaves(state_dict, cfg):
         arrs = [r.detach().to("cpu", torch.float32).numpy() for r in rows]
@@ -155,13 +158,17 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: MiCoConfig
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
-    # JAX keeps a CLIP tower's blocks and an audio tower's layers as lists
-    for tower, group in (("vision_encoder", "blocks"),
-                         ("audio_encoder", "layers")):
-        items = tree.get(tower, {}).get(group)
-        if isinstance(items, dict) and all(k.isdigit() for k in items):
-            tree[tower][group] = [items[str(i)] for i in range(len(items))]
-    return tree
+    return _as_lists(tree)
+
+
+def _as_lists(node):
+    """Every dict keyed 0..n-1 as the list JAX keeps there."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _as_lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",

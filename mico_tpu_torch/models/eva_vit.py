@@ -1,35 +1,48 @@
 """EVA Vision Transformer (counterpart of `mico_tpu/models/eva_vit.py`).
 
-The EVA01 family and EVA02-CLIP-bigE's post-norm blocks: conv patch embed
-as reshape + one matmul in (c, dy, dx) order, CLS token + absolute pos
-embed, pre-norm (x + γ·branch(LN(x))) or post-norm (x + LN(γ·branch(x)))
-blocks with a packed qkv projection and q/v-only bias, optional LayerScale
-γ, MLP-GELU, the final LN over all tokens and `return_all_features`. Blocks
-are a ModuleList.
+The EVA01 and EVA02 families and EVA02-CLIP-bigE's post-norm blocks: conv
+patch embed as reshape + one matmul in (c, dy, dx) order, CLS token +
+absolute pos embed, pre-norm (x + γ·branch(LN(x))) or post-norm
+(x + LN(γ·branch(x))) blocks with a packed qkv projection and q/v-only
+bias, optional LayerScale γ, MLP-GELU or SwiGLU, the final LN over all
+tokens and `return_all_features`. EVA02's features: 2D axial RoPE on q and
+k after the CLS row (`rope_tables`, fp64 tables interpolated from
+`pt_hw_seq_len` to the grid; interleaved `apply_rope`), SwiGLU
+(silu(x·W1)·(x·W2)·W3), sub-LN (`inner_attn_ln` before the output
+projection, `ffn_ln` before the MLP's last linear) and BEiT's
+relative-position bias, per block (`use_rel_pos_bias`) or one table shared
+by every block (`use_shared_rel_pos_bias`). Blocks are a ModuleList.
 
-Routing of a block's attention (eva_vit.py:298-369, 438-461 with the bf16
-gates of flash_attention.py:1186-1192, 1340, 1513, 1693), read from the knobs
-of `ops/flash_attention.py` (defaults as JAX's):
-  - training (a `train_rng` is given) with flash attention → (LN →) `linear`
-    qkv → `packed_qkv_self_attention`: K3 (K9 under `PACKED_CLS_SPLIT` at
-    L = 128k + 1) forward and K4 backward in bf16 on the card, their plain
-    twins on the CPU and for other dtypes; never K1, K5 or K8 (the
-    `is_train` gates, eva_vit.py:316, 448);
-  - flash inference, pre-norm block, `FUSED_LN_QKV` and `FUSED_QKV_PROJ` on
-    → kernel K1 (`fused_ln_qkv_self_attention`; affine off when the params
-    are folded), then the output projection;
-  - flash inference otherwise (a post-norm block, or a pre-norm one after
-    its LN) with `FUSED_QKV_PROJ` on → K5 (`fused_qkv_self_attention`)
-    then the output projection, or K8 (`fused_qkv_attn_proj`, both
-    projections) when `FUSED_ATTN_PROJ` is on;
+Routing of a block's attention (eva_vit.py:281-466 with the bf16 gates of
+flash_attention.py:1186-1192, 1340, 1513, 1693), read from the knobs of
+`ops/flash_attention.py` (defaults as JAX's):
+  - RoPE or a relative bias, with flash attention, training or not →
+    `linear` qkv → (B, H, L, D) views → RoPE → `multi_head_attention` with
+    the bias: K2 (`flash_attention`; under autograd K2 forward and the
+    plain recompute backward) past 64·64 scores, plain math below;
+  - training (a `train_rng` is given) otherwise, with flash attention →
+    (LN →) `linear` qkv → `packed_qkv_self_attention`: K3 (K9 under
+    `PACKED_CLS_SPLIT` at L = 128k + 1) forward and K4 backward in bf16 on
+    the card, their plain twins on the CPU and for other dtypes; never K1,
+    K5 or K8 (the `is_train` gates, eva_vit.py:316, 448);
+  - flash inference, pre-norm block without sub-LN, `FUSED_LN_QKV` and
+    `FUSED_QKV_PROJ` on → kernel K1 (`fused_ln_qkv_self_attention`;
+    affine off when the params are folded), then the output projection;
+  - flash inference otherwise (a post-norm block, a sub-LN block, or a
+    pre-norm one after its LN) with `FUSED_QKV_PROJ` on → K5
+    (`fused_qkv_self_attention`), then sub-LN's `inner_attn_ln` and the
+    output projection, or K8 (`fused_qkv_attn_proj`, both projections)
+    when `FUSED_ATTN_PROJ` is on and the block has no sub-LN;
   - flash inference with `FUSED_QKV_PROJ` off → `linear` qkv →
     `packed_qkv_self_attention` (K3, or K9 under the flag), as training;
   - flash on the CPU → the same wrappers, which take their plain twins;
     flash on the card in another dtype → the twins, as the JAX gate does;
-  - plain attention asked for → (LN →) linear → `multi_head_attention`.
-Training also runs PatchDropout (top-k of uniform scores, CLS exempt) and
-per-sample DropPath on the linear 0 → `drop_path_rate` schedule, drawn up
-front from a device generator forked from `train_rng`, so a block under
+  - plain attention asked for → (LN →) linear → (RoPE →)
+    `multi_head_attention`.
+Training also runs PatchDropout (top-k of uniform scores, CLS exempt; the
+RoPE tables gathered per sample for the kept patches) and per-sample
+DropPath on the linear 0 → `drop_path_rate` schedule, drawn up front from a
+device generator forked from `train_rng`, so a block under
 `torch.utils.checkpoint` (`remat`) recomputes with the same masks.
 
 `remat` checkpoints each block; `remat_policy` chooses what the backward
@@ -41,8 +54,6 @@ recomputes it), and the names of `jax.checkpoint_policies` that take no
 argument map to torch's selective checkpointing (`remat_context`).
 `unroll_blocks` is a compile strategy of XLA's; the block loop here is
 unrolled already, so it changes nothing.
-EVA02's RoPE, SwiGLU and sub-LN and relative-position bias are not ported
-yet (ROADMAP.md, queue 1: EVA02 tower features).
 """
 
 from __future__ import annotations
@@ -51,7 +62,9 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -60,8 +73,6 @@ from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops import flash_attention as fa
 from mico_tpu_torch.ops.attention import multi_head_attention
 from mico_tpu_torch.ops.layers import fork_generator, gelu, layer_norm, linear
-
-_EVA02 = "not ported yet (ROADMAP.md, queue 1: EVA02 tower features)"
 
 # the names a block tags for a `save:` remat policy (eva_vit.py:340-390)
 REMAT_TAGS = ("qkv", "attn_out", "mlp_hidden")
@@ -126,18 +137,99 @@ def remat_context(policy: Optional[str]):
     return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
-def check_supported(cfg: EvaVitConfig) -> None:
-    unsupported = [name for name in ("rope", "naiveswiglu", "subln",
-                                     "use_rel_pos_bias",
-                                     "use_shared_rel_pos_bias")
-                   if getattr(cfg, name)]
-    if unsupported:
-        raise NotImplementedError(f"EVA {', '.join(unsupported)}: {_EVA02}")
+# ---------------------------------------------------------------------------
+# EVA02: RoPE tables and BEiT's relative position (eva_vit.py:48-81, 221-252)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=8)
+def rope_tables(head_dim: int, pt_seq_len: int, ft_seq_len: int,
+                theta: float = 10000.0):
+    """(cos, sin), each (ft_seq_len², head_dim) fp32 numpy: axial 2D rotary
+    tables computed in fp64, each frequency repeated for its interleaved
+    pair, positions t = arange(ft) / ft · pt (interpolated when the grid is
+    not `pt_hw_seq_len`)."""
+    dim = head_dim // 2
+    freqs = 1.0 / (theta ** (
+        np.arange(0, dim, 2)[: dim // 2].astype(np.float64) / dim))
+    t = np.arange(ft_seq_len, dtype=np.float64) / ft_seq_len * pt_seq_len
+    fr = np.repeat(np.einsum("i,j->ij", t, freqs), 2, axis=-1)
+    full = np.concatenate([
+        np.broadcast_to(fr[:, None, :], (ft_seq_len, ft_seq_len, dim)),
+        np.broadcast_to(fr[None, :, :], (ft_seq_len, ft_seq_len, dim)),
+    ], axis=-1).reshape(ft_seq_len * ft_seq_len, head_dim)
+    return np.cos(full).astype(np.float32), np.sin(full).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_on(head_dim: int, pt_seq_len: int, ft_seq_len: int,
+             device: torch.device):
+    """`rope_tables` as fp32 tensors on `device` (copied once)."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in rope_tables(head_dim, pt_seq_len, ft_seq_len))
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """Interleaved pairs (x0, x1) → (−x1, x0) over the last axis."""
+    return torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(x.shape)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., seq, head_dim), CLS excluded by the caller: x·cos +
+    rotate_half(x)·sin, the tables cast to x's dtype first."""
+    return x * cos.to(x.dtype) + rotate_half(x) * sin.to(x.dtype)
+
+
+def num_relative_distance(grid: int) -> int:
+    """(2g−1)² in-grid offsets and 3 buckets for CLS → token, token → CLS
+    and CLS → CLS."""
+    return (2 * grid - 1) ** 2 + 3
+
+
+@functools.lru_cache(maxsize=8)
+def rel_pos_index(grid: int) -> np.ndarray:
+    """(L, L) int bucket index over the CLS + grid² token sequence."""
+    coords = np.stack(np.meshgrid(np.arange(grid), np.arange(grid),
+                                  indexing="ij")).reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0) + (grid - 1)
+    flat = rel[:, :, 0] * (2 * grid - 1) + rel[:, :, 1]
+    n = num_relative_distance(grid)
+    idx = np.zeros((grid * grid + 1, grid * grid + 1), np.int32)
+    idx[1:, 1:] = flat
+    idx[0, :] = n - 3
+    idx[:, 0] = n - 2
+    idx[0, 0] = n - 1
+    return idx
+
+
+@functools.lru_cache(maxsize=16)
+def _rel_index_on(grid: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(rel_pos_index(grid).astype(np.int64)).to(device)
+
+
+def rel_pos_bias_from_table(table: torch.Tensor, grid: int) -> torch.Tensor:
+    """(num_relative_distance, H) table → the additive (1, H, L, L)
+    attention bias, in the table's dtype."""
+    idx = _rel_index_on(grid, table.device)
+    bias = table[idx.reshape(-1)].reshape(*idx.shape, -1)
+    return bias.permute(2, 0, 1)[None]
+
+
+def _with_rope(t: torch.Tensor, rope) -> torch.Tensor:
+    """RoPE on every row of t (B, H, L, D) but the CLS row."""
+    if rope is None:
+        return t
+    return torch.cat([t[:, :, :1], apply_rope(t[:, :, 1:], *rope)], dim=2)
 
 
 class EvaBlock(ParamGroup):
     """One pre-norm or post-norm block; parameter names as in the JAX
-    `blocks/*` tree."""
+    `blocks/*` tree (eva_vit.py:98-156): the MLP's fc1/fc2, or SwiGLU's
+    w1/w2/w3 and, with sub-LN, ffn_ln over the hidden width and
+    inner_attn_ln over the width; a per-block relative table under
+    `use_rel_pos_bias`."""
 
     def __init__(self, cfg: EvaVitConfig, init: Init, layer_id: int):
         w, h = cfg.width, cfg.mlp_hidden
@@ -149,14 +241,31 @@ class EvaBlock(ParamGroup):
             q_bias=init.zeros((w,)), v_bias=init.zeros((w,)),
             proj_w=init.trunc((w, w)) / rescale,
             proj_b=init.zeros((w,)),
-            fc1_w=init.trunc((w, h)), fc1_b=init.zeros((h,)),
-            fc2_w=init.trunc((h, w)) / rescale, fc2_b=init.zeros((w,)),
         )
+        if cfg.naiveswiglu:
+            tensors.update(
+                w1_w=init.trunc((w, h)), w1_b=init.zeros((h,)),
+                w2_w=init.trunc((w, h)), w2_b=init.zeros((h,)),
+                w3_w=init.trunc((h, w)) / rescale, w3_b=init.zeros((w,)))
+        else:
+            tensors.update(
+                fc1_w=init.trunc((w, h)), fc1_b=init.zeros((h,)),
+                fc2_w=init.trunc((h, w)) / rescale, fc2_b=init.zeros((w,)))
+        if cfg.subln:
+            tensors.update(
+                ffn_ln_w=init.ones((h,)), ffn_ln_b=init.zeros((h,)),
+                inner_attn_ln_w=init.ones((w,)),
+                inner_attn_ln_b=init.zeros((w,)))
         if cfg.ls_init_value is not None:
             tensors["gamma_1"] = init.full((w,), cfg.ls_init_value)
             tensors["gamma_2"] = init.full((w,), cfg.ls_init_value)
+        if cfg.use_rel_pos_bias:
+            tensors["rel_pos_bias_table"] = init.zeros(
+                (num_relative_distance(cfg.grid_size), cfg.num_heads))
         super().__init__(**tensors)
         self.postnorm = cfg.postnorm
+        self.swiglu = cfg.naiveswiglu
+        self.subln = cfg.subln
 
     def packed_qkv_bias(self) -> torch.Tensor:
         folded = self.get("qkv_bias")
@@ -166,27 +275,35 @@ class EvaBlock(ParamGroup):
         return torch.cat([q_b, torch.zeros_like(q_b), self.get("v_bias")])
 
     def forward(self, x: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
-                is_train: bool = False,
-                keep: Optional[tuple] = None) -> torch.Tensor:
+                is_train: bool = False, keep: Optional[tuple] = None,
+                rope: Optional[tuple] = None,
+                shared_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         """keep: DropPath's (mask, keep_prob) for this block: the per-sample
         draws of the two residual branches, (2, B) bool, and the 0-d keep
-        probability they were drawn against (None: no DropPath)."""
+        probability they were drawn against (None: no DropPath). rope: the
+        (cos, sin) tables of the patch rows, (L−1, D) or per sample
+        (B, 1, L−1, D) after PatchDropout; shared_bias: the shared
+        relative bias (1, H, L, L)."""
         eps = cfg.ln_eps
 
         def residual(x, y, i):
             return x + (y if keep is None else drop_path(y, keep[0][i],
                                                          keep[1]))
 
+        table = self.get("rel_pos_bias_table")
+        bias = (shared_bias if table is None
+                else rel_pos_bias_from_table(table, cfg.grid_size))
         g1, b1 = self.get("norm1_w"), self.get("norm1_b")
         g2, b2 = self.get("norm2_w"), self.get("norm2_b")
         if self.postnorm:             # eva_vit.py:451-457
-            y = self._scaled(self._attention(x, cfg, attn_impl, is_train),
-                             "gamma_1")
+            y = self._scaled(self._attention(x, cfg, attn_impl, is_train,
+                                             rope, bias), "gamma_1")
             x = residual(x, layer_norm(y, g1, b1, eps), 0)
-            y = self._scaled(self._mlp(x), "gamma_2")
+            y = self._scaled(self._mlp(x, eps), "gamma_2")
             return residual(x, layer_norm(y, g2, b2, eps), 1)
         if (attn_impl == "flash" and not is_train and fa.FUSED_LN_QKV
-                and fa.FUSED_QKV_PROJ):         # `_ln_fusable`, :438-449
+                and fa.FUSED_QKV_PROJ and rope is None and bias is None
+                and not self.subln):            # `_ln_fusable`, :438-449
             args = (x, g1, b1, self.get("qkv_w").to(x.dtype),
                     self.packed_qkv_bias(), cfg.num_heads,
                     cfg.head_dim ** -0.5, eps, g1 is not None)
@@ -196,45 +313,68 @@ class EvaBlock(ParamGroup):
                         self.get("proj_b"))
         else:
             y = self._attention(layer_norm(x, g1, b1, eps), cfg, attn_impl,
-                                is_train)
+                                is_train, rope, bias)
         x = residual(x, self._scaled(y, "gamma_1"), 0)
-        y = self._mlp(layer_norm(x, g2, b2, eps))
+        y = self._mlp(layer_norm(x, g2, b2, eps), eps)
         return residual(x, self._scaled(y, "gamma_2"), 1)
 
     def _attention(self, h: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
-                   is_train: bool) -> torch.Tensor:
+                   is_train: bool, rope=None, bias=None) -> torch.Tensor:
         """The attention branch on its input h, output projection included
-        (`attention`, eva_vit.py:298-377): K5 or K8 at flash inference under
-        `FUSED_QKV_PROJ`; else, with flash, the packed K3/K9 route (K4 in
-        training); else plain."""
+        (`attention`, eva_vit.py:298-377): with RoPE or a relative bias the
+        split heads through `multi_head_attention` (K2 under flash); else
+        K5 or K8 at flash inference under `FUSED_QKV_PROJ` (K8 refused
+        under sub-LN); else, with flash, the packed K3/K9 route (K4 in
+        training); else plain. Sub-LN's inner_attn_ln runs before the
+        output projection."""
         nh, hd = cfg.num_heads, cfg.head_dim
-        w_qkv, bias = self.get("qkv_w"), self.packed_qkv_bias()
-        if attn_impl == "flash" and not is_train and fa.FUSED_QKV_PROJ:
-            args = (h, w_qkv.to(h.dtype), bias, nh, hd ** -0.5)
+        w_qkv, qkv_bias = self.get("qkv_w"), self.packed_qkv_bias()
+        plain_heads = rope is not None or bias is not None
+        if (attn_impl == "flash" and not is_train and fa.FUSED_QKV_PROJ
+                and not plain_heads):
+            args = (h, w_qkv.to(h.dtype), qkv_bias, nh, hd ** -0.5)
             kernel = fa.kernel_route(h)
-            if fa.FUSED_ATTN_PROJ:
+            if fa.FUSED_ATTN_PROJ and not self.subln:
                 args = args[:3] + (self.get("proj_w").to(h.dtype),
                                    self.get("proj_b")) + args[3:]
                 return (fa.fused_qkv_attn_proj(*args) if kernel
                         else fa.fused_qkv_attn_proj_plain(*args))
             o = (fa.fused_qkv_self_attention(*args) if kernel
                  else fa.fused_qkv_plain(*args))
-        elif attn_impl == "flash":
+        elif attn_impl == "flash" and not plain_heads:
             o = fa.packed_qkv_self_attention(
-                _tagged("qkv", linear, h, w_qkv, bias), nh, hd ** -0.5)
+                _tagged("qkv", linear, h, w_qkv, qkv_bias), nh, hd ** -0.5)
         else:
+            # v stays a strided view of the product and q, k the rotated
+            # copies: K2 takes them as they are (unit last stride)
             b, l, w = h.shape
-            qkv = _tagged("qkv", linear, h, w_qkv, bias)
+            qkv = _tagged("qkv", linear, h, w_qkv, qkv_bias)
             q, k, v = qkv.reshape(b, l, 3, nh, hd).permute(2, 0, 3, 1, 4)
-            o = multi_head_attention(q, k, v, scale=hd ** -0.5, impl=attn_impl)
+            o = multi_head_attention(_with_rope(q, rope), _with_rope(k, rope),
+                                     v, bias=bias, scale=hd ** -0.5,
+                                     impl=attn_impl)
             o = o.transpose(1, 2).reshape(b, l, w)
+        if self.subln:
+            o = layer_norm(o, self.get("inner_attn_ln_w"),
+                           self.get("inner_attn_ln_b"), cfg.ln_eps)
         return _tagged("attn_out", linear, o, self.get("proj_w"),
                        self.get("proj_b"))
 
-    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        hidden = _tagged("mlp_hidden", linear, h, self.get("fc1_w"),
-                         self.get("fc1_b"))
-        return linear(gelu(hidden), self.get("fc2_w"), self.get("fc2_b"))
+    def _mlp(self, h: torch.Tensor, eps: float) -> torch.Tensor:
+        """MLP-GELU (fc1 tagged `mlp_hidden`) or SwiGLU; sub-LN's ffn_ln
+        before the last linear (eva_vit.py:380-397)."""
+        if self.swiglu:
+            hh = (F.silu(linear(h, self.get("w1_w"), self.get("w1_b")))
+                  * linear(h, self.get("w2_w"), self.get("w2_b")))
+            last = "w3"
+        else:
+            hh = gelu(_tagged("mlp_hidden", linear, h, self.get("fc1_w"),
+                              self.get("fc1_b")))
+            last = "fc2"
+        if self.subln:
+            hh = layer_norm(hh, self.get("ffn_ln_w"), self.get("ffn_ln_b"),
+                            eps)
+        return linear(hh, self.get(f"{last}_w"), self.get(f"{last}_b"))
 
     def _scaled(self, y: torch.Tensor, key: str) -> torch.Tensor:
         gamma = self.get(key)
@@ -242,14 +382,26 @@ class EvaBlock(ParamGroup):
 
     def fold_inference_params(self) -> None:
         """In place (eva_vit.py:159-213), computed in fp32 and stored back in
-        the parameters' dtype: LayerScale into the matmul that produces it
-        and, in a pre-norm block, the LN affines into the matmuls they feed.
-        A post-norm block's LNs feed no matmul and stay."""
+        the parameters' dtype: in a pre-norm block the LN affines into the
+        matmuls they feed (norm2 into both of SwiGLU's w1 and w2); sub-LN's
+        inner_attn_ln into proj and ffn_ln into the MLP's last linear; then
+        LayerScale into the matmul that produces it. A post-norm block's LNs
+        feed no matmul and stay."""
         dt = self.get("qkv_w").dtype
 
         def f32(name):
             return self.drop(name).float()
 
+        def fold(ln, *stems):
+            """LN (γ, β) feeding each of `stems`: its input rows scaled by
+            γ, β absorbed through the weight into the bias."""
+            g, beta = f32(f"{ln}_w"), f32(f"{ln}_b")
+            for stem in stems:
+                w, b = f32(f"{stem}_w"), f32(f"{stem}_b")
+                self.put(f"{stem}_b", (b + beta @ w).to(dt))
+                self.put(f"{stem}_w", (w * g[:, None]).to(dt))
+
+        last = "w3" if self.swiglu else "fc2"
         if not self.postnorm:
             n1w, n1b = f32("norm1_w"), f32("norm1_b")
             q_b, v_b = f32("q_bias"), f32("v_bias")
@@ -258,11 +410,11 @@ class EvaBlock(ParamGroup):
                         + n1b @ qkv_w)
             self.put("qkv_bias", qkv_bias.to(dt))
             self.put("qkv_w", (qkv_w * n1w[:, None]).to(dt))
-            n2w, n2b = f32("norm2_w"), f32("norm2_b")
-            fc1_w, fc1_b = f32("fc1_w"), f32("fc1_b")
-            self.put("fc1_b", (fc1_b + n2b @ fc1_w).to(dt))
-            self.put("fc1_w", (fc1_w * n2w[:, None]).to(dt))
-        for gamma_key, stem in (("gamma_1", "proj"), ("gamma_2", "fc2")):
+            fold("norm2", *(("w1", "w2") if self.swiglu else ("fc1",)))
+        if self.subln:
+            fold("inner_attn_ln", "proj")
+            fold("ffn_ln", last)
+        for gamma_key, stem in (("gamma_1", "proj"), ("gamma_2", last)):
             if self.get(gamma_key) is not None:
                 gam = f32(gamma_key)
                 self.put(f"{stem}_w", (f32(f"{stem}_w") * gam[None, :]).to(dt))
@@ -271,11 +423,11 @@ class EvaBlock(ParamGroup):
 
 class EvaVisionTransformer(nn.Module):
     """Parameter tree: patch_embed/{kernel,bias}, cls_token, pos_embed,
-    blocks[i]/*, norm_w, norm_b, head/{kernel,bias}."""
+    blocks[i]/*, norm_w, norm_b, head/{kernel,bias}, and the shared
+    rel_pos_bias_table under `use_shared_rel_pos_bias`."""
 
     def __init__(self, cfg: EvaVitConfig, init: Init):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         w = cfg.width
         self.patch_embed = ParamGroup(
@@ -293,6 +445,10 @@ class EvaVisionTransformer(nn.Module):
         self.norm_b = nn.Parameter(init.zeros((w,)), requires_grad=False)
         self.head = ParamGroup(kernel=init.trunc((w, cfg.embed_dim)),
                                bias=init.zeros((cfg.embed_dim,)))
+        if cfg.use_shared_rel_pos_bias:
+            self.rel_pos_bias_table = nn.Parameter(init.zeros(
+                (num_relative_distance(cfg.grid_size), cfg.num_heads)),
+                requires_grad=False)
 
     def fold_inference_params(self) -> None:
         """In place, every block (eva_vit.fold_inference_params); the final
@@ -328,17 +484,19 @@ def drop_path(y: torch.Tensor, keep: torch.Tensor,
     return torch.where(keep[:, None, None], y / keep_prob.to(y.dtype), 0.0)
 
 
-def patch_dropout(x: torch.Tensor, rate: float,
-                  generator: torch.Generator) -> torch.Tensor:
+def patch_dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+                  return_index: bool = False):
     """PatchDropout (eva_vit.py:525-533): keep the CLS token and, per
     sample, the n_keep = max(1, int(n·(1 - rate))) patches with the largest
-    uniform scores, in descending score order."""
+    uniform scores, in descending score order. `return_index`: also the
+    kept patches' indices (B, n_keep), which gather the RoPE tables."""
     n = x.shape[1] - 1
     n_keep = max(1, int(n * (1.0 - rate)))
     scores = torch.rand((x.shape[0], n), generator=generator, device=x.device)
     keep = scores.topk(n_keep, dim=1).indices
     patches = x[:, 1:].gather(1, keep[:, :, None].expand(-1, -1, x.shape[2]))
-    return torch.cat([x[:, :1], patches], dim=1)
+    out = torch.cat([x[:, :1], patches], dim=1)
+    return (out, keep) if return_index else out
 
 
 def eva_vit_forward(
@@ -357,7 +515,7 @@ def eva_vit_forward(
     """pixels (B, 3, H, W) → (B, seq_len, width) when return_all_features,
     else the pooled (B, width) (eva_vit.py:484-646). With `train_rng` (a CPU
     generator) the training route runs: PatchDropout, DropPath and the
-    K3/K4 attention. `remat` checkpoints each block, keeping what
+    K3/K4 attention (K2 with RoPE or a relative bias). `remat` checkpoints each block, keeping what
     `remat_policy` names (`remat_context`; an unknown name raises
     ValueError); `unroll_blocks` is accepted with the same math."""
     del unroll_blocks        # the loop below is unrolled already
@@ -373,24 +531,31 @@ def eva_vit_forward(
     b = x.shape[0]
     cls = model.cls_token.to(compute_dtype).expand(b, 1, cfg.width)
     x = torch.cat([cls, x], dim=1) + model.pos_embed.to(compute_dtype)
+    rope = (_rope_on(cfg.head_dim, cfg.pt_hw_seq_len, cfg.grid_size,
+                     x.device) if cfg.rope else None)
     is_train = train_rng is not None
     keeps = [None] * cfg.layers
     if is_train:
         gen = fork_generator(train_rng, x.device)
         if cfg.patch_dropout > 0.0:
-            x = patch_dropout(x, cfg.patch_dropout, gen)
+            x, kept = patch_dropout(x, cfg.patch_dropout, gen,
+                                    return_index=True)
+            if rope is not None:     # per-sample tables (B, 1, n_keep, D)
+                rope = tuple(t[kept][:, None] for t in rope)
         if cfg.drop_path_rate > 0.0:
             u = torch.rand((cfg.layers, 2, b), generator=gen, device=x.device)
             keep_prob = 1.0 - drop_path_rates(cfg, x.device)
             keeps = list(zip(u < keep_prob[:, None, None], keep_prob))
+    shared = (rel_pos_bias_from_table(model.rel_pos_bias_table, cfg.grid_size)
+              if cfg.use_shared_rel_pos_bias else None)
     for blk, keep in zip(model.blocks, keeps):
+        args = (x, cfg, attn_impl, is_train, keep, rope, shared)
         if remat:
             kw = {} if context_fn is None else dict(context_fn=context_fn)
-            x = torch.utils.checkpoint.checkpoint(
-                blk, x, cfg, attn_impl, is_train, keep, use_reentrant=False,
-                **kw)
+            x = torch.utils.checkpoint.checkpoint(blk, *args,
+                                                  use_reentrant=False, **kw)
         else:
-            x = blk(x, cfg, attn_impl, is_train, keep)
+            x = blk(*args)
     if not cfg.global_average_pool:
         x = layer_norm(x, model.norm_w, model.norm_b, cfg.ln_eps)
         return x if return_all_features else x[:, 0]

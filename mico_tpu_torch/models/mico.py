@@ -1,7 +1,8 @@
 """MiCo omni-modal model assembly (counterpart of `mico_tpu/models/mico.py`).
 
-One shared ViT (EVA, or the OpenAI-CLIP tower of `models/clip_vit.py`)
-encodes every knowledge modality — video frames, images (1-frame videos),
+One shared vision tower (EVA, the OpenAI-CLIP ViT of `models/clip_vit.py`,
+or the Swin or VideoSwin of `models/swin.py`) encodes every knowledge
+modality — video frames, images (1-frame videos),
 audio fbank slices tiled to 3 channels, depth maps — unless the config
 names one of VAST's separate audio towers (BEATs or AST, `models/audio.py`,
 held as `audio_encoder`); a BERT with cross-attention is the language
@@ -32,6 +33,7 @@ from mico_tpu_torch.models import audio as audio_mod
 from mico_tpu_torch.models import bert as bert_mod
 from mico_tpu_torch.models import clip_vit as clip_mod
 from mico_tpu_torch.models import eva_vit as vit_mod
+from mico_tpu_torch.models import swin as swin_mod
 from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.models.bert import BertOutput
 from mico_tpu_torch.ops.interpolate import interp_nearest_1d
@@ -78,12 +80,13 @@ class MiCo(nn.Module):
         def param(t):   # made without gradients; training turns them on
             return nn.Parameter(t, requires_grad=False)
 
-        if cfg.is_eva:
-            self.vision_encoder = vit_mod.EvaVisionTransformer(cfg.eva_config,
-                                                               init)
-        else:                         # `_init_vision_tower`, mico.py:105-113
-            self.vision_encoder = clip_mod.ClipVisionTransformer(
-                cfg.vision_tower_config, init)
+        tower = {                     # `_init_vision_tower`, mico.py:105-121
+            "eva": vit_mod.EvaVisionTransformer,
+            "clip": clip_mod.ClipVisionTransformer,
+            "swin": swin_mod.SwinTransformer,
+            "videoswin": swin_mod.VideoSwinTransformer,
+        }[cfg.vision_family]
+        self.vision_encoder = tower(cfg.vision_tower_config, init)
         self.bert = bert_mod.Bert(cfg.bert_config, init)
         if cfg.audio_encoder_type != "shared":   # _init_audio_tower, :125-131
             tower = (audio_mod.BeatsEncoder
@@ -127,9 +130,9 @@ class MiCo(nn.Module):
         """In place: an EVA tower's LN affines (pre-norm blocks) and
         LayerScale folded into the adjacent matmuls
         (mico.fold_inference_params); a pure reparametrization for
-        inference, after which pre-norm blocks take kernel K1 with
-        `affine=False` and post-norm blocks keep their LNs. The identity for
-        a non-EVA tower (mico.py:89-102)."""
+        inference, after which pre-norm blocks without sub-LN take kernel
+        K1 with `affine=False` and post-norm blocks keep their LNs. The
+        identity for a non-EVA tower (mico.py:89-102)."""
         if self.cfg.is_eva:
             self.vision_encoder.fold_inference_params()
         return self
@@ -166,13 +169,13 @@ class MiCo(nn.Module):
             condition_row_index=condition_row_index).sequence_output
 
     def pool_vision_for_contra(self, feature: torch.Tensor) -> torch.Tensor:
-        return pool_frames_for_contra(feature)
+        return pool_vision_for_contra(self.cfg, feature)
 
     def pool_audio_for_contra(self, feature: torch.Tensor) -> torch.Tensor:
         return pool_audio_for_contra(self.cfg, feature)
 
     def pool_depth_for_contra(self, feature: torch.Tensor) -> torch.Tensor:
-        return pool_frames_for_contra(feature)
+        return pool_vision_for_contra(self.cfg, feature)
 
     @staticmethod
     def pool_text_for_contra(feature: torch.Tensor) -> torch.Tensor:
@@ -207,18 +210,32 @@ class MiCo(nn.Module):
 def forward_vision_encoder(model: MiCo, pixels: torch.Tensor,
                            train_rng: Optional[torch.Generator] = None
                            ) -> torch.Tensor:
-    """(b, n, 3, h, w) → (b, n, seq, vision_dim): frames folded into the
-    batch for one ViT pass (mico.py:139-196); train_rng (a CPU generator)
-    runs the EVA tower's training route. The CLIP tower has no training
-    regularizers, as in JAX (mico.py:167-173): it runs the same forward
-    with or without train_rng."""
+    """(b, n, 3, h, w) → (b, n, seq, vision_dim) (mico.py:139-196): frames
+    folded into the batch for one pass of the EVA, CLIP or Swin tower; the
+    VideoSwin tower takes the clip as one (b, 3, n, h, w) volume and gives
+    (b, D', H'·W', C), its tokens per temporal patch. train_rng (a CPU
+    generator) runs the EVA and Swin towers' training routes; the CLIP
+    tower has no training regularizers, as in JAX (mico.py:167-173): it
+    runs the same forward with or without train_rng."""
     cfg = model.cfg
+    family = cfg.vision_family
+    if family == "videoswin":
+        vol = swin_mod.videoswin_forward(
+            model.vision_encoder, pixels.transpose(1, 2),
+            compute_dtype=model.compute_dtype, train_rng=train_rng)
+        bb, c, d = vol.shape[:3]
+        return vol.permute(0, 2, 3, 4, 1).reshape(bb, d, -1, c)
     b, n = pixels.shape[:2]
     flat = pixels.reshape(b * n, *pixels.shape[2:])
-    if not cfg.is_eva:
+    if family == "clip":
         tokens = clip_mod.clip_vit_forward(
             model.vision_encoder, flat, return_all_features=True,
             compute_dtype=model.compute_dtype)
+        return tokens.reshape(b, n, *tokens.shape[1:])
+    if family == "swin":
+        tokens = swin_mod.swin_forward_features(
+            model.vision_encoder, flat, compute_dtype=model.compute_dtype,
+            train_rng=train_rng)
         return tokens.reshape(b, n, *tokens.shape[1:])
     tokens = vit_mod.eva_vit_forward(
         model.vision_encoder, flat, return_all_features=True,
@@ -343,6 +360,15 @@ def pool_frames_for_contra(feature: torch.Tensor,
     return per_frame.mean(dim=1)
 
 
+def pool_vision_for_contra(cfg: MiCoConfig,
+                           feature: torch.Tensor) -> torch.Tensor:
+    """Swin and VideoSwin have no CLS token: the mean over each frame's
+    tokens; the EVA and CLIP towers keep their CLS (mico.py:284-288). Depth
+    pools by the same rule (mico.py:299)."""
+    return pool_frames_for_contra(
+        feature, patch_mean=cfg.vision_family in ("swin", "videoswin"))
+
+
 def pool_audio_for_contra(cfg: MiCoConfig,
                           feature: torch.Tensor) -> torch.Tensor:
     """BEATs has no CLS token: the mean over its tokens; AST and the shared
@@ -397,9 +423,18 @@ def mico_from_torch(sd: Mapping, cfg: MiCoConfig,
     reads no `audio_encoder.*` key, so neither package fills that tower
     from a released checkpoint (`models.audio.beats_from_torch` and
     `ast_from_torch` convert the towers' own releases); such a model
-    loads from a native `.npz` checkpoint."""
+    loads from a native `.npz` checkpoint. So does a config with a non-EVA
+    vision tower: JAX's converter reads the EVA layout alone (mico.py:436);
+    `models.swin.swin_from_torch` and `videoswin_from_torch` convert those
+    towers' own releases."""
     from mico_tpu_torch import convert
 
+    if not cfg.is_eva:
+        raise ValueError(
+            f"vision tower {cfg.vision_encoder_type!r}: the "
+            "released-checkpoint converter reads the EVA layout alone (as "
+            "JAX's mico_from_torch); load this tower from a native .npz "
+            "checkpoint")
     if cfg.audio_encoder_type != "shared":
         raise ValueError(
             f"audio tower {cfg.audio_encoder_type!r}: the released-checkpoint "

@@ -7,8 +7,10 @@ padded) and copied to the card through pinned host buffers with
 of batch i; every modality of a batch folds into one encoder pass (image =
 1-frame video; audio tiled to 3 channels through the shared ViT, or
 through the config's separate BEATs/AST tower, whose fbank size the caller
-passes as `melbins`, `target_length` and `resize_melbin_num`). Failed items
-come back as zero rows, with their indices in `last_failures`.
+passes as `melbins`, `target_length` and `resize_melbin_num`). Vision
+pools by the tower's rule (`MiCo.pool_vision_for_contra`: CLS, or Swin's
+patch mean), audio by its tower's. Failed items come back as zero rows,
+with their indices in `last_failures`.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.media import AudioProcessor, ImageProcessor, VideoProcessor
 from mico_tpu_torch.media.video_io import video_format
-from mico_tpu_torch.models.mico import MiCo, pool_frames_for_contra, resolve_device
+from mico_tpu_torch.models.mico import MiCo, resolve_device
 
 
 def _l2_normalize(feat: torch.Tensor) -> torch.Tensor:
@@ -123,7 +125,8 @@ class EmbeddingPipeline:
     def _embed_pixels(self, model: MiCo, pixels: torch.Tensor,
                       head: str) -> torch.Tensor:
         tokens = model.forward_vision_encoder(pixels)
-        return _l2_normalize(model.contra_head(head, pool_frames_for_contra(tokens)))
+        return _l2_normalize(model.contra_head(
+            head, model.pool_vision_for_contra(tokens)))
 
     def _embed_audio(self, model: MiCo, spectrograms: torch.Tensor) -> torch.Tensor:
         tokens = model.forward_audio_encoder(spectrograms)

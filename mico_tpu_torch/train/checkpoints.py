@@ -87,8 +87,8 @@ class _ArrayUnpickler(pickle.Unpickler):
 def npz_member(z, key: str):
     """A member of an open npz: its array, or, for an object member, the
     list it holds. The JAX package's `save_pytree_npz` writes a list of
-    per-block dicts (a CLIP tower's blocks, an audio tower's layers) as an
-    object array, which `np.savez` pickles and `np.load` refuses without
+    per-block dicts (a CLIP tower's blocks, an audio tower's layers, a Swin
+    tower's stages with their lists of blocks) as an object array, which `np.savez` pickles and `np.load` refuses without
     `allow_pickle`; it is read here by `_ArrayUnpickler`, which builds
     nothing but arrays, dicts and lists."""
     try:
@@ -335,6 +335,18 @@ def model_leaves(model):
     return jax_leaves(model.state_dict(), model.cfg)
 
 
+def _list_leaves(prefix: str, node):
+    """(state_dict key, array) of every leaf under a pickled list member:
+    list items by index and dict items by key, nested as deep as they go
+    (a Swin tower's stages hold lists of blocks); None leaves skipped."""
+    items = (enumerate(node) if isinstance(node, list) else node.items())
+    for k, v in items:
+        if isinstance(v, (list, dict)):
+            yield from _list_leaves(f"{prefix}.{k}", v)
+        elif v is not None:
+            yield f"{prefix}.{k}", v
+
+
 def load_model_npz(path: str, model) -> None:
     """Copy a model checkpoint in the JAX package's npz layout (the port's
     file, or one the JAX package wrote) into the parameters of `model`,
@@ -348,10 +360,8 @@ def load_model_npz(path: str, model) -> None:
             group, _, name = key.rpartition(SEP)
             stacked = group == "bert/layers" or (
                 group == "vision_encoder/blocks" and model.cfg.is_eva)
-            if isinstance(arr, list):       # JAX's list of per-block dicts
-                targets = [(f"{key.replace(SEP, '.')}.{i}.{leaf}", a)
-                           for i, block in enumerate(arr)
-                           for leaf, a in block.items()]
+            if isinstance(arr, list):    # JAX's pickled list of blocks
+                targets = list(_list_leaves(key.replace(SEP, "."), arr))
             elif stacked:
                 targets = [(f"{group.replace(SEP, '.')}.{i}.{name}", arr[i])
                            for i in range(arr.shape[0])]

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.models import mico as mico_mod
-from mico_tpu_torch.models.mico import MiCo, pool_frames_for_contra
+from mico_tpu_torch.models.mico import MiCo
 from mico_tpu_torch.ops.layers import fork_generator, split_generator
 from mico_tpu_torch.train.masker import mask_tokens
 
@@ -80,7 +80,8 @@ def compute_features(model: MiCo, cfg: MiCoConfig,
         if name not in cache:
             tokens = run()
             pooled = (mico_mod.pool_audio_for_contra(cfg, tokens)
-                      if name == "audio" else pool_frames_for_contra(tokens))
+                      if name == "audio"
+                      else mico_mod.pool_vision_for_contra(cfg, tokens))
             cache[name] = (pooled,
                            mico_mod.condition_input(model, tokens, name))
         return cache[name]

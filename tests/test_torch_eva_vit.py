@@ -133,15 +133,6 @@ def test_patch_embed_order(rng):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("feature", ["rope", "naiveswiglu", "subln",
-                                     "use_rel_pos_bias"])
-def test_unported_features_raise(feature):
-    cfg = EvaVitConfig(image_size=28, patch_size=14, layers=1, width=8,
-                       head_width=4, **{feature: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvit.check_supported(cfg)
-
-
 # ---------------------------------------------------------------------------
 # the training route (train_rng): K3/K4 attention, DropPath, PatchDropout
 # ---------------------------------------------------------------------------

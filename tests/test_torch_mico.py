@@ -274,8 +274,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,attr", [
-    (dict(vision_encoder_type="videoswin_base"), "vision_dim"),
-    (dict(vision_encoder_type="swin_base"), "vision_tower_config"),
+    (dict(vision_encoder_type="vit_h14_laion"), "vision_dim"),
+    (dict(vision_encoder_type="clip_vit_huge_14"), "vision_tower_config"),
 ])
 def test_unported_towers_raise(kw, attr):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
