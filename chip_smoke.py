@@ -289,7 +289,32 @@ Phases, run in order (any failure exits non-zero):
      nothing else: K7 0; the audio captioner none), the annotation JSON (3
      captions a clip) and the tokens checked; the seconds of each
      evaluation split into the towers, the decode and the rest, captions/s,
-     and the cv2 decode + preprocess of the 64 clips on one thread.
+     and the cv2 decode + preprocess of the 64 clips on one thread;
+ 12. dp (between run and captioner): data parallelism across processes.
+     (a) `python -m torch.distributed.run --standalone --nproc_per_node 1
+     -m mico_tpu_torch.run` with `run_cfg.multihost=true
+     run_cfg.zero1=true` and the arguments and corpus of phase run's
+     resume check (MiCo-g at full width with 4 blocks, B 8; NCCL at world
+     1): 3 steps, evaluations and saves at steps 2 and 3 (the entry sets
+     valid_steps from `valid_freq`, as JAX's does), rank 0's
+     `log/record.json`; the step-1 losses within 2e-2 relative of that
+     check's one-process run (the same seed, corpus, depth and draws), then
+     a resume at world 1 without `multihost` (in this process) that starts
+     at step 3 and takes step 4 (K3 8, K4 8); the steps' ms and peak memory
+     beside that run's. (b) two ranks on the one card over gloo (NCCL refuses two ranks
+     on one device), spawned once: rank 0 first takes the one-process step
+     of ret%tva_cap%tva on the global batch of 4 (MiCo-g at full width,
+     ViT cut to 10 of its 40 blocks for time, fp32 master weights, bf16
+     compute, every rate 0, draws injected, Adam's eps 1e-3, no weight
+     decay), then both ranks take the
+     ZeRO-1 and the plain data-parallel step from the same weights on B 2
+     each: every global loss and the gradient norm within 2e-2 relative of
+     the reference's, the cosine of each optimizer group's parameter
+     update to the reference's >= 0.99, each rank's step launching what
+     the reference launched (K3 and K4 2 x blocks, K2 12 a BERT pass over
+     the condition: rates 0 keep it off plain math); the peak memory per
+     rank with and without ZeRO-1 and the collective seconds (gloo through
+     the host, not an NCCL figure).
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -3788,6 +3813,7 @@ def run_entry(probe, run_main, argv, out, layers, card, train_step) -> dict:
         profiled_step=dict(step=prof["step"], busy_ms=prof["busy_ms"],
                            wall_ms=prof["profiled_ms"]),
         idle_share=idle, synthetic_step_ms=train_step["step_ms"],
+        train_peak_memory_bytes=rec.get("peak_memory_bytes"),
         synthetic_busy_ms=train_step.get("busy_ms"),
         synthetic_idle_share=train_step.get("idle_share"),
         eval_s={s["step"]: s["seconds"] for s in first if s["kind"] == "eval"},
@@ -3797,6 +3823,9 @@ def run_entry(probe, run_main, argv, out, layers, card, train_step) -> dict:
         resume_cut=dict(saves=io(cut_first + second, ("save", "save_best")),
                         loads=io(second, ("resume_latest",
                                           "load_latest_opt_state"))),
+        cut_losses=[s["losses"] for s in rec_c["steps"]],
+        cut_step_s=[s["step_s"] for s in rec_c["steps"]],
+        cut_peak_memory_bytes=rec_c.get("peak_memory_bytes"),
         losses=[s["losses"] for s in all_steps],
         metrics_last_eval=last_eval, metrics_testing=logs,
         launches={"train step": [s for s in first
@@ -4719,6 +4748,401 @@ def phase_captioner(fa, card: str) -> dict:
         free_cuda()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: data parallelism across processes (torchrun over NCCL at world
+# 1; two ranks on the one card over gloo)
+# ---------------------------------------------------------------------------
+
+DP_STEPS, DP_RESUME_STEPS = 3, 4
+DP_VALID_FREQ = 1           # valid_steps 3 // 1 - 1 = 2: steps 2 and 3
+DP_WORLD = 2
+DP_B = 2                    # samples a rank; the reference takes all 4
+# (b)'s ViT-g depth: full width with 10 of its 40 blocks. At full depth
+# (b) took 71.8-95.0 s on an H100 (PERF.md, PR 18 runs E and F), which
+# left the script 134 s under its 1200 s limit; the gates and the ZeRO-1
+# split do not depend on the depth
+DP_LAYERS = 10
+DP_TIMEOUT_S = 600
+# Adam's eps raised and no weight decay: the first update is then close to
+# linear in the gradient (not its sign, which bf16 noise flips where the
+# gradient is near 0) and holds no term common to both runs
+DP_OPTIM = dict(learning_rate=1e-4, clip_lr=1e-4, new_lr=1e-4,
+                weight_decay=0.0, eps=1e-3, num_train_steps=10,
+                warmup_ratio=0.0)
+
+
+def dp_torchrun(fa, run: dict, card: str) -> dict:
+    """(a) `python -m torch.distributed.run --standalone --nproc_per_node 1
+    -m mico_tpu_torch.run` with `run_cfg.multihost=true run_cfg.zero1=true`
+    on phase run's corpus and the arguments of its resume check (MiCo-g at
+    full width with RUN_RESUME_LAYERS blocks, B 8): 3 steps, evaluations
+    and saves at steps 2 and 3 (`valid_freq` 1), rank 0 writing
+    `log/record.json`; then a resume at world 1 without `multihost`, in
+    this process, to step 4. Its step-1 losses are held to that check's
+    one-process run (the same seed, corpus, depth and draws) within
+    LOSS_RTOL."""
+    import os
+    import shutil
+    import tempfile
+
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.run import main as run_main
+
+    root = tempfile.mkdtemp(prefix="mico_dp_")
+    try:
+        corpus = write_run_corpus(root, seed=0)
+        out = os.path.join(root, "out")
+        # the arguments of phase run's resume check (its depth: full-depth
+        # saves and loads are phase run's to time) with the retrieval val
+        # set alone (the ITM re-rank on); the resume takes none
+        argv = run_argv(corpus, out)
+        val = [v for v in json.loads(argv[argv.index("--data_cfg.val") + 1])
+               if v["task"].startswith("ret")]
+        cut = dict(MiCoConfig().eva_config.__dict__, layers=RUN_RESUME_LAYERS)
+        argv += ["--data_cfg.val", json.dumps(val),
+                 f"model_cfg.eva_override={json.dumps(cut)}"]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "mico_tpu_torch.run", *argv,
+               "run_cfg.multihost=true", "run_cfg.zero1=true",
+               f"run_cfg.num_train_steps={DP_STEPS}",
+               f"run_cfg.valid_freq={DP_VALID_FREQ}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=DP_TIMEOUT_S,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        torchrun_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stdout[-6000:], proc.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"torchrun exited {proc.returncode}")
+        if "process 0 of 1 on cuda:0" not in proc.stderr + proc.stdout:
+            raise AssertionError("torchrun's process did not join a group")
+        with open(os.path.join(out, "log", "record.json")) as f:
+            rec = json.load(f)
+        files = sorted(os.listdir(os.path.join(out, "ckpt")))
+        log(f"  (a) torchrun, world {rec['world']} over NCCL, ZeRO-1, "
+            f"{RUN_RESUME_LAYERS} blocks: "
+            f"{torchrun_s:.1f} s (process, model, {DP_STEPS} steps, "
+            f"evaluations and saves at steps {[e['step'] for e in rec['evals']]}); "
+            f"ckpt/ {files}")
+        if rec["world"] != 1 or [s["step"] for s in rec["steps"]] != list(
+                range(1, DP_STEPS + 1)):
+            raise AssertionError(f"torchrun record: world {rec['world']}, "
+                                 f"steps {[s['step'] for s in rec['steps']]}")
+        for name in (f"model_step_{DP_STEPS}.npz",
+                     f"optimizer_step_{DP_STEPS}.npz"):
+            if name not in files:
+                raise AssertionError(f"torchrun: {name} missing from {files}")
+        got, want = rec["steps"][0]["losses"], run["cut_losses"][0]
+        gaps = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+        log(f"  (a) step-1 losses {got}; phase run's at {RUN_RESUME_LAYERS} "
+            f"blocks {want}; relative gaps "
+            f"{ {k: f'{v:.2e}' for k, v in gaps.items()} }")
+        bad = {k: v for k, v in gaps.items() if not v <= LOSS_RTOL}
+        if bad or got.keys() != want.keys():
+            raise AssertionError(f"torchrun step-1 losses vs phase run: {bad}")
+        steps_ms = [1e3 * s["step_s"] for s in rec["steps"]]
+        # -- resume at world 1, no process group --
+        free_cuda()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec2 = run_main(argv + ["run_cfg.resume=true",
+                                f"run_cfg.num_train_steps={DP_RESUME_STEPS}",
+                                f"run_cfg.valid_freq={DP_VALID_FREQ}",
+                                "--data_cfg.val", "[]"])
+        resume_s = time.perf_counter() - t0
+        launches = fa.launch_counts()
+        layers = 2 * RUN_RESUME_LAYERS
+        if launches != {**{k: 0 for k in launches}, "K3": layers,
+                        "K4": layers}:
+            raise AssertionError(f"resume (one step, no evaluation): "
+                                 f"launches {launches}")
+        if (rec2["start_step"], rec2["end_step"], rec2["world"]) != (
+                DP_STEPS, DP_RESUME_STEPS, 1) or [
+                s["step"] for s in rec2["steps"]] != [DP_RESUME_STEPS]:
+            raise AssertionError(f"resume: steps {rec2['start_step']} -> "
+                                 f"{rec2['end_step']}, world {rec2['world']}")
+        for s in rec["steps"] + rec2["steps"]:
+            if not all(np.isfinite(v) for v in s["losses"].values()):
+                raise AssertionError(f"dp step {s['step']}: {s['losses']}")
+        run_ms = [1e3 * s for s in run["cut_step_s"]]
+        result = dict(
+            torchrun_s=torchrun_s, resume_s=resume_s, losses=[
+                s["losses"] for s in rec["steps"] + rec2["steps"]],
+            step1_relative_gaps=gaps, step_ms=steps_ms,
+            resumed_step_ms=1e3 * rec2["steps"][0]["step_s"],
+            peak_memory_bytes=rec.get("peak_memory_bytes"),
+            resume_peak_memory_bytes=rec2.get("peak_memory_bytes"),
+            run_step_ms=run_ms,
+            run_peak_memory_bytes=run.get("cut_peak_memory_bytes"),
+            eval_s=[e["eval_s"] for e in rec["evals"]],
+            save_s=[s["save_s"] for s in rec["saves"]],
+            metrics=rec["evals"][-1]["metrics"], resume_launches=launches)
+        gib = (lambda b: "not measured" if b is None
+               else f"{b / 2 ** 30:.2f} GiB")
+        log(f"  (a) steps 1-{DP_STEPS} ms {[round(x, 1) for x in steps_ms]} "
+            f"(the step's host clock, its losses read), peak "
+            f"{gib(result['peak_memory_bytes'])}; phase run's steps ms at "
+            f"{RUN_RESUME_LAYERS} blocks "
+            f"{[round(x, 1) for x in run_ms]}, peak "
+            f"{gib(result['run_peak_memory_bytes'])}; resume at world 1 "
+            f"(load, step {DP_RESUME_STEPS}, evaluation, save) {resume_s:.1f} "
+            f"s, its step {result['resumed_step_ms']:.1f} ms [{card}]")
+        return result
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_cuda()
+
+
+def dp_rank(rank: int, store: str, out) -> None:
+    """(b) one rank of the two on the card. Rank 0 first takes the
+    one-process step on the global batch of DP_WORLD x DP_B (the
+    reference); then both ranks take the ZeRO-1 data-parallel step and the
+    plain one from the same weights over gloo, each on its rows with the
+    global draws. → out: per run the global losses, the launches, the peak
+    memory, the step and collective seconds, and on rank 0 the cosine of
+    each optimizer group's update against the reference's."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=DP_WORLD, rank=rank,
+                                timeout=timedelta(seconds=DP_TIMEOUT_S))
+        out.put((rank, True, _dp_rank(rank)))
+    except BaseException:  # noqa: BLE001 — reported by the parent
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _dp_rank(rank: int) -> dict:
+    import torch.distributed as dist
+
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.ops import flash_attention as fa
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.train.masker import mask_tokens
+    from mico_tpu_torch.train.objectives import Draws
+    from mico_tpu_torch.train.optim import (OptimConfig, build_optimizer,
+                                            param_group_labels)
+    from mico_tpu_torch.train.train_step import make_train_step
+    from mico_tpu_torch.train.workload import PRETRAIN_TASK, synthetic_batch
+
+    base = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    cfg = dataclasses.replace(
+        base, eva_override=dataclasses.replace(
+            base.eva_config, layers=DP_LAYERS, drop_path_rate=0.0),
+        bert_override=dataclasses.replace(
+            base.bert_config, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0))
+    t0 = time.perf_counter()
+    model = MiCo(cfg, device="cuda", seed=0)
+    build_s = time.perf_counter() - t0
+    names = [n for n, _ in model.named_parameters()]
+    start = [p.detach().cpu() for p in model.parameters()]
+    n = DP_WORLD * DP_B
+    batch = synthetic_batch(n, seed=1)
+    masked = mask_tokens(batch["caption_ids"], 0.6,
+                         torch.Generator().manual_seed(2))
+    flip = torch.arange(n, device="cuda").roll(1)
+    rows = slice(rank * DP_B, (rank + 1) * DP_B)
+    layers = cfg.eva_config.layers
+
+    def draws():
+        return Draws(masks=[masked], negatives=[(flip, flip)])
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), start):
+                p.copy_(s)
+
+    def update():
+        return [(p.detach() - s.to(p.device)).cpu()
+                for p, s in zip(model.parameters(), start)]
+
+    def take(step, batch, mesh_draws, timers):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = step(model, batch, torch.Generator().manual_seed(rank),
+                   draws=mesh_draws)
+        losses = {k: v.item() for k, v in got.items()}
+        torch.cuda.synchronize()
+        return dict(losses=losses, step_s=time.perf_counter() - t0,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    launches=fa.launch_counts(), **timers)
+
+    result = dict(build_s=build_s)
+    ref = None
+    if rank == 0:
+        opt = build_optimizer(model, OptimConfig(**DP_OPTIM))
+        result["reference"] = take(make_train_step(cfg, opt, PRETRAIN_TASK),
+                                   batch, draws(), {})
+        ref = update()
+        del opt
+        restore()
+        free_cuda()
+    dist.barrier()
+    mesh = create_mesh()
+    labels = param_group_labels(model)
+    local = {k: v[rows] for k, v in batch.items()}
+    for zero1 in (True, False):
+        opt = build_optimizer(model, OptimConfig(**DP_OPTIM),
+                              group=mesh.group, zero1=zero1)
+        timers = {"collective_s": 0.0}
+
+        def timed(fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **kw)
+                torch.cuda.synchronize()
+                timers["collective_s"] += time.perf_counter() - t0
+                return r
+            return call
+        opt.sync_grads = timed(opt.sync_grads)
+        opt._all_gather = timed(opt._all_gather)
+        step = make_train_step(cfg, opt, PRETRAIN_TASK, mesh=mesh,
+                               zero1=zero1)
+        r = take(step, local, draws(), timers)
+        r["moment_bytes"] = sum(
+            v.numel() * v.element_size()
+            for s in opt.torch_optimizer.state.values()
+            for k, v in s.items() if k in ("exp_avg", "exp_avg_sq"))
+        if ref is not None:
+            dots = {}
+            for name, p, s, w in zip(names, model.parameters(), start, ref):
+                u = (p.detach() - s.to(p.device)).double()
+                w = w.to(p.device).double()
+                d = dots.setdefault(labels[name], torch.zeros(
+                    3, dtype=torch.float64, device=p.device))
+                d += torch.stack([(u * w).sum(), (u * u).sum(),
+                                  (w * w).sum()])
+            r["group_cosine"] = {
+                g: dot / max(1e-300, (uu * ww) ** 0.5)
+                for g, (dot, uu, ww) in ((g, d.tolist())
+                                         for g, d in dots.items())}
+        r["k34_expected"] = 2 * layers
+        result["zero1" if zero1 else "plain"] = r
+        del opt, step
+        if zero1:
+            restore()
+        free_cuda()
+        dist.barrier()
+    return result
+
+
+def dp_two_ranks(card: str) -> dict:
+    """(b) two ranks on the one card over gloo (NCCL refuses two ranks on
+    one device): the ZeRO-1 step and the plain data-parallel step of
+    PRETRAIN_TASK at full width (MiCo-g with DP_LAYERS ViT blocks, bf16
+    compute on fp32 master weights, every rate 0, the draws injected), B 2
+    a rank, against the
+    one-process step on the global batch of 4 taken first on the same
+    card: each loss within LOSS_RTOL, the cosine of each optimizer group's
+    parameter update >= GRAD_COSINE_MIN; each rank's step launching what
+    the reference's did (K3 and K4 2 x blocks, K2 for BERT's
+    cross-attention); peak memory per rank with and without
+    ZeRO-1; the collective seconds (gloo through the host)."""
+    import multiprocessing
+    import os
+    import queue
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="mico_dp2_")
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=dp_rank,
+                         args=(r, os.path.join(root, "rendezvous"), out))
+             for r in range(DP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in range(DP_WORLD):
+            rank, ok, value = out.get(timeout=DP_TIMEOUT_S)
+            if not ok:
+                errors.append(f"rank {rank}:\n{value}")
+                break
+            results[rank] = value
+    except queue.Empty:
+        errors.append("a rank gave no result")
+    finally:
+        for p in procs:
+            p.join(timeout=10 if errors else DP_TIMEOUT_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    phase_s = time.perf_counter() - t0
+    ref = results[0]["reference"]
+    for rank, res in results.items():
+        for kind in ("zero1", "plain"):
+            r = res[kind]
+            for k, v in ref["losses"].items():
+                if not abs(r["losses"][k] - v) <= LOSS_RTOL * abs(v):
+                    raise AssertionError(f"rank {rank} {kind}: {k} "
+                                         f"{r['losses'][k]} vs {v}")
+            # a rank's step runs the reference's kernels: K3 and K4 for
+            # the vision and audio passes, K2 for BERT's cross-attention
+            # (every rate 0 keeps it off plain math)
+            want = ref["launches"]
+            if r["launches"] != want or (want["K3"], want["K4"]) != (
+                    r["k34_expected"], r["k34_expected"]) or not want["K2"]:
+                raise AssertionError(f"rank {rank} {kind}: launches "
+                                     f"{r['launches']}, the reference's "
+                                     f"{want}")
+    for kind in ("zero1", "plain"):
+        cos = results[0][kind]["group_cosine"]
+        log(f"  (b) {kind}: update cosine to the one-process step by group "
+            f"{ {g: round(c, 6) for g, c in cos.items()} }; losses "
+            f"{results[0][kind]['losses']} (reference {ref['losses']})")
+        bad = {g: c for g, c in cos.items() if not c >= GRAD_COSINE_MIN}
+        if bad:
+            raise AssertionError(f"{kind} update cosine {bad}")
+    gib = lambda b: f"{b / 2 ** 30:.2f} GiB"     # noqa: E731
+    for rank, res in results.items():
+        z, p = res["zero1"], res["plain"]
+        log(f"  (b) rank {rank}: peak memory ZeRO-1 {gib(z['peak_memory_bytes'])}"
+            f" (moments {gib(z['moment_bytes'])}), plain "
+            f"{gib(p['peak_memory_bytes'])} (moments "
+            f"{gib(p['moment_bytes'])}); step {1e3 * z['step_s']:.1f} / "
+            f"{1e3 * p['step_s']:.1f} ms, of which collectives (gloo "
+            f"through the host, a device sync around each call) "
+            f"{z['collective_s']:.3f} / {p['collective_s']:.3f} s [{card}]")
+    log(f"  (b) reference step on the global batch of {DP_WORLD * DP_B}: "
+        f"{1e3 * ref['step_s']:.1f} ms, peak {gib(ref['peak_memory_bytes'])}"
+        f"; phase (b) {phase_s:.1f} s")
+    return dict(phase_s=phase_s, reference=ref,
+                ranks={r: {k: v for k, v in res.items() if k != "reference"}
+                       for r, res in results.items()})
+
+
+def phase_dp(fa, card: str, run: dict) -> dict:
+    t0 = time.perf_counter()
+    log("phase dp: data parallelism across processes")
+    free_cuda()
+    a = dp_torchrun(fa, run, card)
+    b = dp_two_ranks(card)
+    phase_s = time.perf_counter() - t0
+    log(f"  phase dp: {phase_s:.1f} s")
+    paths = {f"dp {kind} step (rank {rank})": res[kind]["launches"]
+             for rank, res in b["ranks"].items()
+             for kind in ("zero1", "plain")}
+    paths["dp resume step (world 1)"] = a["resume_launches"]
+    return dict(torchrun=a, two_ranks=b, phase_s=phase_s, paths=paths)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -4763,6 +5187,7 @@ def main() -> int:
     rows += mlp_rows
     scst = phase_scst(fa, card)
     run = phase_run(fa, card, train)
+    dp = phase_dp(fa, card, run)
     captioner = phase_captioner(fa, card)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
@@ -4779,6 +5204,7 @@ def main() -> int:
              **{f"run eval (step {step})": {k: v for k, v in c.items()
                                            if k.startswith(("K", "P"))}
                 for step, c in run["launches"]["eval"].items()},
+             **dp["paths"],
              **captioner["paths"]}
     for row in rows:
         key = row["name"].split()[0]
@@ -4810,6 +5236,7 @@ def main() -> int:
                       "scst": {k: v for k, v in scst.items()
                                if k != "paths"},
                       "run": run,
+                      "dp": {k: v for k, v in dp.items() if k != "paths"},
                       "captioner": {k: v for k, v in captioner.items()
                                     if k != "paths"}}, default=str))
     print(json.dumps({"kernels": rows}))

@@ -10,20 +10,22 @@ The reference's dataloader construction (data/utils/build_dataloader.py:
   - MetaLoader step-ratio weighting = the dataset's train_steps; total
     num_train_steps defaulted to the sum; `valid_steps` set to
     num_train_steps // valid_freq - 1, over any value the config gave.
-On one card there is one process: the global batch is the card's.
+Across processes (one a card, the default `torch.distributed` group) each
+rank loads `batch_size // world` rows (JAX divides by its processes,
+data/build.py:6-11, 50-51) from its shard of the sampler: a training
+batch must divide (the global batch is the configured one), an evaluation
+batch is floored as JAX floors it. Every rank draws the same task at every
+step (the MetaLoader's shared seed).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
-import torch
-
 from mico_tpu_torch.data.loader import CudaPrefetcher, DataLoader, MetaLoader
 from mico_tpu_torch.data.sampler import ShardedSampler
+from mico_tpu_torch.parallel.collectives import process_count, process_index
 from mico_tpu_torch.utils.logger import LOGGER
-
-PARALLELISM = "not ported yet (ROADMAP.md, queue 1: parallelism)"
 
 
 def _registry():
@@ -33,19 +35,19 @@ def _registry():
 
 
 def _world():
-    """(processes, this process's rank): one process on one card. A run
-    under an initialised `torch.distributed` group raises."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        raise NotImplementedError(
-            f"data loading across {torch.distributed.get_world_size()} "
-            f"processes: {PARALLELISM}")
-    return 1, 0
+    """(processes, this process's rank) of the default group; (1, 0)
+    without one."""
+    return process_count(), process_index()
 
 
 def build_dataloader(dataset, is_train: bool, batch_size: int,
                      n_workers: int = 4, use_sampler: bool = True,
                      seed: int = 0) -> DataLoader:
     num_shards, shard_id = _world()
+    if is_train and batch_size % num_shards:
+        raise ValueError(
+            f"global batch {batch_size} is not divisible by the {num_shards} "
+            f"processes; raise data_cfg batch_size or run fewer processes")
     per_host_bs = max(1, batch_size // num_shards)
     sampler = None
     if use_sampler and getattr(dataset, "use_sampler", True):

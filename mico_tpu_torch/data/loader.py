@@ -9,7 +9,9 @@ prefetcher (counterpart of `mico_tpu/data/loader.py`).
     `num_workers` threads decode the batch's files ahead
     (`mappers.DecodeCache`: the pure decode functions, never a draw).
   - MetaLoader (reference loader.py:8-61): a weighted random task per
-    accumulation window from `random.Random(seed)`.
+    accumulation window from `random.Random(seed)`; every rank of a run
+    passes the run's seed (not its own host seed), so all draw the same
+    task at every step (JAX's shared seed, loader.py:133-154).
   - CudaPrefetcher (in place of JAX's DevicePrefetcher, reference
     PrefetchLoader, loader.py:90-148): array leaves are staged in pinned
     host memory and copied to the card on a side stream one batch ahead;

@@ -6,8 +6,9 @@ The reference's per-rank samplers:
   - DistributedSampler_wopadding (eval: no padding, so no eval sample is
     seen twice; reference data/utils/distributed.py:153-181).
 The order comes from `np.random.default_rng(seed + epoch)`, as the JAX
-package draws it, so both give the same indices for one seed. On one card
-there is one shard; the arguments keep the multi-process contract.
+package draws it, so both give the same indices for one seed. Across
+processes each rank takes its shard (`data/build.py`): every rank draws
+the same permutation and keeps every world-th index from its rank on.
 """
 
 from __future__ import annotations

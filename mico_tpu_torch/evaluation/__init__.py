@@ -19,8 +19,14 @@ Tasks per loader name "task--dataset" (data/model/vast.py:317-371):
 The port runs each pass eagerly under `torch.inference_mode()` on the
 model's device, in the model's compute dtype (in place of JAX's jit cache):
 the ViT takes its inference route (K1 on the card), BERT's cross-attention
-in the ITM re-rank K2. One process evaluates the whole set; the JAX
-package's multi-process gathers wait for the parallelism item.
+in the ITM re-rank K2. Across processes each rank evaluates its shard of
+the set (the unpadded sampler: rank r takes items r, r + world, ...) and
+the shards' outputs merge through `gather_objects` before scoring, as in
+JAX (:188-204, :346-367, :417-439), so every rank computes the metrics of
+the whole set, and rank 0 alone writes the annotation and submission
+files. The port puts the merged items back in the set's order (JAX
+concatenates the shards), so the metrics are a one-process evaluation's
+also where they break ties by position (the ITM re-rank's floor scores).
 """
 
 from __future__ import annotations
@@ -43,14 +49,15 @@ from mico_tpu_torch.evaluation.metrics import (
 )
 from mico_tpu_torch.generation import generate, generate_answers
 from mico_tpu_torch.models.mico import MiCo
+from mico_tpu_torch.parallel.collectives import (gather_objects,
+                                                 process_count,
+                                                 process_index)
 from mico_tpu_torch.train.objectives import (
     compute_features,
     compute_slice_scores,
     compute_text_feature,
 )
 from mico_tpu_torch.utils.logger import LOGGER
-
-PARALLELISM = "not ported yet (ROADMAP.md, queue 1: parallelism)"
 
 
 def _subtasks(task: str):
@@ -62,17 +69,21 @@ def _host(x: torch.Tensor) -> np.ndarray:
     return x.float().cpu().numpy()
 
 
+def _item_order(counts) -> list:
+    """(shard, item) pairs of gathered shards in the set's order: shard r's
+    k-th item is the set's item r + k·world (the unpadded sampler)."""
+    world = len(counts)
+    return [sk for _, sk in sorted((r + k * world, (r, k))
+                                   for r, n in enumerate(counts)
+                                   for k in range(n))]
+
+
 class Evaluator:
     """Eval passes of one model: the model (`MiCo`) as it stands, its
     config and the tokenizer."""
 
     def __init__(self, cfg: MiCoConfig, model: MiCo, tokenizer,
                  run_cfg=None):
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                f"evaluation gathered across processes: {PARALLELISM}")
         if cfg.pipeline_stages > 1:
             # pipeline stages are a training-memory tool; one inference pass
             # gains nothing from them
@@ -151,6 +162,35 @@ class Evaluator:
                 text_masks.append(mask)
             txt2vis.extend(n_vis + j for j in local)
             n_vis += b
+        if process_count() > 1:
+            # every rank holds its shard of the gallery: gather all before
+            # scoring (the reference ddp_allgathers for the same reason,
+            # data/utils/distributed.py:133-149)
+            cat = (lambda xs: np.concatenate(xs) if xs else None)
+            shards = gather_objects(dict(
+                t=cat(feats_t), v={m: cat(c) for m, c in feats.items()},
+                txt2vis=np.asarray(txt2vis, np.int64), n_vis=n_vis,
+                conds=({m: torch.cat(cs).cpu() if cs else None
+                        for m, cs in conds.items()} if itm_rerank else None),
+                text_ids=cat(text_ids), text_masks=cat(text_masks)))
+            feats_t, txt2vis = [], []
+            feats = {m: [] for m in feats}
+            conds = {m: [] for m in feats} if itm_rerank else None
+            text_ids, text_masks = [], []
+            for j, (r, k) in enumerate(_item_order(
+                    [sh["n_vis"] for sh in shards])):
+                sh = shards[r]
+                texts = np.nonzero(sh["txt2vis"] == k)[0]
+                feats_t.append(sh["t"][texts])
+                txt2vis += [j] * len(texts)
+                if itm_rerank:
+                    text_ids.append(sh["text_ids"][texts])
+                    text_masks.append(sh["text_masks"][texts])
+                for m in feats:
+                    feats[m].append(sh["v"][m][k:k + 1])
+                    if itm_rerank:
+                        conds[m].append(sh["conds"][m][k:k + 1].to(
+                            self.device))
         results: Dict[str, float] = {}
         t = np.concatenate(feats_t)
         for m, chunks in feats.items():
@@ -239,6 +279,16 @@ class Evaluator:
             caps = tb.get("raw_captions")
             if caps is not None:
                 refs.extend([c if isinstance(c, list) else [c] for c in caps])
+        if process_count() > 1:
+            shards = gather_objects(dict(hyps=hyps, refs=refs, ids=ids))
+            order = _item_order([len(sh["ids"]) for sh in shards])
+            g = generate_nums if captioner_mode else 1
+            hyps = {s: [h for r, k in order
+                        for h in shards[r]["hyps"][s][k * g:(k + 1) * g]]
+                    for s in subs}
+            refs = ([shards[r]["refs"][k] for r, k in order]
+                    if any(sh["refs"] for sh in shards) else [])
+            ids = [shards[r]["ids"][k] for r, k in order]
         results: Dict[str, float] = {}
         if captioner_mode:
             for sub in subs:
@@ -246,7 +296,7 @@ class Evaluator:
                            for i in range(0, len(hyps[sub]), generate_nums)]
                 annotations.extend({"clip_id": i, f"{sub}_captions": g}
                                    for i, g in zip(ids, grouped))
-            if output_path:
+            if output_path and process_index() == 0:
                 with open(output_path, "w") as f:
                     json.dump(annotations, f)
             results["num_annotated"] = float(len(ids))
@@ -287,6 +337,17 @@ class Evaluator:
             answers.extend(batch.get("raw_answers", [None] * len(tb["ids"])))
             question_ids.extend(batch.get("question_ids_raw",
                                           batch.get("ids", [])))
+        if process_count() > 1:
+            shards = gather_objects(dict(preds=preds, answers=answers,
+                                         qids=question_ids))
+            order = _item_order([len(sh["answers"]) for sh in shards])
+            preds = {s: [shards[r]["preds"][s][k] for r, k in order]
+                     for s in subs}
+            answers = [shards[r]["answers"][k] for r, k in order]
+            qids = [sh["qids"] for sh in shards]
+            question_ids = ([qids[r][k] for r, k in order]
+                            if all(len(q) == len(sh["answers"]) for q, sh in
+                                   zip(qids, shards)) else sum(qids, []))
         results = {}
         scored = [a for a in answers if a is not None]
         for sub in subs:
@@ -298,9 +359,11 @@ class Evaluator:
             results["accuracy"] = float(np.mean(list(results.values())))
         if submission_path:
             sub0 = subs[0]
-            with open(submission_path, "w") as f:
-                json.dump([{"question_id": q, "answer": p}
-                           for q, p in zip(question_ids, preds[sub0])], f)
+            if process_index() == 0:
+                with open(submission_path, "w") as f:
+                    json.dump([{"question_id": q, "answer": p}
+                               for q, p in zip(question_ids, preds[sub0])],
+                              f)
             results["num_submitted"] = float(len(preds[sub0]))
         return results
 

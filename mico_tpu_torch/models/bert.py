@@ -32,6 +32,7 @@ from torch import nn
 from mico_tpu_torch.config import BertConfig
 from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops.attention import multi_head_attention
+from mico_tpu_torch.parallel.collectives import all_reduce_sum, data_axis_size
 from mico_tpu_torch.ops.layers import (
     draw_seeds,
     dropout,
@@ -236,14 +237,23 @@ def mlm_logits(model: Bert, sequence_output: torch.Tensor) -> torch.Tensor:
     return linear(x, hp.get("decoder_w"), hp.get("decoder_b"))
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
+             group=None) -> torch.Tensor:
     """Mean cross-entropy in fp32 over labels != -100, 0 when none
-    (bert.py:244-251; torch's ignore_index)."""
+    (bert.py:244-251; torch's ignore_index). The mean is over the batch's
+    valid tokens: under a process group (the data axis) over the global
+    batch's, so this rank's share is its summed NLL over the global count,
+    times the world (its mean over the ranks, which the data-parallel step
+    averages, is the global mean however the ranks' counts differ)."""
     valid = labels != -100
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, torch.where(valid, labels, 0).long()[..., None])
     nll = torch.where(valid, nll[..., 0], 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if group is not None:
+        count = all_reduce_sum(count, group)
+        return nll.sum() * data_axis_size(group) / count.clamp_min(1)
+    return nll.sum() / count.clamp_min(1)
 
 
 def bert_forward(
@@ -261,10 +271,12 @@ def bert_forward(
     remat: bool = False,
     with_logits: bool = False,
     train_rng: Optional[torch.Generator] = None,
+    data_group=None,
 ) -> BertOutput:
     """`BertForMaskedLM.forward` (bert.py:254-313): (loss, logits,
     sequence_output); the MLM head runs when labels are given or
-    with_logits. train_rng (a CPU generator) turns training dropout on."""
+    with_logits. train_rng (a CPU generator) turns training dropout on;
+    `data_group` counts the loss's tokens over the ranks (`mlm_loss`)."""
     self_bias = extended_attention_mask(attention_mask)
     cross_bias = None
     if encoder_hidden_states is not None and encoder_attention_mask is not None:
@@ -292,5 +304,5 @@ def bert_forward(
     if labels is not None or with_logits:
         logits = mlm_logits(model, seq)
         if labels is not None:
-            loss = mlm_loss(logits, labels)
+            loss = mlm_loss(logits, labels, data_group)
     return BertOutput(loss=loss, logits=logits, sequence_output=seq)

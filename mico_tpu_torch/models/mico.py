@@ -287,10 +287,12 @@ def forward_multimodal_encoder(
     position_ids: Optional[torch.Tensor] = None,
     train_rng: Optional[torch.Generator] = None,
     condition_row_index: Optional[torch.Tensor] = None,
+    data_group=None,
 ) -> BertOutput:
     """BERT over the text with cross-attention over `condition_feat` (no
-    encoder mask) and the MLM loss for `labels` (mico.py:240-266); BERT is
-    checkpointed per layer by `bert_checkpointing`, else `checkpointing`."""
+    encoder mask) and the MLM loss for `labels` (mico.py:240-266), its
+    tokens counted over `data_group`'s ranks; BERT is checkpointed per
+    layer by `bert_checkpointing`, else `checkpointing`."""
     cfg = model.cfg
     return bert_mod.bert_forward(
         model.bert, input_ids, attention_mask,
@@ -303,6 +305,7 @@ def forward_multimodal_encoder(
         remat=(cfg.checkpointing if cfg.bert_checkpointing is None
                else cfg.bert_checkpointing),
         train_rng=train_rng,
+        data_group=data_group,
     )
 
 

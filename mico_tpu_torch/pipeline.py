@@ -7,13 +7,24 @@ The reference pipeline (data/utils/pipeline.py:17-180):
     save and best-metric snapshots (CIDEr / accuracy / video_r1);
   - test: the evaluation registry once over the val loaders.
 
-On one card, eagerly: the LR schedule is set on the optimizer's groups
+Eagerly, a process a card: the LR schedule is set on the optimizer's groups
 before each update (`train/optim.py`), gradient accumulation is the
 optimizer's (`optax.MultiSteps`' semantics), and batches reach the card
 through the loader's CUDA prefetcher. The loop reads `run_cfg.valid_steps`
 as the JAX loop does (`create_train_dataloaders` sets it). An `scst%…`
 task takes `train/scst.py`'s step (with `run_cfg.scst_finetune_encoder`)
 and the batch's reference captions, `raw_captions`.
+
+Across processes (`mesh`, the data axis; one process a card) each rank
+loads its rows of the global batch and runs the data-parallel step
+(`make_train_step(mesh=, zero1=)`); the logged losses are the global
+batch's, the evaluations gather every rank's shard, so every rank agrees
+on "best", and rank 0 writes the checkpoints (every rank takes part in a
+save: ZeRO-1's moments are gathered). Each rank draws from its own
+generator (seed + rank). SCST does not train data-parallel: JAX builds
+its step without the mesh (pipeline.py:90-95) and reads the sampled
+tokens of the sharded global batch back to the host, which fails across
+processes, so the port raises for `scst%…` at more than one process.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ import torch
 from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.data.tokenize_collate import BatchTokenizer, device_batch
 from mico_tpu_torch.evaluation import Evaluator, evaluation_registry
+from mico_tpu_torch.parallel.collectives import process_index
+from mico_tpu_torch.parallel.mesh import Mesh
 from mico_tpu_torch.train.checkpoints import ModelSaver
 from mico_tpu_torch.train.scst import make_scst_step
 from mico_tpu_torch.train.train_step import make_train_step
@@ -39,17 +52,25 @@ def get_best_name(task: str) -> Optional[str]:
     return {"cap": "CIDEr", "qa": "accuracy", "ret": "video_r1"}.get(head)
 
 
+SCST_PARALLEL = ("scst tasks across processes: not ported (JAX's SCST "
+                 "step does not train data-parallel; ROADMAP.md, queue 1: "
+                 "parallelism)")
+
+
 def train(cfg: MiCoConfig, model, optimizer, meta_loader,
-          val_loaders: Dict, run_cfg, tokenizer, start_step: int = 0) -> dict:
+          val_loaders: Dict, run_cfg, tokenizer, start_step: int = 0,
+          mesh: Optional[Mesh] = None) -> dict:
     """Run the training loop on `model` in place (its device is the
     run's); → the run's record: per step the task, the loss values, the
     seconds waiting for data and in the step; per evaluation its metrics
-    and seconds; per save its seconds.
+    and seconds; per save its seconds; on the card the peak device memory.
 
     start_step: the global step to count from (the resumed checkpoint's,
     reference build_model.py:106-124), so periodic saves continue the
-    numbering."""
+    numbering. mesh: the data axis across processes (None: one process)."""
     device = next(model.parameters()).device
+    world = 1 if mesh is None else mesh.shape["data"]
+    zero1 = bool(run_cfg.get("zero1", False))
     num_steps = int(run_cfg.get("num_train_steps", 1000))
     valid_steps = int(run_cfg.get("valid_steps", num_steps))
     log_every = int(run_cfg.get("log_every", 50))
@@ -67,11 +88,15 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
     step_fns: Dict[str, callable] = {}
     meters: Dict[str, RunningMeter] = {}
     best_indicator: Dict[str, float] = {}
-    # the steps' draws: one CPU generator from the run's seed
-    generator = torch.Generator().manual_seed(int(run_cfg.get("seed", 0)))
+    # the steps' draws: one CPU generator from the run's seed, a stream of
+    # its own on each rank
+    generator = torch.Generator().manual_seed(
+        int(run_cfg.get("seed", 0)) + process_index())
     record = {"start_step": int(start_step), "steps": [], "evals": [],
               "saves": []}
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     global_step = int(start_step)
     t_start = time.perf_counter()
     loader = iter(meta_loader)
@@ -86,12 +111,15 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
             break
         task = name.split("--")[0]
         is_scst = task.startswith("scst")
+        if is_scst and world > 1:
+            raise NotImplementedError(SCST_PARALLEL)
         if task not in step_fns:
             step_fns[task] = (
                 make_scst_step(cfg, optimizer, task, tokenizer,
                                finetune_encoder=bool(run_cfg.get(
                                    "scst_finetune_encoder", False)))
-                if is_scst else make_train_step(cfg, optimizer, task))
+                if is_scst else make_train_step(cfg, optimizer, task,
+                                                mesh=mesh, zero1=zero1))
         t_step = time.perf_counter()
         tb = batch_tok(batch, task)
         arrays = device_batch(tb, device)
@@ -139,6 +167,8 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
                                 loader_name, best_indicator[loader_name])
             record["saves"].append(save)
     record["end_step"] = global_step
+    if device.type == "cuda":
+        record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return record
 
 

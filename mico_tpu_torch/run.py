@@ -6,16 +6,33 @@ The reference entry (data/run.py:13-63):
         [--pretrain_dir DIR] [--output_dir DIR] [--vocab FILE] \
         [--device cuda|cpu] [run_cfg.mode=testing] [k=v ...]
 
-get_args (layered JSON + k=v CLI overrides) → initialize (seeds, logging)
-→ dataloaders → model (resume > pretrain_dir > fresh init) → optimizer
-→ train() or test(). It runs on one CUDA card unless `--device cpu` is given,
-and raises without a card; multi-host runs, the mesh (`model_parallel`,
-`pipeline_stages` > 1) and ZeRO-1 are not ported.
+get_args (layered JSON + k=v CLI overrides) → initialize (the process
+group, seeds, logging) → dataloaders → model (resume > pretrain_dir > fresh
+init) → optimizer → train() or test(). It runs on one CUDA card unless
+`--device cpu` is given, and raises without a card.
+
+`run_cfg.multihost=true` runs one process a card, data-parallel over the
+default `torch.distributed` group (JAX's `jax.distributed.initialize`,
+run.py:45-80), joined one of two ways:
+  - under torchrun (`python -m torch.distributed.run --nproc_per_node N
+    -m mico_tpu_torch.run ...`), from its environment (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT);
+  - from JAX's keys `run_cfg.coordinator_address` (host:port, or a
+    `file://` path for a file rendezvous), `num_processes`, `process_id`
+    (the card: the process id modulo the visible cards).
+NCCL on the card (`cuda:LOCAL_RANK`), gloo with `--device cpu`.
+`run_cfg.zero1=true` splits the AdamW moments over the ranks (ZeRO-1).
+Host seeds are seed + rank (JAX's run.py:72); the model's initial weights
+are the seed's on every rank. Rank 0 alone writes `hps.json`, the log file,
+the checkpoints and `log/record.json` (the training run's record). Tensor
+and pipeline parallelism (`model_parallel`, `pipeline_stages` > 1) are not
+ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 import sys
@@ -28,6 +45,8 @@ from mico_tpu_torch.convert import mico_from_jax
 from mico_tpu_torch.data import (create_train_dataloaders,
                                  create_val_dataloaders)
 from mico_tpu_torch.models.mico import MiCo, resolve_device
+from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel.mesh import create_mesh
 from mico_tpu_torch.pipeline import test, train
 from mico_tpu_torch.text import BertWordPieceTokenizer
 from mico_tpu_torch.text.wordpiece import DEFAULT_VOCAB
@@ -42,21 +61,58 @@ from mico_tpu_torch.utils.config_io import dump_hps, load_layered_config
 from mico_tpu_torch.utils.logger import LOGGER, add_log_to_file
 
 PARALLELISM = "not ported yet (ROADMAP.md, queue 1: parallelism)"
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT")
 
 
-def initialize(run_cfg) -> None:
-    """Seeds and logging (reference data/utils/initialize.py:8-36)."""
+def init_process_group(run_cfg, device: torch.device) -> torch.device:
+    """Join the run's processes (reference data/utils/initialize.py:8-16);
+    → this process's device (`cuda:<local rank>` on the card)."""
+    keys = ("coordinator_address", "num_processes", "process_id")
+    if all(run_cfg.get(k) is not None for k in keys):
+        addr = str(run_cfg["coordinator_address"])
+        init = addr if "://" in addr else f"tcp://{addr}"
+        world, rank = int(run_cfg["num_processes"]), int(
+            run_cfg["process_id"])
+        # processes numbered host by host, one a visible card
+        local = (rank % torch.cuda.device_count() if device.type == "cuda"
+                 else 0)
+    elif all(k in os.environ for k in _TORCHRUN_ENV):
+        init = "env://"
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+        local = int(os.environ["LOCAL_RANK"])
+    else:
+        raise ValueError(
+            f"run_cfg.multihost needs torchrun's environment "
+            f"({', '.join(_TORCHRUN_ENV)}) or "
+            f"{', '.join('run_cfg.' + k for k in keys)}")
+    if device.type == "cuda":
+        device = torch.device("cuda", int(local))
+        torch.cuda.set_device(device)
+    kw = dict(device_id=device) if device.type == "cuda" else {}
+    torch.distributed.init_process_group(
+        "nccl" if device.type == "cuda" else "gloo", init_method=init,
+        world_size=world, rank=rank, **kw)
+    LOGGER.info("process %d of %d on %s", rank, world, device)
+    return device
+
+
+def initialize(run_cfg, device: torch.device) -> torch.device:
+    """The process group (`run_cfg.multihost`), seeds and logging
+    (reference data/utils/initialize.py:8-36); → this process's device."""
     if run_cfg.get("multihost"):
-        raise NotImplementedError(f"run_cfg.multihost: {PARALLELISM}")
-    seed = int(run_cfg.get("seed", 50))
+        device = init_process_group(run_cfg, device)
+    rank = collectives.process_index()
+    seed = int(run_cfg.get("seed", 50)) + rank
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
     out = run_cfg.get("output_dir")
-    if out:
+    if out and rank == 0:
         os.makedirs(os.path.join(out, "log"), exist_ok=True)
         os.makedirs(os.path.join(out, "ckpt"), exist_ok=True)
         add_log_to_file(os.path.join(out, "log", "log.txt"))
+    return device
 
 
 def get_args(argv=None):
@@ -86,8 +142,7 @@ def get_args(argv=None):
 
 def _unported(run_cfg) -> None:
     for key, bad in (("model_parallel", lambda v: int(v) > 1),
-                     ("pipeline_stages", lambda v: int(v) > 1),
-                     ("zero1", bool)):
+                     ("pipeline_stages", lambda v: int(v) > 1)):
         if key in run_cfg and bad(run_cfg[key]):
             raise NotImplementedError(
                 f"run_cfg.{key}={run_cfg[key]}: {PARALLELISM}")
@@ -115,14 +170,26 @@ def build_model(cfg, run_cfg, model_cfg, device, dtype):
 
 def main(argv=None):
     """→ in testing mode the evaluation logs; in training mode the run's
-    record (`pipeline.train`)."""
+    record (`pipeline.train`). A process group it started is destroyed
+    when it returns or raises."""
     args = get_args(argv)
-    run_cfg, model_cfg = args.run_cfg, args.model_cfg
+    run_cfg = args.run_cfg
     device = resolve_device(args["_device"])
     _unported(run_cfg)
-    initialize(run_cfg)
-    dump_hps({k: v for k, v in args.items() if not k.startswith("_")},
-             run_cfg["output_dir"])
+    try:
+        return _run(args, initialize(run_cfg, device))
+    finally:
+        if run_cfg.get("multihost") and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, device: torch.device):
+    run_cfg, model_cfg = args.run_cfg, args.model_cfg
+    mesh = create_mesh(data=-1, model=1)
+    LOGGER.info("mesh: %s", mesh.shape)
+    if collectives.process_index() == 0:
+        dump_hps({k: v for k, v in args.items() if not k.startswith("_")},
+                 run_cfg["output_dir"])
 
     vocab = args.get("_vocab") or run_cfg.get("vocab") or DEFAULT_VOCAB
     tokenizer = BertWordPieceTokenizer(vocab)
@@ -160,7 +227,8 @@ def main(argv=None):
         )
         optimizer = build_optimizer(
             model, opt_cfg,
-            accum_steps=int(run_cfg.get("gradient_accumulation_steps", 1)))
+            accum_steps=int(run_cfg.get("gradient_accumulation_steps", 1)),
+            group=mesh.group, zero1=bool(run_cfg.get("zero1", False)))
         if resume_step:
             # the moments, the update count (so the LR schedule continues)
             # and an open accumulation window of the resumed step
@@ -168,8 +236,14 @@ def main(argv=None):
                                   step=resume_step)
         if run_cfg.get("first_eval") and val_loaders:
             test(cfg, model, val_loaders, run_cfg, tokenizer)
-        return train(cfg, model, optimizer, meta_loader, val_loaders,
-                     run_cfg, tokenizer, start_step=resume_step)
+        record = train(cfg, model, optimizer, meta_loader, val_loaders,
+                       run_cfg, tokenizer, start_step=resume_step, mesh=mesh)
+        record["world"] = mesh.shape["data"]
+        if collectives.process_index() == 0:
+            with open(os.path.join(run_cfg["output_dir"], "log",
+                                   "record.json"), "w") as f:
+                json.dump(record, f, default=str)
+        return record
     if mode == "testing":
         logs = test(cfg, model, val_loaders, run_cfg, tokenizer)
         LOGGER.info("test results: %s", logs)

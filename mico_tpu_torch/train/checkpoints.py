@@ -15,6 +15,12 @@ snapshots, and resume from the newest committed step.
     when a save is killed.
   - The optimizer file is the port's own layout (AdamW's moments and step
     per parameter name, the update count, an open accumulation window).
+    Across processes every rank calls `save`, rank 0 alone writes: ZeRO-1's
+    slices of the moments are gathered leaf by leaf and an open window's
+    gradients averaged over the ranks, so the file is the one a
+    one-process run on the global batch writes, and it resumes at any
+    world size (each rank takes its slice as it loads). A barrier puts
+    every rank past the commit before the previous step is removed.
     The port also resumes the JAX package's `optimizer_step_N.npz`, whose
     leaves are the optax state's by position (`jax_optimizer_leaves`
     rebuilds their order from the parameter names); the JAX package cannot
@@ -45,6 +51,7 @@ import numpy as np
 import torch
 
 from mico_tpu_torch.config import MiCoConfig, mico_config_from_dict
+from mico_tpu_torch.parallel import collectives
 from mico_tpu_torch.utils.config_io import load_hps
 from mico_tpu_torch.utils.logger import LOGGER
 
@@ -422,14 +429,27 @@ class ModelSaver:
 
     def save(self, step: int, model, optimizer=None) -> None:
         """Write model_step_<step> (and optimizer_step_<step>), commit the
-        optimizer's file then the model's, then delete older steps."""
-        writes = [self._write(f"model_step_{step}.npz", model_leaves(model))]
+        optimizer's file then the model's, then delete older steps. Every
+        rank of a run calls it (the optimizer's leaves are gathered); rank
+        0 writes."""
+        writer = collectives.process_index() == 0
+        writes = []
+        if writer:
+            writes.append(self._write(f"model_step_{step}.npz",
+                                      model_leaves(model)))
         if optimizer is not None:
-            writes.append(self._write(f"optimizer_step_{step}.npz",
-                                      optimizer_leaves(optimizer)))
+            leaves = iter(optimizer_leaves(optimizer))
+            try:
+                if writer:
+                    writes.append(self._write(f"optimizer_step_{step}.npz",
+                                              leaves))
+            finally:
+                for _ in leaves:        # the other ranks' gathers
+                    pass
         for tmp, final in reversed(writes):
             _commit(tmp, final)
-        if self.remove_before_ckpt:
+        collectives.barrier()
+        if self.remove_before_ckpt and writer:
             for prefix in ("model", "optimizer"):
                 for p in glob.glob(os.path.join(self.ckpt_dir,
                                                 f"{prefix}_step_*.npz")):
@@ -440,26 +460,38 @@ class ModelSaver:
 
     def save_best(self, metric: str, model) -> None:
         """Best-metric snapshot (reference save.py:33-41), replaced in one
-        rename."""
-        _commit(*self._write(f"best_{metric}.npz", model_leaves(model)))
+        rename; rank 0 writes it."""
+        if collectives.process_index() == 0:
+            _commit(*self._write(f"best_{metric}.npz", model_leaves(model)))
+        collectives.barrier()
 
 
 def optimizer_leaves(optimizer):
-    """(key, rows, stacked) of the port's optimizer file: AdamW's state
-    per parameter name, the update count, and an open accumulation
-    window's summed gradients."""
-    leaves = [("__layout__", torch.tensor(list(_OPT_LAYOUT.encode()),
-                                          dtype=torch.uint8)),
-              ("count", torch.tensor(optimizer.count, dtype=torch.int64)),
-              ("mini_step", torch.tensor(optimizer.mini_step,
-                                         dtype=torch.int64))]
+    """(key, rows, stacked) of the port's optimizer file, one at a time:
+    AdamW's state per parameter name, the update count, and an open
+    accumulation window's summed gradients. Under a process group every
+    rank iterates it: ZeRO-1's slices are gathered whole and the window's
+    gradients averaged over the ranks as each leaf is reached."""
+    for key, v in (("__layout__", torch.tensor(list(_OPT_LAYOUT.encode()),
+                                               dtype=torch.uint8)),
+                   ("count", torch.tensor(optimizer.count,
+                                          dtype=torch.int64)),
+                   ("mini_step", torch.tensor(optimizer.mini_step,
+                                              dtype=torch.int64))):
+        yield key, [v], False
     state = optimizer.torch_optimizer.state
-    for name, p in zip(optimizer.names, optimizer.params):
-        for field, v in state.get(p, {}).items():
-            leaves.append((f"state/{name}/{field}", torch.as_tensor(v)))
+    group, world = optimizer.group, optimizer.world
+    for i, (name, p) in enumerate(zip(optimizer.names, optimizer.params)):
+        for field, v in state.get(optimizer.owned[i], {}).items():
+            v = torch.as_tensor(v)
+            if field != "step":
+                v = optimizer.gather(i, v)
+            yield f"state/{name}/{field}", [v], False
         if optimizer.mini_step and p.grad is not None:
-            leaves.append((f"grad/{name}", p.grad))
-    return [(key, [t], False) for key, t in leaves]
+            g = p.grad
+            if group is not None:
+                g = collectives.all_reduce_sum(g, group) / world
+            yield f"grad/{name}", [g], False
 
 
 # the groups of the JAX package's `build_optimizer` (train/optim.py:85-129)
@@ -545,7 +577,8 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
                 acc[name] = t
             else:
                 field = "exp_avg" if kind == "mu" else "exp_avg_sq"
-                state.setdefault(index[name], {})[field] = t
+                state.setdefault(index[name], {})[field] = _owned(
+                    optimizer, index[name], t)
     count = max(counts)
     for s in state.values():
         s["step"] = torch.tensor(float(count), dtype=torch.float32)
@@ -556,6 +589,12 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
     optimizer.mini_step = mini_step
     for name, p in params.items():
         p.grad = acc[name] * mini_step if mini_step and name in acc else None
+
+
+def _owned(optimizer, i: int, full: torch.Tensor) -> torch.Tensor:
+    """A file's whole moment of parameter i → the slice this rank keeps
+    (ZeRO-1), or the whole leaf."""
+    return optimizer.own(i, full).contiguous()
 
 
 def load_optimizer_npz(path: str, optimizer) -> None:
@@ -587,6 +626,8 @@ def load_optimizer_npz(path: str, optimizer) -> None:
             leaf = torch.from_numpy(z[key])
             if field != "step":
                 leaf = leaf.to(params[name].device, params[name].dtype)
+                if kind == "state":
+                    leaf = _owned(optimizer, index[name], leaf)
             if kind == "state":
                 state.setdefault(index[name], {})[field] = leaf
             else:

@@ -1,5 +1,5 @@
 """Training objectives: the VAST task engine (counterpart of
-`mico_tpu/train/objectives.py`), on one card.
+`mico_tpu/train/objectives.py`).
 
   - ITC (vast.py:394-417): similarity / temperature against the other
     side's detached features, label smoothing 0.1, symmetric CE.
@@ -10,11 +10,25 @@
   - QA (vast.py:557-611): part-causal mask, 99% answer masking.
 
 `compute_features` memoizes each tower in a per-step cache, so each
-encoder runs once per step however many subtasks read it. Only
-`axis_name=None` is supported: the cross-device gathers wait for the
-port's parallelism (ROADMAP.md, queue 1: parallelism). Randomness comes
+encoder runs once per step however many subtasks read it. Randomness comes
 from a CPU `torch.Generator` (`train_rng`); `Draws` hands recorded masks
 and negative indices to the steps that would draw them, in call order.
+
+`axis_name` is the data axis's process group (`parallel.mesh`; None on one
+process), and each rank holds its rows of the global batch. The losses are
+written so that their mean over the ranks, which the data-parallel step
+averages, is the one-process loss on the global batch (the JAX run path's
+step, `mico_tpu/train/train_step.py:81`):
+  - ITC: each side against the other side's features gathered from every
+    rank, detached as the one-process loss detaches them, the targets on
+    this rank's diagonal block;
+  - ITM: negatives drawn over the gathered rows (this rank's diagonal
+    zeroed), the condition features gathered WITH gradient, so a negative
+    drawn from another rank's rows sends its gradient home;
+  - CAP / QA: the MLM mean over the global batch's valid tokens
+    (`models.bert.mlm_loss`), not a mean of the ranks' means;
+  - injected `Draws` hold the global batch's rows; each rank takes its
+    own.
 """
 
 from __future__ import annotations
@@ -29,24 +43,29 @@ from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.models import mico as mico_mod
 from mico_tpu_torch.models.mico import MiCo
 from mico_tpu_torch.ops.layers import fork_generator, split_generator
+from mico_tpu_torch.parallel.collectives import (all_gather_concat,
+                                                 all_gather_no_grad,
+                                                 data_axis_index,
+                                                 data_axis_size)
 from mico_tpu_torch.train.masker import mask_tokens
 
-_DATA_PARALLEL = ("cross-device gathers (axis_name): not ported yet "
-                  "(ROADMAP.md, queue 1: parallelism)")
 
 @dataclass
 class Draws:
     """Recorded draws, consumed in call order: `masks` holds one (masked
     ids, labels) pair per `mask_tokens` call, `negatives` one (condition,
-    text) pair of negative indices per ITM pass."""
+    text) pair of negative indices per ITM pass. Each holds the global
+    batch's rows (the negatives index the gathered rows); `take` gives
+    this rank's."""
 
     masks: List = field(default_factory=list)
     negatives: List = field(default_factory=list)
 
-
-def _single_device(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(_DATA_PARALLEL)
+    def take(self, kind: str, group=None):
+        n = data_axis_size(group)
+        r = data_axis_index(group)
+        return tuple(x[r * (x.shape[0] // n):(r + 1) * (x.shape[0] // n)]
+                     for x in getattr(self, kind).pop(0))
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -160,15 +179,18 @@ def _smoothed_ce(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def itc_loss(feat_cond: torch.Tensor, feat_t: torch.Tensor,
-             temp: torch.Tensor, axis_name: Optional[str] = None,
+             temp: torch.Tensor, axis_name=None,
              label_smoothing: float = 0.1):
     """Symmetric InfoNCE; each side's negatives are the other side's
-    detached features (`all_gather_no_grad`). → (loss, sim_t2cond,
-    sim_cond2t), the sims reused by ITM's negative sampling."""
-    _single_device(axis_name)
-    sim_cond2t = (feat_cond @ feat_t.detach().T) / temp
-    sim_t2cond = (feat_t @ feat_cond.detach().T) / temp
-    targets = torch.arange(feat_t.shape[0], device=feat_t.device)
+    detached features, gathered from every rank (`all_gather_no_grad`:
+    the one-process loss on the global batch detaches them too, so the
+    gather needs no gradient). → (loss, sim_t2cond, sim_cond2t), the sims
+    (b, world·b) reused by ITM's negative sampling."""
+    sim_cond2t = (feat_cond @ all_gather_no_grad(feat_t, axis_name).T) / temp
+    sim_t2cond = (feat_t @ all_gather_no_grad(feat_cond, axis_name).T) / temp
+    bs = feat_t.shape[0]
+    targets = data_axis_index(axis_name) * bs + torch.arange(
+        bs, device=feat_t.device)
     loss = 0.5 * (_smoothed_ce(sim_cond2t, targets, label_smoothing)
                   + _smoothed_ce(sim_t2cond, targets, label_smoothing))
     return loss, sim_t2cond, sim_cond2t
@@ -179,52 +201,60 @@ def itc_loss(feat_cond: torch.Tensor, feat_t: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _negatives(sim: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One index per row from softmax(sim) + 1e-4 with the diagonal zeroed
-    (vast.py:429-436). Non-finite weights (a diverged step) draw uniformly:
-    the step's finiteness check then reports the loss, rather than the
-    sampler failing on the device."""
+def _negatives(sim: torch.Tensor, generator: torch.Generator,
+               offset: int = 0) -> torch.Tensor:
+    """One index per row from softmax(sim) + 1e-4 with the diagonal (this
+    rank's rows start at column `offset`) zeroed (vast.py:429-436).
+    Non-finite weights (a diverged step) draw uniformly: the step's
+    finiteness check then reports the loss, rather than the sampler
+    failing on the device."""
     w = torch.softmax(sim.detach().float(), dim=1) + 1e-4
     w = torch.where(torch.isfinite(w), w, 1.0)
-    w = w.masked_fill(torch.eye(*w.shape, dtype=torch.bool, device=w.device),
-                      0.0)
+    rows = torch.arange(w.shape[0], device=w.device)
+    w[rows, rows + offset] = 0.0
     return torch.multinomial(w, 1, generator=generator)[:, 0]
 
 
 def itm_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
              input_ids: torch.Tensor, attention_mask: torch.Tensor,
              sim_t2cond: torch.Tensor, sim_cond2t: torch.Tensor,
-             axis_name: Optional[str] = None,
+             axis_name=None,
              train_rng: Optional[torch.Generator] = None,
              dedup_cross_kv: bool = False,
              negatives=None) -> torch.Tensor:
     """Hard-negative ITM (vast.py:419-457). `negatives`: recorded
-    (condition, text) index tensors in place of the draws from train_rng.
-    dedup_cross_kv projects the cross-K/V once per unique condition row
-    (`kv_index`): the same math, off by default as JAX's
-    ITM_DEDUP_CROSS_KV."""
-    _single_device(axis_name)
+    (condition, text) index tensors into the gathered rows, in place of
+    the draws from train_rng. dedup_cross_kv projects the cross-K/V once
+    per unique condition row (`kv_index`): the same math, off by default
+    as JAX's ITM_DEDUP_CROSS_KV."""
     bs = input_ids.shape[0]
     k_neg, k_drop = split_generator(train_rng, 2)
     if negatives is None:
         if train_rng is None:
             raise ValueError("itm_loss draws its negatives from train_rng")
         gen = fork_generator(k_neg, condition_feats.device)
-        neg_cond, neg_text = _negatives(sim_t2cond, gen), _negatives(
-            sim_cond2t, gen)
+        offset = data_axis_index(axis_name) * bs
+        neg_cond, neg_text = (_negatives(sim_t2cond, gen, offset),
+                              _negatives(sim_cond2t, gen, offset))
     else:
         neg_cond, neg_text = (x.to(condition_feats.device, torch.long)
                               for x in negatives)
-    ids_3 = torch.cat([input_ids, input_ids, input_ids[neg_text]])
-    mask_3 = torch.cat([attention_mask, attention_mask,
-                        attention_mask[neg_text]])
-    if dedup_cross_kv:
-        pos = torch.arange(bs, device=neg_cond.device)
+    cond_neg = all_gather_concat(condition_feats, axis_name)[neg_cond]
+    ids_all = all_gather_no_grad(input_ids, axis_name)
+    mask_all = all_gather_no_grad(attention_mask, axis_name)
+    ids_3 = torch.cat([input_ids, input_ids, ids_all[neg_text]])
+    mask_3 = torch.cat([attention_mask, attention_mask, mask_all[neg_text]])
+    pos = torch.arange(bs, device=neg_cond.device)
+    if not dedup_cross_kv:
+        cond_u = torch.cat([condition_feats, cond_neg, condition_feats])
+        row_idx = None
+    elif axis_name is None:
+        # negatives are drawn from the local rows: b unique conditions
         cond_u, row_idx = condition_feats, torch.cat([pos, neg_cond, pos])
     else:
-        cond_u = torch.cat([condition_feats, condition_feats[neg_cond],
-                            condition_feats])
-        row_idx = None
+        # negatives may come from other ranks: 2b unique conditions
+        cond_u = torch.cat([condition_feats, cond_neg])
+        row_idx = torch.cat([pos, bs + pos, pos])
     seq = mico_mod.forward_multimodal_encoder(
         model, ids_3, mask_3, cond_u, train_rng=k_drop,
         condition_row_index=row_idx).sequence_output
@@ -274,7 +304,8 @@ def part_causal_3d_mask(question_mask: torch.Tensor,
 def caption_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
                  input_ids: torch.Tensor, attention_mask: torch.Tensor,
                  train_rng: Optional[torch.Generator] = None,
-                 mask_prob: float = 0.6, masked=None) -> torch.Tensor:
+                 mask_prob: float = 0.6, masked=None,
+                 axis_name=None) -> torch.Tensor:
     """Masked captioning under the causal mask. `masked`: recorded (masked
     ids, labels) in place of mask_tokens' draws."""
     k_mask, k_drop = split_generator(train_rng, 2)
@@ -283,14 +314,15 @@ def caption_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
         range_end=cfg.bert_config.vocab_size, drawn=masked)
     return mico_mod.forward_multimodal_encoder(
         model, masked_ids, causal_3d_mask(attention_mask), condition_feats,
-        labels=labels, train_rng=k_drop).loss
+        labels=labels, train_rng=k_drop, data_group=axis_name).loss
 
 
 def qa_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
             question_ids: torch.Tensor, question_mask: torch.Tensor,
             answer_ids: torch.Tensor, answer_mask: torch.Tensor,
             train_rng: Optional[torch.Generator] = None,
-            mask_prob: float = 0.99, masked=None) -> torch.Tensor:
+            mask_prob: float = 0.99, masked=None,
+            axis_name=None) -> torch.Tensor:
     k_mask, k_drop = split_generator(train_rng, 2)
     masked_ans, ans_labels = mask_tokens(
         answer_ids, mask_prob, k_mask,
@@ -300,7 +332,8 @@ def qa_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
                         ans_labels], dim=1)
     return mico_mod.forward_multimodal_encoder(
         model, ids, part_causal_3d_mask(question_mask, answer_mask),
-        condition_feats, labels=labels, train_rng=k_drop).loss
+        condition_feats, labels=labels, train_rng=k_drop,
+        data_group=axis_name).loss
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +343,13 @@ def qa_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
 
 def task_losses(model: MiCo, cfg: MiCoConfig, batch: Dict[str, torch.Tensor],
                 task: str, train_rng: Optional[torch.Generator],
-                axis_name: Optional[str] = None,
+                axis_name=None,
                 draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
     """task: the reference grammar, e.g. 'ret%tva_cap%tva' or 'qa%tv'
-    (vast.py:317-371). Returns the loss dict. Each tower runs once per call
-    (one feature cache for every group). Every stochastic step draws from
-    `train_rng` in turn."""
-    _single_device(axis_name)
+    (vast.py:317-371). Returns the loss dict: this rank's share under a
+    process group `axis_name` (their mean over the ranks is the global
+    batch's loss). Each tower runs once per call (one feature cache for
+    every group). Every stochastic step draws from `train_rng` in turn."""
     losses: Dict[str, torch.Tensor] = {}
     feat_cache: dict = {}
     for sub in task.split("_"):
@@ -344,7 +377,8 @@ def task_losses(model: MiCo, cfg: MiCoConfig, batch: Dict[str, torch.Tensor],
                 itm.append(cfg.itm_ratio * itm_loss(
                     model, cfg, feats[f"condition_feats_{mods}"], cap_ids,
                     cap_mask, s_t2c, s_c2t, axis_name, train_rng=train_rng,
-                    negatives=draws.negatives.pop(0) if draws else None))
+                    negatives=draws.take("negatives", axis_name)
+                    if draws else None))
             losses["loss_itc"] = sum(itc) / len(itc)
             losses["loss_itm"] = sum(itm) / len(itm)
         elif kind == "cap":
@@ -354,7 +388,8 @@ def task_losses(model: MiCo, cfg: MiCoConfig, batch: Dict[str, torch.Tensor],
                 caps.append(caption_loss(
                     model, cfg, feats[f"condition_feats_{g[1:]}"], cap_ids,
                     cap_mask, train_rng=train_rng,
-                    masked=draws.masks.pop(0) if draws else None))
+                    masked=draws.take("masks", axis_name) if draws else None,
+                    axis_name=axis_name))
             losses["loss_cap"] = sum(caps) / len(caps)
         elif kind == "qa":
             qas = []
@@ -364,7 +399,8 @@ def task_losses(model: MiCo, cfg: MiCoConfig, batch: Dict[str, torch.Tensor],
                     batch["question_ids"], batch["question_mask"],
                     batch["answer_ids"], batch["answer_mask"],
                     train_rng=train_rng,
-                    masked=draws.masks.pop(0) if draws else None))
+                    masked=draws.take("masks", axis_name) if draws else None,
+                    axis_name=axis_name))
             losses["loss_qa"] = sum(qas) / len(qas)
         else:
             raise ValueError(f"unknown task {kind}")

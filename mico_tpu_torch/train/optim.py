@@ -24,6 +24,24 @@ defaults:
     counts updates.
 On the card the update runs as torch's fused AdamW (one multi-tensor
 kernel, the same rule).
+
+Across processes (`group`, the data axis of `parallel.mesh`) the update is
+the one-process update on the global batch (`mico_tpu/train/train_step.py`
+computes the losses on the global batch, and its tests hold the
+data-parallel step to the single-device one):
+  - each rank's backward sums into its own gradients; at the last call of
+    an accumulation window (and only there) they are averaged over the
+    ranks and the window, so the inner micro-steps run no collective;
+  - `zero1`: the ZeRO-1 split of `parallel.partition.zero1_split_spec`.
+    Each rank owns one slice of every leaf that rule splits (the AdamW
+    steps it, with its moments: 1/world of them a rank) and receives its
+    gradient by reduce-scatter, not by an all-reduce and a slice (half the
+    collective bytes, JAX's constraint at train_step.py:53-61), after
+    which the whole gradient is freed; leaves the rule leaves whole are
+    all-reduced and updated on every rank; after the update the slices
+    are all-gathered into the parameters. The clip's norm is the global
+    one: the squared norms of the owned slices summed over the ranks, plus
+    the whole leaves'.
 """
 
 from __future__ import annotations
@@ -34,7 +52,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel.partition import zero1_split_dim
 from mico_tpu_torch.train.sched import lr_schedule_ratio
+
+# elements of whole leaves one collective of the data-parallel step takes
+BUCKET_ELEMENTS = 1 << 25
 
 
 @dataclass(frozen=True)
@@ -92,10 +115,14 @@ class Optimizer:
     and `accumulate()` updates on the k-th with their mean."""
 
     def __init__(self, model: nn.Module, cfg: OptimConfig = OptimConfig(),
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, group=None, zero1: bool = False):
         self.cfg = cfg
         self.accum_steps = int(accum_steps)
         self.mini_step = 0
+        self.group = group
+        self.world = collectives.data_axis_size(group)
+        self.rank = collectives.data_axis_index(group)
+        self.zero1 = bool(zero1)
         self.labels = param_group_labels(model, cfg.new_params_name,
                                          cfg.frozen_prefixes)
         # every parameter's name (frozen ones too) and the model's config:
@@ -115,9 +142,22 @@ class Optimizer:
         # in torch's order of the state: group by group
         self.params = [p for ps in groups.values() for p in ps]
         self.names = [n for ns in names.values() for n in ns]
+        # ZeRO-1: the dimension each leaf splits over the ranks (None: the
+        # leaf stays whole), and the tensor the AdamW steps for it: the
+        # parameter itself, or this rank's slice of it (a view into the
+        # parameter where the slice is contiguous, a dimension-0 split;
+        # else a contiguous copy)
+        self.split_dims = [zero1_split_dim(p.shape, self.world)
+                           if self.zero1 else None for p in self.params]
+        self.owned = []
+        for i, (p, d) in enumerate(zip(self.params, self.split_dims)):
+            part = p if d is None else self.own(i, p.detach())
+            self.owned.append(part if part.is_contiguous() else part.clone(
+                memory_format=torch.contiguous_format))
+        owned = iter(self.owned)
         fused = all(p.is_cuda for p in self.params)
         self.torch_optimizer = torch.optim.AdamW(
-            [dict(params=ps, name=label, lr=0.0,
+            [dict(params=[next(owned) for _ in ps], name=label, lr=0.0,
                   init_lr=init_lr[label.split("_")[0]],
                   weight_decay=0.0 if label.endswith("_nd")
                   else cfg.weight_decay)
@@ -125,17 +165,125 @@ class Optimizer:
             lr=0.0, betas=cfg.betas, eps=cfg.eps, fused=fused or None)
         self.count = 0
 
-    def zero_grad(self) -> None:
-        self.torch_optimizer.zero_grad(set_to_none=True)
+    def own(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a tensor shaped as parameter i (a view; the
+        tensor itself when the leaf stays whole)."""
+        d = self.split_dims[i]
+        if d is None:
+            return full
+        return full.chunk(self.world, d)[self.rank]
+
+    def gather(self, i: int, part: torch.Tensor) -> torch.Tensor:
+        """The whole of a tensor shaped as parameter i's owned slice, its
+        slices gathered from every rank (collective under ZeRO-1)."""
+        d = self.split_dims[i]
+        if d is None:
+            return part
+        whole = collectives.all_gather_tensor(
+            part.movedim(d, 0).contiguous(), self.group)
+        return whole.movedim(0, d)
+
+    def _rows(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """A tensor shaped as parameter i (or its owned slice) with the
+        split dimension first: rank r's slice is its r-th block of rows."""
+        return t.movedim(self.split_dims[i], 0)
+
+    def _buckets(self, idx):
+        """Runs of the parameter indices `idx`, one dtype a run, each at
+        most BUCKET_ELEMENTS of whole leaves (or one larger leaf)."""
+        by_dtype: Dict[torch.dtype, list] = {}
+        for i in idx:
+            by_dtype.setdefault(self.params[i].dtype, []).append(i)
+        for ids in by_dtype.values():
+            bucket, n = [], 0
+            for i in ids:
+                k = self.params[i].numel()
+                if bucket and n + k > BUCKET_ELEMENTS:
+                    yield bucket
+                    bucket, n = [], 0
+                bucket.append(i)
+                n += k
+            if bucket:
+                yield bucket
+
+    def _all_reduce(self, idx) -> None:
+        """Sum the whole gradients of parameters `idx` over the ranks, a
+        flat bucket a collective."""
+        for b in self._buckets(idx):
+            grads = [self.params[i].grad for i in b]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            torch.distributed.all_reduce(flat, group=self.group)
+            torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(
+                flat.split([g.numel() for g in grads]), grads)])
+
+    def _reduce_scatter(self, idx) -> None:
+        """Each split leaf's gradient summed over the ranks into this
+        rank's slice (the owned tensor's `.grad`, in its layout: fused
+        AdamW takes no other strides); the whole gradient is freed. A
+        bucket is one (world, n) matrix whose row r holds rank r's slices."""
+        for b in self._buckets(idx):
+            rows = torch.cat([self._rows(i, self.params[i].grad).reshape(
+                self.world, -1) for i in b], dim=1)
+            part = collectives.reduce_scatter_tensor(rows.reshape(-1),
+                                                     self.group)
+            for i, piece in zip(b, part.split([self.owned[i].numel()
+                                               for i in b])):
+                o = self.owned[i]
+                o.grad = piece.view(self._rows(i, o).shape).movedim(
+                    0, self.split_dims[i]).contiguous()
+                self.params[i].grad = None
+
+    def _all_gather(self, idx) -> None:
+        """The updated slices of split leaves `idx` gathered from every
+        rank into the parameters, a flat bucket a collective."""
+        for b in self._buckets(idx):
+            flat = torch.cat([self._rows(i, self.owned[i]).reshape(-1)
+                              for i in b])
+            whole = collectives.all_gather_tensor(flat, self.group).view(
+                self.world, -1)
+            for i, cols in zip(b, whole.split([self.owned[i].numel()
+                                                for i in b], dim=1)):
+                p = self.params[i]
+                p.copy_(cols.reshape(self._rows(i, p).shape).movedim(
+                    0, self.split_dims[i]))
+
+    def sync_grads(self) -> None:
+        """The window's summed gradients → their mean over the window and
+        the ranks, in the owned tensors' `.grad` (the parameters' own for
+        whole leaves). A parameter no loss reached takes a zero gradient
+        (JAX's dense gradients)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        scale = 1.0 / (self.accum_steps * self.world)
+        if self.group is not None:
+            self._all_reduce([i for i, d in enumerate(self.split_dims)
+                              if d is None])
+            self._reduce_scatter([i for i, d in enumerate(self.split_dims)
+                                  if d is not None])
+        if scale != 1.0:
+            torch._foreach_mul_([o.grad for o in self.owned], scale)
 
     def clip_(self) -> torch.Tensor:
         """Scale the gradients to global norm `grad_norm` when they exceed
         it; returns the norm before clipping (fp32, on the device)."""
-        for p in self.params:
+        for p in self.owned:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
-        norm = torch.nn.utils.get_total_norm(grads, 2.0)
+        grads = [p.grad for p in self.owned]
+        if any(d is not None for d in self.split_dims):
+            parts = [g for g, d in zip(grads, self.split_dims)
+                     if d is not None]
+            whole = [g for g, d in zip(grads, self.split_dims) if d is None]
+            sq = collectives.all_reduce_sum(
+                torch.nn.utils.get_total_norm(parts, 2.0).float() ** 2,
+                self.group)
+            if whole:
+                sq = sq + torch.nn.utils.get_total_norm(
+                    whole, 2.0).float() ** 2
+            norm = sq.sqrt()
+        else:
+            norm = torch.nn.utils.get_total_norm(grads, 2.0)
         limit = self.cfg.grad_norm
         scale = torch.where(norm < limit, 1.0, limit / norm)
         torch._foreach_mul_(grads, scale.to(grads[0].dtype))
@@ -152,18 +300,24 @@ class Optimizer:
             group["lr"] = group["init_lr"] * ratio
         self.torch_optimizer.step()
         self.count += 1
+        with torch.no_grad():
+            self._all_gather([i for i, d in enumerate(self.split_dims)
+                              if d is not None])
+
+    def zero_grad(self) -> None:
+        self.torch_optimizer.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     def accumulate(self) -> Optional[torch.Tensor]:
-        """After a backward: count it in the window; on its k-th, scale
-        the summed gradients to their mean, clip, update and close the
-        window (the next step's `zero_grad` clears them).
+        """After a backward: count it in the window; on its k-th, average
+        the summed gradients over the window (and the ranks), clip, update
+        and close the window (the next step's `zero_grad` clears them).
         → the norm before clipping when it updated, else None."""
         self.mini_step += 1
         if self.mini_step < self.accum_steps:
             return None
-        if self.accum_steps > 1:
-            grads = [p.grad for p in self.params if p.grad is not None]
-            torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+        self.sync_grads()
         norm = self.clip_()
         self.step()
         self.mini_step = 0
@@ -171,7 +325,9 @@ class Optimizer:
 
 
 def build_optimizer(model: nn.Module, cfg: OptimConfig = OptimConfig(),
-                    accum_steps: int = 1) -> Optimizer:
+                    accum_steps: int = 1, group=None,
+                    zero1: bool = False) -> Optimizer:
     """The training entry: turns `requires_grad` on for every parameter
-    outside `frozen_prefixes` and returns their optimizer."""
-    return Optimizer(model, cfg, accum_steps)
+    outside `frozen_prefixes` and returns their optimizer (over the ranks
+    of `group`, its state split by ZeRO-1 when `zero1`)."""
+    return Optimizer(model, cfg, accum_steps, group=group, zero1=zero1)

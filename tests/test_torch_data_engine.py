@@ -439,8 +439,8 @@ def test_world_refuses_process_groups():
     torch.distributed.init_process_group(
         "gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
     try:
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            _world()
+        # the default group's (world, rank): this process alone
+        assert _world() == (1, 0)
     finally:
         torch.distributed.destroy_process_group()
 

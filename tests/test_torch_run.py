@@ -395,7 +395,7 @@ def test_caption_generation_config_testing_mode(corpus, tmp_path):
                                      for a in ann)
 
 
-def test_refusals(corpus, tmp_path):
+def test_refusals(corpus, tmp_path, monkeypatch):
     root, cfg_path = corpus
     base = ["--config", str(cfg_path), "--output_dir", str(tmp_path)]
     if not torch.cuda.is_available():
@@ -404,8 +404,12 @@ def test_refusals(corpus, tmp_path):
     cpu = base + ["--device", "cpu"]
     for over, match in (("run_cfg.model_parallel=2", "parallelism"),
                         ("run_cfg.pipeline_stages=2", "parallelism"),
-                        ("run_cfg.zero1=true", "parallelism"),
-                        ("run_cfg.multihost=true", "parallelism"),
                         ("run_cfg.checkpoint_backend=orbax", "orbax")):
         with pytest.raises(NotImplementedError, match=match):
             trun.main(cpu + [over])
+    # a multi-process run needs torchrun's environment or JAX's keys
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="torchrun's environment"):
+        trun.main(cpu + ["run_cfg.multihost=true"])

@@ -28,7 +28,7 @@ from mico_tpu_torch.train import masker, objectives, optim, sched
 from mico_tpu_torch.train.train_step import make_train_step
 
 from torch_port_common import MODEL_TOL, OP_TOL, close, configs, \
-    no_launch, perturbed_params, port_model, t, to_numpy
+    no_launch, perturbed_params, port_model, replace, t, to_numpy
 
 NO_DROPOUT = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 
@@ -398,11 +398,13 @@ def test_train_step_raises_on_non_finite_loss():
         step(model, batch, torch.Generator().manual_seed(0))
     assert opt.count == 0
     assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
-    with pytest.raises(NotImplementedError, match="queue 1: parallelism"):
+    # the step's ZeRO-1 flag must be the optimizer's state layout
+    with pytest.raises(ValueError, match="zero1"):
         make_train_step(tcfg, opt, "ret%tv", zero1=True)
+    # sequence parallelism over the condition tokens is not ported
     with pytest.raises(NotImplementedError, match="queue 1: parallelism"):
-        objectives.itc_loss(torch.ones(2, 4), torch.ones(2, 4),
-                            torch.tensor(1.0), axis_name="data")
+        objectives.compute_features(
+            model, replace(tcfg, shard_condition_sequence=True), batch, "v")
 
 
 def test_causal_masks_match_jax():

@@ -1,0 +1,181 @@
+"""Multi-process set-up of the port's data-parallel CPU tests: gloo ranks
+spawned once per test module, joined through a `FileStore` file under the
+test's temporary directory (no port, so pytest-xdist workers cannot
+collide), and the functions those ranks run. This module imports torch and
+the port only: the spawned ranks never import JAX.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import queue
+import traceback
+from datetime import timedelta
+
+import numpy as np
+
+RANK_TIMEOUT_S = 240
+
+
+def _rank_main(fn, rank, world, store, out, args):
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=world, rank=rank,
+                                timeout=timedelta(seconds=RANK_TIMEOUT_S))
+        out.put((rank, True, fn(rank, world, *args)))
+    except BaseException:  # noqa: BLE001 — reported by the parent
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp_dir, *args) -> list:
+    """fn(rank, world, *args) on `world` spawned gloo ranks; → their
+    results in rank order. A rank that raises fails the call with its
+    traceback."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    store = os.path.join(str(tmp_dir), "rendezvous")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, world, store, out, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in range(world):
+            rank, ok, value = out.get(timeout=RANK_TIMEOUT_S)
+            (results.__setitem__(rank, value) if ok
+             else errors.append(f"rank {rank}:\n{value}"))
+            if errors:
+                break
+    except queue.Empty:
+        errors.append(f"ranks {sorted(set(range(world)) - set(results))} "
+                      f"gave no result in {RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=5 if errors else RANK_TIMEOUT_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def rows(x: np.ndarray, rank: int, world: int) -> np.ndarray:
+    """This rank's rows of a global batch."""
+    n = x.shape[0] // world
+    return x[rank * n:(rank + 1) * n]
+
+
+# ---------------------------------------------------------------------------
+# the ranks' work
+# ---------------------------------------------------------------------------
+
+
+def collective_checks(rank: int, world: int, x: np.ndarray, w: np.ndarray,
+                      variable: list, wv: np.ndarray) -> dict:
+    """Each collective of `mico_tpu_torch.parallel` on this rank's rows of
+    x, with the gradient of sum(gathered * w[rank]) through the gather;
+    `gather_variable_batch` once for each entry of `variable` (the ranks'
+    row counts: rank r takes x's next sizes[r] rows), with the gradient of
+    sum(gathered * wv[rank])."""
+    import torch
+    import torch.distributed as dist
+
+    from mico_tpu_torch.parallel import collectives as c
+    from mico_tpu_torch.parallel import mesh as m
+
+    g = dist.group.WORLD
+    out = {"index": c.data_axis_index(g), "size": c.data_axis_size(g),
+           "none": (c.data_axis_index(None), c.data_axis_size(None))}
+    xr = torch.from_numpy(rows(x, rank, world).copy()).requires_grad_(True)
+    gathered = c.all_gather_concat(xr, g)
+    (gathered * torch.from_numpy(w[rank])).sum().backward()
+    out["gather"] = gathered.detach().numpy()
+    out["gather_grad"] = xr.grad.numpy()
+    no_grad = c.all_gather_no_grad(xr, g)
+    out["no_grad"] = (no_grad.numpy(), no_grad.requires_grad)
+    out["reduce_scatter"] = c.reduce_scatter_tensor(
+        torch.from_numpy(x * (rank + 1)), g).numpy()
+    out["all_reduce"] = c.all_reduce_sum(torch.from_numpy(x[rank]), g).numpy()
+    out["variable"] = []
+    for sizes in variable:
+        b, start = sizes[rank], sum(sizes[:rank])
+        xv = torch.from_numpy(x[start:start + b].copy()).requires_grad_(True)
+        gv, valid = c.gather_variable_batch(xv, g, max(sizes))
+        (gv * torch.from_numpy(wv[rank][:world * max(sizes)])).sum().backward()
+        out["variable"].append((gv.detach().numpy(), valid.numpy(),
+                                xv.grad.numpy()))
+    out["objects"] = c.gather_objects({"rank": rank,
+                                       "arr": np.arange(rank + 2)})
+    out["broadcast"] = c.broadcast_object(
+        {"from": rank, "payload": list(range(3 * (rank + 1)))})
+    out["allgather"] = c.process_allgather(np.array([rank, 2 * rank]))
+    mesh = m.create_mesh()
+    out["mesh"] = (mesh.shape, mesh.rank, mesh.group is g)
+    try:
+        m.create_mesh(model=2)
+        out["model_parallel"] = None
+    except NotImplementedError as e:
+        out["model_parallel"] = str(e)
+    return out
+
+
+def dp_steps(rank: int, world: int, cases: list) -> list:
+    """Each case's updates on this rank: the port model from the case's
+    JAX params, `build_optimizer(group=, zero1=)` and `make_train_step`
+    over the world, this rank's rows of each global batch and the global
+    draws. → per case the global losses of every call, the parameters
+    after the last, and the moments' element counts."""
+    import torch
+    import torch.distributed as dist
+
+    from mico_tpu_torch.convert import mico_from_jax
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.train.objectives import Draws
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mico_tpu_torch.train.train_step import make_train_step
+
+    mesh = create_mesh()
+    results = []
+    for case in cases:
+        model = mico_from_jax(case["params"], case["tcfg"], device="cpu")
+        opt = build_optimizer(model, OptimConfig(**case["oc"]),
+                              accum_steps=case["accum"], group=mesh.group,
+                              zero1=case["zero1"])
+        step = make_train_step(case["tcfg"], opt, case["task"], mesh=mesh,
+                               zero1=case["zero1"])
+        losses = []
+        for i, (batch, masks, negatives) in enumerate(case["calls"]):
+            local = {k: torch.from_numpy(rows(v, rank, world).copy())
+                     for k, v in batch.items()}
+            local = {k: v if v.is_floating_point() else v.long()
+                     for k, v in local.items()}
+            draws = Draws(
+                masks=[tuple(torch.from_numpy(a) for a in p) for p in masks],
+                negatives=[tuple(torch.from_numpy(a) for a in p)
+                           for p in negatives])
+            got = step(model, local, torch.Generator().manual_seed(
+                100 * rank + i), draws=draws)
+            assert not draws.masks and not draws.negatives
+            losses.append({k: v.item() for k, v in got.items()})
+        state = opt.torch_optimizer.state
+        moments = sum(state[o]["exp_avg"].numel() for o in opt.owned)
+        results.append(dict(
+            losses=losses,
+            params={k: v.detach().numpy().copy()
+                    for k, v in model.named_parameters()},
+            moment_numel=moments,
+            param_numel=sum(p.numel() for p in opt.params),
+            split=sum(d is not None for d in opt.split_dims),
+            leaves=len(opt.split_dims),
+            world=dist.get_world_size()))
+    return results
