@@ -542,12 +542,13 @@ def k1_library(x, g, b0, w, bias, nh, scale, eps, affine):
     import torch.nn.functional as F
 
     b, l, wd = x.shape
+    hd = w.shape[1] // 3                # all heads, or a rank's
     xn = F.layer_norm(x, (wd,), g.to(x.dtype) if affine else None,
                       b0.to(x.dtype) if affine else None, eps)
     qkv = torch.matmul(xn, w) + bias.to(x.dtype)
-    q, k, v = qkv.view(b, l, 3, nh, wd // nh).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.view(b, l, 3, nh, hd // nh).permute(2, 0, 3, 1, 4)
     o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-    return o.transpose(1, 2).reshape(b, l, wd)
+    return o.transpose(1, 2).reshape(b, l, hd)
 
 
 def k1_library_stages(x, g, b0, w, bias, nh, scale, eps) -> dict:
@@ -689,6 +690,24 @@ def phase_kernels(fa) -> list:
             fa.ln_gemm_bias(x2, g, b0, w, bias, eps, affine),
             fa.ln_gemm_plain(x2, g, b0, w, bias, eps, affine),
             rel_mean=REL_MEAN_ERR_MAX))
+    # K1 on a tensor-parallel rank's heads: x whole (the LN over all W),
+    # w (W, 3·H·D) of rank 0's heads packed [q_h | k_h | v_h]
+    tp_gen = torch.Generator().manual_seed(19)
+    k1_rank = {}
+    for b, l, nh, d, model in TP_RANK_SHAPES["K1"]:
+        x, g, b0, w, bias, _, scale, eps = k1_inputs(tp_gen, b, l, nh, d)
+        args = (x, g, b0, rank_part(w, ("qkv", 1), model),
+                rank_part(bias, ("qkv", 0), model), nh // model, scale, eps)
+        del w, bias
+        for affine in (True, False):
+            errs["K1"].append(compare(
+                f"K1 rank ({b}, {l}, {nh * d}) -> {nh // model * d} of "
+                f"{nh * d} (model {model}, H={nh // model} D={d}) "
+                f"affine={affine}",
+                fa.fused_ln_qkv_self_attention(*args, affine),
+                fa.fused_ln_qkv_plain(*args, affine),
+                rel_mean=REL_MEAN_ERR_MAX))
+        k1_rank.setdefault("args", (args, model))
 
     log("phase kernels: K2 flash_attention vs flash_attention_plain")
 
@@ -830,6 +849,22 @@ def phase_kernels(fa) -> list:
         device_ms=device_time_ms(k1), stages_device_ms=stages,
         library_stages_device_ms=k1_lib,
     ))
+    # ... and at a model-2 rank's heads of the same pass
+    args, model = k1_rank["args"]
+    x, g, b0, w, bias, nh, scale, eps = args
+    hd = w.shape[1] // 3
+    rows.append(rank_row(
+        f"K1 fused_ln_qkv_self_attention rank (model {model})",
+        "mico_tpu_torch/csrc/fused_ln_qkv_attn.cu",
+        "mico_tpu/ops/flash_attention.py:1624",
+        f"x ({b}, {l}, {wd}) bf16, W ({wd}, {3 * hd}) of a rank's "
+        f"[q_h | k_h | v_h], H={nh}, D={d}",
+        lambda: fa.fused_ln_qkv_self_attention(*args, True),
+        lambda: fa.fused_ln_qkv_plain(*args, True),
+        lambda: k1_library(*args, True),
+        2 * b * l * wd * 3 * hd + 4 * b * nh * l * l * d,
+        2 * (x.numel() + b * l * hd + w.numel())
+        + 4 * (bias.numel() + 2 * wd)))
     # K2 at the ITM cross-attention: 1 image x 3 captions, compared above
     q, k, v = itm_qkv
     flops = 4 * q.shape[0] * 12 * TEXT_LEN * 257 * 64
@@ -900,7 +935,7 @@ def phase_kernels(fa) -> list:
     ))
     finish_rows(rows, errs)
     log(f"  {rows[0]['name']} affine=False: {rows[0]['ms_affine_off']:.4f} ms")
-    row = rows[1]
+    row = rows[2]
     log(f"  {row['name']} at the recompute decode: {row['decode_ms']:.4f} ms "
         f"(plain {row['decode_plain_ms']:.4f}, library "
         f"{row['decode_library_ms']:.4f}, bound {row['decode_bound_ms']:.4f})")
@@ -916,7 +951,7 @@ def phase_kernels(fa) -> list:
         f"as a float mask {row['vit_bias_library_ms']:.4f}, device "
         f"{ms_text(row['vit_bias_library_device_ms'])}; bound "
         f"{row['vit_bias_bound_ms']:.4f}); plan {row['vit_plan']}")
-    row = rows[2]
+    row = rows[3]
     log(f"  {row['name']} at the beam decode step: device "
         f"{ms_text(row['device_ms'])} ms, host {row['host_ms']:.4f} ms a "
         f"call, plan {row['plan']}, roofline share "
@@ -1056,16 +1091,52 @@ def k5_library(x, w, bias, nh, scale):
     import torch.nn.functional as F
 
     b, l, wd = x.shape
+    hd = w.shape[1] // 3                # all heads, or a rank's
     qkv = F.linear(x, w.t(), bias.to(x.dtype))
-    q, k, v = qkv.view(b, l, 3, nh, wd // nh).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv.view(b, l, 3, nh, hd // nh).permute(2, 0, 3, 1, 4)
     o = F.scaled_dot_product_attention(q, k, v, scale=scale)
-    return o.transpose(1, 2).reshape(b, l, wd)
+    return o.transpose(1, 2).reshape(b, l, hd)
 
 
 def k8_library(x, w, bias, wp, bp, nh, scale):
     import torch.nn.functional as F
 
     return F.linear(k5_library(x, w, bias, nh, scale), wp.t(), bp.to(x.dtype))
+
+
+def k8_partial_library(x, w, bias, wp, nh, scale):
+    """K8's partial form by the library: K5's, then one fp32-output product
+    (the bf16 product in fp32 accumulation, cast; no bias)."""
+    return torch.matmul(k5_library(x, w, bias, nh, scale), wp).float()
+
+
+# the model-axis sizes whose rank shapes the kernels are held at: ViT-g's
+# 16 heads of 88 (K1; K5 in the recomputed inference route) and bigE's 16
+# of 112 (K5, K8) over 2 and 4 ranks
+TP_RANK_SHAPES = {"K1": ((S * 7, 257, 16, 88, 2), (8, 257, 16, 88, 4)),
+                  "K5": ((S * 7, 257, 16, 112, 2), (8, 257, 16, 88, 4),
+                         (3, 50, 4, 64, 2)),
+                  "K8": ((S * 7, 257, 16, 112, 2), (3, 50, 4, 64, 2))}
+
+
+def rank_part(t: torch.Tensor, split, model: int, index: int = 0):
+    """Rank `index`'s part of a whole tensor over `model` ranks, as the
+    sharded model holds it (`tensor_parallel.shard`), contiguous."""
+    from mico_tpu_torch.parallel.tensor_parallel import ModelAxis, shard
+
+    return shard(t, split, ModelAxis(None, model, index)).contiguous()
+
+
+def rank_row(name: str, source: str, replaces: str, shape: str, fn, plain,
+             library, flops: float, nbytes: float) -> dict:
+    """A kernel line's row at a rank's shape: ms, plain, library and device
+    ms beside the bound at that shape."""
+    bms, by = bound_ms(flops, nbytes)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                shape=shape, ms=cuda_time_ms(fn),
+                plain_ms=cuda_time_ms(plain, iters=5, warmup=1),
+                library_ms=cuda_time_ms(library), bound_ms=bms, bound_by=by,
+                flops=flops, bytes=nbytes, device_ms=device_time_ms(fn))
 
 
 def stage_device_ms(fn, stages=None) -> dict:
@@ -1106,6 +1177,34 @@ def phase_fused_qkv_kernels(fa) -> list:
             timed = a
         elif d == 64:
             ragged = a
+    # K5 and K8 on a tensor-parallel rank's heads: x whole, w (W, 3·H·D)
+    # of rank 0's heads, wp its (H·D, W) rows; K8's partial form (the fp32
+    # product before bp, which the ranks sum) against its plain version
+    tp_gen = torch.Generator().manual_seed(23)
+    rank_args = {}
+    for kernel in ("K5", "K8"):
+        for b, l, nh, d, model in TP_RANK_SHAPES[kernel]:
+            r = fused_qkv_inputs(tp_gen, b, l, nh, d)
+            r.update(w=rank_part(r["w"], ("qkv", 1), model),
+                     bias=rank_part(r["bias"], ("qkv", 0), model),
+                     wp=rank_part(r["wp"], ("block", 0), model),
+                     num_heads=nh // model)
+            what = (f"rank ({b}, {l}, {nh * d}) -> {nh // model * d} "
+                    f"(model {model}, H={nh // model} D={d})")
+            if kernel == "K5":
+                got = fa.fused_qkv_self_attention(*k5_args(r))
+                want = fa.fused_qkv_plain(*k5_args(r))
+            else:
+                got = fa.fused_qkv_attn_proj(*k8_args(r), partial=True)
+                want = fa.fused_qkv_attn_proj_plain(*k8_args(r),
+                                                    partial=True)
+                if got.dtype != torch.float32:
+                    raise AssertionError(f"K8 partial: {got.dtype}")
+                what += " fp32 partial, before bp"
+            errs[kernel].append(compare(f"{kernel} {what}", got, want,
+                                        rel_mean=REL_MEAN_ERR_MAX))
+            rank_args.setdefault(kernel, (r, model))
+            del got, want
     a = timed
     b, l, wd = a["x"].shape
     nh = a["num_heads"]
@@ -1184,6 +1283,38 @@ def phase_fused_qkv_kernels(fa) -> list:
         bound_ms=bms, bound_by=by, flops=flops, bytes=nbytes,
         device_ms=device_time_ms(k8), stages_device_ms=stages8,
         library_stages_device_ms=library_stages))
+    # ... and at a model-2 rank's heads of the same pass
+    for kernel in ("K5", "K8"):
+        r, model = rank_args[kernel]
+        hd, nh_r = r["w"].shape[1] // 3, r["num_heads"]
+        flops = 2 * b * l * wd * 3 * hd + 4 * b * nh_r * l * l * d
+        nbytes = (2 * (r["x"].numel() + r["w"].numel())
+                  + 4 * r["bias"].numel())
+        shape = (f"x ({b}, {l}, {wd}) bf16, W ({wd}, {3 * hd}) of a rank's "
+                 f"[q_h | k_h | v_h], H={nh_r}, D={d}")
+        if kernel == "K5":
+            rows.append(rank_row(
+                f"K5 fused_qkv_self_attention rank (model {model})",
+                "mico_tpu_torch/csrc/fused_qkv_attn.cu",
+                "mico_tpu/ops/flash_attention.py:1277", shape,
+                lambda r=r: fa.fused_qkv_self_attention(*k5_args(r)),
+                lambda r=r: fa.fused_qkv_plain(*k5_args(r)),
+                lambda r=r: k5_library(*k5_args(r)),
+                flops, nbytes + 2 * b * l * hd))
+        else:
+            rows.append(rank_row(
+                f"K8 fused_qkv_attn_proj rank (model {model}, fp32 partial)",
+                "mico_tpu_torch/csrc/fused_qkv_attn_proj.cu",
+                "mico_tpu/ops/flash_attention.py:1443",
+                shape + f", Wp ({hd}, {wd}) rows, out fp32 without bp",
+                lambda r=r: fa.fused_qkv_attn_proj(*k8_args(r),
+                                                   partial=True),
+                lambda r=r: fa.fused_qkv_attn_proj_plain(*k8_args(r),
+                                                         partial=True),
+                lambda r=r: k8_partial_library(
+                    r["x"], r["w"], r["bias"], r["wp"], nh_r, r["scale"]),
+                flops + 2 * b * l * hd * wd,
+                nbytes + 2 * r["wp"].numel() + 4 * b * l * wd))
     return finish_rows(rows, errs)
 
 
@@ -5143,6 +5274,355 @@ def phase_dp(fa, card: str, run: dict) -> dict:
     return dict(torchrun=a, two_ranks=b, phase_s=phase_s, paths=paths)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor and sequence parallelism on the model axis (two ranks on
+# the one card over gloo, model 2)
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2
+TP_B = 2                    # the global batch: both ranks run all of it
+# (b)-(d)'s ViT-g depth, as phase dp's (b): full width, 10 of 40 blocks
+TP_LAYERS = 10
+TP_BIGE_LAYERS = 4          # bigE's depth in (c): full width
+TP_TIMEOUT_S = 600
+SP_LOSS_RTOL = 2e-3         # SP against TP: the same step, other sums
+
+
+def tp_rank(rank: int, store: str, out) -> None:
+    """One rank of the two on the card (`_tp_rank`)."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=TP_WORLD, rank=rank,
+                                timeout=timedelta(seconds=TP_TIMEOUT_S))
+        out.put((rank, True, _tp_rank(rank)))
+    except BaseException:  # noqa: BLE001 — reported by the parent
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _tp_configs():
+    from mico_tpu_torch.config import MiCoConfig
+
+    base = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    bert = dataclasses.replace(base.bert_config, hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0)
+    cfg = dataclasses.replace(
+        base, eva_override=dataclasses.replace(
+            base.eva_config, layers=TP_LAYERS, drop_path_rate=0.0),
+        bert_override=bert)
+    bige = MiCoConfig(vision_encoder_type="evaclip02_bige",
+                      max_vision_sample_num=4, max_audio_sample_num=2)
+    bige = dataclasses.replace(bige, eva_override=dataclasses.replace(
+        bige.eva_config, layers=TP_BIGE_LAYERS))
+    return cfg, bige
+
+
+def _tp_eval(fa, model, ev: dict, caps: tuple, layers: int, kernel: str,
+             tag: str, paths: dict) -> dict:
+    """The omni embeddings of one sample (1 image, 4 frames, 2 audio
+    slices, its text) and ITM of the image against the captions, each path
+    counted from 0: `kernel` (K1 or K5 or K8) once a block in the one ViT
+    pass, K2 in each of BERT's 12 cross-attentions of ITM."""
+    with torch.no_grad():
+        out = run_counted(fa, paths, f"{tag} omni eval",
+                          lambda: omni_step(model, **ev), **{kernel: layers})
+        itm = run_counted(fa, paths, f"{tag} ITM",
+                          lambda: itm_probs(model, ev["image"], *caps),
+                          **{kernel: layers, "K2": 12})
+    # numpy, not tensors: a rank's tensors would reach the parent through
+    # file descriptors that close when the rank exits
+    return dict(feats={k: v.float().cpu().numpy() for k, v in out.items()
+                       if k != "sims"}, itm=itm.float().cpu().numpy())
+
+
+def _tp_rank(rank: int) -> dict:
+    """Rank 0 takes the one-process references first, on the whole models
+    (rank 1 waits): PRETRAIN_TASK's step on the global batch of TP_B, the
+    omni embeddings and ITM of MiCo-g (K1) and of bigE (K5; K8 under
+    `FUSED_ATTN_PROJ`). Then both ranks build the same models sharded over
+    the model axis (`MiCo(mesh=)`), run (c) the evaluations, (b) the TP
+    step and (d) the same step with `shard_condition_sequence` from the
+    same weights, every rate 0 and the draws injected. → the references on
+    rank 0, each path's launches and results, the per-group update dot
+    products (every sharded update gathered whole), the peak memory."""
+    import torch.distributed as dist
+
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.ops import flash_attention as fa
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.parallel.tensor_parallel import gather_leaf, splits_of
+    from mico_tpu_torch.text import BertWordPieceTokenizer
+    from mico_tpu_torch.train.masker import mask_tokens
+    from mico_tpu_torch.train.objectives import Draws
+    from mico_tpu_torch.train.optim import (OptimConfig, build_optimizer,
+                                            param_group_labels)
+    from mico_tpu_torch.train.train_step import make_train_step
+    from mico_tpu_torch.train.workload import PRETRAIN_TASK, synthetic_batch
+
+    cfg, bige = _tp_configs()
+    batch = synthetic_batch(TP_B, seed=1)
+    masked = mask_tokens(batch["caption_ids"], 0.6,
+                         torch.Generator().manual_seed(2))
+    flip = torch.arange(TP_B, device="cuda").roll(1)
+    ev = {k: torch.from_numpy(v[:1]).cuda()
+          for k, v in omni_inputs().items()}
+    enc = BertWordPieceTokenizer()(CAPTIONS, max_length=TEXT_LEN)
+    caps = (torch.from_numpy(enc["input_ids"]).long().cuda(),
+            torch.from_numpy(enc["attention_mask"]).long().cuda())
+
+    def draws():
+        return Draws(masks=[masked], negatives=[(flip, flip)])
+
+    def take(step, model, tp_cfg=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = step(model, batch, torch.Generator().manual_seed(0),
+                   draws=draws())
+        losses = {k: v.item() for k, v in got.items()}
+        torch.cuda.synchronize()
+        return dict(losses=losses, step_s=time.perf_counter() - t0,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    launches=fa.launch_counts())
+
+    result, ref_update = {}, None
+    paths = {}
+    mesh = create_mesh(data=1, model=TP_WORLD)
+    if rank == 0:
+        t0 = time.perf_counter()
+        whole = MiCo(cfg, device="cuda", seed=0)
+        result["build_s"] = time.perf_counter() - t0
+        result["ref_eval"] = _tp_eval(fa, whole, ev, caps, TP_LAYERS, "K1",
+                                      "one-process", {})
+        labels = param_group_labels(whole)
+        start = {n: p.detach().cpu() for n, p in whole.named_parameters()}
+        opt = build_optimizer(whole, OptimConfig(**DP_OPTIM))
+        result["reference"] = take(make_train_step(cfg, opt, PRETRAIN_TASK),
+                                   whole)
+        ref_update = {n: (p.detach().cpu() - start[n])
+                      for n, p in whole.named_parameters()}
+        del whole, opt, start
+        free_cuda()
+        big = MiCo(bige, device="cuda", seed=0)
+        result["ref_bige"] = _tp_eval(fa, big, ev, caps, TP_BIGE_LAYERS,
+                                      "K5", "one-process bigE", {})
+        fa.FUSED_ATTN_PROJ = True
+        try:
+            result["ref_bige_k8"] = _tp_eval(fa, big, ev, caps,
+                                             TP_BIGE_LAYERS, "K8",
+                                             "one-process bigE K8", {})
+        finally:
+            fa.FUSED_ATTN_PROJ = False
+        del big
+        free_cuda()
+    dist.barrier()
+    t0 = time.perf_counter()
+    model = MiCo(cfg, device="cuda", seed=0, mesh=mesh)
+    result["tp_build_s"] = time.perf_counter() - t0
+    tag = f"tp rank {rank}"
+    # (c) the evaluation on the fresh weights
+    result["eval"] = _tp_eval(fa, model, ev, caps, TP_LAYERS, "K1", tag,
+                              paths)
+    names = [n for n, _ in model.named_parameters()]
+    splits = splits_of(model)
+    start = [p.detach().clone() for p in model.parameters()]
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(model.parameters(), start):
+                p.copy_(s)
+
+    # (b) the TP step, then (d) the same step with sequence parallelism
+    for what, step_cfg in (("tp", cfg), ("sp", dataclasses.replace(
+            cfg, shard_condition_sequence=True))):
+        opt = build_optimizer(model, OptimConfig(**DP_OPTIM),
+                              group=mesh.group)
+        step = make_train_step(step_cfg, opt, PRETRAIN_TASK, mesh=mesh)
+        r = take(step, model)
+        paths[f"{tag} {what} step"] = r["launches"]
+        r["moment_bytes"] = sum(
+            v.numel() * v.element_size()
+            for s in opt.torch_optimizer.state.values()
+            for k, v in s.items() if k in ("exp_avg", "exp_avg_sq"))
+        dots = {}
+        for name, p, s in zip(names, model.parameters(), start):
+            u = p.detach() - s
+            if name in splits:
+                u = gather_leaf(u, *splits[name], mesh.model_axis)
+            if ref_update is not None:
+                w = ref_update[name].to(u.device).double()
+                u = u.double()
+                d = dots.setdefault(labels[name], torch.zeros(
+                    3, dtype=torch.float64, device=u.device))
+                d += torch.stack([(u * w).sum(), (u * u).sum(),
+                                  (w * w).sum()])
+        if ref_update is not None:
+            r["group_cosine"] = {
+                g: dot / max(1e-300, (uu * ww) ** 0.5)
+                for g, (dot, uu, ww) in ((g, d.tolist())
+                                         for g, d in dots.items())}
+        result[what] = r
+        del opt, step
+        restore()
+        free_cuda()
+    del model, start
+    free_cuda()
+    big = MiCo(bige, device="cuda", seed=0, mesh=mesh)
+    result["bige"] = _tp_eval(fa, big, ev, caps, TP_BIGE_LAYERS, "K5",
+                              f"{tag} bigE", paths)
+    fa.FUSED_ATTN_PROJ = True
+    try:
+        result["bige_k8"] = _tp_eval(fa, big, ev, caps, TP_BIGE_LAYERS,
+                                     "K8", f"{tag} bigE K8", paths)
+    finally:
+        fa.FUSED_ATTN_PROJ = False
+    del big
+    free_cuda()
+    result["paths"] = paths
+    return result
+
+
+def _tp_hold_eval(what: str, got: dict, want: dict) -> dict:
+    """The TP evaluation against the one-process one: embedding cosines >=
+    COSINE_MIN, ITM within ITM_PROB_TOL."""
+    cos = {name: min_row_cosine(torch.from_numpy(got["feats"][name]),
+                                torch.from_numpy(want["feats"][name]))
+           for name in ("image", "video", "audio", "text")}
+    gap = float(np.abs(got["itm"] - want["itm"]).max())
+    log(f"  (c) {what}: cosine to one process {cos}; ITM max |d| {gap:.3e}")
+    bad = {n: c for n, c in cos.items() if not c >= COSINE_MIN}
+    if bad or not gap <= ITM_PROB_TOL:
+        raise AssertionError(f"{what}: cosines {cos}, ITM gap {gap}")
+    return dict(cosine=cos, itm_max_abs_diff=gap)
+
+
+def phase_tp(fa, card: str) -> dict:
+    """Two ranks on the one card over gloo at data 1 x model 2: (a) K1, K5
+    and K8 at the ranks' shapes are phase kernels' (the kernels line's
+    rank rows); (b) the TP step of PRETRAIN_TASK at full width (MiCo-g,
+    TP_LAYERS ViT blocks, B 2, every rate 0, draws injected) against the
+    one-process step: each loss within LOSS_RTOL, each optimizer group's
+    update cosine >= GRAD_COSINE_MIN, K3 = K4 = 2 x TP_LAYERS a rank, each
+    rank's peak memory below the one-process step's; (c) the omni
+    embeddings and ITM of MiCo-g (K1) and of bigE at TP_BIGE_LAYERS blocks
+    (K5, then K8's fp32 partial form under FUSED_ATTN_PROJ) against one
+    process: cosine >= COSINE_MIN, ITM within ITM_PROB_TOL; (d) (b) with
+    `shard_condition_sequence`: each loss within SP_LOSS_RTOL of (b)'s."""
+    import multiprocessing
+    import os
+    import queue
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    log("phase tp: tensor and sequence parallelism, model 2 (two ranks on "
+        "the card over gloo)")
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="mico_tp_")
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, os.path.join(root, "rendezvous"), out))
+             for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    try:
+        while len(results) < TP_WORLD and not errors:
+            try:
+                rank, ok, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead or time.perf_counter() > deadline:
+                    errors.append(f"ranks {dead} exited without a result"
+                                  if dead else "a rank gave no result")
+                continue
+            if not ok:
+                errors.append(f"rank {rank}:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10 if errors else TP_TIMEOUT_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    r0 = results[0]
+    ref = r0["reference"]
+    gib = lambda b: f"{b / 2 ** 30:.2f} GiB"     # noqa: E731
+    k34 = 2 * TP_LAYERS
+    for rank, res in results.items():
+        for what in ("tp", "sp"):
+            r = res[what]
+            for k, v in ref["losses"].items():
+                if not abs(r["losses"][k] - v) <= LOSS_RTOL * abs(v):
+                    raise AssertionError(f"rank {rank} {what}: {k} "
+                                         f"{r['losses'][k]} vs {v}")
+            if r["launches"] != ref["launches"] or (
+                    ref["launches"]["K3"], ref["launches"]["K4"]) != (k34,
+                                                                      k34):
+                raise AssertionError(f"rank {rank} {what}: launches "
+                                     f"{r['launches']}, the one-process "
+                                     f"step's {ref['launches']}")
+            if not r["peak_memory_bytes"] < ref["peak_memory_bytes"]:
+                raise AssertionError(
+                    f"rank {rank} {what}: peak {r['peak_memory_bytes']} not "
+                    f"below the one-process step's {ref['peak_memory_bytes']}")
+        sp_gap = {k: abs(res["sp"]["losses"][k] - v) / abs(v)
+                  for k, v in res["tp"]["losses"].items()}
+        bad = {k: g for k, g in sp_gap.items() if not g <= SP_LOSS_RTOL}
+        log(f"  (d) rank {rank}: SP losses {res['sp']['losses']}, relative "
+            f"gaps to TP {({k: f'{g:.2e}' for k, g in sp_gap.items()})}")
+        if bad:
+            raise AssertionError(f"rank {rank}: SP vs TP {bad}")
+        log(f"  (b) rank {rank}: TP losses {res['tp']['losses']}; launches "
+            f"{ {k: v for k, v in res['tp']['launches'].items() if v} }; "
+            f"peak memory TP {gib(res['tp']['peak_memory_bytes'])}, SP "
+            f"{gib(res['sp']['peak_memory_bytes'])} (moments "
+            f"{gib(res['tp']['moment_bytes'])}); step "
+            f"{1e3 * res['tp']['step_s']:.1f} / "
+            f"{1e3 * res['sp']['step_s']:.1f} ms (gloo through the host) "
+            f"[{card}]")
+    for what in ("tp", "sp"):
+        cos = r0[what]["group_cosine"]
+        log(f"  ({'b' if what == 'tp' else 'd'}) {what}: update cosine to "
+            f"the one-process step by group "
+            f"{ {g: round(c, 6) for g, c in cos.items()} }")
+        bad = {g: c for g, c in cos.items() if not c >= GRAD_COSINE_MIN}
+        if bad:
+            raise AssertionError(f"{what} update cosine {bad}")
+    log(f"  (b) one-process step on the global batch of {TP_B}: "
+        f"{1e3 * ref['step_s']:.1f} ms, peak {gib(ref['peak_memory_bytes'])}"
+        f", launches { {k: v for k, v in ref['launches'].items() if v} }")
+    evals = {}
+    for rank, res in results.items():
+        for key, want in (("eval", "ref_eval"), ("bige", "ref_bige"),
+                          ("bige_k8", "ref_bige_k8")):
+            evals[f"rank {rank} {key}"] = _tp_hold_eval(
+                f"rank {rank} {key}", res[key], r0[want])
+    paths = {k: v for res in results.values() for k, v in
+             res["paths"].items()}
+    phase_s = time.perf_counter() - t0
+    log(f"  phase tp: {phase_s:.1f} s (rank 0 builds: whole "
+        f"{r0['build_s']:.1f} s, sharded {r0['tp_build_s']:.1f} s)")
+    return dict(phase_s=phase_s, reference=ref, evals=evals, paths=paths,
+                ranks={r: {k: res[k] for k in ("tp", "sp")}
+                       for r, res in results.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -5188,6 +5668,7 @@ def main() -> int:
     scst = phase_scst(fa, card)
     run = phase_run(fa, card, train)
     dp = phase_dp(fa, card, run)
+    tp = phase_tp(fa, card)
     captioner = phase_captioner(fa, card)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
@@ -5204,7 +5685,7 @@ def main() -> int:
              **{f"run eval (step {step})": {k: v for k, v in c.items()
                                            if k.startswith(("K", "P"))}
                 for step, c in run["launches"]["eval"].items()},
-             **dp["paths"],
+             **dp["paths"], **tp["paths"],
              **captioner["paths"]}
     for row in rows:
         key = row["name"].split()[0]
@@ -5237,6 +5718,7 @@ def main() -> int:
                                if k != "paths"},
                       "run": run,
                       "dp": {k: v for k, v in dp.items() if k != "paths"},
+                      "tp": {k: v for k, v in tp.items() if k != "paths"},
                       "captioner": {k: v for k, v in captioner.items()
                                     if k != "paths"}}, default=str))
     print(json.dumps({"kernels": rows}))

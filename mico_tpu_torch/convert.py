@@ -35,6 +35,8 @@ import torch
 from mico_tpu_torch.config import BertConfig, EvaVitConfig, MiCoConfig
 from mico_tpu_torch.models.mico import MiCo, resolve_device
 from mico_tpu_torch.ops.interpolate import interp_bilinear_2d, interp_nearest_1d
+from mico_tpu_torch.parallel.tensor_parallel import (leaf_split, shard,
+                                                     shard_module)
 
 # parameter groups whose leaves carry a leading depth axis
 STACKED = ("vision_encoder/blocks", "bert/layers")
@@ -78,10 +80,23 @@ def _placed(leaf, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(leaf.shape, dtype=dtype, device=dev).copy_(leaf)
 
 
+def _part(key: str, leaf, cfg: MiCoConfig, axis):
+    """This model-axis rank's part of a leaf (the leaf at model 1)."""
+    if axis is None:
+        return leaf
+    split = leaf_split(key, leaf.shape, cfg.is_eva)
+    if split is None:
+        return leaf
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.from_numpy(np.asarray(leaf))
+    return shard(leaf, split, axis)
+
+
 def _place(params: Mapping, cfg: MiCoConfig, device="cpu",
-           dtype: torch.dtype = torch.float32):
+           dtype: torch.dtype = torch.float32, axis=None):
     """(state_dict on `device` in `dtype`, the skeleton it fills) for the
-    params tree of `cfg`."""
+    params tree of `cfg`; under a model `axis`, each sharded leaf's part
+    alone (the skeleton sharded alike)."""
     dev = torch.device(device)
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params).items():
@@ -89,10 +104,11 @@ def _place(params: Mapping, cfg: MiCoConfig, device="cpu",
         if group in STACKED:
             for i in range(leaf.shape[0]):
                 key = f"{group.replace('/', '.')}.{i}.{name}"
-                sd[key] = _placed(leaf[i], dev, dtype)
+                sd[key] = _placed(_part(key, leaf[i], cfg, axis), dev, dtype)
         else:
-            sd[path.replace("/", ".")] = _placed(leaf, dev, dtype)
-    model = _skeleton(cfg, sd)
+            key = path.replace("/", ".")
+            sd[key] = _placed(_part(key, leaf, cfg, axis), dev, dtype)
+    model = shard_module(_skeleton(cfg, sd), axis)
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     unplaced = sorted(set(sd) - set(want))
     unfilled = sorted(set(want) - set(sd))
@@ -172,12 +188,15 @@ def _as_lists(node):
 
 
 def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",
-                  dtype=None) -> MiCo:
+                  dtype=None, mesh=None) -> MiCo:
     """A MiCo holding the params tree (JAX's, or a converted checkpoint's),
-    on `device` in `dtype` (default `cfg.param_dtype`)."""
+    on `device` in `dtype` (default `cfg.param_dtype`). Under a `mesh`
+    with a model axis each rank places only its part of the sharded
+    leaves."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtypes()[0]
-    sd, model = _place(params, cfg, dev, dtype)
+    sd, model = _place(params, cfg, dev, dtype,
+                       None if mesh is None else mesh.model_axis)
     model.load_state_dict(sd, strict=True, assign=True)
     return model
 

@@ -86,18 +86,21 @@ ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, int M,
 
 }  // namespace
 
-// x (B*L, W) bf16; gamma/beta (W) fp32 (read when affine); w (W, 3W) bf16;
-// bias (3W) fp32; stats (B*L, 2) fp32 and qkv (B*L, 3W) bf16 are scratch;
-// out (B, L, W) bf16. Needs W % 8 == 0, W <= 2048 and D = W / H a multiple
+// x (B*L, W) bf16; gamma/beta (W) fp32 (read when affine); w (W, 3*H*D)
+// bf16; bias (3*H*D) fp32; stats (B*L, 2) fp32 and qkv (B*L, 3*H*D) bf16
+// are scratch; out (B, L, H*D) bf16. The LayerNorm runs over all W columns
+// of x (whole on every tensor-parallel rank); the GEMM and the attention
+// over the H heads of D given: all of them (H*D = W), or a rank's share,
+// packed [q_h | k_h | v_h]. Needs W % 8 == 0, W <= 2048 and D a multiple
 // of 8 up to 128 (the wrapper checks); any L.
 extern "C" int mico_fused_ln_qkv_attn(const void* x, const void* gamma,
                                       const void* beta, const void* w,
                                       const void* bias, void* stats, void* qkv,
                                       void* out, int B, int L, int W, int H,
-                                      float eps, int affine, float qk_scale,
-                                      void* stream) {
+                                      int D, float eps, int affine,
+                                      float qk_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L, N = 3 * W;
+  const int M = B * L, HD = H * D, N = 3 * HD;
   ln_stats_kernel<<<(M + ST_ROWS - 1) / ST_ROWS, ST_ROWS * 32, 0, s>>>(
       static_cast<const bf16*>(x), static_cast<float2*>(stats), M, W, eps);
   cudaError_t e = cudaGetLastError();
@@ -109,8 +112,8 @@ extern "C" int mico_fused_ln_qkv_attn(const void* x, const void* gamma,
       static_cast<bf16*>(qkv), M, W, N, s);
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(qkv);
-  return mico::qattn::launch_attn(q, q + W, q + 2 * W, N,
-                                  static_cast<bf16*>(out), B, L, H, W / H,
+  return mico::qattn::launch_attn(q, q + HD, q + 2 * HD, N,
+                                  static_cast<bf16*>(out), B, L, H, D,
                                   qk_scale, s);
 }
 

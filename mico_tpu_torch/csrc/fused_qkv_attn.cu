@@ -43,23 +43,26 @@
 #include "qkv_attn.cuh"
 #include "wgmma_gemm.cuh"
 
-// x (B*L, W) bf16; w (W, 3W) bf16; bias (3W) fp32; qkv (B*L, 3W) bf16 is
-// scratch; out (B, L, W) bf16. Needs D = W / H a multiple of 8 up to 128
-// (the wrapper checks); any L.
+// x (B*L, W) bf16; w (W, 3*H*D) bf16; bias (3*H*D) fp32; qkv (B*L,
+// 3*H*D) bf16 is scratch; out (B, L, H*D) bf16. H heads of D: all of them
+// (H*D = W), or a tensor-parallel rank's share, whose packed columns are
+// [q_h | k_h | v_h] of its heads. Needs W % 8 == 0 and D a multiple of 8
+// up to 128 (the wrapper checks); any L.
 extern "C" int mico_fused_qkv_attn(const void* x, const void* w,
                                    const void* bias, void* qkv, void* out,
-                                   int B, int L, int W, int H, float qk_scale,
-                                   void* stream) {
+                                   int B, int L, int W, int H, int D,
+                                   float qk_scale, void* stream) {
   using mico::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int HD = H * D;
   cudaError_t e = mico::wg::launch_gemm(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<bf16*>(qkv), B * L, W,
-      3 * W, s);
+      3 * HD, s);
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(qkv);
-  return mico::qattn::launch_attn(q, q + W, q + 2 * W, 3 * W,
-                                  static_cast<bf16*>(out), B, L, H, W / H,
+  return mico::qattn::launch_attn(q, q + HD, q + 2 * HD, 3 * HD,
+                                  static_cast<bf16*>(out), B, L, H, D,
                                   qk_scale, s);
 }
 

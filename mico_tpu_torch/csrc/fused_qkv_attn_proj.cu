@@ -21,33 +21,47 @@
 // behind one C entry: K5's two (the wgmma + TMA GEMM of wgmma_gemm.cuh, the
 // packed attention of qkv_attn.cuh), then the same GEMM over o with W_p,
 // the bias b_p added in fp32 in its epilogue. No library GEMM is called.
+// On a tensor-parallel rank (`partial`) the out-projection is row-parallel:
+// the last GEMM writes its fp32 accumulators without b_p (`EPI_F32`), the
+// caller sums them over the model group in fp32, adds b_p once and rounds
+// once to bf16, as the whole-width K8 rounds once.
 
 #include "common.cuh"
 #include "qkv_attn.cuh"
 #include "wgmma_gemm.cuh"
 
-// x (B*L, W) bf16; w (W, 3W) bf16; bias (3W) fp32; wp (W, W) bf16; bp (W)
-// fp32; qkv (B*L, 3W) and o (B*L, W) bf16 are scratch; out (B, L, W) bf16.
-// Needs what K5 needs (the wrapper checks).
+// x (B*L, W) bf16; w (W, 3*H*D) bf16; bias (3*H*D) fp32; wp (H*D, W) bf16;
+// bp (W) fp32; qkv (B*L, 3*H*D) and o (B*L, H*D) bf16 are scratch; out
+// (B, L, W): bf16 with bp, or with `partial` (a tensor-parallel rank's
+// heads, its out-projection row-parallel) the fp32 product o . wp without
+// bp, which the caller sums over the ranks before it adds bp and rounds
+// once. Needs what K5 needs (the wrapper checks).
 extern "C" int mico_fused_qkv_attn_proj(const void* x, const void* w,
                                         const void* bias, const void* wp,
                                         const void* bp, void* qkv, void* o,
                                         void* out, int B, int L, int W, int H,
-                                        float qk_scale, void* stream) {
+                                        int D, int partial, float qk_scale,
+                                        void* stream) {
   using mico::bf16;
+  using namespace mico::wg;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int M = B * L;
-  cudaError_t e = mico::wg::launch_gemm(
+  const int M = B * L, HD = H * D;
+  cudaError_t e = launch_gemm(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(qkv), M, W, 3 * W,
+      static_cast<const float*>(bias), static_cast<bf16*>(qkv), M, W, 3 * HD,
       s);
   if (e != cudaSuccess) return e;
   const bf16* q = static_cast<const bf16*>(qkv);
-  e = mico::qattn::launch_attn(q, q + W, q + 2 * W, 3 * W,
-                               static_cast<bf16*>(o), B, L, H, W / H,
-                               qk_scale, s);
+  e = mico::qattn::launch_attn(q, q + HD, q + 2 * HD, 3 * HD,
+                               static_cast<bf16*>(o), B, L, H, D, qk_scale,
+                               s);
   if (e != cudaSuccess) return e;
-  return mico::wg::launch_gemm(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(wp),
-      static_cast<const float*>(bp), static_cast<bf16*>(out), M, W, W, s);
+  if (partial)
+    return launch_epi_gemm<EPI_F32>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(wp),
+        static_cast<const bf16*>(out), static_cast<bf16*>(out), M, HD, W, s);
+  return launch_gemm(static_cast<const bf16*>(o),
+                     static_cast<const bf16*>(wp),
+                     static_cast<const float*>(bp), static_cast<bf16*>(out), M,
+                     HD, W, s);
 }

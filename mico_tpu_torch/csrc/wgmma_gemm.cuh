@@ -138,8 +138,10 @@ __device__ __forceinline__ void ln_fragments(uint32_t (&a)[4][4],
 }
 
 // the epilogues: + bias (K1, K5, K8); P1's fc1, bf16(gelu_tanh(acc)); P1's
-// fc2, bf16(bf16(acc) + x) with x (M, N) bf16 row-major
-enum Epi { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2 };
+// fc2, bf16(bf16(acc) + x) with x (M, N) bf16 row-major; the fp32
+// accumulator as it is (K8's partial out-projection on a tensor-parallel
+// rank, summed over the ranks before its one rounding)
+enum Epi { EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2, EPI_F32 = 3 };
 
 // jax.nn.gelu(approximate=True) on fp32: 0.5 x (1 + tanh(sqrt(2/pi) (x +
 // 0.044715 x^3))), with tanh.approx.f32 (relative error about 2^-11, under
@@ -175,6 +177,24 @@ __device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
                                           int tid, const bf16* res = nullptr,
                                           int M = 0) {
   const int warp = tid >> 5, lane = tid & 31;
+  if constexpr (EPI == EPI_F32) {
+    // fp32 (M, N) row-major at `res`, straight from the accumulators (no
+    // staging: an fp32 tile of a warpgroup's rows would not fit beside the
+    // ring): rows m and m + 8, two neighbouring columns every 8
+    float* out = reinterpret_cast<float*>(const_cast<bf16*>(res));
+    const int m = m0 + wgi * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col < N && m < M)
+        *reinterpret_cast<float2*>(out + (size_t)m * N + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (col < N && m + 8 < M)
+        *reinterpret_cast<float2*>(out + (size_t)(m + 8) * N + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    return;
+  }
   if (tid == 0) hop::bulk_wait_read<0>();   // the last tile's stores
   hop::named_sync(1 + wgi, 128);
   const int rl = warp * 16 + (lane >> 2);
@@ -533,7 +553,9 @@ inline cudaError_t launch_ln_gemm(const bf16* x, const float2* stats,
 }
 
 // out (M, N) = epilogue(a (M, K) . w (K, N)) on `stream`, P1's two
-// epilogues: EPI_GELU, or EPI_RESIDUAL with res (M, N) bf16 row-major
+// epilogues: EPI_GELU, or EPI_RESIDUAL with res (M, N) bf16 row-major; or
+// EPI_F32, out (M, N) fp32 passed as res (and as out, whose tensor map it
+// does not use)
 template <int EPI>
 inline cudaError_t launch_epi_gemm(const bf16* a, const bf16* w,
                                    const bf16* res, bf16* out, int M, int K,

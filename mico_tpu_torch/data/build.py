@@ -24,7 +24,7 @@ from typing import Dict, Optional
 
 from mico_tpu_torch.data.loader import CudaPrefetcher, DataLoader, MetaLoader
 from mico_tpu_torch.data.sampler import ShardedSampler
-from mico_tpu_torch.parallel.collectives import process_count, process_index
+from mico_tpu_torch.parallel.collectives import data_shard
 from mico_tpu_torch.utils.logger import LOGGER
 
 
@@ -35,9 +35,10 @@ def _registry():
 
 
 def _world():
-    """(processes, this process's rank) of the default group; (1, 0)
-    without one."""
-    return process_count(), process_index()
+    """(data-axis size, this process's data index) of the run's mesh; (1,
+    0) without a process group. The ranks of a model group load the same
+    rows."""
+    return data_shard()
 
 
 def build_dataloader(dataset, is_train: bool, batch_size: int,

@@ -20,7 +20,9 @@ The port runs each pass eagerly under `torch.inference_mode()` on the
 model's device, in the model's compute dtype (in place of JAX's jit cache):
 the ViT takes its inference route (K1 on the card), BERT's cross-attention
 in the ITM re-rank K2. Across processes each rank evaluates its shard of
-the set (the unpadded sampler: rank r takes items r, r + world, ...) and
+the set (the unpadded sampler: data index r takes items r, r + world,
+...; the ranks of a model group run the same items on their parts of a
+tensor-parallel model, and only model index 0's shard is kept) and
 the shards' outputs merge through `gather_objects` before scoring, as in
 JAX (:188-204, :346-367, :417-439), so every rank computes the metrics of
 the whole set, and rank 0 alone writes the annotation and submission
@@ -49,7 +51,8 @@ from mico_tpu_torch.evaluation.metrics import (
 )
 from mico_tpu_torch.generation import generate, generate_answers
 from mico_tpu_torch.models.mico import MiCo
-from mico_tpu_torch.parallel.collectives import (gather_objects,
+from mico_tpu_torch.parallel.collectives import (data_shards,
+                                                 gather_objects,
                                                  process_count,
                                                  process_index)
 from mico_tpu_torch.train.objectives import (
@@ -88,6 +91,10 @@ class Evaluator:
             # pipeline stages are a training-memory tool; one inference pass
             # gains nothing from them
             cfg = dataclasses.replace(cfg, pipeline_stages=1)
+        # the token-sharded condition is a training layout: the evaluation
+        # reads whole condition tokens (a tensor-parallel model gathers
+        # nothing for them: its towers' outputs are whole on every rank)
+        cfg = dataclasses.replace(cfg, shard_condition_sequence=False)
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
@@ -167,12 +174,12 @@ class Evaluator:
             # scoring (the reference ddp_allgathers for the same reason,
             # data/utils/distributed.py:133-149)
             cat = (lambda xs: np.concatenate(xs) if xs else None)
-            shards = gather_objects(dict(
+            shards = data_shards(gather_objects(dict(
                 t=cat(feats_t), v={m: cat(c) for m, c in feats.items()},
                 txt2vis=np.asarray(txt2vis, np.int64), n_vis=n_vis,
                 conds=({m: torch.cat(cs).cpu() if cs else None
                         for m, cs in conds.items()} if itm_rerank else None),
-                text_ids=cat(text_ids), text_masks=cat(text_masks)))
+                text_ids=cat(text_ids), text_masks=cat(text_masks))))
             feats_t, txt2vis = [], []
             feats = {m: [] for m in feats}
             conds = {m: [] for m in feats} if itm_rerank else None
@@ -280,7 +287,8 @@ class Evaluator:
             if caps is not None:
                 refs.extend([c if isinstance(c, list) else [c] for c in caps])
         if process_count() > 1:
-            shards = gather_objects(dict(hyps=hyps, refs=refs, ids=ids))
+            shards = data_shards(gather_objects(dict(hyps=hyps, refs=refs,
+                                                     ids=ids)))
             order = _item_order([len(sh["ids"]) for sh in shards])
             g = generate_nums if captioner_mode else 1
             hyps = {s: [h for r, k in order
@@ -338,8 +346,8 @@ class Evaluator:
             question_ids.extend(batch.get("question_ids_raw",
                                           batch.get("ids", [])))
         if process_count() > 1:
-            shards = gather_objects(dict(preds=preds, answers=answers,
-                                         qids=question_ids))
+            shards = data_shards(gather_objects(dict(
+                preds=preds, answers=answers, qids=question_ids)))
             order = _item_order([len(sh["answers"]) for sh in shards])
             preds = {s: [shards[r]["preds"][s][k] for r, k in order]
                      for s in subs}

@@ -64,6 +64,7 @@ from mico_tpu_torch.models.bert import (
 from mico_tpu_torch.ops.int8_attention import int8_cross_attention, quantize_kv
 from mico_tpu_torch.ops.layers import (gelu, layer_norm, linear, matmul_f32,
                                       records_grad)
+from mico_tpu_torch.parallel.tensor_parallel import row_parallel_linear
 
 NEG_INF = -1.0e7
 MODES = ("greedy", "sample", "beam", "scst")
@@ -335,8 +336,10 @@ def _beam_generate(model: Bert, cond, max_new: int, k: int,
 
 
 def _mha(q, k, v, bias, cfg: BertConfig) -> torch.Tensor:
-    """Plain MHA of (B, Lq, H) over (B, Lk, H) with an additive fp32 bias."""
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    """Plain MHA of (B, Lq, H) over (B, Lk, H) with an additive fp32 bias;
+    H the width of the heads given (all, or a tensor-parallel rank's)."""
+    hd = cfg.head_dim
+    nh = q.shape[-1] // hd
     kt = _heads(k, nh).transpose(-1, -2)
     s = matmul_f32(_heads(q, nh), kt) * hd ** -0.5
     if bias is not None:
@@ -348,7 +351,8 @@ def _cross_mha(q, k, v, cfg: BertConfig) -> torch.Tensor:
     """Plain MHA (no bias) of (B, Lq, H) over cross K/V stored packed
     (B, Lk, H) or split per head (B, nh, Lk, hd), see CROSS_KV_SPLIT_HEADS;
     the same math either way."""
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh = q.shape[-1] // hd
     kh, vh = (k, v) if k.dim() == 4 else (_heads(k, nh), _heads(v, nh))
     s = matmul_f32(_heads(q, nh), kh.transpose(-1, -2)) * hd ** -0.5
     return _merge_heads(_softmax_pv(s, vh))
@@ -360,7 +364,8 @@ def _group_mha(q, k, v, bias, cfg: BertConfig, n_rep: int) -> torch.Tensor:
     flattened (kc, S) axis, and the ancestry bias (bg, kq, 2, kc, S) keeping
     each query's own lineage."""
     b, _, h = q.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh = h // hd
     bg, S = b // n_rep, k.shape[1]
     qh = _heads(q.reshape(bg, n_rep * 2, h), nh)       # (bg, nh, kq·2, hd)
     kh = _heads(k.reshape(bg, n_rep * S, h), nh)       # (bg, nh, kc·S, hd)
@@ -404,27 +409,40 @@ def _cached_layer_step(x, lp, ck, cv, xk, xv, t: int, cfg: BertConfig,
         o = _group_mha(q, ck, cv, group_bias, cfg, n_rep)
     else:
         o = _mha(q, ck, cv, self_bias, cfg)
-    x = layer_norm(x + linear(o, lp.get("attn_out_w"), lp.get("attn_out_b")),
-                   lp.get("attn_ln_w"), lp.get("attn_ln_b"), cfg.layer_norm_eps)
+    x = layer_norm(x + _row(lp, o, "attn_out"), lp.get("attn_ln_w"),
+                   lp.get("attn_ln_b"), cfg.layer_norm_eps)
 
     def cross(q2):
         if isinstance(xk, tuple):
             return int8_cross_attention(q2, xk[0], xk[1], xv[0], xv[1],
-                                        cfg.num_attention_heads)
+                                        lp.local_heads(cfg))
         return _cross_mha(q2, xk, xv, cfg)
 
     xq = linear(x, lp.get("xq_w"), lp.get("xq_b"))
     if n_rep > 1:
-        lq = xq.shape[1]
-        o = cross(xq.reshape(b // n_rep, n_rep * lq, h)).reshape(b, lq, h)
+        lq, hq = xq.shape[1], xq.shape[2]
+        o = cross(xq.reshape(b // n_rep, n_rep * lq, hq)).reshape(b, lq, hq)
     else:
         o = cross(xq)
-    x = layer_norm(x + linear(o, lp.get("x_out_w"), lp.get("x_out_b")),
-                   lp.get("x_ln_w"), lp.get("x_ln_b"), cfg.layer_norm_eps)
+    x = layer_norm(x + _row(lp, o, "x_out"), lp.get("x_ln_w"),
+                   lp.get("x_ln_b"), cfg.layer_norm_eps)
     y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
-    x = layer_norm(x + linear(y, lp.get("out_w"), lp.get("out_b")),
-                   lp.get("out_ln_w"), lp.get("out_ln_b"), cfg.layer_norm_eps)
+    x = layer_norm(x + _row(lp, y, "out"), lp.get("out_ln_w"),
+                   lp.get("out_ln_b"), cfg.layer_norm_eps)
     return x, ck, cv
+
+
+def _row(lp, y: torch.Tensor, stem: str) -> torch.Tensor:
+    """A row-parallel output linear of the layer (summed over the model
+    group under tensor parallelism)."""
+    return row_parallel_linear(y, lp.get(f"{stem}_w"), lp.get(f"{stem}_b"),
+                               lp.tp)
+
+
+def _local_width(model: Bert) -> int:
+    """The width of the heads a layer computes (a self K/V cache's): all,
+    or this tensor-parallel rank's."""
+    return model.layers[0].local_heads(model.cfg) * model.cfg.head_dim
 
 
 def _cross_kv(model: Bert, cond: torch.Tensor):
@@ -454,8 +472,8 @@ def _maybe_split_heads(x_tuple, cfg: BertConfig, enable: bool):
     the step loop."""
     if not enable:
         return x_tuple
-    nh = cfg.num_attention_heads
-    return tuple(_heads(a, nh).contiguous() for a in x_tuple)
+    return tuple(_heads(a, a.shape[-1] // cfg.head_dim).contiguous()
+                 for a in x_tuple)
 
 
 def _maybe_quantize_cross(xk, xv, cfg: BertConfig, enable: bool):
@@ -464,9 +482,8 @@ def _maybe_quantize_cross(xk, xv, cfg: BertConfig, enable: bool):
     routes to K7."""
     if not enable:
         return xk, xv
-    nh = cfg.num_attention_heads
-    return (tuple(quantize_kv(k, nh) for k in xk),
-            tuple(quantize_kv(v, nh) for v in xv))
+    return (tuple(quantize_kv(k, k.shape[-1] // cfg.head_dim) for k in xk),
+            tuple(quantize_kv(v, v.shape[-1] // cfg.head_dim) for v in xv))
 
 
 def _empty_caches(n: int, rows: int, slots: int, h: int, dtype, dev):
@@ -502,7 +519,7 @@ def cached_generate(model: Bert, condition_feat: torch.Tensor, *,
             f"cached_generate mode {mode!r}: greedy, sample or scst")
     cfg = model.cfg
     b, dev = condition_feat.shape[0], condition_feat.device
-    h, lmax = cfg.hidden_size, max_new_tokens + 1
+    h, lmax = _local_width(model), max_new_tokens + 1
     n_layers = cfg.num_hidden_layers
 
     cond = condition_feat.to(compute_dtype)
@@ -572,17 +589,15 @@ def _prefill_prefix(model: Bert, prefix_ids, prefix_mask, cond,
         v = linear(x, lp.get("v_w"), lp.get("v_b"))
         q = linear(x, lp.get("q_w"), lp.get("q_b"))
         o = _mha(q, k, v, self_bias, cfg)
-        x = layer_norm(
-            x + linear(o, lp.get("attn_out_w"), lp.get("attn_out_b")),
-            lp.get("attn_ln_w"), lp.get("attn_ln_b"), cfg.layer_norm_eps)
+        x = layer_norm(x + _row(lp, o, "attn_out"), lp.get("attn_ln_w"),
+                       lp.get("attn_ln_b"), cfg.layer_norm_eps)
         xq = linear(x, lp.get("xq_w"), lp.get("xq_b"))
         o = _cross_mha(xq, xk[l], xv[l], cfg)
-        x = layer_norm(x + linear(o, lp.get("x_out_w"), lp.get("x_out_b")),
-                       lp.get("x_ln_w"), lp.get("x_ln_b"), cfg.layer_norm_eps)
+        x = layer_norm(x + _row(lp, o, "x_out"), lp.get("x_ln_w"),
+                       lp.get("x_ln_b"), cfg.layer_norm_eps)
         y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
-        x = layer_norm(x + linear(y, lp.get("out_w"), lp.get("out_b")),
-                       lp.get("out_ln_w"), lp.get("out_ln_b"),
-                       cfg.layer_norm_eps)
+        x = layer_norm(x + _row(lp, y, "out"), lp.get("out_ln_w"),
+                       lp.get("out_ln_b"), cfg.layer_norm_eps)
         for cache, new in ((ck, k), (cv, v)):
             c = torch.zeros((b, total_len, new.shape[-1]), dtype=new.dtype,
                             device=new.device)
@@ -663,7 +678,7 @@ def cached_beam_generate(model: Bert, condition_feat: torch.Tensor, *,
     cfg = model.cfg
     b, dev = condition_feat.shape[0], condition_feat.device
     k = num_beams
-    h = cfg.hidden_size
+    h = _local_width(model)
     lq = 0 if prefix_ids is None else prefix_ids.shape[1]
     lmax = max_new_tokens + 1
     total = lq + lmax

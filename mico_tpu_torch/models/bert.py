@@ -33,6 +33,10 @@ from mico_tpu_torch.config import BertConfig
 from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops.attention import multi_head_attention
 from mico_tpu_torch.parallel.collectives import all_reduce_sum, data_axis_size
+from mico_tpu_torch.parallel.tensor_parallel import (SequenceShard,
+                                                     copy_to_model,
+                                                     row_parallel_linear,
+                                                     seq_map)
 from mico_tpu_torch.ops.layers import (
     draw_seeds,
     dropout,
@@ -52,7 +56,18 @@ class BertOutput(NamedTuple):
 
 
 class BertLayer(ParamGroup):
-    """One layer; parameter names as in the JAX `layers/*` tree."""
+    """One layer; parameter names as in the JAX `layers/*` tree. Under
+    tensor parallelism (`tp`, set by `parallel.tensor_parallel.
+    shard_module`) it holds this rank's heads of q/k/v and xq/xk/xv and its
+    columns of inter (column-parallel), and the matching rows of attn_out,
+    x_out and out (row-parallel, summed over the model group before the
+    residual); the LayerNorms stay whole on every rank."""
+
+    tp = None
+
+    def local_heads(self, cfg: BertConfig) -> int:
+        """The heads this layer computes: all, or this rank's share."""
+        return self.get("q_w").shape[1] // cfg.head_dim
 
     def __init__(self, cfg: BertConfig, init: Init):
         h, inter, enc = cfg.hidden_size, cfg.intermediate_size, cfg.encoder_width
@@ -156,11 +171,18 @@ def _attn_sublayer(
     condition rows (u < b) with kv_index mapping each query row to its row:
     K/V are projected once per unique row and gathered (bert.py:143-156).
     With a generator: probability dropout, then output dropout before the
-    residual."""
+    residual. Under tensor parallelism the layer's heads are this rank's;
+    a token-sharded kv (`SequenceShard`, sequence parallelism) is gathered
+    here, its gradient reduce-scattered back."""
     b, lq, h = x.shape
+    tp = lp.tp
+    self_kv = kv is x
+    x_in = copy_to_model(x, tp)
+    kv = x_in if self_kv else (kv.gather() if isinstance(kv, SequenceShard)
+                               else copy_to_model(kv, tp))
     u, lk = kv.shape[0], kv.shape[1]
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
-    q = linear(x, lp.get(f"{prefix}q_w"), lp.get(f"{prefix}q_b"))
+    nh, hd = lp.local_heads(cfg), cfg.head_dim
+    q = linear(x_in, lp.get(f"{prefix}q_w"), lp.get(f"{prefix}q_b"))
     k = linear(kv, lp.get(f"{prefix}k_w"), lp.get(f"{prefix}k_b"))
     v = linear(kv, lp.get(f"{prefix}v_w"), lp.get(f"{prefix}v_b"))
     q = q.reshape(b, lq, nh, hd).transpose(1, 2)
@@ -169,11 +191,15 @@ def _attn_sublayer(
     if kv_index is not None:
         k = k[kv_index]
         v = v[kv_index]
-    o = multi_head_attention(q, k, v, bias=bias, scale=hd ** -0.5,
-                             impl=attn_impl, dropout_generator=generator,
-                             dropout_rate=cfg.attention_probs_dropout_prob)
-    o = o.transpose(1, 2).reshape(b, lq, h)
-    o = linear(o, lp.get(f"{out_prefix}_w"), lp.get(f"{out_prefix}_b"))
+    o = multi_head_attention(
+        q, k, v, bias=bias, scale=hd ** -0.5, impl=attn_impl,
+        dropout_generator=generator,
+        dropout_rate=cfg.attention_probs_dropout_prob,
+        dropout_heads=None if tp is None else (tp.index * nh,
+                                               cfg.num_attention_heads))
+    o = o.transpose(1, 2).reshape(b, lq, nh * hd)
+    o = row_parallel_linear(o, lp.get(f"{out_prefix}_w"),
+                            lp.get(f"{out_prefix}_b"), tp)
     o = dropout(o, cfg.hidden_dropout_prob, generator)
     return layer_norm(x + o, lp.get(f"{ln_prefix}_w"), lp.get(f"{ln_prefix}_b"),
                       cfg.layer_norm_eps)
@@ -190,12 +216,13 @@ def _layer(x: torch.Tensor, lp: BertLayer, cfg: BertConfig,
                        attn_impl, generator=gen)
     if encoder_hidden_states is not None:
         x = _attn_sublayer(
-            x, encoder_hidden_states.to(x.dtype), lp, cfg, cross_bias,
-            "x", "x_out", "x_ln", attn_impl, kv_index=cross_kv_index,
-            generator=gen,
+            x, seq_map(lambda t: t.to(x.dtype), encoder_hidden_states), lp,
+            cfg, cross_bias, "x", "x_out", "x_ln", attn_impl,
+            kv_index=cross_kv_index, generator=gen,
         )
-    y = gelu(linear(x, lp.get("inter_w"), lp.get("inter_b")))
-    y = linear(y, lp.get("out_w"), lp.get("out_b"))
+    y = gelu(linear(copy_to_model(x, lp.tp), lp.get("inter_w"),
+                    lp.get("inter_b")))
+    y = row_parallel_linear(y, lp.get("out_w"), lp.get("out_b"), lp.tp)
     y = dropout(y, cfg.hidden_dropout_prob, gen)
     return layer_norm(x + y, lp.get("out_ln_w"), lp.get("out_ln_b"),
                       cfg.layer_norm_eps)
@@ -282,10 +309,13 @@ def bert_forward(
     if encoder_hidden_states is not None and encoder_attention_mask is not None:
         enc_mask = encoder_attention_mask
         if encoder_row_index is not None:
-            if enc_mask.shape[0] != encoder_hidden_states.shape[0]:
+            rows = (encoder_hidden_states.local
+                    if isinstance(encoder_hidden_states, SequenceShard)
+                    else encoder_hidden_states).shape[0]
+            if enc_mask.shape[0] != rows:
                 raise ValueError(
                     "encoder_attention_mask must be per unique row "
-                    f"({encoder_hidden_states.shape[0]}) when "
+                    f"({rows}) when "
                     f"encoder_row_index is given, got {enc_mask.shape[0]}"
                 )
             enc_mask = enc_mask[encoder_row_index]

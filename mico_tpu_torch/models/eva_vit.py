@@ -73,6 +73,10 @@ from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops import flash_attention as fa
 from mico_tpu_torch.ops.attention import multi_head_attention
 from mico_tpu_torch.ops.layers import fork_generator, gelu, layer_norm, linear
+from mico_tpu_torch.parallel.tensor_parallel import (copy_to_model,
+                                                     finish_partial,
+                                                     row_parallel_linear,
+                                                     sharded_layer_norm)
 
 # the names a block tags for a `save:` remat policy (eva_vit.py:340-390)
 REMAT_TAGS = ("qkv", "attn_out", "mlp_hidden")
@@ -229,7 +233,17 @@ class EvaBlock(ParamGroup):
     `blocks/*` tree (eva_vit.py:98-156): the MLP's fc1/fc2, or SwiGLU's
     w1/w2/w3 and, with sub-LN, ffn_ln over the hidden width and
     inner_attn_ln over the width; a per-block relative table under
-    `use_rel_pos_bias`."""
+    `use_rel_pos_bias`.
+
+    Under tensor parallelism (`tp`, set by
+    `parallel.tensor_parallel.shard_module`) the block holds this rank's
+    heads and hidden columns: every route takes the local head count (from
+    qkv_w's columns), the column-parallel inputs pass `copy_to_model`, the
+    row-parallel outputs (proj, fc2, w3; K8's fp32 partial) are summed over
+    the model group before LayerScale, the post-norm LN and the residual,
+    and sub-LN's two LNs take their statistics over the whole width."""
+
+    tp = None
 
     def __init__(self, cfg: EvaVitConfig, init: Init, layer_id: int):
         w, h = cfg.width, cfg.mlp_hidden
@@ -274,6 +288,10 @@ class EvaBlock(ParamGroup):
         q_b = self.get("q_bias")
         return torch.cat([q_b, torch.zeros_like(q_b), self.get("v_bias")])
 
+    def local_heads(self, cfg: EvaVitConfig) -> int:
+        """The heads this block computes: all, or this rank's share."""
+        return self.get("qkv_w").shape[1] // (3 * cfg.head_dim)
+
     def forward(self, x: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
                 is_train: bool = False, keep: Optional[tuple] = None,
                 rope: Optional[tuple] = None,
@@ -299,23 +317,24 @@ class EvaBlock(ParamGroup):
             y = self._scaled(self._attention(x, cfg, attn_impl, is_train,
                                              rope, bias), "gamma_1")
             x = residual(x, layer_norm(y, g1, b1, eps), 0)
-            y = self._scaled(self._mlp(x, eps), "gamma_2")
+            y = self._scaled(self._mlp(x, eps, cfg.mlp_hidden), "gamma_2")
             return residual(x, layer_norm(y, g2, b2, eps), 1)
         if (attn_impl == "flash" and not is_train and fa.FUSED_LN_QKV
                 and fa.FUSED_QKV_PROJ and rope is None and bias is None
                 and not self.subln):            # `_ln_fusable`, :438-449
-            args = (x, g1, b1, self.get("qkv_w").to(x.dtype),
-                    self.packed_qkv_bias(), cfg.num_heads,
-                    cfg.head_dim ** -0.5, eps, g1 is not None)
+            args = (copy_to_model(x, self.tp), g1, b1,
+                    self.get("qkv_w").to(x.dtype), self.packed_qkv_bias(),
+                    self.local_heads(cfg), cfg.head_dim ** -0.5, eps,
+                    g1 is not None)
             o = (fa.fused_ln_qkv_self_attention(*args) if fa.kernel_route(x)
                  else fa.fused_ln_qkv_plain(*args))
-            y = _tagged("attn_out", linear, o, self.get("proj_w"),
-                        self.get("proj_b"))
+            y = _tagged("attn_out", row_parallel_linear, o,
+                        self.get("proj_w"), self.get("proj_b"), self.tp)
         else:
             y = self._attention(layer_norm(x, g1, b1, eps), cfg, attn_impl,
                                 is_train, rope, bias)
         x = residual(x, self._scaled(y, "gamma_1"), 0)
-        y = self._mlp(layer_norm(x, g2, b2, eps), eps)
+        y = self._mlp(layer_norm(x, g2, b2, eps), eps, cfg.mlp_hidden)
         return residual(x, self._scaled(y, "gamma_2"), 1)
 
     def _attention(self, h: torch.Tensor, cfg: EvaVitConfig, attn_impl: str,
@@ -327,9 +346,10 @@ class EvaBlock(ParamGroup):
         under sub-LN); else, with flash, the packed K3/K9 route (K4 in
         training); else plain. Sub-LN's inner_attn_ln runs before the
         output projection."""
-        nh, hd = cfg.num_heads, cfg.head_dim
+        nh, hd = self.local_heads(cfg), cfg.head_dim
         w_qkv, qkv_bias = self.get("qkv_w"), self.packed_qkv_bias()
         plain_heads = rope is not None or bias is not None
+        h = copy_to_model(h, self.tp)
         if (attn_impl == "flash" and not is_train and fa.FUSED_QKV_PROJ
                 and not plain_heads):
             args = (h, w_qkv.to(h.dtype), qkv_bias, nh, hd ** -0.5)
@@ -337,6 +357,12 @@ class EvaBlock(ParamGroup):
             if fa.FUSED_ATTN_PROJ and not self.subln:
                 args = args[:3] + (self.get("proj_w").to(h.dtype),
                                    self.get("proj_b")) + args[3:]
+                if self.tp is not None:     # row-parallel: the fp32 form
+                    part = (fa.fused_qkv_attn_proj(*args, partial=True)
+                            if kernel else
+                            fa.fused_qkv_attn_proj_plain(*args, partial=True))
+                    return finish_partial(part, self.get("proj_b"), self.tp,
+                                          h.dtype)
                 return (fa.fused_qkv_attn_proj(*args) if kernel
                         else fa.fused_qkv_attn_proj_plain(*args))
             o = (fa.fused_qkv_self_attention(*args) if kernel
@@ -347,22 +373,25 @@ class EvaBlock(ParamGroup):
         else:
             # v stays a strided view of the product and q, k the rotated
             # copies: K2 takes them as they are (unit last stride)
-            b, l, w = h.shape
+            b, l, _ = h.shape
             qkv = _tagged("qkv", linear, h, w_qkv, qkv_bias)
             q, k, v = qkv.reshape(b, l, 3, nh, hd).permute(2, 0, 3, 1, 4)
             o = multi_head_attention(_with_rope(q, rope), _with_rope(k, rope),
                                      v, bias=bias, scale=hd ** -0.5,
                                      impl=attn_impl)
-            o = o.transpose(1, 2).reshape(b, l, w)
+            o = o.transpose(1, 2).reshape(b, l, nh * hd)
         if self.subln:
-            o = layer_norm(o, self.get("inner_attn_ln_w"),
-                           self.get("inner_attn_ln_b"), cfg.ln_eps)
-        return _tagged("attn_out", linear, o, self.get("proj_w"),
-                       self.get("proj_b"))
+            o = sharded_layer_norm(o, self.get("inner_attn_ln_w"),
+                                   self.get("inner_attn_ln_b"), cfg.ln_eps,
+                                   cfg.width, self.tp)
+        return _tagged("attn_out", row_parallel_linear, o,
+                       self.get("proj_w"), self.get("proj_b"), self.tp)
 
-    def _mlp(self, h: torch.Tensor, eps: float) -> torch.Tensor:
+    def _mlp(self, h: torch.Tensor, eps: float, hidden: int) -> torch.Tensor:
         """MLP-GELU (fc1 tagged `mlp_hidden`) or SwiGLU; sub-LN's ffn_ln
-        before the last linear (eva_vit.py:380-397)."""
+        (over all `hidden` columns) before the last linear
+        (eva_vit.py:380-397)."""
+        h = copy_to_model(h, self.tp)
         if self.swiglu:
             hh = (F.silu(linear(h, self.get("w1_w"), self.get("w1_b")))
                   * linear(h, self.get("w2_w"), self.get("w2_b")))
@@ -372,9 +401,11 @@ class EvaBlock(ParamGroup):
                               self.get("fc1_b")))
             last = "fc2"
         if self.subln:
-            hh = layer_norm(hh, self.get("ffn_ln_w"), self.get("ffn_ln_b"),
-                            eps)
-        return linear(hh, self.get(f"{last}_w"), self.get(f"{last}_b"))
+            hh = sharded_layer_norm(hh, self.get("ffn_ln_w"),
+                                    self.get("ffn_ln_b"), eps, hidden,
+                                    self.tp)
+        return row_parallel_linear(hh, self.get(f"{last}_w"),
+                                   self.get(f"{last}_b"), self.tp)
 
     def _scaled(self, y: torch.Tensor, key: str) -> torch.Tensor:
         gamma = self.get(key)

@@ -38,6 +38,7 @@ from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.models.bert import BertOutput
 from mico_tpu_torch.ops.interpolate import interp_nearest_1d
 from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+from mico_tpu_torch.parallel.tensor_parallel import shard_module
 
 MODALITIES = ("vision", "audio", "depth")
 
@@ -60,11 +61,13 @@ class MiCo(nn.Module):
     biases, unit LN weights, all from one `torch.Generator` seeded with
     `seed`. Weights are drawn on the CPU in fp32, so one seed gives one
     model on any device, then moved to `device` in `dtype` (default
-    `cfg.param_dtype`)."""
+    `cfg.param_dtype`). Under a `mesh` with a model axis the whole model is
+    drawn, then each rank keeps its part of the sharded leaves
+    (`parallel.tensor_parallel.shard_module`) and moves only that."""
 
     def __init__(self, cfg: MiCoConfig = MiCoConfig(), *, device="cuda",
                  seed: int = 0, dtype: Optional[torch.dtype] = None,
-                 init_weights: bool = True):
+                 init_weights: bool = True, mesh=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -115,6 +118,8 @@ class MiCo(nn.Module):
                           ("depth", vd), ("subtitle", md)):
             setattr(self, f"hidden_trans_{m}", trans_head(in_dim))
             setattr(self, f"{m}_type_embeddings", param(init.normal((1, 1, md))))
+        if mesh is not None:
+            shard_module(self, mesh.model_axis)
         if init_weights:
             self.to(device=dev, dtype=dtype or cfg.dtypes()[0])
 
@@ -132,7 +137,12 @@ class MiCo(nn.Module):
         (mico.fold_inference_params); a pure reparametrization for
         inference, after which pre-norm blocks without sub-LN take kernel
         K1 with `affine=False` and post-norm blocks keep their LNs. The
-        identity for a non-EVA tower (mico.py:89-102)."""
+        identity for a non-EVA tower (mico.py:89-102). Fold a whole model,
+        then shard it: a rank's part of a row-parallel weight would fold
+        only its part of a bias."""
+        if getattr(self, "tp", None) is not None:
+            raise ValueError("fold_inference_params folds a whole model: "
+                             "fold before sharding over the model axis")
         if self.cfg.is_eva:
             self.vision_encoder.fold_inference_params()
         return self

@@ -16,7 +16,7 @@ probabilities to drop.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,16 +36,20 @@ def plain_attention(
     scale: Optional[float] = None,
     dropout_generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
+    dropout_heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Twin of `xla_attention`; probabilities dropped after the softmax
-    (torch semantics) when a generator and a rate are given."""
+    (torch semantics) when a generator and a rate are given.
+    `dropout_heads` = (first, all): q holds heads first.. of `all` (a
+    tensor-parallel rank's), and the mask is drawn for all heads and cut
+    to them, so the ranks drop what one process drops."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.float()
     probs = dropout(torch.softmax(scores, dim=-1), dropout_rate,
-                    dropout_generator)
+                    dropout_generator, heads=dropout_heads)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(v.dtype)
 
@@ -59,13 +63,15 @@ def multi_head_attention(
     impl: str = "flash",
     dropout_generator: Optional[torch.Generator] = None,
     dropout_rate: float = 0.0,
+    dropout_heads: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """impl: 'flash' | 'plain'. Tiny self-attention (lq·lk ≤ 4096) stays
     plain under 'flash'; active probability dropout takes the plain route."""
     if dropout_generator is not None and dropout_rate > 0.0:
         return plain_attention(q, k, v, bias=bias, scale=scale,
                                dropout_generator=dropout_generator,
-                               dropout_rate=dropout_rate)
+                               dropout_rate=dropout_rate,
+                               dropout_heads=dropout_heads)
     if impl == "flash" and q.shape[2] * k.shape[2] <= SMALL_ATTN_PLAIN_MAX:
         impl = "plain"
     if impl == "flash":

@@ -154,7 +154,8 @@ def packed_qkv_attention_plain(
     qkv: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
     """Twin of `_packed_qkv_reference`: (B, L, 3·H·D) → (B, L, H·D) with fp32
-    scores and softmax, probabilities cast to v's dtype, fp32 accumulation."""
+    scores and softmax, probabilities cast to v's dtype, fp32 accumulation
+    (any H·D: all heads, or a tensor-parallel rank's)."""
     b, l, w3 = qkv.shape
     w = w3 // 3
     d = w // num_heads
@@ -210,11 +211,15 @@ def fused_qkv_plain(x, w, bias, num_heads: int, scale: float) -> torch.Tensor:
 
 
 def fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads: int,
-                              scale: float) -> torch.Tensor:
+                              scale: float,
+                              partial: bool = False) -> torch.Tensor:
     """K8's twin, `_fused_qkv_attn_proj_reference` (:1492-1497): K5's twin,
-    then ·Wp + bp in fp32, rounded once to x's dtype."""
-    return bf16_gemm_plain(fused_qkv_plain(x, w, bias, num_heads, scale), wp,
-                           bp)
+    then ·Wp + bp in fp32, rounded once to x's dtype; `partial`: the fp32
+    product ·Wp alone (a rank's share of a row-parallel projection)."""
+    o = fused_qkv_plain(x, w, bias, num_heads, scale)
+    if partial:
+        return torch.matmul(o.float(), wp.to(o.dtype).float())
+    return bf16_gemm_plain(o, wp, bp)
 
 
 def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor],
@@ -244,7 +249,7 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor],
 @functools.lru_cache(maxsize=None)
 def _k1_entry():
     fn = _build.load("fused_ln_qkv_attn").mico_fused_ln_qkv_attn
-    fn.argtypes = [_c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [_c_void_p] * 8 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, _c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -289,24 +294,29 @@ assert _qkv_attn_smem_bytes(128, cls=True) <= _MAX_SMEM
 
 
 def _check_fused_qkv(name: str, x, w, bias, num_heads: int):
-    """The checks K1, K5 and K8 share: bf16 contiguous x (B, L, W) and w
-    (W, 3W) on one device with bias (3W,); head dim a multiple of 8 up to
-    128 (which gives the GEMM's K % 8 and N % 8, TMA's 16-byte strides, and
-    fits the attention's shared memory at any L); for K1, W ≤ 2048 (its
-    statistics pass holds a row in a warp's registers). Returns (B, L, W,
-    D)."""
+    """The checks K1, K5 and K8 share: bf16 contiguous x (B, L, W_in) and w
+    (W_in, 3·H·D) on one device with bias (3·H·D,), where H·D may differ
+    from W_in (a tensor-parallel rank's heads); head dim D a multiple of 8
+    up to 128 (which gives the GEMM's N % 8, TMA's 16-byte strides, and
+    fits the attention's shared memory at any L); W_in a multiple of 8 (the
+    GEMM's K); for K1, W_in ≤ 2048 (its statistics pass holds a row in a
+    warp's registers). Returns (B, L, W_in, D)."""
     _require(x.dim() == 3, f"{name}: x must be (B, L, W), got {tuple(x.shape)}")
     b, l, wd = x.shape
-    d = wd // num_heads
     _require(x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16,
              f"{name} takes bf16 x and w, got {x.dtype} and {w.dtype}")
     _require(x.is_contiguous() and w.is_contiguous(),
              f"{name} needs contiguous x, w")
-    _require(tuple(w.shape) == (wd, 3 * wd) and bias.numel() == 3 * wd,
-             f"{name}: w must be ({wd}, {3 * wd}) and bias ({3 * wd},)")
-    _require(d * num_heads == wd and d % 8 == 0 and d <= 128,
-             f"{name}: head dim {d} must divide W and be a multiple of 8 "
-             "up to 128")
+    _require(w.dim() == 2 and w.shape[0] == wd and w.shape[1] % 3 == 0
+             and bias.numel() == w.shape[1],
+             f"{name}: w must be ({wd}, 3·H·D) and bias (3·H·D,), got "
+             f"{tuple(w.shape)} and ({bias.numel()},)")
+    hd = w.shape[1] // 3
+    d = hd // num_heads
+    _require(d * num_heads == hd and d % 8 == 0 and d <= 128,
+             f"{name}: head dim {d} must divide H·D {hd} over {num_heads} "
+             "heads and be a multiple of 8 up to 128")
+    _require(wd % 8 == 0, f"{name}: W_in {wd} must be a multiple of 8")
     _require(name != "K1" or wd <= 2048,
              f"width {wd}: K1's LN statistics need W <= 2048")
     _require(w.device == x.device and bias.device == x.device,
@@ -318,9 +328,10 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
                                 scale: float, eps: float,
                                 affine: bool) -> torch.Tensor:
     """LN + qkv projection + packed self-attention on the raw residual stream
-    x (B, L, W); w (W, 3W) and bias (3W,) the packed projection; g/b0 the LN
-    affine (ignored, and may be None, when affine is False). Returns
-    (B, L, W). The kernel takes bf16 x and w; the vectors go in as fp32.
+    x (B, L, W); w (W, 3·H·D) and bias (3·H·D,) the packed projection of
+    the H heads given (all of them, W = H·D, or a tensor-parallel rank's);
+    g/b0 the LN affine over W (ignored, and may be None, when affine is
+    False). Returns (B, L, H·D). The kernel takes bf16 x and w; the vectors go in as fp32.
     Under autograd (`_fused_ln_qkv_vjp_fwd`, :1703): `layer_norm` of
     `ops/layers.py` (fp32 statistics) feeding K5's differentiated route, so
     the work is K3 and, in the backward, K4; K1 does not launch."""
@@ -333,6 +344,7 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
         return fused_ln_qkv_plain(x, g, b0, w, bias, num_heads, scale, eps,
                                   affine)
     b, l, wd, d = _check_fused_qkv("K1", x, w, bias, num_heads)
+    hd = num_heads * d
     dev = x.device
     for t in (g, b0) if affine else ():
         _require(t.device == dev, "K1 inputs must share one device")
@@ -342,12 +354,12 @@ def fused_ln_qkv_self_attention(x, g, b0, w, bias, num_heads: int,
     else:
         g32 = b32 = bias32           # not read by the kernel
     stats = torch.empty((b * l, 2), dtype=torch.float32, device=dev)
-    qkv = torch.empty((b, l, 3 * wd), dtype=x.dtype, device=dev)
-    out = torch.empty((b, l, wd), dtype=x.dtype, device=dev)
+    qkv = torch.empty((b, l, 3 * hd), dtype=x.dtype, device=dev)
+    out = torch.empty((b, l, hd), dtype=x.dtype, device=dev)
     rc = _k1_entry()(
         x.data_ptr(), g32.data_ptr(), b32.data_ptr(), w.data_ptr(),
         bias32.data_ptr(), stats.data_ptr(), qkv.data_ptr(), out.data_ptr(),
-        b, l, wd, num_heads, float(eps), int(bool(affine)),
+        b, l, wd, num_heads, d, float(eps), int(bool(affine)),
         float(scale * LOG2E), _stream(),
     )
     _check(rc, "fused_ln_qkv_attn")
@@ -366,7 +378,7 @@ fused_ln_qkv_self_attention.launches = 0
 @functools.lru_cache(maxsize=None)
 def _k5_entry():
     fn = _build.load("fused_qkv_attn").mico_fused_qkv_attn
-    fn.argtypes = [_c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [_c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, _c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -375,7 +387,7 @@ def _k5_entry():
 @functools.lru_cache(maxsize=None)
 def _k8_entry():
     fn = _build.load("fused_qkv_attn_proj").mico_fused_qkv_attn_proj
-    fn.argtypes = [_c_void_p] * 8 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [_c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_float, _c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -450,8 +462,9 @@ def ln_gemm_bias(x, g, b0, w, bias, eps: float,
 def fused_qkv_self_attention(x, w, bias, num_heads: int,
                              scale: float) -> torch.Tensor:
     """K5: qkv projection + packed self-attention on the block input x
-    (B, L, W), not normalised first; w (W, 3W) and bias (3W,) the packed
-    projection. Returns (B, L, W), ready for the output projection. The
+    (B, L, W), not normalised first; w (W, 3·H·D) and bias (3·H·D,) the
+    packed projection of the H heads given (W = H·D, or a tensor-parallel
+    rank's heads). Returns (B, L, H·D), ready for the output projection. The
     kernel takes bf16 x and w; the bias goes in as fp32. Under autograd the
     differentiated route `_FusedQKV` runs instead (K3, then K4)."""
     if records_grad(x, w, bias):
@@ -460,13 +473,15 @@ def fused_qkv_self_attention(x, w, bias, num_heads: int,
         return _FusedQKV.apply(x, w, bias, num_heads, float(scale))
     if not x.is_cuda:
         return fused_qkv_plain(x, w, bias, num_heads, scale)
-    b, l, wd, _ = _check_fused_qkv("K5", x, w, bias, num_heads)
+    b, l, wd, d = _check_fused_qkv("K5", x, w, bias, num_heads)
+    hd = num_heads * d
     bias32 = bias.float().contiguous()
-    qkv = torch.empty((b, l, 3 * wd), dtype=x.dtype, device=x.device)
-    out = torch.empty((b, l, wd), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((b, l, 3 * hd), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, l, hd), dtype=x.dtype, device=x.device)
     rc = _k5_entry()(
         x.data_ptr(), w.data_ptr(), bias32.data_ptr(), qkv.data_ptr(),
-        out.data_ptr(), b, l, wd, num_heads, float(scale * LOG2E), _stream(),
+        out.data_ptr(), b, l, wd, num_heads, d, float(scale * LOG2E),
+        _stream(),
     )
     _check(rc, "fused_qkv_attn")
     fused_qkv_self_attention.launches += 1
@@ -477,31 +492,42 @@ fused_qkv_self_attention.launches = 0
 
 
 def fused_qkv_attn_proj(x, w, bias, wp, bp, num_heads: int,
-                        scale: float) -> torch.Tensor:
-    """K8: K5 followed by the output projection, ·wp (W, W) + bp (W,),
-    computed in the kernel's own GEMM. Returns (B, L, W). Takes what K5
-    takes, and bf16 contiguous wp; the biases go in as fp32. Under
+                        scale: float, partial: bool = False) -> torch.Tensor:
+    """K8: K5 followed by the output projection, ·wp (H·D, W) + bp (W,),
+    computed in the kernel's own GEMM. Returns (B, L, W) bf16. Takes what
+    K5 takes, and bf16 contiguous wp; the biases go in as fp32. `partial`
+    (a tensor-parallel rank's heads, whose out-projection is row-parallel):
+    the fp32 product o·wp without bp, for the caller to sum over the model
+    group in fp32, add bp once and round once (bp is not read). Under
     autograd `_FusedQKVAttnProj` launches K8 and recomputes through K3 and
-    K4 in the backward."""
+    K4 in the backward; the partial form has no differentiated route (the
+    tensor-parallel K8 route is inference's)."""
     if records_grad(x, w, bias, wp, bp):
+        if partial:
+            raise RuntimeError("K8's partial form has no backward: call it "
+                               "under torch.no_grad()")
         return _FusedQKVAttnProj.apply(x, w, bias, wp, bp, num_heads,
                                        float(scale))
     if not x.is_cuda:
-        return fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads, scale)
-    b, l, wd, _ = _check_fused_qkv("K8", x, w, bias, num_heads)
+        return fused_qkv_attn_proj_plain(x, w, bias, wp, bp, num_heads, scale,
+                                         partial)
+    b, l, wd, d = _check_fused_qkv("K8", x, w, bias, num_heads)
+    hd = num_heads * d
     _require(wp.dtype == torch.bfloat16 and wp.is_contiguous()
-             and tuple(wp.shape) == (wd, wd) and bp.numel() == wd,
-             f"K8: wp must be contiguous bf16 ({wd}, {wd}) and bp ({wd},)")
+             and tuple(wp.shape) == (hd, wd) and bp.numel() == wd,
+             f"K8: wp must be contiguous bf16 ({hd}, {wd}) and bp ({wd},)")
     _require(wp.device == x.device and bp.device == x.device,
              "K8 inputs must share one device")
     bias32, bp32 = bias.float().contiguous(), bp.float().contiguous()
-    qkv = torch.empty((b, l, 3 * wd), dtype=x.dtype, device=x.device)
-    o = torch.empty((b, l, wd), dtype=x.dtype, device=x.device)
-    out = torch.empty((b, l, wd), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((b, l, 3 * hd), dtype=x.dtype, device=x.device)
+    o = torch.empty((b, l, hd), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, l, wd), dtype=torch.float32 if partial else x.dtype,
+                      device=x.device)
     rc = _k8_entry()(
         x.data_ptr(), w.data_ptr(), bias32.data_ptr(), wp.data_ptr(),
         bp32.data_ptr(), qkv.data_ptr(), o.data_ptr(), out.data_ptr(),
-        b, l, wd, num_heads, float(scale * LOG2E), _stream(),
+        b, l, wd, num_heads, d, int(bool(partial)), float(scale * LOG2E),
+        _stream(),
     )
     _check(rc, "fused_qkv_attn_proj")
     fused_qkv_attn_proj.launches += 1

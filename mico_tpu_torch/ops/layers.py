@@ -25,7 +25,7 @@ keep fp32 reductions (no reduced-precision split-K).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -165,16 +165,23 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout (`mico_tpu/ops/layers.py:75-82`): each element kept
     with probability 1 - rate and scaled by 1 / keep (keep rounded to x's
     dtype first, as JAX divides by it in x's dtype), the rest zeroed.
     Identity when the generator is None or the rate is 0. The mask is drawn
-    on x's device, so the generator must live there."""
+    on x's device, so the generator must live there. `heads` = (first,
+    all): x (B, h, ...) holds heads first.. of `all`; the mask is drawn for
+    all of them and cut to x's."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if heads is None else (x.shape[0], heads[1],
+                                           *x.shape[2:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if heads is not None:
+        mask = mask[:, heads[0]:heads[0] + x.shape[1]]
     keep_x = torch.tensor(keep, dtype=x.dtype).item()
     return torch.where(mask, x / keep_x, 0.0)
 

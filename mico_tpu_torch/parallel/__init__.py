@@ -1,7 +1,8 @@
-"""Data parallelism across processes (counterpart of `mico_tpu/parallel/`):
-the process mesh, the collectives on `torch.distributed` and the ZeRO-1
-split. Tensor, sequence and pipeline parallelism are not ported (ROADMAP.md,
-queue 1: parallelism)."""
+"""Parallelism across processes (counterpart of `mico_tpu/parallel/`): the
+process mesh of `data` × `model`, the collectives on `torch.distributed`,
+the ZeRO-1 split, and tensor and sequence parallelism on the model axis
+(`tensor_parallel`). Pipeline parallelism is not ported (ROADMAP.md, queue
+1: parallelism)."""
 
 from mico_tpu_torch.parallel.collectives import (
     all_gather_concat,
@@ -10,4 +11,5 @@ from mico_tpu_torch.parallel.collectives import (
     data_axis_size,
 )
 from mico_tpu_torch.parallel.mesh import create_mesh, data_parallel_mesh
-from mico_tpu_torch.parallel.partition import batch_spec, zero1_split_spec
+from mico_tpu_torch.parallel.partition import (batch_spec, mico_param_specs,
+                                               zero1_split_spec)

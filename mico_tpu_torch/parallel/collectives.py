@@ -182,6 +182,26 @@ def process_count() -> int:
     return dist.get_world_size() if _initialized() else 1
 
 
+# the model axis's size of the run's mesh (`mesh.create_mesh` sets it):
+# the processes of one data index are `MODEL_PARALLEL[0]` adjacent ranks
+MODEL_PARALLEL = [1]
+
+
+def data_shard() -> tuple:
+    """(data-axis size, this process's data index) of the run's mesh: the
+    loaders' shards and the evaluations' (rank r has data index r // model,
+    JAX's `reshape(data, model)`)."""
+    m = MODEL_PARALLEL[0]
+    return process_count() // m, process_index() // m
+
+
+def data_shards(per_process: list) -> list:
+    """Of one entry per process in rank order (`gather_objects`), those of
+    model index 0, one per data index: the ranks of a model group hold the
+    same rows and give the same results."""
+    return per_process[::MODEL_PARALLEL[0]]
+
+
 def data_group() -> Optional[object]:
     """The default group once a process group is initialised (at any
     world size, so one process under torchrun runs its collectives), else

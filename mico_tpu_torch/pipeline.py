@@ -15,16 +15,19 @@ as the JAX loop does (`create_train_dataloaders` sets it). An `scst%…`
 task takes `train/scst.py`'s step (with `run_cfg.scst_finetune_encoder`)
 and the batch's reference captions, `raw_captions`.
 
-Across processes (`mesh`, the data axis; one process a card) each rank
-loads its rows of the global batch and runs the data-parallel step
+Across processes (`mesh`: data × model; one process a card) each data
+index loads its rows of the global batch, which every rank of its model
+group runs on its part of a tensor-parallel model
 (`make_train_step(mesh=, zero1=)`); the logged losses are the global
-batch's, the evaluations gather every rank's shard, so every rank agrees
-on "best", and rank 0 writes the checkpoints (every rank takes part in a
-save: ZeRO-1's moments are gathered). Each rank draws from its own
-generator (seed + rank). SCST does not train data-parallel: JAX builds
-its step without the mesh (pipeline.py:90-95) and reads the sampled
-tokens of the sharded global batch back to the host, which fails across
-processes, so the port raises for `scst%…` at more than one process.
+batch's, the evaluations gather every data index's shard, so every rank
+agrees on "best", and rank 0 writes the checkpoints (every rank takes
+part in a save: ZeRO-1's moments and the model's parts are gathered).
+Each data index draws from its own generator (seed + data index), the
+same on every rank of its model group, so they draw the same masks.
+SCST does not train across processes: JAX builds its step without the
+mesh (pipeline.py:90-95) and reads the sampled tokens of the sharded
+global batch back to the host, which fails across processes, so the port
+raises for `scst%…` at more than one process.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 from mico_tpu_torch.config import MiCoConfig
 from mico_tpu_torch.data.tokenize_collate import BatchTokenizer, device_batch
 from mico_tpu_torch.evaluation import Evaluator, evaluation_registry
-from mico_tpu_torch.parallel.collectives import process_index
+from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel.collectives import data_shard
 from mico_tpu_torch.parallel.mesh import Mesh
 from mico_tpu_torch.train.checkpoints import ModelSaver
 from mico_tpu_torch.train.scst import make_scst_step
@@ -69,7 +73,6 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
     reference build_model.py:106-124), so periodic saves continue the
     numbering. mesh: the data axis across processes (None: one process)."""
     device = next(model.parameters()).device
-    world = 1 if mesh is None else mesh.shape["data"]
     zero1 = bool(run_cfg.get("zero1", False))
     num_steps = int(run_cfg.get("num_train_steps", 1000))
     valid_steps = int(run_cfg.get("valid_steps", num_steps))
@@ -91,7 +94,7 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
     # the steps' draws: one CPU generator from the run's seed, a stream of
     # its own on each rank
     generator = torch.Generator().manual_seed(
-        int(run_cfg.get("seed", 0)) + process_index())
+        int(run_cfg.get("seed", 0)) + data_shard()[1])
     record = {"start_step": int(start_step), "steps": [], "evals": [],
               "saves": []}
 
@@ -111,7 +114,7 @@ def train(cfg: MiCoConfig, model, optimizer, meta_loader,
             break
         task = name.split("--")[0]
         is_scst = task.startswith("scst")
-        if is_scst and world > 1:
+        if is_scst and collectives.process_count() > 1:
             raise NotImplementedError(SCST_PARALLEL)
         if task not in step_fns:
             step_fns[task] = (

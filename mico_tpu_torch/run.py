@@ -20,13 +20,20 @@ run.py:45-80), joined one of two ways:
   - from JAX's keys `run_cfg.coordinator_address` (host:port, or a
     `file://` path for a file rendezvous), `num_processes`, `process_id`
     (the card: the process id modulo the visible cards).
-NCCL on the card (`cuda:LOCAL_RANK`), gloo with `--device cpu`.
-`run_cfg.zero1=true` splits the AdamW moments over the ranks (ZeRO-1).
-Host seeds are seed + rank (JAX's run.py:72); the model's initial weights
-are the seed's on every rank. Rank 0 alone writes `hps.json`, the log file,
-the checkpoints and `log/record.json` (the training run's record). Tensor
-and pipeline parallelism (`model_parallel`, `pipeline_stages` > 1) are not
-ported.
+NCCL on the card (`cuda:LOCAL_RANK`), gloo with `--device cpu`; the mesh's
+data and model subgroups on the same backend.
+`run_cfg.model_parallel=m` lays the processes out as a data × model mesh
+(`parallel.mesh.create_mesh(data=-1, model=m)`: rank r has data index
+r // m and model index r % m) and shards the model over its model group:
+tensor parallelism on the EVA tower and BERT, and with
+`model_cfg.shard_condition_sequence` sequence parallelism of the condition
+tokens (`parallel.tensor_parallel`). `run_cfg.zero1=true` splits the AdamW
+moments over the data group (ZeRO-1). Host seeds are seed + data index
+(JAX's run.py:72 with its data axis): the ranks of a model group draw the
+same masks. The model's initial weights are the seed's on every rank.
+Rank 0 alone writes `hps.json`, the log file, the checkpoints and
+`log/record.json` (the training run's record). Pipeline parallelism
+(`pipeline_stages` > 1) is not ported.
 """
 
 from __future__ import annotations
@@ -103,7 +110,8 @@ def initialize(run_cfg, device: torch.device) -> torch.device:
     if run_cfg.get("multihost"):
         device = init_process_group(run_cfg, device)
     rank = collectives.process_index()
-    seed = int(run_cfg.get("seed", 50)) + rank
+    seed = (int(run_cfg.get("seed", 50))
+            + rank // int(run_cfg.get("model_parallel", 1)))
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -141,21 +149,22 @@ def get_args(argv=None):
 
 
 def _unported(run_cfg) -> None:
-    for key, bad in (("model_parallel", lambda v: int(v) > 1),
-                     ("pipeline_stages", lambda v: int(v) > 1)):
-        if key in run_cfg and bad(run_cfg[key]):
-            raise NotImplementedError(
-                f"run_cfg.{key}={run_cfg[key]}: {PARALLELISM}")
+    if int(run_cfg.get("pipeline_stages", 1)) > 1:
+        raise NotImplementedError(
+            f"run_cfg.pipeline_stages={run_cfg['pipeline_stages']}: "
+            f"{PARALLELISM}")
 
 
-def build_model(cfg, run_cfg, model_cfg, device, dtype):
-    """The run's model: resume > pretrain_dir > fresh init (reference
-    build_model.py:65-124). → (model, cfg, the resumed step or 0)."""
+def build_model(cfg, run_cfg, model_cfg, device, dtype, mesh=None):
+    """The run's model, sharded over the mesh's model axis: resume >
+    pretrain_dir > fresh init (reference build_model.py:65-124). A resumed
+    checkpoint is JAX's full layout, so a run resumes at any (data,
+    model). → (model, cfg, the resumed step or 0)."""
     if run_cfg.get("resume"):
         _, latest = _latest_step(os.path.join(run_cfg["output_dir"], "ckpt"),
                                  "model")
         if latest:
-            model = MiCo(cfg, device="cpu", init_weights=False)
+            model = MiCo(cfg, device="cpu", init_weights=False, mesh=mesh)
             model = model.to_empty(device=device).to(dtype)
             return model, cfg, resume_latest(run_cfg["output_dir"], model)
     if run_cfg.get("pretrain_dir"):
@@ -163,9 +172,10 @@ def build_model(cfg, run_cfg, model_cfg, device, dtype):
             run_cfg["pretrain_dir"],
             video_resolution=int(model_cfg.get("vision_resolution", 224)),
             config_overrides=dict(model_cfg))
-        return mico_from_jax(params, cfg, device=device, dtype=dtype), cfg, 0
+        return mico_from_jax(params, cfg, device=device, dtype=dtype,
+                             mesh=mesh), cfg, 0
     return MiCo(cfg, device=device, seed=int(run_cfg.get("seed", 50)),
-                dtype=dtype), cfg, 0
+                dtype=dtype, mesh=mesh), cfg, 0
 
 
 def main(argv=None):
@@ -185,7 +195,7 @@ def main(argv=None):
 
 def _run(args, device: torch.device):
     run_cfg, model_cfg = args.run_cfg, args.model_cfg
-    mesh = create_mesh(data=-1, model=1)
+    mesh = create_mesh(data=-1, model=int(run_cfg.get("model_parallel", 1)))
     LOGGER.info("mesh: %s", mesh.shape)
     if collectives.process_index() == 0:
         dump_hps({k: v for k, v in args.items() if not k.startswith("_")},
@@ -204,7 +214,7 @@ def _run(args, device: torch.device):
     dtype = getattr(torch, param_dtype) if param_dtype else cfg.dtypes()[0]
     mode = run_cfg.get("mode", "training")
     model, cfg, resume_step = build_model(cfg, run_cfg, model_cfg, device,
-                                          dtype)
+                                          dtype, mesh)
 
     if mode == "training":
         if meta_loader is None:
@@ -239,6 +249,7 @@ def _run(args, device: torch.device):
         record = train(cfg, model, optimizer, meta_loader, val_loaders,
                        run_cfg, tokenizer, start_step=resume_step, mesh=mesh)
         record["world"] = mesh.shape["data"]
+        record["mesh"] = dict(mesh.shape)
         if collectives.process_index() == 0:
             with open(os.path.join(run_cfg["output_dir"], "log",
                                    "record.json"), "w") as f:

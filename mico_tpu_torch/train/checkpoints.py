@@ -52,6 +52,8 @@ import torch
 
 from mico_tpu_torch.config import MiCoConfig, mico_config_from_dict
 from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel.tensor_parallel import (gather_leaf, local_part,
+                                                     shard, whole_state_dict)
 from mico_tpu_torch.utils.config_io import load_hps
 from mico_tpu_torch.utils.logger import LOGGER
 
@@ -336,10 +338,12 @@ def write_npz(path: str, leaves: Iterable[Tuple[str, list, bool]]) -> None:
 
 def model_leaves(model):
     """(JAX flat key, rows, stacked) of a port model: the JAX package's
-    npz layout."""
+    npz layout. A model sharded over the model axis is gathered whole
+    first (collective: every rank of its model group calls it), its fused
+    qkv rebuilt as [q | k | v]."""
     from mico_tpu_torch.convert import jax_leaves
 
-    return jax_leaves(model.state_dict(), model.cfg)
+    return jax_leaves(whole_state_dict(model), model.cfg)
 
 
 def _list_leaves(prefix: str, node):
@@ -377,11 +381,12 @@ def load_model_npz(path: str, model) -> None:
             for k, a in targets:
                 if k not in sd:
                     raise KeyError(f"{path}: leaf {key} has no parameter {k}")
-                if tuple(sd[k].shape) != a.shape:
+                a = local_part(model, k, torch.from_numpy(np.asarray(a)))
+                if tuple(sd[k].shape) != tuple(a.shape):
                     raise ValueError(f"{path}: {k} {a.shape} vs "
                                      f"{tuple(sd[k].shape)}")
                 with torch.no_grad():
-                    sd[k].copy_(torch.from_numpy(np.asarray(a)))
+                    sd[k].copy_(a)
                 filled.add(k)
             del arr, targets, a          # one leaf on the host at a time
     missing = sorted(set(sd) - filled)
@@ -430,13 +435,13 @@ class ModelSaver:
     def save(self, step: int, model, optimizer=None) -> None:
         """Write model_step_<step> (and optimizer_step_<step>), commit the
         optimizer's file then the model's, then delete older steps. Every
-        rank of a run calls it (the optimizer's leaves are gathered); rank
-        0 writes."""
+        rank of a run calls it (the optimizer's leaves, and a sharded
+        model's, are gathered); rank 0 writes."""
         writer = collectives.process_index() == 0
         writes = []
+        leaves = model_leaves(model)
         if writer:
-            writes.append(self._write(f"model_step_{step}.npz",
-                                      model_leaves(model)))
+            writes.append(self._write(f"model_step_{step}.npz", leaves))
         if optimizer is not None:
             leaves = iter(optimizer_leaves(optimizer))
             try:
@@ -460,9 +465,10 @@ class ModelSaver:
 
     def save_best(self, metric: str, model) -> None:
         """Best-metric snapshot (reference save.py:33-41), replaced in one
-        rename; rank 0 writes it."""
+        rename; rank 0 writes it (every rank calls it)."""
+        leaves = model_leaves(model)
         if collectives.process_index() == 0:
-            _commit(*self._write(f"best_{metric}.npz", model_leaves(model)))
+            _commit(*self._write(f"best_{metric}.npz", leaves))
         collectives.barrier()
 
 
@@ -470,8 +476,10 @@ def optimizer_leaves(optimizer):
     """(key, rows, stacked) of the port's optimizer file, one at a time:
     AdamW's state per parameter name, the update count, and an open
     accumulation window's summed gradients. Under a process group every
-    rank iterates it: ZeRO-1's slices are gathered whole and the window's
-    gradients averaged over the ranks as each leaf is reached."""
+    rank iterates it: ZeRO-1's slices are gathered whole over the data
+    group, a model-sharded leaf's parts over the model group, and the
+    window's gradients averaged over the data group as each leaf is
+    reached."""
     for key, v in (("__layout__", torch.tensor(list(_OPT_LAYOUT.encode()),
                                                dtype=torch.uint8)),
                    ("count", torch.tensor(optimizer.count,
@@ -481,17 +489,24 @@ def optimizer_leaves(optimizer):
         yield key, [v], False
     state = optimizer.torch_optimizer.state
     group, world = optimizer.group, optimizer.world
+    axis = optimizer.model_axis
+
+    def whole(name, v):
+        if name not in optimizer.tp_splits:
+            return v
+        return gather_leaf(v, *optimizer.tp_splits[name], axis)
+
     for i, (name, p) in enumerate(zip(optimizer.names, optimizer.params)):
         for field, v in state.get(optimizer.owned[i], {}).items():
             v = torch.as_tensor(v)
             if field != "step":
-                v = optimizer.gather(i, v)
+                v = whole(name, optimizer.gather(i, v))
             yield f"state/{name}/{field}", [v], False
         if optimizer.mini_step and p.grad is not None:
             g = p.grad
             if group is not None:
                 g = collectives.all_reduce_sum(g, group) / world
-            yield f"grad/{name}", [g], False
+            yield f"grad/{name}", [whole(name, g)], False
 
 
 # the groups of the JAX package's `build_optimizer` (train/optim.py:85-129)
@@ -567,12 +582,13 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
             if kind == "acc" and name not in params:
                 continue            # a frozen parameter's: never applied
             p = params[name]
+            # np.array, not ascontiguousarray: a 0-d leaf stays 0-d
+            a = _model_part(optimizer, name, torch.from_numpy(np.array(a)))
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{path}: leaf {i} ({kind} of {name}) has "
-                                 f"shape {a.shape}, the parameter "
+                                 f"shape {tuple(a.shape)}, the parameter "
                                  f"{tuple(p.shape)}")
-            # np.array, not ascontiguousarray: a 0-d leaf stays 0-d
-            t = torch.from_numpy(np.array(a)).to(p.device, p.dtype)
+            t = a.to(p.device, p.dtype)
             if kind == "acc":
                 acc[name] = t
             else:
@@ -592,9 +608,17 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
 
 
 def _owned(optimizer, i: int, full: torch.Tensor) -> torch.Tensor:
-    """A file's whole moment of parameter i → the slice this rank keeps
-    (ZeRO-1), or the whole leaf."""
+    """A file's moment of parameter i (this model-axis rank's part) → the
+    slice this rank keeps (ZeRO-1), or the whole part."""
     return optimizer.own(i, full).contiguous()
+
+
+def _model_part(optimizer, name: str, full: torch.Tensor) -> torch.Tensor:
+    """This model-axis rank's part of a file's whole leaf of parameter
+    `name` (the leaf itself when the parameter is whole)."""
+    if name not in optimizer.tp_splits:
+        return full
+    return shard(full, optimizer.tp_splits[name][0], optimizer.model_axis)
 
 
 def load_optimizer_npz(path: str, optimizer) -> None:
@@ -625,7 +649,8 @@ def load_optimizer_npz(path: str, optimizer) -> None:
             # device as it is read (the step count stays where it is)
             leaf = torch.from_numpy(z[key])
             if field != "step":
-                leaf = leaf.to(params[name].device, params[name].dtype)
+                leaf = _model_part(optimizer, name, leaf).to(
+                    params[name].device, params[name].dtype)
                 if kind == "state":
                     leaf = _owned(optimizer, index[name], leaf)
             if kind == "state":

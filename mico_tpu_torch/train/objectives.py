@@ -29,6 +29,11 @@ step, `mico_tpu/train/train_step.py:81`):
     (`models.bert.mlm_loss`), not a mean of the ranks' means;
   - injected `Draws` hold the global batch's rows; each rank takes its
     own.
+Under tensor parallelism `axis_name` stays the data group: the ranks of a
+model group run the same rows on their parts of the model, and with
+`shard_condition_sequence` the condition tokens travel token-sharded over
+the model group (`parallel.tensor_parallel.SequenceShard`) to BERT's
+cross-attentions, which gather them.
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ from mico_tpu_torch.parallel.collectives import (all_gather_concat,
                                                  all_gather_no_grad,
                                                  data_axis_index,
                                                  data_axis_size)
+from mico_tpu_torch.parallel.tensor_parallel import (model_axis_of,
+                                                     scatter_sequence,
+                                                     seq_cat, seq_map)
 from mico_tpu_torch.train.masker import mask_tokens
 
 
@@ -85,11 +93,12 @@ def compute_features(model: MiCo, cfg: MiCoConfig,
     for a fused-modality string ('v', 'a', 'va', 'vs', ...) (mico_tpu
     objectives.py:49-161). batch: vision_pixels (b,n,3,h,w),
     audio_spectrograms (b,n,T,M), depth_pixels, subtitle_ids/_mask (b,L).
-    `cache` (one per step) memoizes each tower."""
-    if cfg.shard_condition_sequence:
-        raise NotImplementedError(
-            "shard_condition_sequence: not ported yet (ROADMAP.md, queue 1: "
-            "parallelism)")
+    `cache` (one per step) memoizes each tower. `shard_condition_sequence`
+    (sequence parallelism, objectives.py:139-150) hands each
+    `condition_feats_*` on token-sharded over the model group
+    (`tensor_parallel.SequenceShard`), which each cross-attention gathers;
+    on a model axis of 1 (or none) it changes nothing, as JAX's constraint
+    on a 1-wide axis does not."""
     out: Dict[str, torch.Tensor] = {}
     pooled = {}
     cache = {} if cache is None else cache
@@ -139,6 +148,11 @@ def compute_features(model: MiCo, cfg: MiCoConfig,
         cat = torch.cat([pooled[m] for m in modalities], dim=-1)
         feat = mico_mod.contra_head(model, modalities, cat)
     out[f"feat_{modalities}"] = _normalize(feat)
+    if cfg.shard_condition_sequence:
+        axis = model_axis_of(model)
+        for k in out:
+            if k.startswith("condition_feats_"):
+                out[k] = scatter_sequence(out[k], 1, axis)
     return out
 
 
@@ -228,32 +242,35 @@ def itm_loss(model: MiCo, cfg: MiCoConfig, condition_feats: torch.Tensor,
     per unique condition row (`kv_index`): the same math, off by default
     as JAX's ITM_DEDUP_CROSS_KV."""
     bs = input_ids.shape[0]
+    dev = input_ids.device
     k_neg, k_drop = split_generator(train_rng, 2)
     if negatives is None:
         if train_rng is None:
             raise ValueError("itm_loss draws its negatives from train_rng")
-        gen = fork_generator(k_neg, condition_feats.device)
+        gen = fork_generator(k_neg, sim_t2cond.device)
         offset = data_axis_index(axis_name) * bs
         neg_cond, neg_text = (_negatives(sim_t2cond, gen, offset),
                               _negatives(sim_cond2t, gen, offset))
     else:
-        neg_cond, neg_text = (x.to(condition_feats.device, torch.long)
-                              for x in negatives)
-    cond_neg = all_gather_concat(condition_feats, axis_name)[neg_cond]
+        neg_cond, neg_text = (x.to(dev, torch.long) for x in negatives)
+    # a token-sharded condition (sequence parallelism) is gathered over
+    # the data axis block by block: the batch is its first dimension
+    cond_neg = seq_map(lambda c: all_gather_concat(c, axis_name)[neg_cond],
+                       condition_feats)
     ids_all = all_gather_no_grad(input_ids, axis_name)
     mask_all = all_gather_no_grad(attention_mask, axis_name)
     ids_3 = torch.cat([input_ids, input_ids, ids_all[neg_text]])
     mask_3 = torch.cat([attention_mask, attention_mask, mask_all[neg_text]])
     pos = torch.arange(bs, device=neg_cond.device)
     if not dedup_cross_kv:
-        cond_u = torch.cat([condition_feats, cond_neg, condition_feats])
+        cond_u = seq_cat([condition_feats, cond_neg, condition_feats])
         row_idx = None
     elif axis_name is None:
         # negatives are drawn from the local rows: b unique conditions
         cond_u, row_idx = condition_feats, torch.cat([pos, neg_cond, pos])
     else:
         # negatives may come from other ranks: 2b unique conditions
-        cond_u = torch.cat([condition_feats, cond_neg])
+        cond_u = seq_cat([condition_feats, cond_neg])
         row_idx = torch.cat([pos, bs + pos, pos])
     seq = mico_mod.forward_multimodal_encoder(
         model, ids_3, mask_3, cond_u, train_rng=k_drop,

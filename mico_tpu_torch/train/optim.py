@@ -42,6 +42,14 @@ data-parallel step to the single-device one):
     are all-gathered into the parameters. The clip's norm is the global
     one: the squared norms of the owned slices summed over the ranks, plus
     the whole leaves'.
+Under tensor parallelism (a model sharded by `parallel.tensor_parallel.
+shard_module`) a sharded leaf's parameter, gradient and moments are this
+rank's part of it: ZeRO-1 splits that part over `data`, never on the
+dimension the model axis splits; the gradients are averaged over the data
+group only (the ranks of a model group hold different parts, or equal
+gradients of a replicated leaf, which need no collective); the clip's norm
+sums the squared norms of the sharded leaves over the model group and
+counts each replicated leaf once.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from torch import nn
 
 from mico_tpu_torch.parallel import collectives
 from mico_tpu_torch.parallel.partition import zero1_split_dim
+from mico_tpu_torch.parallel.tensor_parallel import model_axis_of, splits_of
 from mico_tpu_torch.train.sched import lr_schedule_ratio
 
 # elements of whole leaves one collective of the data-parallel step takes
@@ -129,6 +138,10 @@ class Optimizer:
         # the leaf order of the JAX package's optimizer state
         # (`checkpoints.jax_optimizer_leaves`)
         self.model_cfg = getattr(model, "cfg", None)
+        # the model axis and {name: (split, whole length)} of the sharded
+        # parameters (empty on a whole model)
+        self.model_axis = model_axis_of(model)
+        self.tp_splits = splits_of(model)
         init_lr = {"basic": cfg.learning_rate, "vision": cfg.clip_lr,
                    "new": cfg.new_lr}
         groups: Dict[str, list] = {}
@@ -147,8 +160,10 @@ class Optimizer:
         # parameter itself, or this rank's slice of it (a view into the
         # parameter where the slice is contiguous, a dimension-0 split;
         # else a contiguous copy)
-        self.split_dims = [zero1_split_dim(p.shape, self.world)
-                           if self.zero1 else None for p in self.params]
+        self.model_split = [n in self.tp_splits for n in self.names]
+        self.split_dims = [
+            zero1_split_dim(p.shape, self.world, base_spec=self._base(n))
+            if self.zero1 else None for n, p in zip(self.names, self.params)]
         self.owned = []
         for i, (p, d) in enumerate(zip(self.params, self.split_dims)):
             part = p if d is None else self.own(i, p.detach())
@@ -164,6 +179,14 @@ class Optimizer:
              for label, ps in groups.items()],
             lr=0.0, betas=cfg.betas, eps=cfg.eps, fused=fused or None)
         self.count = 0
+
+    def _base(self, name: str) -> tuple:
+        """The model axis's spec of a parameter's part: "model" on the
+        dimension it splits."""
+        if name not in self.tp_splits:
+            return ()
+        dim = self.tp_splits[name][0][1]
+        return (None,) * dim + ("model",)
 
     def own(self, i: int, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of a tensor shaped as parameter i (a view; the
@@ -271,17 +294,24 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.owned]
-        if any(d is not None for d in self.split_dims):
-            parts = [g for g, d in zip(grads, self.split_dims)
-                     if d is not None]
-            whole = [g for g, d in zip(grads, self.split_dims) if d is None]
-            sq = collectives.all_reduce_sum(
-                torch.nn.utils.get_total_norm(parts, 2.0).float() ** 2,
-                self.group)
-            if whole:
-                sq = sq + torch.nn.utils.get_total_norm(
-                    whole, 2.0).float() ** 2
-            norm = sq.sqrt()
+        axis = self.model_axis
+        if any(d is not None for d in self.split_dims) or axis is not None:
+            # squared norms by (ZeRO-1 split over data, sharded over model)
+            sq = {}
+            for key in ((True, True), (True, False), (False, True),
+                        (False, False)):
+                mine = [g for g, d, m in zip(grads, self.split_dims,
+                                             self.model_split)
+                        if (d is not None, m) == key]
+                sq[key] = (torch.nn.utils.get_total_norm(mine, 2.0).float()
+                           ** 2 if mine else grads[0].new_zeros((),
+                                                                dtype=torch.float32))
+            over_data = collectives.all_reduce_sum(
+                torch.stack([sq[True, True], sq[True, False]]), self.group)
+            sharded = over_data[0] + sq[False, True]
+            if axis is not None:
+                sharded = collectives.all_reduce_sum(sharded, axis.group)
+            norm = (sharded + over_data[1] + sq[False, False]).sqrt()
         else:
             norm = torch.nn.utils.get_total_norm(grads, 2.0)
         limit = self.cfg.grad_norm

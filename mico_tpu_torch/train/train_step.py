@@ -14,7 +14,10 @@ rank reduce-scatters them into the slices it owns. The step is the
 one-process step on the global batch, as JAX's is (its run path computes
 the losses on the global batch, train_step.py:81). The returned losses are
 the global batch's: the ranks' shares averaged, one all-reduce a step,
-whose result every rank checks, so all raise together.
+whose result every rank checks, so all raise together. Under tensor
+parallelism (a model sharded over the mesh's model axis) `mesh.group` is
+the data group: the ranks of a model group compute the same losses on the
+same rows, so the average runs over the data group alone.
 """
 
 from __future__ import annotations

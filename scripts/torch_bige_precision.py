@@ -103,7 +103,7 @@ def k5_at(blk, x, cfg) -> dict:
     qkv = torch.empty((b, l, 3 * wd), dtype=torch.bfloat16, device=x.device)
     out = torch.empty((b, l, wd), dtype=torch.bfloat16, device=x.device)
     rc = fa._k5_entry()(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                        qkv.data_ptr(), out.data_ptr(), b, l, wd, nh,
+                        qkv.data_ptr(), out.data_ptr(), b, l, wd, nh, hd,
                         float(hd ** -0.5 * fa.LOG2E), fa._stream())
     torch.cuda.synchronize()
     if rc != 0:

@@ -183,7 +183,9 @@ def test_mesh_over_the_ranks(checked):
     *_, out = checked
     for r, o in enumerate(out):
         assert o["mesh"] == ({"data": WORLD, "model": 1}, r, True)
-        assert "queue 1: parallelism" in o["model_parallel"]
+        # create_mesh(model=WORLD) builds: one data index, WORLD model ranks
+        assert o["model_parallel"] == ({"data": 1, "model": WORLD}, 0, r, 1,
+                                       WORLD)
     from mico_tpu_torch.parallel import create_mesh
 
     assert create_mesh().shape == {"data": 1, "model": 1}

@@ -40,7 +40,7 @@ def test_sources_found():
             "chip_smoke.py", "run.py", "pipeline.py", "loader.py",
             "mappers.py", "anno_dataset.py", "metrics.py",
             "config_io.py", "logger.py", "checkpoints.py",
-            "scst.py"} <= names
+            "scst.py", "mesh.py", "tensor_parallel.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

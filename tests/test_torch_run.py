@@ -402,11 +402,14 @@ def test_refusals(corpus, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trun.main(base)             # the default device is the card
     cpu = base + ["--device", "cpu"]
-    for over, match in (("run_cfg.model_parallel=2", "parallelism"),
-                        ("run_cfg.pipeline_stages=2", "parallelism"),
+    for over, match in (("run_cfg.pipeline_stages=2", "parallelism"),
                         ("run_cfg.checkpoint_backend=orbax", "orbax")):
         with pytest.raises(NotImplementedError, match=match):
             trun.main(cpu + [over])
+    # tensor parallelism is ported: model 2 takes two processes, and one
+    # process cannot hold its mesh
+    with pytest.raises(ValueError, match="model=2 does not divide 1"):
+        trun.main(cpu + ["run_cfg.model_parallel=2"])
     # a multi-process run needs torchrun's environment or JAX's keys
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):

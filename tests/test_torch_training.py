@@ -401,10 +401,15 @@ def test_train_step_raises_on_non_finite_loss():
     # the step's ZeRO-1 flag must be the optimizer's state layout
     with pytest.raises(ValueError, match="zero1"):
         make_train_step(tcfg, opt, "ret%tv", zero1=True)
-    # sequence parallelism over the condition tokens is not ported
-    with pytest.raises(NotImplementedError, match="queue 1: parallelism"):
-        objectives.compute_features(
+    # sequence parallelism over the condition tokens: on a model axis of 1
+    # it changes nothing, as JAX's constraint on a 1-wide axis does not
+    with torch.no_grad():
+        plain = objectives.compute_features(model, tcfg, batch, "v")
+        sp = objectives.compute_features(
             model, replace(tcfg, shard_condition_sequence=True), batch, "v")
+    assert plain.keys() == sp.keys()
+    for k in plain:
+        assert torch.equal(plain[k], sp[k]), k
 
 
 def test_causal_masks_match_jax():

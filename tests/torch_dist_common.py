@@ -121,11 +121,13 @@ def collective_checks(rank: int, world: int, x: np.ndarray, w: np.ndarray,
     out["allgather"] = c.process_allgather(np.array([rank, 2 * rank]))
     mesh = m.create_mesh()
     out["mesh"] = (mesh.shape, mesh.rank, mesh.group is g)
-    try:
-        m.create_mesh(model=2)
-        out["model_parallel"] = None
-    except NotImplementedError as e:
-        out["model_parallel"] = str(e)
+    # the model axis over every rank: a data group of one rank each, the
+    # model group of all
+    tp = m.create_mesh(model=world)
+    out["model_parallel"] = (tp.shape, tp.rank, tp.model_index,
+                             c.data_axis_size(tp.group),
+                             c.data_axis_size(tp.model_group))
+    m.create_mesh()               # the run's layout back to model 1
     return out
 
 
@@ -178,4 +180,61 @@ def dp_steps(rank: int, world: int, cases: list) -> list:
             split=sum(d is not None for d in opt.split_dims),
             leaves=len(opt.split_dims),
             world=dist.get_world_size()))
+    return results
+
+
+def tp_steps(rank: int, world: int, model: int, cases: list,
+             save_dir=None) -> list:
+    """Each case's update on a data × `model` mesh of the world: the port
+    model from the case's JAX params, sharded over the model group as it
+    is placed (`mico_from_jax(mesh=)`), the optimizer over the data group
+    (ZeRO-1 by the case), this data index's rows of the global batch and
+    draws (the injected JAX draws, or with `seed` the rank's generator
+    seeded by its data index). → per case the global losses, the whole
+    parameters (gathered over the model group), the moments' element
+    count and the parameters' on this rank. With `save_dir` the last
+    case's model and optimizer are saved there after its step."""
+    import torch
+
+    from mico_tpu_torch.convert import mico_from_jax
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.parallel.tensor_parallel import whole_state_dict
+    from mico_tpu_torch.train.checkpoints import ModelSaver
+    from mico_tpu_torch.train.objectives import Draws
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mico_tpu_torch.train.train_step import make_train_step
+
+    mesh = create_mesh(data=world // model, model=model)
+    d = mesh.rank
+    results = []
+    for case in cases:
+        net = mico_from_jax(case["params"], case["tcfg"], device="cpu",
+                            mesh=mesh)
+        opt = build_optimizer(net, OptimConfig(**case["oc"]),
+                              group=mesh.group, zero1=case["zero1"])
+        step = make_train_step(case["tcfg"], opt, case["task"], mesh=mesh,
+                               zero1=case["zero1"])
+        batch, masks, negatives = case["call"]
+        n = mesh.shape["data"]
+        local = {k: torch.from_numpy(rows(v, d, n).copy())
+                 for k, v in batch.items()}
+        local = {k: v if v.is_floating_point() else v.long()
+                 for k, v in local.items()}
+        draws = None if case.get("seed") is not None else Draws(
+            masks=[tuple(torch.from_numpy(a) for a in p) for p in masks],
+            negatives=[tuple(torch.from_numpy(a) for a in p)
+                       for p in negatives])
+        gen = torch.Generator().manual_seed(
+            (case.get("seed") or 0) + d)
+        got = step(net, local, gen, draws=draws)
+        state = opt.torch_optimizer.state
+        results.append(dict(
+            losses={k: v.item() for k, v in got.items()},
+            params={k: v.numpy().copy()
+                    for k, v in whole_state_dict(net).items()},
+            moment_numel=sum(state[o]["exp_avg"].numel() for o in opt.owned),
+            local_numel=sum(p.numel() for p in net.parameters()),
+            mesh=dict(mesh.shape), index=(d, mesh.model_index)))
+        if save_dir is not None and case is cases[-1]:
+            ModelSaver(str(save_dir)).save(1, net, opt)
     return results
