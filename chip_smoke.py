@@ -315,6 +315,32 @@ Phases, run in order (any failure exits non-zero):
      the condition: rates 0 keep it off plain math); the peak memory per
      rank with and without ZeRO-1 and the collective seconds (gloo through
      the host, not an NCCL figure).
+ 13. tp (after dp): tensor and sequence parallelism, two ranks on the one
+     card over gloo at data 1 x model 2: rank 0 first takes the
+     one-process references on the whole models; then both ranks run the
+     omni embeddings and ITM of MiCo-g (K1 10 a ViT pass) and of bigE at 4
+     blocks (K5 4, K8's fp32 partial form 4 under `FUSED_ATTN_PROJ`)
+     against them (cosine >= 0.999, ITM within 1e-2), the TP step of
+     ret%tva_cap%tva (MiCo-g at full width, 10 ViT blocks, B 2, every rate
+     0, draws injected; each loss within 2e-2 relative, each group's update
+     cosine >= 0.99, K3 = K4 = 20 a rank, each rank's peak below the
+     one-process step's) and its SP twin (losses within 2e-3 of TP's);
+ 14. pp (after tp): GPipe pipeline parallelism of the EVA tower, two ranks
+     on the one card over gloo at data 1 x stages 2 (`pipeline_stages=2`):
+     rank 0 first takes the one-process references on the whole model;
+     then both ranks build MiCo-g at full width with 10 ViT blocks staged
+     (5 a stage) from the same seed, run (b) the omni embeddings and ITM on
+     the tower gathered whole (`whole_tower`; K1 10 a ViT pass; cosine >=
+     0.999, ITM within 1e-2 of one process) and (a) the pipelined step of
+     ret%tva_cap%tva at B 2 (every rate 0, draws injected): each loss
+     within 2e-2 relative of the one-process step's, each optimizer
+     group's update cosine >= 0.99, each rank's peak memory below the
+     one-process step's, K3 = K4 = 5 x (M_vision + M_audio) a rank (a
+     launch a block a microbatch; the auto M of 8 frames and of 4 audio
+     slices), K2 the one-process step's and nothing else; it prints each
+     rank's step seconds, the hops' seconds (gloo through the host, the
+     wait for the other stage included: not an NCCL figure) and the
+     bubble (S - 1) / (S + M - 1).
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -5491,14 +5517,15 @@ def _tp_rank(rank: int) -> dict:
     return result
 
 
-def _tp_hold_eval(what: str, got: dict, want: dict) -> dict:
-    """The TP evaluation against the one-process one: embedding cosines >=
-    COSINE_MIN, ITM within ITM_PROB_TOL."""
+def _tp_hold_eval(what: str, got: dict, want: dict, part: str = "c") -> dict:
+    """The TP (or PP) evaluation against the one-process one: embedding
+    cosines >= COSINE_MIN, ITM within ITM_PROB_TOL."""
     cos = {name: min_row_cosine(torch.from_numpy(got["feats"][name]),
                                 torch.from_numpy(want["feats"][name]))
            for name in ("image", "video", "audio", "text")}
     gap = float(np.abs(got["itm"] - want["itm"]).max())
-    log(f"  (c) {what}: cosine to one process {cos}; ITM max |d| {gap:.3e}")
+    log(f"  ({part}) {what}: cosine to one process {cos}; ITM max |d| "
+        f"{gap:.3e}")
     bad = {n: c for n, c in cos.items() if not c >= COSINE_MIN}
     if bad or not gap <= ITM_PROB_TOL:
         raise AssertionError(f"{what}: cosines {cos}, ITM gap {gap}")
@@ -5623,6 +5650,293 @@ def phase_tp(fa, card: str) -> dict:
                        for r, res in results.items()})
 
 
+# ---------------------------------------------------------------------------
+# phase 14: GPipe pipeline parallelism of the EVA tower (two ranks on the
+# one card over gloo, data 1 x stages 2)
+# ---------------------------------------------------------------------------
+
+PP_WORLD = 2                # stages; data 1
+PP_B = 2                    # the global batch: both stages run all of it
+PP_LAYERS = 10              # ViT-g at full width, 10 of 40 blocks: 5 a stage
+PP_TIMEOUT_S = 600
+
+
+def pp_rank(rank: int, store: str, out) -> None:
+    """One rank of the two on the card (`_pp_rank`)."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                world_size=PP_WORLD, rank=rank,
+                                timeout=timedelta(seconds=PP_TIMEOUT_S))
+        out.put((rank, True, _pp_rank(rank)))
+    except BaseException:  # noqa: BLE001 — reported by the parent
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _pp_rank(rank: int) -> dict:
+    """Rank 0 takes the one-process references first, on the whole model
+    (rank 1 waits): the omni embeddings and ITM (K1), and PRETRAIN_TASK's
+    step on the global batch of PP_B. Then both ranks build the same model
+    staged over the two stages (`MiCo(mesh=)` at `pipeline_stages=2`),
+    run (b) the evaluation on the tower gathered whole (`whole_tower`) and
+    (a) the pipelined step from the same weights, every rate 0 and the
+    draws injected. → the references on rank 0, each path's launches and
+    results, the per-group update dot products (the other stage's blocks
+    broadcast), the peak memory, the step's and the hops' seconds and the
+    microbatch counts."""
+    import torch.distributed as dist
+
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.ops import flash_attention as fa
+    from mico_tpu_torch.parallel import collectives
+    from mico_tpu_torch.parallel import pipeline_parallel as pp
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.text import BertWordPieceTokenizer
+    from mico_tpu_torch.train.masker import mask_tokens
+    from mico_tpu_torch.train.objectives import Draws
+    from mico_tpu_torch.train.optim import (OptimConfig, build_optimizer,
+                                            param_group_labels)
+    from mico_tpu_torch.train.train_step import make_train_step
+    from mico_tpu_torch.train.workload import PRETRAIN_TASK, synthetic_batch
+
+    cfg, _ = _tp_configs()
+    cfg = dataclasses.replace(cfg, eva_override=dataclasses.replace(
+        cfg.eva_config, layers=PP_LAYERS))
+    pcfg = dataclasses.replace(cfg, pipeline_stages=PP_WORLD)
+    batch = synthetic_batch(PP_B, seed=1)
+    masked = mask_tokens(batch["caption_ids"], 0.6,
+                         torch.Generator().manual_seed(2))
+    flip = torch.arange(PP_B, device="cuda").roll(1)
+    ev = {k: torch.from_numpy(v[:1]).cuda()
+          for k, v in omni_inputs().items()}
+    enc = BertWordPieceTokenizer()(CAPTIONS, max_length=TEXT_LEN)
+    caps = (torch.from_numpy(enc["input_ids"]).long().cuda(),
+            torch.from_numpy(enc["attention_mask"]).long().cuda())
+    micro = {m: pp.auto_n_micro(batch[k].shape[0] * batch[k].shape[1],
+                                PP_WORLD)
+             for m, k in (("vision", "vision_pixels"),
+                          ("audio", "audio_spectrograms"))}
+
+    def take(step, model, timers=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = step(model, batch, torch.Generator().manual_seed(0),
+                   draws=Draws(masks=[masked], negatives=[(flip, flip)]))
+        losses = {k: v.item() for k, v in got.items()}
+        torch.cuda.synchronize()
+        return dict(losses=losses, step_s=time.perf_counter() - t0,
+                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                    launches=fa.launch_counts(), **(timers or {}))
+
+    result, ref_update, labels = dict(micro=micro), None, None
+    paths = {}
+    mesh = create_mesh(data=1, model=PP_WORLD)
+    if rank == 0:
+        t0 = time.perf_counter()
+        whole = MiCo(cfg, device="cuda", seed=0)
+        result["build_s"] = time.perf_counter() - t0
+        result["ref_eval"] = _tp_eval(fa, whole, ev, caps, PP_LAYERS, "K1",
+                                      "one-process", {})
+        labels = param_group_labels(whole)
+        start = {n: p.detach().cpu() for n, p in whole.named_parameters()}
+        opt = build_optimizer(whole, OptimConfig(**DP_OPTIM))
+        result["reference"] = take(make_train_step(cfg, opt, PRETRAIN_TASK),
+                                   whole)
+        ref_update = {n: (p.detach().cpu() - start[n])
+                      for n, p in whole.named_parameters()}
+        del whole, opt, start
+        free_cuda()
+    dist.barrier()
+    t0 = time.perf_counter()
+    model = MiCo(pcfg, device="cuda", seed=0, mesh=mesh)
+    result["pp_build_s"] = time.perf_counter() - t0
+    tag = f"pp rank {rank}"
+    # (b) the evaluation on the tower gathered whole, the fresh weights
+    t0 = time.perf_counter()
+    with pp.whole_tower(model):
+        result["gather_s"] = time.perf_counter() - t0
+        result["eval"] = _tp_eval(fa, model, ev, caps, PP_LAYERS, "K1", tag,
+                                  paths)
+    named = dict(model.named_parameters())
+    # on the host, as the reference's: the step's peak holds no copy
+    start = {n: p.detach().cpu() for n, p in named.items()}
+    # (a) the pipelined step; the hops' host clock (gloo through the host,
+    # a send's staging copy and the wait for the neighbour stage included)
+    timers = {"hop_s": 0.0, "hops": 0}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            if isinstance(r, torch.Tensor):
+                torch.cuda.synchronize()
+            timers["hop_s"] += time.perf_counter() - t0
+            timers["hops"] += 1
+            return r
+        return call
+
+    real = {k: getattr(collectives, k) for k in ("send", "recv",
+                                                  "broadcast")}
+    opt = build_optimizer(model, OptimConfig(**DP_OPTIM), group=mesh.group)
+    step = make_train_step(pcfg, opt, PRETRAIN_TASK, mesh=mesh)
+    for k, fn in real.items():
+        setattr(collectives, k, timed(fn))
+    try:
+        r = take(step, model, timers)
+    finally:
+        for k, fn in real.items():
+            setattr(collectives, k, fn)
+    paths[f"{tag} step"] = r["launches"]
+    r["moment_bytes"] = sum(
+        v.numel() * v.element_size()
+        for s in opt.torch_optimizer.state.values()
+        for k, v in s.items() if k in ("exp_avg", "exp_avg_sq"))
+    update = {n: p.detach() - start[n].to(p.device)
+              for n, p in named.items()}
+    twins = pp.remote_names(model)
+    dots = {}
+    for name in pp.whole_entries(model, update):
+        u = pp.fetch(model, name, update, twins)
+        if ref_update is not None:
+            w = ref_update[name].to(u.device).double()
+            u = u.double()
+            d = dots.setdefault(labels[name], torch.zeros(
+                3, dtype=torch.float64, device=u.device))
+            d += torch.stack([(u * w).sum(), (u * u).sum(), (w * w).sum()])
+    if ref_update is not None:
+        r["group_cosine"] = {
+            g: dot / max(1e-300, (uu * ww) ** 0.5)
+            for g, (dot, uu, ww) in ((g, d.tolist())
+                                     for g, d in dots.items())}
+    result["pp"] = r
+    result["paths"] = paths
+    del opt, step, model, start, update
+    free_cuda()
+    return result
+
+
+def phase_pp(fa, card: str) -> dict:
+    """Two ranks on the one card over gloo at data 1 x stages 2 (NCCL
+    refuses two ranks on one device): (a) the pipelined step of
+    PRETRAIN_TASK at full width (MiCo-g, PP_LAYERS ViT blocks, 5 a stage,
+    B 2, every rate 0, draws injected) against the one-process step: each
+    loss within LOSS_RTOL, each optimizer group's update cosine >=
+    GRAD_COSINE_MIN, each rank's peak memory below the one-process
+    step's, K3 = K4 = 5 x (M_vision + M_audio) a rank (a launch a block a
+    microbatch), K2 as the one-process step's and nothing else; (b) the
+    omni embeddings and ITM on the tower gathered whole against one
+    process: cosine >= COSINE_MIN, ITM within ITM_PROB_TOL, K1 PP_LAYERS a
+    ViT pass. Prints each rank's step seconds, the hops' seconds (gloo
+    through the host) and the bubble."""
+    import multiprocessing
+    import os
+    import queue
+    import shutil
+    import tempfile
+
+    from mico_tpu_torch.parallel.pipeline_parallel import bubble
+
+    t0 = time.perf_counter()
+    log("phase pp: GPipe pipeline parallelism of the EVA tower, 2 stages "
+        "(two ranks on the card over gloo)")
+    free_cuda()
+    root = tempfile.mkdtemp(prefix="mico_pp_")
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=pp_rank,
+                         args=(r, os.path.join(root, "rendezvous"), out))
+             for r in range(PP_WORLD)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    deadline = time.perf_counter() + PP_TIMEOUT_S
+    try:
+        while len(results) < PP_WORLD and not errors:
+            try:
+                rank, ok, value = out.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in results]
+                if dead or time.perf_counter() > deadline:
+                    errors.append(f"ranks {dead} exited without a result"
+                                  if dead else "a rank gave no result")
+                continue
+            if not ok:
+                errors.append(f"rank {rank}:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10 if errors else PP_TIMEOUT_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    r0 = results[0]
+    ref = r0["reference"]
+    micro = r0["micro"]
+    per_stage = PP_LAYERS // PP_WORLD
+    k34 = per_stage * (micro["vision"] + micro["audio"])
+    gib = lambda b: f"{b / 2 ** 30:.2f} GiB"     # noqa: E731
+    for rank, res in results.items():
+        r = res["pp"]
+        for k, v in ref["losses"].items():
+            if not abs(r["losses"][k] - v) <= LOSS_RTOL * abs(v):
+                raise AssertionError(f"rank {rank} pp: {k} "
+                                     f"{r['losses'][k]} vs {v}")
+        want = dict(ref["launches"], K3=k34, K4=k34)
+        if r["launches"] != want or not want["K2"]:
+            raise AssertionError(f"rank {rank} pp: launches {r['launches']}"
+                                 f", expected {want} (the one-process "
+                                 f"step's {ref['launches']})")
+        if not r["peak_memory_bytes"] < ref["peak_memory_bytes"]:
+            raise AssertionError(
+                f"rank {rank} pp: peak {r['peak_memory_bytes']} not below "
+                f"the one-process step's {ref['peak_memory_bytes']}")
+        log(f"  (a) rank {rank}: PP losses {r['losses']}; launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; peak memory "
+            f"{gib(r['peak_memory_bytes'])} (moments "
+            f"{gib(r['moment_bytes'])}); step {1e3 * r['step_s']:.1f} ms, "
+            f"of which {r['hops']} hops and broadcasts {r['hop_s']:.3f} s "
+            f"(gloo through the host, the wait for the other stage "
+            f"included; both stages share the one card) [{card}]")
+    cos = r0["pp"]["group_cosine"]
+    log(f"  (a) pp: update cosine to the one-process step by group "
+        f"{ {g: round(c, 6) for g, c in cos.items()} }")
+    bad = {g: c for g, c in cos.items() if not c >= GRAD_COSINE_MIN}
+    if bad:
+        raise AssertionError(f"pp update cosine {bad}")
+    log(f"  (a) one-process step on the global batch of {PP_B}: "
+        f"{1e3 * ref['step_s']:.1f} ms, peak {gib(ref['peak_memory_bytes'])}"
+        f", launches { {k: v for k, v in ref['launches'].items() if v} }; "
+        f"microbatches {micro} (bubble "
+        f"{ {m: round(bubble(PP_WORLD, n), 4) for m, n in micro.items()} })")
+    evals = {f"rank {rank} eval": _tp_hold_eval(
+        f"pp rank {rank} eval", res["eval"], r0["ref_eval"], "b")
+        for rank, res in results.items()}
+    paths = {k: v for res in results.values() for k, v in
+             res["paths"].items()}
+    phase_s = time.perf_counter() - t0
+    log(f"  phase pp: {phase_s:.1f} s (rank 0 builds: whole "
+        f"{r0['build_s']:.1f} s, staged {r0['pp_build_s']:.1f} s; the "
+        f"tower gathered whole in {r0['gather_s']:.2f} s)")
+    return dict(phase_s=phase_s, reference=ref, evals=evals, paths=paths,
+                micro=micro, bubble={m: bubble(PP_WORLD, n)
+                                     for m, n in micro.items()},
+                ranks={r: res["pp"] for r, res in results.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs one "
@@ -5669,6 +5983,7 @@ def main() -> int:
     run = phase_run(fa, card, train)
     dp = phase_dp(fa, card, run)
     tp = phase_tp(fa, card)
+    pipe = phase_pp(fa, card)
     captioner = phase_captioner(fa, card)
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
@@ -5685,7 +6000,7 @@ def main() -> int:
              **{f"run eval (step {step})": {k: v for k, v in c.items()
                                            if k.startswith(("K", "P"))}
                 for step, c in run["launches"]["eval"].items()},
-             **dp["paths"], **tp["paths"],
+             **dp["paths"], **tp["paths"], **pipe["paths"],
              **captioner["paths"]}
     for row in rows:
         key = row["name"].split()[0]
@@ -5719,6 +6034,7 @@ def main() -> int:
                       "run": run,
                       "dp": {k: v for k, v in dp.items() if k != "paths"},
                       "tp": {k: v for k, v in tp.items() if k != "paths"},
+                      "pp": {k: v for k, v in pipe.items() if k != "paths"},
                       "captioner": {k: v for k, v in captioner.items()
                                     if k != "paths"}}, default=str))
     print(json.dumps({"kernels": rows}))

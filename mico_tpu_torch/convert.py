@@ -33,10 +33,11 @@ import numpy as np
 import torch
 
 from mico_tpu_torch.config import BertConfig, EvaVitConfig, MiCoConfig
-from mico_tpu_torch.models.mico import MiCo, resolve_device
+from mico_tpu_torch.models.mico import MiCo, resolve_device, stage_or_shard
 from mico_tpu_torch.ops.interpolate import interp_bilinear_2d, interp_nearest_1d
-from mico_tpu_torch.parallel.tensor_parallel import (leaf_split, shard,
-                                                     shard_module)
+from mico_tpu_torch.parallel.partition import stage_range
+from mico_tpu_torch.parallel.pipeline_parallel import check_stages
+from mico_tpu_torch.parallel.tensor_parallel import leaf_split, shard
 
 # parameter groups whose leaves carry a leading depth axis
 STACKED = ("vision_encoder/blocks", "bert/layers")
@@ -60,11 +61,14 @@ def _skeleton(cfg: MiCoConfig, keys) -> MiCo:
     layout the state_dict keys are in: folded when they lack a parameter
     that folding removes (a pre-norm block's LN affines and q/v biases, a
     block's LayerScale). A post-norm tower without LayerScale folds to
-    itself."""
+    itself. A block with no key at all (another pipeline stage's) tells
+    nothing."""
     canonical = MiCo(cfg, device="cpu", init_weights=False)
     folded = copy.deepcopy(canonical).fold_inference_params()
     removed = set(canonical.state_dict()) - set(folded.state_dict())
-    return folded if removed - set(keys) else canonical
+    held = {k.rpartition(".")[0] for k in keys}
+    lost = {k for k in removed - set(keys) if k.rpartition(".")[0] in held}
+    return folded if lost else canonical
 
 
 def _placed(leaf, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -81,8 +85,9 @@ def _placed(leaf, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _part(key: str, leaf, cfg: MiCoConfig, axis):
-    """This model-axis rank's part of a leaf (the leaf at model 1)."""
-    if axis is None:
+    """This model-axis rank's part of a leaf (the leaf at model 1); under
+    pipeline stages the leaf itself (a stage's blocks are whole)."""
+    if axis is None or cfg.pipeline_stages > 1:
         return leaf
     split = leaf_split(key, leaf.shape, cfg.is_eva)
     if split is None:
@@ -93,22 +98,32 @@ def _part(key: str, leaf, cfg: MiCoConfig, axis):
 
 
 def _place(params: Mapping, cfg: MiCoConfig, device="cpu",
-           dtype: torch.dtype = torch.float32, axis=None):
+           dtype: torch.dtype = torch.float32, mesh=None):
     """(state_dict on `device` in `dtype`, the skeleton it fills) for the
-    params tree of `cfg`; under a model `axis`, each sharded leaf's part
-    alone (the skeleton sharded alike)."""
+    params tree of `cfg`; under a `mesh` with a model axis, each sharded
+    leaf's part alone, or at `cfg.pipeline_stages` > 1 the stage's EVA
+    blocks alone (the skeleton laid out alike)."""
     dev = torch.device(device)
+    axis = None if mesh is None else mesh.model_axis
+    keep = range(0)
+    if axis is not None and cfg.pipeline_stages > 1 and cfg.is_eva:
+        check_stages(cfg, axis.size)
+        keep = range(*stage_range(cfg.vision_tower_config.layers, axis.size,
+                                  axis.index))
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params).items():
         group, _, name = path.rpartition("/")
         if group in STACKED:
             for i in range(leaf.shape[0]):
+                if keep and group == STACKED[0] and i not in keep:
+                    continue        # another pipeline stage's block
                 key = f"{group.replace('/', '.')}.{i}.{name}"
                 sd[key] = _placed(_part(key, leaf[i], cfg, axis), dev, dtype)
         else:
             key = path.replace("/", ".")
             sd[key] = _placed(_part(key, leaf, cfg, axis), dev, dtype)
-    model = shard_module(_skeleton(cfg, sd), axis)
+    skeleton = _skeleton(cfg, sd)
+    model = skeleton if mesh is None else stage_or_shard(skeleton, mesh)
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     unplaced = sorted(set(sd) - set(want))
     unfilled = sorted(set(want) - set(sd))
@@ -192,11 +207,11 @@ def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",
     """A MiCo holding the params tree (JAX's, or a converted checkpoint's),
     on `device` in `dtype` (default `cfg.param_dtype`). Under a `mesh`
     with a model axis each rank places only its part of the sharded
-    leaves."""
+    leaves, or at `cfg.pipeline_stages` > 1 only its stage's EVA blocks
+    (a rank never holds the whole tower)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtypes()[0]
-    sd, model = _place(params, cfg, dev, dtype,
-                       None if mesh is None else mesh.model_axis)
+    sd, model = _place(params, cfg, dev, dtype, mesh)
     model.load_state_dict(sd, strict=True, assign=True)
     return model
 

@@ -22,7 +22,8 @@ the ViT takes its inference route (K1 on the card), BERT's cross-attention
 in the ITM re-rank K2. Across processes each rank evaluates its shard of
 the set (the unpadded sampler: data index r takes items r, r + world,
 ...; the ranks of a model group run the same items on their parts of a
-tensor-parallel model, and only model index 0's shard is kept) and
+tensor-parallel model, or on the tower of a pipeline-staged model gathered
+whole, and only model index 0's shard is kept) and
 the shards' outputs merge through `gather_objects` before scoring, as in
 JAX (:188-204, :346-367, :417-439), so every rank computes the metrics of
 the whole set, and rank 0 alone writes the annotation and submission
@@ -55,6 +56,7 @@ from mico_tpu_torch.parallel.collectives import (data_shards,
                                                  gather_objects,
                                                  process_count,
                                                  process_index)
+from mico_tpu_torch.parallel.pipeline_parallel import whole_tower
 from mico_tpu_torch.train.objectives import (
     compute_features,
     compute_slice_scores,
@@ -88,8 +90,10 @@ class Evaluator:
     def __init__(self, cfg: MiCoConfig, model: MiCo, tokenizer,
                  run_cfg=None):
         if cfg.pipeline_stages > 1:
-            # pipeline stages are a training-memory tool; one inference pass
-            # gains nothing from them
+            # as JAX's evaluator (:75-81): pipeline stages are a
+            # training-memory tool, and one inference pass gains nothing
+            # from them; `evaluation_mm` runs on the tower gathered whole
+            # (`pipeline_parallel.whole_tower`)
             cfg = dataclasses.replace(cfg, pipeline_stages=1)
         # the token-sharded condition is a training layout: the evaluation
         # reads whole condition tokens (a tensor-parallel model gathers
@@ -378,7 +382,16 @@ class Evaluator:
 
 def evaluation_mm(evaluator: Evaluator, val_loaders: Dict, run_cfg,
                   global_step: int) -> Dict[str, Dict[str, float]]:
-    """Evaluate every val loader according to its task prefix."""
+    """Evaluate every val loader according to its task prefix. A model
+    staged over pipeline stages is evaluated on its tower gathered whole
+    (every rank of a model group calls this; the blocks gathered are freed
+    after it)."""
+    with whole_tower(evaluator.model):
+        return _evaluation_mm(evaluator, val_loaders, run_cfg, global_step)
+
+
+def _evaluation_mm(evaluator: Evaluator, val_loaders: Dict, run_cfg,
+                   global_step: int) -> Dict[str, Dict[str, float]]:
     logs: Dict[str, Dict[str, float]] = {}
     for name, loader in val_loaders.items():
         task = name.split("--")[0]

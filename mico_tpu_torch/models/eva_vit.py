@@ -54,6 +54,13 @@ recomputes it), and the names of `jax.checkpoint_policies` that take no
 argument map to torch's selective checkpointing (`remat_context`).
 `unroll_blocks` is a compile strategy of XLA's; the block loop here is
 unrolled already, so it changes nothing.
+
+A tower staged over pipeline stages (`parallel.pipeline_parallel.
+stage_module`: this stage's blocks, `OtherStage` in the others' places)
+runs its blocks through `pipelined` at `pipeline_stages` > 1
+(eva_vit.py:584-620): the embedding and every draw on the rank's whole
+batch first, the draws' rows and per-sample RoPE tables split with the
+microbatches, the final norm after the last stage's broadcast.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.ops import flash_attention as fa
 from mico_tpu_torch.ops.attention import multi_head_attention
 from mico_tpu_torch.ops.layers import fork_generator, gelu, layer_norm, linear
+from mico_tpu_torch.parallel.pipeline_parallel import pipelined
 from mico_tpu_torch.parallel.tensor_parallel import (copy_to_model,
                                                      finish_partial,
                                                      row_parallel_linear,
@@ -542,21 +550,41 @@ def eva_vit_forward(
     unroll_blocks: bool = False,
     train_rng: Optional[torch.Generator] = None,
     pipeline_stages: int = 1,
+    pipeline_microbatches: Optional[int] = None,
 ) -> torch.Tensor:
     """pixels (B, 3, H, W) → (B, seq_len, width) when return_all_features,
     else the pooled (B, width) (eva_vit.py:484-646). With `train_rng` (a CPU
     generator) the training route runs: PatchDropout, DropPath and the
     K3/K4 attention (K2 with RoPE or a relative bias). `remat` checkpoints each block, keeping what
     `remat_policy` names (`remat_context`; an unknown name raises
-    ValueError); `unroll_blocks` is accepted with the same math."""
+    ValueError); `unroll_blocks` is accepted with the same math.
+
+    `pipeline_stages` > 1 takes the pipeline route (eva_vit.py:584-620):
+    the tower must be staged over a model axis of that size
+    (`parallel.pipeline_parallel.stage_module`, as `MiCo(mesh=)` stages
+    it), else ValueError. The embedding and the draws (PatchDropout's
+    scores and DropPath's (layers, 2, B) uniforms, on the rank's whole
+    batch) come first, the stage's blocks run per microbatch in
+    `pipelined` (`pipeline_microbatches`, or the auto choice), the shared
+    relative bias computed from its table inside each stage, and the final
+    norm runs after the broadcast."""
     del unroll_blocks        # the loop below is unrolled already
     if remat_policy == "everything_saveable":
         remat = False                # keep everything: no checkpoint
     context_fn = remat_context(remat_policy) if remat else None
-    if pipeline_stages > 1:
-        raise NotImplementedError(
-            "pipeline stages: not ported yet (ROADMAP.md, queue 1: "
-            "parallelism)")
+    axis = getattr(model, "pp", None)
+    if pipeline_stages > 1 and (axis is None
+                                or axis.size != pipeline_stages):
+        raise ValueError(
+            f"pipeline parallelism: pipeline_stages={pipeline_stages} "
+            f"runs the tower staged over "
+            f"a mesh's model axis of {pipeline_stages} (create_mesh("
+            f"model={pipeline_stages}), MiCo(mesh=)); this tower is "
+            + ("whole" if axis is None else f"staged over {axis.size}"))
+    if axis is not None and pipeline_stages <= 1:
+        raise ValueError("a staged tower runs at pipeline_stages="
+                         f"{axis.size}; gather it whole first "
+                         "(pipeline_parallel.whole_tower)")
     cfg = model.cfg
     x = patch_embed(model.patch_embed, cfg, pixels.to(compute_dtype))
     b = x.shape[0]
@@ -577,19 +605,51 @@ def eva_vit_forward(
             u = torch.rand((cfg.layers, 2, b), generator=gen, device=x.device)
             keep_prob = 1.0 - drop_path_rates(cfg, x.device)
             keeps = list(zip(u < keep_prob[:, None, None], keep_prob))
-    shared = (rel_pos_bias_from_table(model.rel_pos_bias_table, cfg.grid_size)
-              if cfg.use_shared_rel_pos_bias else None)
-    for blk, keep in zip(model.blocks, keeps):
-        args = (x, cfg, attn_impl, is_train, keep, rope, shared)
-        if remat:
-            kw = {} if context_fn is None else dict(context_fn=context_fn)
-            x = torch.utils.checkpoint.checkpoint(blk, *args,
-                                                  use_reentrant=False, **kw)
-        else:
-            x = blk(*args)
+
+    def run_blocks(blocks, x, keeps, rope):
+        shared = (rel_pos_bias_from_table(model.rel_pos_bias_table,
+                                          cfg.grid_size)
+                  if cfg.use_shared_rel_pos_bias else None)
+        for blk, keep in zip(blocks, keeps):
+            args = (x, cfg, attn_impl, is_train, keep, rope, shared)
+            if remat:
+                kw = {} if context_fn is None else dict(context_fn=context_fn)
+                x = torch.utils.checkpoint.checkpoint(
+                    blk, *args, use_reentrant=False, **kw)
+            else:
+                x = blk(*args)
+        return x
+
+    if axis is None:
+        x = run_blocks(model.blocks, x, keeps, rope)
+    else:
+        x = _pipeline_blocks(model, x, keeps, rope, run_blocks,
+                             pipeline_microbatches)
     if not cfg.global_average_pool:
         x = layer_norm(x, model.norm_w, model.norm_b, cfg.ln_eps)
         return x if return_all_features else x[:, 0]
     if return_all_features:
         return x
     return layer_norm(x.mean(dim=1), model.norm_w, model.norm_b, cfg.ln_eps)
+
+
+def _pipeline_blocks(model: EvaVisionTransformer, x: torch.Tensor, keeps,
+                     rope, run_blocks, n_micro: Optional[int]):
+    """The stage's blocks of a staged tower over `pipelined`: DropPath's
+    masks (B rows) and per-sample RoPE tables split with the microbatches,
+    each block reading its global layer's draws."""
+    a, b = model.stage_range
+    masks = probs = None
+    if keeps[0] is not None:             # (B, layers, 2) rows of the draws
+        masks = torch.stack([k[0] for k in keeps]).permute(2, 0, 1)
+        probs = [k[1] for k in keeps]
+    per_sample = rope is not None and rope[0].dim() == 4
+
+    def layer_fn(blocks, h, m, cos, sin):
+        ks = ([None] * (b - a) if m is None else
+              [(m[:, i].T, probs[i]) for i in range(a, b)])
+        return run_blocks(blocks, h, ks, (cos, sin) if per_sample else rope)
+
+    rows = (masks,) + (rope if per_sample else (None, None))
+    return pipelined(layer_fn, model.pp, n_micro)(
+        list(model.blocks)[a:b], x, *rows)

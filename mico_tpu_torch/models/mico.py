@@ -38,6 +38,7 @@ from mico_tpu_torch.models._params import Init, ParamGroup
 from mico_tpu_torch.models.bert import BertOutput
 from mico_tpu_torch.ops.interpolate import interp_nearest_1d
 from mico_tpu_torch.ops.layers import gelu, layer_norm, linear
+from mico_tpu_torch.parallel.pipeline_parallel import stage_module
 from mico_tpu_torch.parallel.tensor_parallel import shard_module
 
 MODALITIES = ("vision", "audio", "depth")
@@ -55,6 +56,21 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def stage_or_shard(model: nn.Module, mesh) -> nn.Module:
+    """In place, a whole model laid out over the mesh's model axis: at
+    `cfg.pipeline_stages` > 1 its EVA tower staged (the axis carries
+    stages, its size the stages'; every other leaf replicated, as JAX's
+    run.py:222-225 leaves them), else sharded by tensor parallelism."""
+    stages = model.cfg.pipeline_stages
+    if stages > 1:
+        if mesh.shape["model"] != stages:
+            raise ValueError(
+                f"pipeline_stages={stages} needs a mesh whose model axis is "
+                f"{stages}, not {mesh.shape}")
+        return stage_module(model, mesh.stage_axis)
+    return shard_module(model, mesh.model_axis)
+
+
 class MiCo(nn.Module):
     """MiCo with freshly drawn weights (`init_mico`, mico.py:36-86):
     trunc-normal 0.02 for the ViT, normal 0.02 for BERT and the heads, zero
@@ -63,7 +79,9 @@ class MiCo(nn.Module):
     model on any device, then moved to `device` in `dtype` (default
     `cfg.param_dtype`). Under a `mesh` with a model axis the whole model is
     drawn, then each rank keeps its part of the sharded leaves
-    (`parallel.tensor_parallel.shard_module`) and moves only that."""
+    (`parallel.tensor_parallel.shard_module`), or at `cfg.pipeline_stages`
+    > 1 its stage's EVA blocks (`parallel.pipeline_parallel.stage_module`),
+    and moves only that."""
 
     def __init__(self, cfg: MiCoConfig = MiCoConfig(), *, device="cuda",
                  seed: int = 0, dtype: Optional[torch.dtype] = None,
@@ -119,7 +137,7 @@ class MiCo(nn.Module):
             setattr(self, f"hidden_trans_{m}", trans_head(in_dim))
             setattr(self, f"{m}_type_embeddings", param(init.normal((1, 1, md))))
         if mesh is not None:
-            shard_module(self, mesh.model_axis)
+            stage_or_shard(self, mesh)
         if init_weights:
             self.to(device=dev, dtype=dtype or cfg.dtypes()[0])
 
@@ -140,9 +158,10 @@ class MiCo(nn.Module):
         identity for a non-EVA tower (mico.py:89-102). Fold a whole model,
         then shard it: a rank's part of a row-parallel weight would fold
         only its part of a bias."""
-        if getattr(self, "tp", None) is not None:
+        if getattr(self, "tp", None) or getattr(self, "pp", None):
             raise ValueError("fold_inference_params folds a whole model: "
-                             "fold before sharding over the model axis")
+                             "fold before sharding or staging over the "
+                             "model axis")
         if self.cfg.is_eva:
             self.vision_encoder.fold_inference_params()
         return self
@@ -254,6 +273,7 @@ def forward_vision_encoder(model: MiCo, pixels: torch.Tensor,
         remat_policy=cfg.remat_policy,
         unroll_blocks=cfg.unroll_blocks and train_rng is not None,
         train_rng=train_rng, pipeline_stages=cfg.pipeline_stages,
+        pipeline_microbatches=cfg.pipeline_microbatches,
     )
     return tokens.reshape(b, n, *tokens.shape[1:])
 

@@ -1,8 +1,8 @@
 """Parallelism across processes (counterpart of `mico_tpu/parallel/`): the
 process mesh of `data` × `model`, the collectives on `torch.distributed`,
-the ZeRO-1 split, and tensor and sequence parallelism on the model axis
-(`tensor_parallel`). Pipeline parallelism is not ported (ROADMAP.md, queue
-1: parallelism)."""
+the ZeRO-1 split, and on the model axis tensor and sequence parallelism
+(`tensor_parallel`) or GPipe pipeline parallelism of the EVA tower
+(`pipeline_parallel`)."""
 
 from mico_tpu_torch.parallel.collectives import (
     all_gather_concat,

@@ -15,7 +15,10 @@ tests, on one card and across processes. The reference's NCCL wrappers
 Tensors go through the collective on their own device: NCCL takes CUDA
 tensors, gloo CPU and CUDA tensors alike (every collective called here
 runs under gloo on CUDA tensors in torch 2.11), so nothing is staged
-through the host. The host-side object collectives (`process_allgather`,
+through the host. The point-to-point `send`/`recv` of the pipeline's hops
+are the exception: gloo's take host memory alone, so under gloo a card
+tensor is staged through pinned host memory (under NCCL it stays on the
+card). The host-side object collectives (`process_allgather`,
 `gather_objects`, `broadcast_object`) run over the default group on the
 device its backend needs.
 """
@@ -59,6 +62,59 @@ def reduce_scatter_tensor(x: torch.Tensor, group) -> torch.Tensor:
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """A point-to-point op of `x` goes through host memory: gloo sends and
+    receives host memory alone (its TCP transport hands a card tensor's
+    device pointer to `writev`, which fails with EFAULT, and the process
+    aborts), NCCL the card's."""
+    return x.is_cuda and dist.get_backend(group) != "nccl"
+
+
+def send(x: torch.Tensor, dst: int, group):
+    """Start sending `x` to global rank `dst` of `group`; → the handle to
+    `wait()` on before `x` (or its staging copy) may change. Under gloo a
+    card tensor is copied to pinned host memory first."""
+    if _staged(x, group):
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        return _Sent(dist.isend(host, dst, group=group), host)
+    x = x.contiguous()
+    return _Sent(dist.isend(x, dst, group=group), x)
+
+
+class _Sent:
+    """A started send and the tensor it reads (kept alive until it ends)."""
+
+    __slots__ = ("work", "tensor")
+
+    def __init__(self, work, tensor):
+        self.work, self.tensor = work, tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.tensor = None
+
+
+def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
+    """A tensor shaped, typed and placed as `like`, received from global
+    rank `src` of `group` (through pinned host memory under gloo for a
+    card tensor)."""
+    out = torch.empty_like(like, memory_format=torch.contiguous_format)
+    if _staged(out, group):
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.recv(host, src, group=group)
+        return out.copy_(host)
+    dist.recv(out, src, group=group)
+    return out
+
+
+def broadcast(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """x of global rank `src` on every rank of `group`, in place (x must
+    be contiguous); gloo broadcasts a card tensor itself."""
+    dist.broadcast(x, src, group=group)
+    return x
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

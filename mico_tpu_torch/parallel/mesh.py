@@ -8,7 +8,9 @@ index r // model and model index r % model, so the ranks of a model group
 are adjacent (one host, NVLink):
   data  — data parallel (the reference's only strategy; DDP's equivalent):
           `data_group`, the ranks of this rank's model index;
-  model — tensor and sequence parallelism (`parallel/tensor_parallel.py`):
+  model — tensor and sequence parallelism (`parallel/tensor_parallel.py`)
+          or, at `pipeline_stages` > 1, the pipeline's stages
+          (`parallel/pipeline_parallel.py`: stage = model index):
           `model_group`, the ranks of this rank's data index.
 `mesh.group` is the data group, the handle the collectives of the loss,
 the optimizer and the train step take in place of JAX's axis name (None
@@ -19,23 +21,26 @@ group, as before.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
 
 from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel.pipeline_parallel import StageAxis
 from mico_tpu_torch.parallel.tensor_parallel import ModelAxis
 
 
 @dataclass(frozen=True)
 class Mesh:
     """`shape` as JAX's `mesh.shape`: {"data": d, "model": m}; `group` the
-    data group, `model_group` the model group (None at model 1)."""
+    data group, `model_group` the model group (None at model 1),
+    `model_ranks` its global ranks in model-index order."""
 
     shape: Dict[str, int] = field(default_factory=lambda: {"data": 1,
                                                            "model": 1})
     group: Optional[object] = None
     model_group: Optional[object] = None
+    model_ranks: Tuple[int, ...] = ()
 
     @property
     def rank(self) -> int:
@@ -53,6 +58,16 @@ class Mesh:
             return None
         return ModelAxis(self.model_group, self.shape["model"],
                          self.model_index)
+
+    @property
+    def stage_axis(self) -> Optional[StageAxis]:
+        """The model axis as pipeline stages (None at model 1): the
+        neighbours' and the last stage's global ranks are its `prev`,
+        `next` and `last`."""
+        if self.shape["model"] == 1:
+            return None
+        return StageAxis(self.model_group, self.shape["model"],
+                         self.model_index, self.model_ranks)
 
 
 def create_mesh(data: int = -1, model: int = 1) -> Mesh:
@@ -78,10 +93,12 @@ def create_mesh(data: int = -1, model: int = 1) -> Mesh:
         if rank % model == j:
             data_group = g
     for d in range(data):
-        g = dist.new_group([d * model + j for j in range(model)])
+        ranks = tuple(d * model + j for j in range(model))
+        g = dist.new_group(list(ranks))
         if rank // model == d:
-            model_group = g
-    return Mesh({"data": data, "model": model}, data_group, model_group)
+            model_group, model_ranks = g, ranks
+    return Mesh({"data": data, "model": model}, data_group, model_group,
+                model_ranks)
 
 
 def data_parallel_mesh() -> Mesh:

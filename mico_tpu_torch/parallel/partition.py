@@ -14,6 +14,11 @@ proj_w / fc2_w / w3_w, attn_out_w / x_out_w / out_w row-parallel (in
 dimension over `model`), the column-parallel biases (and `ffn_ln`) with
 their columns; everything else replicated. `parallel/tensor_parallel.py`
 holds the port's layout of each leaf (`leaf_split`) and the collectives.
+Under pipeline parallelism the model axis carries stages, and JAX's spec
+is the replicated one (`mico_param_specs(..., model_axis=None)`, as JAX's
+run.py:222-225 passes it): the stage's blocks are a layout of the port's
+(`stage_range`, `block_stage`; `parallel/pipeline_parallel.py`), and
+ZeRO-1 still splits over `data`.
 
 A spec is a tuple with one entry per leading dimension: an axis name or
 None, trailing Nones dropped (JAX's `PartitionSpec`).
@@ -45,6 +50,19 @@ def mico_param_specs(named_params: Iterable[Tuple[str, Sequence[int]]],
     return {name: jax_spec(name, tuple(getattr(p, "shape", p)), model_axis,
                            is_stacked(name, is_eva))
             for name, p in named_params}
+
+
+def stage_range(layers: int, stages: int, stage: int) -> Tuple[int, int]:
+    """[start, stop) of the blocks pipeline stage `stage` owns: an equal
+    run of `layers` / `stages` blocks (JAX's `split_layers`,
+    pipeline_parallel.py:128-134); the caller checks that they divide."""
+    per = layers // stages
+    return stage * per, (stage + 1) * per
+
+
+def block_stage(i: int, layers: int, stages: int) -> int:
+    """The pipeline stage that owns block i of `layers`."""
+    return i // (layers // stages)
 
 
 def batch_spec(data_axis: str = "data") -> Tuple[str]:

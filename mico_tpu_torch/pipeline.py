@@ -17,8 +17,10 @@ and the batch's reference captions, `raw_captions`.
 
 Across processes (`mesh`: data × model; one process a card) each data
 index loads its rows of the global batch, which every rank of its model
-group runs on its part of a tensor-parallel model
-(`make_train_step(mesh=, zero1=)`); the logged losses are the global
+group runs on its part of a tensor-parallel model, or through its stage of
+a pipeline-staged EVA tower (`make_train_step(mesh=, zero1=)`); the data
+index is rank // the model axis (`collectives.data_shard`: `model_parallel`,
+or the stages under `pipeline_stages`); the logged losses are the global
 batch's, the evaluations gather every data index's shard, so every rank
 agrees on "best", and rank 0 writes the checkpoints (every rank takes
 part in a save: ZeRO-1's moments and the model's parts are gathered).
@@ -27,7 +29,7 @@ same on every rank of its model group, so they draw the same masks.
 SCST does not train across processes: JAX builds its step without the
 mesh (pipeline.py:90-95) and reads the sampled tokens of the sharded
 global batch back to the host, which fails across processes, so the port
-raises for `scst%…` at more than one process.
+raises for `scst%…` at more than one process, pipeline stages included.
 """
 
 from __future__ import annotations
@@ -56,9 +58,9 @@ def get_best_name(task: str) -> Optional[str]:
     return {"cap": "CIDEr", "qa": "accuracy", "ret": "video_r1"}.get(head)
 
 
-SCST_PARALLEL = ("scst tasks across processes: not ported (JAX's SCST "
-                 "step does not train data-parallel; ROADMAP.md, queue 1: "
-                 "parallelism)")
+SCST_PARALLEL = ("scst tasks across processes: JAX's SCST step does not "
+                 "train across processes either (mico_tpu/train/scst.py:126 "
+                 "reads a global array; ROADMAP.md, JAX-side faults)")
 
 
 def train(cfg: MiCoConfig, model, optimizer, meta_loader,

@@ -27,13 +27,19 @@ data and model subgroups on the same backend.
 r // m and model index r % m) and shards the model over its model group:
 tensor parallelism on the EVA tower and BERT, and with
 `model_cfg.shard_condition_sequence` sequence parallelism of the condition
-tokens (`parallel.tensor_parallel`). `run_cfg.zero1=true` splits the AdamW
+tokens (`parallel.tensor_parallel`). `run_cfg.pipeline_stages=S` (> 1)
+runs the EVA tower as a GPipe pipeline of S stages over the model axis
+instead (JAX's run.py:116-126): it sets `model_cfg.pipeline_stages` (and
+`pipeline_microbatches` from `run_cfg.pipeline_microbatches`), overrides
+`model_parallel` with S (logged), stages the tower's blocks (stage s owns
+blocks [s·L/S, (s+1)·L/S) whole) and replicates every other leaf
+(`parallel.pipeline_parallel`). `run_cfg.zero1=true` splits the AdamW
 moments over the data group (ZeRO-1). Host seeds are seed + data index
-(JAX's run.py:72 with its data axis): the ranks of a model group draw the
-same masks. The model's initial weights are the seed's on every rank.
-Rank 0 alone writes `hps.json`, the log file, the checkpoints and
-`log/record.json` (the training run's record). Pipeline parallelism
-(`pipeline_stages` > 1) is not ported.
+(JAX's run.py:72 with its data axis, the model axis being S under
+pipeline stages): the ranks of a model group draw the same masks. The
+model's initial weights are the seed's on every rank. Rank 0 alone writes
+`hps.json`, the log file, the checkpoints and `log/record.json` (the
+training run's record).
 """
 
 from __future__ import annotations
@@ -67,7 +73,6 @@ from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
 from mico_tpu_torch.utils.config_io import dump_hps, load_layered_config
 from mico_tpu_torch.utils.logger import LOGGER, add_log_to_file
 
-PARALLELISM = "not ported yet (ROADMAP.md, queue 1: parallelism)"
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 
@@ -110,8 +115,7 @@ def initialize(run_cfg, device: torch.device) -> torch.device:
     if run_cfg.get("multihost"):
         device = init_process_group(run_cfg, device)
     rank = collectives.process_index()
-    seed = (int(run_cfg.get("seed", 50))
-            + rank // int(run_cfg.get("model_parallel", 1)))
+    seed = int(run_cfg.get("seed", 50)) + rank // model_axis_size(run_cfg)
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -148,11 +152,12 @@ def get_args(argv=None):
     return args
 
 
-def _unported(run_cfg) -> None:
-    if int(run_cfg.get("pipeline_stages", 1)) > 1:
-        raise NotImplementedError(
-            f"run_cfg.pipeline_stages={run_cfg['pipeline_stages']}: "
-            f"{PARALLELISM}")
+def model_axis_size(run_cfg) -> int:
+    """The mesh's model axis: the pipeline's stages at
+    `run_cfg.pipeline_stages` > 1 (which override `model_parallel`, as
+    JAX's run.py:126 does), else `model_parallel`."""
+    stages = int(run_cfg.get("pipeline_stages", 1))
+    return stages if stages > 1 else int(run_cfg.get("model_parallel", 1))
 
 
 def build_model(cfg, run_cfg, model_cfg, device, dtype, mesh=None):
@@ -185,7 +190,6 @@ def main(argv=None):
     args = get_args(argv)
     run_cfg = args.run_cfg
     device = resolve_device(args["_device"])
-    _unported(run_cfg)
     try:
         return _run(args, initialize(run_cfg, device))
     finally:
@@ -195,11 +199,23 @@ def main(argv=None):
 
 def _run(args, device: torch.device):
     run_cfg, model_cfg = args.run_cfg, args.model_cfg
-    mesh = create_mesh(data=-1, model=int(run_cfg.get("model_parallel", 1)))
+    mesh = create_mesh(data=-1, model=model_axis_size(run_cfg))
     LOGGER.info("mesh: %s", mesh.shape)
     if collectives.process_index() == 0:
         dump_hps({k: v for k, v in args.items() if not k.startswith("_")},
                  run_cfg["output_dir"])
+    stages = int(run_cfg.get("pipeline_stages", 1))
+    if stages > 1:
+        # the ViT stack as a GPipe pipeline over the model axis (the axis
+        # tensor parallelism takes otherwise): every leaf but the stage's
+        # blocks replicated (JAX's run.py:116-126, 222-225)
+        model_cfg = dict(model_cfg, pipeline_stages=stages)
+        if run_cfg.get("pipeline_microbatches"):
+            model_cfg["pipeline_microbatches"] = int(
+                run_cfg["pipeline_microbatches"])
+        if int(run_cfg.get("model_parallel", 1)) != stages:
+            LOGGER.info("pipeline_stages=%d: model_parallel %s -> %d",
+                        stages, run_cfg.get("model_parallel", 1), stages)
 
     vocab = args.get("_vocab") or run_cfg.get("vocab") or DEFAULT_VOCAB
     tokenizer = BertWordPieceTokenizer(vocab)

@@ -13,18 +13,22 @@ snapshots, and resume from the newest committed step.
     then deletes the previous step's files; the JAX package deletes first
     (`checkpoints.py:142-151`), which can lose every committed checkpoint
     when a save is killed.
-  - The optimizer file is the port's own layout (AdamW's moments and step
-    per parameter name, the update count, an open accumulation window).
-    Across processes every rank calls `save`, rank 0 alone writes: ZeRO-1's
-    slices of the moments are gathered leaf by leaf and an open window's
-    gradients averaged over the ranks, so the file is the one a
-    one-process run on the global batch writes, and it resumes at any
-    world size (each rank takes its slice as it loads). A barrier puts
-    every rank past the commit before the previous step is removed.
-    The port also resumes the JAX package's `optimizer_step_N.npz`, whose
-    leaves are the optax state's by position (`jax_optimizer_leaves`
-    rebuilds their order from the parameter names); the JAX package cannot
-    resume the port's.
+  - The optimizer file is the JAX package's layout too: the optax
+    state's leaves by position (`{str(i): leaf}`, checkpoints.py:165-172;
+    `jax_optimizer_leaves` rebuilds their order from the parameter names):
+    the update counts, AdamW's μ and ν per group with the depth axis
+    stacked, and under `accum_steps` > 1 `optax.MultiSteps`' window (its
+    running mean of the gradients). JAX's `load_latest_opt_state` reads
+    it, and the port reads JAX's.
+  - Across processes every rank calls `save` and rank 0 alone writes:
+    ZeRO-1's slices of the moments are gathered over the data group, a
+    tensor-parallel leaf's parts over the model group, a pipeline stage's
+    blocks broadcast from their stage in depth order, and an open window's
+    gradients averaged over the data group, leaf by leaf, so each file is
+    the one a one-process run on the global batch writes, and a run
+    resumes at any (data, model) or stage count (each rank takes its part
+    as it loads). A barrier puts every rank past the commit before the
+    previous step is removed.
 
 Load side (`load_from_pretrained_dir`, as the reference inference entry,
 inference_demo.py:14-116, data/utils/build_model.py:65-103): `log/hps.json`
@@ -52,6 +56,7 @@ import torch
 
 from mico_tpu_torch.config import MiCoConfig, mico_config_from_dict
 from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel import pipeline_parallel as pp
 from mico_tpu_torch.parallel.tensor_parallel import (gather_leaf, local_part,
                                                      shard, whole_state_dict)
 from mico_tpu_torch.utils.config_io import load_hps
@@ -253,7 +258,6 @@ def load_from_pretrained_dir(
 # save side: streamed npz files, ModelSaver, resume
 # ---------------------------------------------------------------------------
 
-_OPT_LAYOUT = "mico_tpu_torch.adamw/1"
 _ORBAX_SAVE = ("checkpoint_backend orbax: not ported yet (ROADMAP.md, queue "
                "1: native media decoders and .orbax loading)")
 
@@ -337,13 +341,21 @@ def write_npz(path: str, leaves: Iterable[Tuple[str, list, bool]]) -> None:
 
 
 def model_leaves(model):
-    """(JAX flat key, rows, stacked) of a port model: the JAX package's
-    npz layout. A model sharded over the model axis is gathered whole
-    first (collective: every rank of its model group calls it), its fused
-    qkv rebuilt as [q | k | v]."""
+    """(JAX flat key, rows, stacked) of a port model, one leaf at a time:
+    the JAX package's npz layout. A model sharded over the model axis is
+    gathered whole first, its fused qkv rebuilt as [q | k | v]; a staged
+    model's blocks are broadcast from their stages a leaf at a time
+    (collective: every rank of the model group iterates it whole)."""
     from mico_tpu_torch.convert import jax_leaves
 
-    return jax_leaves(whole_state_dict(model), model.cfg)
+    sd = whole_state_dict(model)
+    if pp.stage_axis_of(model) is None:
+        yield from jax_leaves(sd, model.cfg)
+        return
+    twins = pp.remote_names(model)
+    names = {k: k for k in pp.whole_entries(model, sd)}
+    for path, rows, stacked in jax_leaves(names, model.cfg):
+        yield path, [pp.fetch(model, k, sd, twins) for k in rows], stacked
 
 
 def _list_leaves(prefix: str, node):
@@ -361,9 +373,11 @@ def _list_leaves(prefix: str, node):
 def load_model_npz(path: str, model) -> None:
     """Copy a model checkpoint in the JAX package's npz layout (the port's
     file, or one the JAX package wrote) into the parameters of `model`,
-    leaf by leaf (cast to each parameter's dtype on its device). Raises on a leaf with no parameter, a parameter with no
-    leaf, and a shape that differs."""
+    leaf by leaf (cast to each parameter's dtype on its device); a staged
+    model takes its stage's blocks. Raises on a leaf with no parameter, a
+    parameter with no leaf, and a shape that differs."""
     sd = model.state_dict()
+    remote = pp.remote_names(model)
     filled = set()
     with np.load(path) as z:
         for key in z.files:
@@ -379,6 +393,8 @@ def load_model_npz(path: str, model) -> None:
             else:
                 targets = [(key.replace(SEP, "."), arr)]
             for k, a in targets:
+                if k in remote:
+                    continue            # another pipeline stage's block
                 if k not in sd:
                     raise KeyError(f"{path}: leaf {key} has no parameter {k}")
                 a = local_part(model, k, torch.from_numpy(np.asarray(a)))
@@ -439,15 +455,15 @@ class ModelSaver:
         model's, are gathered); rank 0 writes."""
         writer = collectives.process_index() == 0
         writes = []
-        leaves = model_leaves(model)
-        if writer:
-            writes.append(self._write(f"model_step_{step}.npz", leaves))
+        files = [(f"model_step_{step}.npz", model_leaves(model))]
         if optimizer is not None:
-            leaves = iter(optimizer_leaves(optimizer))
+            files.append((f"optimizer_step_{step}.npz",
+                          optimizer_leaves(optimizer)))
+        for name, leaves in files:
+            leaves = iter(leaves)
             try:
                 if writer:
-                    writes.append(self._write(f"optimizer_step_{step}.npz",
-                                              leaves))
+                    writes.append(self._write(name, leaves))
             finally:
                 for _ in leaves:        # the other ranks' gathers
                     pass
@@ -466,47 +482,80 @@ class ModelSaver:
     def save_best(self, metric: str, model) -> None:
         """Best-metric snapshot (reference save.py:33-41), replaced in one
         rename; rank 0 writes it (every rank calls it)."""
-        leaves = model_leaves(model)
-        if collectives.process_index() == 0:
-            _commit(*self._write(f"best_{metric}.npz", leaves))
+        leaves = iter(model_leaves(model))
+        try:
+            if collectives.process_index() == 0:
+                _commit(*self._write(f"best_{metric}.npz", leaves))
+        finally:
+            for _ in leaves:            # the other ranks' gathers
+                pass
         collectives.barrier()
 
 
 def optimizer_leaves(optimizer):
-    """(key, rows, stacked) of the port's optimizer file, one at a time:
-    AdamW's state per parameter name, the update count, and an open
-    accumulation window's summed gradients. Under a process group every
-    rank iterates it: ZeRO-1's slices are gathered whole over the data
-    group, a model-sharded leaf's parts over the model group, and the
-    window's gradients averaged over the data group as each leaf is
-    reached."""
-    for key, v in (("__layout__", torch.tensor(list(_OPT_LAYOUT.encode()),
-                                               dtype=torch.uint8)),
-                   ("count", torch.tensor(optimizer.count,
-                                          dtype=torch.int64)),
-                   ("mini_step", torch.tensor(optimizer.mini_step,
-                                              dtype=torch.int64))):
-        yield key, [v], False
+    """(key, rows, stacked) of the optimizer file in the JAX package's
+    layout, one leaf at a time: `jax_optimizer_leaves`' leaves by position
+    (int32 counts; μ, ν and the window's running mean with the depth axis
+    stacked). Under a process group every rank iterates it: ZeRO-1's slices
+    are gathered whole over the data group, a model-sharded leaf's parts
+    over the model group, a pipeline stage's rows broadcast from their
+    stage, and the window's gradients averaged over the data group as each
+    leaf is reached."""
+    counts = {"count": optimizer.count, "schedule": optimizer.count,
+              "gradient_step": optimizer.count,
+              "mini_step": optimizer.mini_step}
     state = optimizer.torch_optimizer.state
-    group, world = optimizer.group, optimizer.world
-    axis = optimizer.model_axis
+    index = {name: i for i, name in enumerate(optimizer.names)}
+    group, axis = optimizer.group, optimizer.stage_axis
 
     def whole(name, v):
         if name not in optimizer.tp_splits:
             return v
-        return gather_leaf(v, *optimizer.tp_splits[name], axis)
+        return gather_leaf(v, *optimizer.tp_splits[name],
+                           optimizer.model_axis)
 
-    for i, (name, p) in enumerate(zip(optimizer.names, optimizer.params)):
-        for field, v in state.get(optimizer.owned[i], {}).items():
-            v = torch.as_tensor(v)
-            if field != "step":
-                v = whole(name, optimizer.gather(i, v))
-            yield f"state/{name}/{field}", [v], False
-        if optimizer.mini_step and p.grad is not None:
-            g = p.grad
+    def local(kind, name):
+        """This stage's whole tensor of a leaf's row."""
+        i = index[name]
+        if kind == "acc":
+            g = optimizer.params[i].grad
+            g = torch.zeros_like(optimizer.params[i]) if g is None else g
+            if name in optimizer.summed_names:     # stage 0's, or parts
+                g = collectives.all_reduce_sum(g, axis.group)
             if group is not None:
-                g = collectives.all_reduce_sum(g, group) / world
-            yield f"grad/{name}", [whole(name, g)], False
+                g = collectives.all_reduce_sum(g, group) / optimizer.world
+            return whole(name, g / optimizer.mini_step)
+        v = state.get(optimizer.owned[i], {}).get(
+            "exp_avg" if kind == "mu" else "exp_avg_sq")
+        v = torch.zeros_like(optimizer.owned[i]) if v is None else v
+        return whole(name, optimizer.gather(i, v))
+
+    def row(kind, name):
+        if kind == "acc" and (optimizer.labels[name] == "frozen"
+                              or not optimizer.mini_step):
+            shape, _ = optimizer.shapes[name]     # nothing accumulated
+            return torch.zeros(shape)
+        i = pp.block_index(name)
+        if axis is None or i is None:
+            return local(kind, name)
+        stage = pp.block_stage(
+            i, optimizer.model_cfg.vision_tower_config.layers, axis.size)
+        if name in optimizer.remote:
+            shape, dtype = optimizer.shapes[name]
+            like = torch.empty(shape, dtype=dtype,
+                               device=optimizer.params[0].device)
+            return pp.from_stage(None, like, stage, axis)
+        t = local(kind, name)
+        return pp.from_stage(t, t, stage, axis)
+
+    for n, (kind, rows) in enumerate(jax_optimizer_leaves(optimizer)):
+        if kind in counts:
+            yield str(n), [torch.tensor(counts[kind], dtype=torch.int32)], \
+                False
+            continue
+        names = [rows] if isinstance(rows, str) else rows
+        yield str(n), [row(kind, name) for name in names], \
+            not isinstance(rows, str)
 
 
 # the groups of the JAX package's `build_optimizer` (train/optim.py:85-129)
@@ -579,8 +628,9 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
             continue
         rows = [(rows, leaf)] if isinstance(rows, str) else zip(rows, leaf)
         for name, a in rows:
-            if kind == "acc" and name not in params:
-                continue            # a frozen parameter's: never applied
+            if name in optimizer.remote or (kind == "acc"
+                                            and name not in params):
+                continue    # another stage's block; a frozen parameter's
             p = params[name]
             # np.array, not ascontiguousarray: a 0-d leaf stays 0-d
             a = _model_part(optimizer, name, torch.from_numpy(np.array(a)))
@@ -604,7 +654,9 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
     optimizer.count = count
     optimizer.mini_step = mini_step
     for name, p in params.items():
-        p.grad = acc[name] * mini_step if mini_step and name in acc else None
+        p.grad = optimizer.window_grad(
+            name, acc[name] * mini_step if mini_step and name in acc
+            else None)
 
 
 def _owned(optimizer, i: int, full: torch.Tensor) -> torch.Tensor:
@@ -622,48 +674,14 @@ def _model_part(optimizer, name: str, full: torch.Tensor) -> torch.Tensor:
 
 
 def load_optimizer_npz(path: str, optimizer) -> None:
-    """Restore an optimizer file into `optimizer` (its parameters already
-    hold the checkpoint's weights): the port's own layout, or the JAX
-    package's positional one (`_load_jax_optimizer`)."""
+    """Restore an optimizer file, the JAX package's positional layout (the
+    port's or JAX's), into `optimizer` (its parameters already hold the
+    checkpoint's weights)."""
     with np.load(path) as z:
-        layout = (bytes(z["__layout__"].tolist()).decode()
-                  if "__layout__" in z.files else None)
-        if layout is None and all(k.isdigit() for k in z.files):
-            _load_jax_optimizer(path, z, optimizer)
-            return
-        if layout != _OPT_LAYOUT:
-            raise ValueError(
-                f"{path} is neither the port's optimizer file nor the JAX "
-                f"package's (layout {layout!r})")
-        index = {name: i for i, name in enumerate(optimizer.names)}
-        params = dict(zip(optimizer.names, optimizer.params))
-        state: Dict[int, Dict[str, torch.Tensor]] = {}
-        grads = {}
-        for key in z.files:
-            kind, _, rest = key.partition(SEP)
-            if kind not in ("state", "grad"):
-                continue
-            name, _, field = (rest.rpartition(SEP) if kind == "state"
-                              else (rest, "", ""))
-            # one leaf on the host at a time: each goes to its parameter's
-            # device as it is read (the step count stays where it is)
-            leaf = torch.from_numpy(z[key])
-            if field != "step":
-                leaf = _model_part(optimizer, name, leaf).to(
-                    params[name].device, params[name].dtype)
-                if kind == "state":
-                    leaf = _owned(optimizer, index[name], leaf)
-            if kind == "state":
-                state.setdefault(index[name], {})[field] = leaf
-            else:
-                grads[name] = leaf
-        sd = optimizer.torch_optimizer.state_dict()
-        sd["state"] = state
-        optimizer.torch_optimizer.load_state_dict(sd)
-        optimizer.count = int(z["count"])
-        optimizer.mini_step = int(z["mini_step"])
-    for name, p in zip(optimizer.names, optimizer.params):
-        p.grad = grads.get(name)
+        if not z.files or not all(k.isdigit() for k in z.files):
+            raise ValueError(f"{path} is not an optimizer file in the JAX "
+                             f"package's positional layout")
+        _load_jax_optimizer(path, z, optimizer)
 
 
 def resume_latest(output_dir: str, model) -> int:

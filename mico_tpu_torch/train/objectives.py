@@ -98,7 +98,9 @@ def compute_features(model: MiCo, cfg: MiCoConfig,
     `condition_feats_*` on token-sharded over the model group
     (`tensor_parallel.SequenceShard`), which each cross-attention gathers;
     on a model axis of 1 (or none) it changes nothing, as JAX's constraint
-    on a 1-wide axis does not."""
+    on a 1-wide axis does not. Under pipeline stages the condition stays
+    whole: JAX's constraint only lays out its replicated program, and BERT
+    is not split (the model has no tensor-parallel axis)."""
     out: Dict[str, torch.Tensor] = {}
     pooled = {}
     cache = {} if cache is None else cache

@@ -50,6 +50,17 @@ group only (the ranks of a model group hold different parts, or equal
 gradients of a replicated leaf, which need no collective); the clip's norm
 sums the squared norms of the sharded leaves over the model group and
 counts each replicated leaf once.
+Under pipeline parallelism (a model staged by `parallel.pipeline_parallel.
+stage_module`) a stage's blocks are whole on its ranks and absent
+elsewhere: their moments are local (ZeRO-1 splits them over `data`), the
+clip's norm sums their squared norms over the model group and counts each
+replicated leaf once, and the gradients of the staged tower's leaves
+upstream of the pipeline and of its shared table are summed over the model
+group before the data group's average (`summed_names`: stage 0 alone, or
+each stage's part, holds them); the leaves downstream of the pipeline hold
+the same gradient on every stage and are not summed. `labels` also names
+the other stages' blocks (`remote`), whose leaves the JAX package's
+optimizer state holds.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import torch
 from torch import nn
 
 from mico_tpu_torch.parallel import collectives
+from mico_tpu_torch.parallel import pipeline_parallel as pp
 from mico_tpu_torch.parallel.partition import zero1_split_dim
 from mico_tpu_torch.parallel.tensor_parallel import model_axis_of, splits_of
 from mico_tpu_torch.train.sched import lr_schedule_ratio
@@ -142,6 +154,18 @@ class Optimizer:
         # parameters (empty on a whole model)
         self.model_axis = model_axis_of(model)
         self.tp_splits = splits_of(model)
+        # pipeline stages: the stage axis, the other stages' block names
+        # ({name: this stage's twin}, labelled as their twins), the
+        # gradients the model group sums
+        self.stage_axis = pp.stage_axis_of(model)
+        self.remote = pp.remote_names(model)
+        self.labels.update({n: self.labels[t] for n, t in self.remote.items()})
+        self.shapes = {n: (p.shape, p.dtype)
+                       for n, p in model.named_parameters()}
+        self.shapes.update({n: self.shapes[t]
+                            for n, t in self.remote.items()})
+        self.summed_names = pp.summed_names(model)
+        stage_owned = pp.owned_names(model)
         init_lr = {"basic": cfg.learning_rate, "vision": cfg.clip_lr,
                    "new": cfg.new_lr}
         groups: Dict[str, list] = {}
@@ -160,7 +184,8 @@ class Optimizer:
         # parameter itself, or this rank's slice of it (a view into the
         # parameter where the slice is contiguous, a dimension-0 split;
         # else a contiguous copy)
-        self.model_split = [n in self.tp_splits for n in self.names]
+        self.model_split = [n in self.tp_splits or n in stage_owned
+                            for n in self.names]
         self.split_dims = [
             zero1_split_dim(p.shape, self.world, base_spec=self._base(n))
             if self.zero1 else None for n, p in zip(self.names, self.params)]
@@ -229,13 +254,14 @@ class Optimizer:
             if bucket:
                 yield bucket
 
-    def _all_reduce(self, idx) -> None:
-        """Sum the whole gradients of parameters `idx` over the ranks, a
-        flat bucket a collective."""
+    def _all_reduce(self, idx, group=None) -> None:
+        """Sum the whole gradients of parameters `idx` over the ranks of
+        `group` (the data group by default), a flat bucket a collective."""
         for b in self._buckets(idx):
             grads = [self.params[i].grad for i in b]
             flat = torch.cat([g.reshape(-1) for g in grads])
-            torch.distributed.all_reduce(flat, group=self.group)
+            torch.distributed.all_reduce(
+                flat, group=self.group if group is None else group)
             torch._foreach_copy_(grads, [x.view_as(g) for x, g in zip(
                 flat.split([g.numel() for g in grads]), grads)])
 
@@ -278,6 +304,10 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.summed_names:
+            self._all_reduce([i for i, n in enumerate(self.names)
+                              if n in self.summed_names],
+                             self.stage_axis.group)
         scale = 1.0 / (self.accum_steps * self.world)
         if self.group is not None:
             self._all_reduce([i for i, d in enumerate(self.split_dims)
@@ -294,7 +324,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.owned]
-        axis = self.model_axis
+        axis = self.model_axis or self.stage_axis
         if any(d is not None for d in self.split_dims) or axis is not None:
             # squared norms by (ZeRO-1 split over data, sharded over model)
             sq = {}
@@ -333,6 +363,16 @@ class Optimizer:
         with torch.no_grad():
             self._all_gather([i for i, d in enumerate(self.split_dims)
                               if d is not None])
+
+    def window_grad(self, name: str, g: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+        """An open window's summed gradient of parameter `name` as this
+        rank holds it: a leaf the model group sums (`sync_grads`) is held
+        by stage 0 alone, the others hold zeros."""
+        if g is None or name not in self.summed_names or (
+                self.stage_axis.index == 0):
+            return g
+        return torch.zeros_like(g)
 
     def zero_grad(self) -> None:
         self.torch_optimizer.zero_grad(set_to_none=True)

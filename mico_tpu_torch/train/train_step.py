@@ -17,7 +17,10 @@ the global batch's: the ranks' shares averaged, one all-reduce a step,
 whose result every rank checks, so all raise together. Under tensor
 parallelism (a model sharded over the mesh's model axis) `mesh.group` is
 the data group: the ranks of a model group compute the same losses on the
-same rows, so the average runs over the data group alone.
+same rows, so the average runs over the data group alone. So under
+pipeline stages: every stage computes the losses on the tokens the last
+stage broadcast, and the same finiteness check holds on every rank, so all
+ranks raise together.
 """
 
 from __future__ import annotations

@@ -245,6 +245,9 @@ def test_regularized_training_forward_and_remat():
 
 @pytest.mark.parametrize("kw,item", [(dict(pipeline_stages=2), "parallelism")])
 def test_unported_training_options_raise(towers, kw, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1: {item}"):
+    """Pipeline stages are ported: a whole tower on one process cannot
+    hold two stages, and the error names the mesh they need."""
+    with pytest.raises(ValueError,
+                       match=f"{item}: .*mesh's model axis.*model=2"):
         tvit.eva_vit_forward(towers[2].vision_encoder,
                              torch.zeros(1, 3, 28, 28), **kw)

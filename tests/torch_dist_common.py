@@ -238,3 +238,206 @@ def tp_steps(rank: int, world: int, model: int, cases: list,
         if save_dir is not None and case is cases[-1]:
             ModelSaver(str(save_dir)).save(1, net, opt)
     return results
+
+
+def _whole_params(model) -> dict:
+    """{name: numpy} of a pipeline-staged model as a whole one: another
+    stage's block leaves broadcast from their owner, this rank's own
+    tensors for the rest (collective over the model group)."""
+    from mico_tpu_torch.parallel import pipeline_parallel as pp
+
+    named = {k: v.detach() for k, v in model.named_parameters()}
+    twins = pp.remote_names(model)
+    return {k: pp.fetch(model, k, named, twins).numpy().copy()
+            for k in pp.whole_entries(model, named)}
+
+
+def _opt_leaves(opt) -> list:
+    """The optimizer file's leaves (JAX's positional layout) as numpy
+    arrays, gathered as a save gathers them (collective)."""
+    from mico_tpu_torch.train.checkpoints import optimizer_leaves
+
+    return [np.stack([r.float().numpy() for r in rows]) if stacked
+            else rows[0].numpy() for _, rows, stacked in
+            optimizer_leaves(opt)]
+
+
+def pp_steps(rank: int, world: int, stages: int, cases: list,
+             save_dir=None) -> list:
+    """Each case on a data × `stages` mesh of the world, its config at
+    `pipeline_stages=stages`: the port model from the case's JAX params,
+    this stage's EVA blocks alone (`mico_from_jax(mesh=)`), the optimizer
+    over the data group (ZeRO-1 by the case), this data index's rows of
+    the global batch and draws (the injected JAX draws, or with `seed` the
+    rank's generator seeded by its data index). → per case the global
+    losses, the parameters as a whole model (another stage's blocks
+    broadcast, this rank's copy of every replicated leaf), the moments'
+    and the parameters' element counts on this rank; with `eval` the
+    condition and contra features of that batch on the tower gathered
+    whole (`whole_tower`) before the step; with `save` the model and optimizer saved to
+    `save_dir` after the step. A `resume` case ("pp" at these stages, or
+    "tp": tensor parallelism at model `stages`) loads `save_dir` instead
+    and returns the parameters and the optimizer file's leaves. An
+    `accum` case takes two micro-steps of a 2-step accumulation window on
+    `batches` (the ranks' generators seeded by step and data index),
+    straight and with a save and a resume between them (under
+    `save_dir`/accum), → the parameters of both."""
+    import torch
+
+    from mico_tpu_torch.convert import mico_from_jax
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.parallel.pipeline_parallel import whole_tower
+    from mico_tpu_torch.parallel.tensor_parallel import whole_state_dict
+    from mico_tpu_torch.train import checkpoints as ckpt
+    from mico_tpu_torch.train.objectives import Draws, compute_features
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from mico_tpu_torch.train.train_step import make_train_step
+
+    mesh = create_mesh(data=world // stages, model=stages)
+    d = mesh.rank
+    results = []
+    def local_rows(batch):
+        n = mesh.shape["data"]
+        out = {k: torch.from_numpy(rows(v, d, n).copy())
+               for k, v in batch.items()}
+        return {k: v if v.is_floating_point() else v.long()
+                for k, v in out.items()}
+
+    for case in cases:
+        oc = OptimConfig(**case["oc"])
+        if case.get("accum"):
+            out_dir = os.path.join(str(save_dir), "accum")
+            got = {}
+            for how in ("straight", "resumed"):
+                net = mico_from_jax(case["params"], case["tcfg"],
+                                    device="cpu", mesh=mesh)
+                for i, batch in enumerate(case["batches"]):
+                    if how == "resumed" and i == 1:
+                        ckpt.ModelSaver(out_dir).save(1, net, opt)
+                        net = MiCo(case["tcfg"], device="cpu",
+                                   init_weights=False,
+                                   mesh=mesh).to_empty(device="cpu")
+                        assert ckpt.resume_latest(out_dir, net) == 1
+                    if i == 0 or how == "resumed":
+                        opt = build_optimizer(net, oc, accum_steps=2,
+                                              group=mesh.group)
+                        step = make_train_step(case["tcfg"], opt,
+                                               case["task"], mesh=mesh)
+                    if how == "resumed" and i == 1:
+                        assert ckpt.load_latest_opt_state(out_dir, opt,
+                                                          step=1)
+                        assert opt.mini_step == 1
+                    step(net, local_rows(batch),
+                         torch.Generator().manual_seed(10 + i + 100 * d))
+                assert opt.count == 1 and opt.mini_step == 0
+                got[how] = _whole_params(net)
+            results.append(got)
+            continue
+        if case.get("resume"):
+            net = MiCo(case["tcfg"], device="cpu", init_weights=False,
+                       mesh=mesh).to_empty(device="cpu")
+            step = ckpt.resume_latest(str(save_dir), net)
+            opt = build_optimizer(net, oc, group=mesh.group)
+            assert ckpt.load_latest_opt_state(str(save_dir), opt, step=step)
+            params = (_whole_params(net) if case["resume"] == "pp" else
+                      {k: v.numpy().copy()
+                       for k, v in whole_state_dict(net).items()})
+            results.append(dict(step=step, count=opt.count, params=params,
+                                leaves=_opt_leaves(opt)))
+            continue
+        net = mico_from_jax(case["params"], case["tcfg"], device="cpu",
+                            mesh=mesh)
+        opt = build_optimizer(net, oc, group=mesh.group,
+                              zero1=case["zero1"])
+        step = make_train_step(case["tcfg"], opt, case["task"], mesh=mesh,
+                               zero1=case["zero1"])
+        batch, masks, negatives = case["call"]
+        local = local_rows(batch)
+        draws = None if case.get("seed") is not None else Draws(
+            masks=[tuple(torch.from_numpy(a) for a in p) for p in masks],
+            negatives=[tuple(torch.from_numpy(a) for a in p)
+                       for p in negatives])
+        gen = torch.Generator().manual_seed((case.get("seed") or 0) + d)
+        out = {}
+        if case.get("eval") is not None:
+            ev = {k: torch.from_numpy(v) for k, v in case["eval"].items()}
+            with whole_tower(net), torch.no_grad():
+                feats = compute_features(net, net.cfg, ev, "va")
+            out["eval"] = {k: v.numpy().copy() for k, v in feats.items()}
+            out["numel_after_eval"] = sum(p.numel() for p in net.parameters())
+        got = step(net, local, gen, draws=draws)
+        state = opt.torch_optimizer.state
+        out.update(
+            losses={k: v.item() for k, v in got.items()},
+            params=_whole_params(net),
+            moment_numel=sum(state[o]["exp_avg"].numel() for o in opt.owned),
+            local_numel=sum(p.numel() for p in net.parameters()),
+            mesh=dict(mesh.shape), index=(d, mesh.model_index))
+        if case.get("save"):
+            ckpt.ModelSaver(str(save_dir)).save(1, net, opt)
+        results.append(out)
+    return results
+
+
+def pp_schedule_checks(rank: int, world: int, toy: dict, meshes: list,
+                       towers: list) -> dict:
+    """The GPipe schedule on this rank. `toy`: JAX's toy layer stack
+    (tanh(h @ w + b) over w (L, D, D), b (L, D), x (B, D)) at each (S, M)
+    of `meshes`, on a data × S mesh of the world (every model group runs
+    the whole batch) → the output, this stage's layers' gradients and x's
+    of sum(out²). `towers`: each an EVA tower at `pipeline_stages=2` on a
+    data 2 × stages 2 mesh (`mico_from_jax(mesh=)`, this data index's rows
+    of `pixels`): `eva_vit_forward`'s tokens, and after the backward of
+    sum(tokens · w) and the optimizer's `sync_grads` (the data group's
+    mean, the model group's sums), the vision tower's gradients on this
+    rank."""
+    import torch
+
+    from mico_tpu_torch.convert import mico_from_jax
+    from mico_tpu_torch.models.eva_vit import eva_vit_forward
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.parallel.partition import stage_range
+    from mico_tpu_torch.parallel.pipeline_parallel import pipelined
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+
+    out = {"toy": [], "towers": []}
+    for stages, n_micro in meshes:
+        mesh = create_mesh(data=world // stages, model=stages)
+        axis = mesh.stage_axis
+        a, b = stage_range(toy["w"].shape[0], stages, axis.index)
+        ws = [torch.tensor(toy["w"][i], requires_grad=True)
+              for i in range(a, b)]
+        bs = [torch.tensor(toy["b"][i], requires_grad=True)
+              for i in range(a, b)]
+        x = torch.tensor(toy["x"], requires_grad=True)
+
+        def layer_fn(layers, h):
+            for w, bias in layers:
+                h = torch.tanh(h @ w + bias)
+            return h
+
+        y = pipelined(layer_fn, axis, n_micro)(list(zip(ws, bs)), x)
+        y.square().sum().backward()
+        out["toy"].append(dict(
+            out=y.detach().numpy(), layers=(a, b),
+            w=np.stack([w.grad.numpy() for w in ws]),
+            b=np.stack([v.grad.numpy() for v in bs]), x=x.grad.numpy()))
+    mesh = create_mesh(data=world // 2, model=2)
+    d, n = mesh.rank, mesh.shape["data"]
+    for case in towers:
+        net = mico_from_jax(case["params"], case["tcfg"], device="cpu",
+                            mesh=mesh)
+        opt = build_optimizer(net, OptimConfig(), group=mesh.group)
+        px = torch.from_numpy(rows(case["pixels"], d, n).copy())
+        tokens = eva_vit_forward(net.vision_encoder, px, attn_impl="flash",
+                                 pipeline_stages=2,
+                                 pipeline_microbatches=case.get("n_micro"))
+        (tokens * torch.from_numpy(rows(case["w"], d, n))).sum().backward()
+        opt.sync_grads()
+        out["towers"].append(dict(
+            tokens=tokens.detach().numpy(),
+            grads={k: p.grad.numpy().copy()
+                   for k, p in net.named_parameters()
+                   if k.startswith("vision_encoder.")}))
+    return out
