@@ -13,9 +13,10 @@ Phases, run in order (any failure exits non-zero):
      (8, 257, 1408), a ragged (2, 300, 80) with two heads of 40, odd
      counts of 64-column k-steps (2, 40, 48) with two heads of 24 and (4,
      257, 960) with 15 heads of 64, rows of three key blocks (2, 600, 1408)
-     and the bench ViT pass (112, 257, 1408), and the demo's ViT passes (1,
+     and the bench ViT pass (112, 257, 1408), the demo's ViT passes (1,
      2 and 4 x 257 x 1408: a ragged third M-tile of the GEMM, 16 to 64
-     attention blocks), each with the LN affine on
+     attention blocks) and the EVA-CLIP image pass (16, 257, 1408), each
+     with the LN affine on
      and off (also mean |d| <= 1e-2 * mean |ref|), and its GEMM stage alone
      (`ln_gemm_bias`) at the bench pass; K1's device ms by stage (statistics, GEMM,
      attention) beside F.layer_norm, F.linear and SDPA; K2 also
@@ -124,7 +125,28 @@ Phases, run in order (any failure exits non-zero):
      `PACKED_CLS_SPLIT` on (K9 24, K3 0); each route's embeddings at cosine
      >= 0.999 and its ITM within 1e-2 of the same one-sample inputs through
      the fp32 weights on the plain routes on the card (TF32 off);
-  6c. EVA02: MiCo on EVA02-CLIP-L-14 (`vision_encoder_type=
+  6c. eva_clip: EVA-CLIP zero-shot classification on EVA01-CLIP-g-14
+     (`models.clip_text.create_model`: the ViT-g image tower, 40 pre-norm
+     blocks of width 1408, 16 heads of 88, 257 tokens at 224 px, its head
+     to 1024; the text tower, 12 layers of width 768, 12 heads, context 77,
+     projection to 1024) at full width and depth, fp32 weights drawn once
+     from seed 0 on the card and a bf16 copy of the towers (logit_scale
+     kept fp32, as JAX keeps it): a CLIP-format merges file written to a
+     temporary directory spells the prompts' words, and the port's
+     regex-free `ClipBpeTokenizer` turns 10 class names x 2 templates into
+     (20, 77) ids; then B 16 random 224-px images through
+     `clip_encode_image` (K1 40, nothing else), the classifier's 20 prompts
+     through `build_zero_shot_classifier` and the logits
+     `img @ W.T * exp(logit_scale)`, counted from 0 as one path; against
+     the same through the fp32 weights on the plain routes on the card
+     (TF32 off): image features cosine >= 0.999 per row, the classifier's
+     rows cosine >= 0.999, softmax probabilities within 1e-2; then CLIP's
+     RN50 (`models.modified_resnet`, 224 px, B 16; no kernel), its first
+     BN's scale set by an fp32 pass so the trunk's map has unit RMS (see
+     `scale_to_unit_map`), bf16 against fp32 on the card: the forward's
+     output at cosine >= 0.999 per row; the image pass, the text pass and
+     RN50 in ms (median of 5 after a warm-up), and the phase's seconds;
+  6d. EVA02: MiCo on EVA02-CLIP-L-14 (`vision_encoder_type=
      "evaclip02_large"`: 24 pre-norm blocks, width 1024, 16 heads of 64,
      SwiGLU 2730, sub-LN, RoPE, 257 tokens) at full width and depth, fp32
      weights drawn once from seed 0 and a bf16 copy: the omni step (K2 24,
@@ -139,7 +161,7 @@ Phases, run in order (any failure exits non-zero):
      draws injected): bf16 (K2 alone) against fp32 on the plain routes,
      each loss within 2e-2 relative, cosine >= 0.99 per optimizer group and
      for the first and last block's qkv_w;
-  6d. swin: MiCo on Swin-B (`swin_base_patch4_window7_224_22k`) and on
+  6e. swin: MiCo on Swin-B (`swin_base_patch4_window7_224_22k`) and on
      VideoSwin-B (`videoswin_base`) at full width (embed 128, depths
      2/2/18/2, heads 4/8/16/32, windows 7 and (8, 7, 7)): `_run` over 16
      images and over 16 4-frame videos and `embed_texts` (no launch: the
@@ -271,8 +293,9 @@ Phases, run in order (any failure exits non-zero):
      and the card's idle share in it (one step's device time under
      torch.profiler) beside phase train's synthetic step;
  11. captioner: the data half's captioners on VAST, the JAX package's
-     default model (configs/default_model_cfg.json: ViT-g/14 at 40 blocks,
-     BEATs AS2M, BERT-base), at full width with random weights from seed 0:
+     default model (configs/default_model_cfg.json: ViT-g/14, BEATs AS2M,
+     BERT-base) at full width, the ViT cut to 10 of its 40 blocks
+     (`model_cfg.eva_override`), with random weights from seed 0:
      a native `.npz` pretrained directory written from the card
      (`log/hps.json`, `ckpt/model_step_1.npz`) and a corpus in a temporary
      directory (128 16 kHz WAVs of 30 s: 3 slices of 1024 x 64 fbank, 768
@@ -285,7 +308,7 @@ Phases, run in order (any failure exits non-zero):
      8 frames, `video_rawvideo` through cv2) with `--pretrain_dir` and
      `run_cfg.generate_nums=3`, and a `ret%tva` evaluation with the ITM
      re-rank over vision + BEATs tokens (B 8), each evaluation counted from
-     0 and held to its launches (K1 40 a ViT pass, K2 12 a re-rank pass,
+     0 and held to its launches (K1 10 a ViT pass, K2 12 a re-rank pass,
      nothing else: K7 0; the audio captioner none), the annotation JSON (3
      captions a clip) and the tokens checked; the seconds of each
      evaluation split into the towers, the decode and the rest, captions/s,
@@ -392,6 +415,7 @@ MARGIN_MIN = 0.05           # fp32 top-1 margin above which tokens must agree
 DEPLOY_B, DEPLOY_COND = 64, 2056
 # the demo phase: the ViT batches of its image, audio and video passes
 DEMO_VIT_BATCHES = (1, 2, 4)
+ZS_B = 16                   # the eva_clip phase's images (and RN50's)
 
 
 def log(msg: str) -> None:
@@ -693,15 +717,17 @@ def phase_kernels(fa) -> list:
     k1_args = args
     # the demo's ViT passes (`mico_tpu_torch.inference_demo`): one image,
     # the audio's two slices and the video's four frames, unfolded (affine
-    # on) as the demo runs them; 257 rows give the GEMM a ragged third
+    # on) as the demo runs them, and the EVA-CLIP image pass (phase
+    # eva_clip: B 16, M = 4112 rows); 257 rows give the GEMM a ragged last
     # M-tile and the attention a grid of B x 16 blocks. A generator of
     # their own keeps the other cases' inputs as they were.
     demo_gen = torch.Generator().manual_seed(13)
-    for b in DEMO_VIT_BATCHES:
+    for what, b in ([("demo", b) for b in DEMO_VIT_BATCHES]
+                    + [("eva_clip", ZS_B)]):
         args = k1_inputs(demo_gen, b)
         for affine in (True, False):
             errs["K1"].append(compare(
-                f"K1 demo ({b}, 257, 1408) H=16 D=88 affine={affine}",
+                f"K1 {what} ({b}, 257, 1408) H=16 D=88 affine={affine}",
                 fa.fused_ln_qkv_self_attention(*args, affine),
                 fa.fused_ln_qkv_plain(*args, affine),
                 rel_mean=REL_MEAN_ERR_MAX))
@@ -2195,7 +2221,186 @@ def phase_clip(fa, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6c: MiCo on EVA02-CLIP-L/14 (RoPE, SwiGLU, sub-LN: K2 as the ViT's
+# phase 6c: EVA-CLIP zero-shot classification on EVA01-CLIP-g-14 (K1) and
+# CLIP's RN50
+# ---------------------------------------------------------------------------
+
+# CIFAR-10's classes and two of CLIP's prompt templates: 20 prompts
+ZS_CLASSES = ("airplane", "automobile", "bird", "cat", "deer", "dog", "frog",
+              "horse", "ship", "truck")
+ZS_TEMPLATES = ("a photo of a {}.", "a blurry photo of the {}.")
+ZS_PATH = "EVA-CLIP zero-shot (EVA01-CLIP-g-14)"
+
+
+def write_clip_merges(path: str, texts) -> None:
+    """A CLIP-format merges file (a header line, one merge a line) whose
+    merges build every word of `texts` left to right, its last unit ending
+    in `</w>`; the words are ASCII, whose bytes are their own units."""
+    from mico_tpu_torch.text.bpe import split_words
+
+    merges = []
+    for text in texts:
+        for word in split_words(text.lower()):
+            units = list(word)
+            units[-1] += "</w>"
+            left = units[0]
+            for right in units[1:]:
+                if (left, right) not in merges:
+                    merges.append((left, right))
+                left += right
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n")
+        f.write("".join(f"{a} {b}\n" for a, b in merges))
+
+
+def scale_to_unit_map(mrn, rn, pixels) -> float:
+    """Divides the first BN's scale by the RMS of the fp32 trunk's map on
+    `pixels`, so the map reaching the attention pool has unit RMS, as a
+    trained network's BNs keep it. At the drawn init (identity BNs, no
+    conv bias) the trunk is positively homogeneous, so this scales the map
+    and nothing else; drawn as is, the map has std ~183 and the pool's
+    scores are near-argmax, which any rounding flips. Batch statistics in
+    every BN instead make the random net chaotic: rounding grows block by
+    block (`scripts/torch_rn50_precision.py` measures both). Returns the
+    RMS."""
+    rms = mrn.modified_resnet_trunk(rn, pixels).square().mean().sqrt()
+    rn.stem_bn1.get("w").div_(rms)
+    return rms.item()
+
+
+def zero_shot(ct, model, pixels, tokenizer, dtype, impl):
+    """(normalized image features, the classifier, softmax(logits))."""
+    img = ct.clip_encode_image(model, pixels, compute_dtype=dtype,
+                               attn_impl=impl)
+    w = ct.build_zero_shot_classifier(model, ZS_CLASSES, ZS_TEMPLATES,
+                                      tokenizer, compute_dtype=dtype)
+    logits = img.float() @ w.T * model.logit_scale.float().exp()
+    return img, w, torch.softmax(logits, dim=-1)
+
+
+@torch.no_grad()
+def phase_eva_clip(fa, card: str) -> dict:
+    import os
+    import tempfile
+
+    from mico_tpu_torch.models import clip_text as ct
+    from mico_tpu_torch.models import modified_resnet as mrn
+    from mico_tpu_torch.text.bpe import ClipBpeTokenizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    vcfg, tcfg, model32 = ct.create_model("EVA01-CLIP-g-14", seed=0,
+                                          device="cuda")
+    # the towers in bf16; logit_scale stays fp32, as JAX keeps it
+    model = copy.deepcopy(model32)
+    model.visual.to(bf16)
+    model.text.to(bf16)
+    build_s = time.perf_counter() - t0
+    log(f"phase eva_clip: EVA01-CLIP-g-14 (image: {vcfg.layers} pre-norm "
+        f"blocks, width {vcfg.width}, {vcfg.num_heads} heads of "
+        f"{vcfg.head_dim}, {vcfg.seq_len} tokens, head to {vcfg.embed_dim}; "
+        f"text: {tcfg.layers} layers, width {tcfg.width}, {tcfg.heads} "
+        f"heads, context {tcfg.context_length}, projection to "
+        f"{tcfg.output_dim}), fp32 drawn and a bf16 copy of the towers made "
+        f"on the card in {build_s:.1f} s")
+    prompts = [t.format(c) for c in ZS_CLASSES for t in ZS_TEMPLATES]
+    with tempfile.TemporaryDirectory(prefix="mico_bpe_") as root:
+        merges = os.path.join(root, "merges.txt")
+        write_clip_merges(merges, prompts)
+        tok = ClipBpeTokenizer(merges)
+    ids = tok(prompts, tcfg.context_length)
+    eot = ids.argmax(axis=1)
+    if (ids.shape != (len(prompts), tcfg.context_length)
+            or ids.max() != tok.eot_id or tok.eot_id >= tcfg.vocab_size
+            or not (ids[np.arange(len(ids)), eot] == tok.eot_id).all()
+            or not ((ids > 511) & (ids < tok.sot_id)).any(axis=1).all()):
+        raise AssertionError(f"eva_clip: BPE ids {ids.tolist()}")
+    log(f"  BPE (no regex) over {len(prompts)} prompts: ids {ids.shape}, "
+        f"vocab {tok.vocab_size}, EOT {tok.eot_id}; '{prompts[0]}' -> "
+        f"{ids[0, :eot[0] + 1].tolist()}")
+    pixels = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (ZS_B, 3, vcfg.image_size, vcfg.image_size)).astype(np.float32)
+    ).cuda()
+    paths = {}
+    img, w, probs = run_counted(
+        fa, paths, ZS_PATH,
+        lambda: zero_shot(ct, model, pixels, tok, bf16, "flash"),
+        K1=vcfg.layers)
+    img32, w32, probs32 = run_counted(
+        fa, paths, "EVA-CLIP zero-shot fp32 plain reference",
+        lambda: zero_shot(ct, model32, pixels, tok, torch.float32, "plain"))
+    if (img.shape != (ZS_B, vcfg.embed_dim)
+            or w.shape != (len(ZS_CLASSES), tcfg.output_dim)
+            or probs.shape != (ZS_B, len(ZS_CLASSES))):
+        raise AssertionError(f"eva_clip shapes {img.shape} {w.shape} "
+                             f"{probs.shape}")
+    # bf16 rows over their norm rounded to bf16 (2^-8 relative), as JAX
+    norms = torch.linalg.vector_norm(img.float(), dim=-1)
+    if not (torch.isfinite(img).all()
+            and ((norms - 1).abs() <= 2 ** -7).all()):
+        raise AssertionError(f"eva_clip image feature norms {norms.tolist()}")
+    check_unit("eva_clip classifier", w)
+    cos = {"image": min_row_cosine(img, img32),
+           "classifier": min_row_cosine(w, w32)}
+    gap = (probs - probs32).abs().max().item()
+    top1 = (probs.argmax(-1) == probs32.argmax(-1)).float().mean().item()
+    log(f"  zero-shot bf16 (K1 x {vcfg.layers}) vs fp32 plain: min cosine "
+        f"{cos}; softmax max |d| {gap:.3e}; top-1 agreement {top1:.3f}")
+    for name, c in cos.items():
+        if not c >= COSINE_MIN:
+            raise AssertionError(f"eva_clip {name} cosine {c} < {COSINE_MIN}")
+    if not gap <= ITM_PROB_TOL:
+        raise AssertionError(f"eva_clip probabilities gap {gap} > "
+                             f"{ITM_PROB_TOL}")
+    image_times = timed_runs(lambda: ct.clip_encode_image(
+        model, pixels, compute_dtype=bf16), runs=5)
+    text_times = timed_runs(lambda: ct.build_zero_shot_classifier(
+        model, ZS_CLASSES, ZS_TEMPLATES, tok, compute_dtype=bf16), runs=5)
+    del model, model32, img32, w32
+    free_cuda()
+
+    rcfg = mrn.ModifiedResNetConfig()
+    rn32 = mrn.ModifiedResNet(rcfg, device="cuda", seed=0)
+    map_rms = scale_to_unit_map(mrn, rn32, pixels)
+    rn = copy.deepcopy(rn32).to(bf16)
+    out = run_counted(fa, paths, "RN50 forward (ModifiedResNet)",
+                      lambda: mrn.modified_resnet_forward(rn, pixels, bf16))
+    if out.shape != (ZS_B, rcfg.output_dim) or not torch.isfinite(out).all():
+        raise AssertionError(f"RN50 output {out.shape}")
+    rn_cos = min_row_cosine(out, mrn.modified_resnet_forward(rn32, pixels))
+    rn_times = timed_runs(
+        lambda: mrn.modified_resnet_forward(rn, pixels, bf16), runs=5)
+    log(f"  RN50 (layers {rcfg.layers}, width {rcfg.width}, {rcfg.heads} "
+        f"heads, {rcfg.image_size} px; the drawn map's RMS {map_rms:.1f} "
+        f"scaled to 1) B {ZS_B}, bf16 vs fp32 min cosine {rn_cos:.6f}")
+    if not rn_cos >= COSINE_MIN:
+        raise AssertionError(f"RN50 cosine {rn_cos} < {COSINE_MIN}")
+    del rn, rn32
+    free_cuda()
+    image_ms, text_ms, rn_ms = (statistics.median(x) for x in
+                                (image_times, text_times, rn_times))
+    phase_s = time.perf_counter() - t_phase
+    log(f"  eva_clip image pass B {ZS_B}: median {image_ms:.2f} ms of 5 "
+        f"({[round(x, 2) for x in image_times]}), {1e3 * ZS_B / image_ms:.1f}"
+        f" images/s; text pass {len(prompts)} prompts: median {text_ms:.2f} "
+        f"ms ({[round(x, 2) for x in text_times]}), "
+        f"{1e3 * len(prompts) / text_ms:.1f} prompts/s; RN50 B {ZS_B}: "
+        f"median {rn_ms:.2f} ms ({[round(x, 2) for x in rn_times]}) [{card}]")
+    log(f"  phase eva_clip: {phase_s:.1f} s")
+    return dict(build_s=build_s, phase_s=phase_s, image_ms=image_ms,
+                image_times_ms=image_times, images_per_s=1e3 * ZS_B / image_ms,
+                text_ms=text_ms, text_times_ms=text_times,
+                prompts_per_s=1e3 * len(prompts) / text_ms,
+                rn50_ms=rn_ms, rn50_times_ms=rn_times, cosine=cos,
+                prob_max_abs_diff=gap, top1_agreement=top1,
+                rn50_cosine=rn_cos, rn50_map_rms=map_rms, paths=paths)
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: MiCo on EVA02-CLIP-L/14 (RoPE, SwiGLU, sub-LN: K2 as the ViT's
 # self-attention)
 # ---------------------------------------------------------------------------
 
@@ -2389,7 +2594,7 @@ def phase_eva02(fa, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6d: MiCo on Swin-B and VideoSwin-B (no kernel in the towers; K2 in
+# phase 6e: MiCo on Swin-B and VideoSwin-B (no kernel in the towers; K2 in
 # ITM where the condition is long enough)
 # ---------------------------------------------------------------------------
 
@@ -4560,6 +4765,10 @@ CAP_VIDEO_FRAMES = 12       # written per mp4; the config samples 8
 CAP_RET_CLIPS = 8           # the ret%tva evaluation: one batch
 CAP_GENERATE_NUMS = 3       # the configs' model_cfg.generate_nums
 CAP_VAST_STEP = 1
+# VAST's ViT-g cut to this many of its 40 blocks, as phases dp, tp and pp:
+# at full depth writing the native directory and loading it in each of the
+# three runs took half the phase
+CAP_LAYERS = 10
 
 
 def write_captioner_corpus(root, seed: int) -> dict:
@@ -4612,19 +4821,26 @@ def write_captioner_corpus(root, seed: int) -> dict:
     return dict(files, audios=audios, videos=videos)
 
 
+def cap_eva_override() -> dict:
+    """VAST's EVA01-CLIP-g/14 at full width with CAP_LAYERS blocks."""
+    from mico_tpu_torch.config import MiCoConfig
+
+    return dict(MiCoConfig().eva_config.__dict__, layers=CAP_LAYERS)
+
+
 def write_vast_dir(root, seed: int):
     """A pretrained run's directory of configs/default_model_cfg.json (VAST:
-    EVA01-CLIP-g/14 at 40 blocks, BEATs AS2M, BERT-base) at full width, its
-    weights drawn from `seed`: `log/hps.json` and the native
-    `ckpt/model_step_1.npz`, written from the card. → (the model on the
-    card, its model_cfg dict)."""
+    EVA01-CLIP-g/14 cut to CAP_LAYERS blocks, BEATs AS2M, BERT-base) at
+    full width, its weights drawn from `seed`: `log/hps.json` and the
+    native `ckpt/model_step_1.npz`, written from the card. → (the model on
+    the card, its model_cfg dict)."""
     from mico_tpu_torch.config import mico_config_from_dict
     from mico_tpu_torch.models.mico import MiCo
     from mico_tpu_torch.train.checkpoints import ModelSaver
     from mico_tpu_torch.utils.config_io import dump_hps
 
     with open("configs/default_model_cfg.json") as f:
-        model_cfg = json.load(f)
+        model_cfg = dict(json.load(f), eva_override=cap_eva_override())
     model = MiCo(mico_config_from_dict(model_cfg), device="cuda", seed=seed)
     dump_hps({"model_cfg": model_cfg}, root)
     ModelSaver(root).save(CAP_VAST_STEP, model)
@@ -4707,7 +4923,8 @@ def captioner_argv(config: str, vast: str, out: str, val: list) -> list:
     return ["--config", f"configs/{config}", "--pretrain_dir", vast,
             "--output_dir", out, "--device", "cuda",
             "--data_cfg.val", json.dumps(val),
-            f"run_cfg.generate_nums={CAP_GENERATE_NUMS}"]
+            f"run_cfg.generate_nums={CAP_GENERATE_NUMS}",
+            f"model_cfg.eva_override={json.dumps(cap_eva_override())}"]
 
 
 def captioner_val(config: str, **paths) -> list:
@@ -4789,19 +5006,18 @@ def phase_captioner(fa, card: str) -> dict:
     """The data half's captioners (configs/caption-generation-audio.json,
     -vision.json) and a ret%tva ITM re-rank through `python -m
     mico_tpu_torch.run`, from a native pretrained directory of the default
-    VAST model at full width, over a corpus written to a temporary
-    directory."""
+    VAST model at full width (its ViT at CAP_LAYERS blocks), over a corpus
+    written to a temporary directory."""
     import os
     import shutil
     import tempfile
 
     import mico_tpu_torch.evaluation as ev
     import mico_tpu_torch.models.mico as mico_mod
-    from mico_tpu_torch.config import MiCoConfig
     from mico_tpu_torch.data.mappers import VisionMapper
     from mico_tpu_torch.run import main as run_main
 
-    layers = MiCoConfig().eva_config.layers
+    layers = CAP_LAYERS
     root = tempfile.mkdtemp(prefix="mico_captioner_")
     t_phase = time.perf_counter()
     try:
@@ -5952,42 +6168,70 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, device {kind}")
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
+    wall = {}                           # seconds since the previous mark
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        wall[name] = now - t_start - sum(wall.values())
+        log(f"[wall] {name}: {wall[name]:.1f} s, {now - t_start:.1f} s "
+            f"since the build began")
+
     _build.build_all()
-    build_s = time.perf_counter() - t0
+    build_s = time.perf_counter() - t_start
     log(f"kernels built in {build_s:.1f} s into {_build.BUILD_DIR}")
+    mark("build")
 
     rows = phase_kernels(fa)
     rows += phase_fused_qkv_kernels(fa)
+    mark("kernels")
     main_out = phase_main(fa, card)
     cosines, ref = phase_cosine(main_out)
     caption = phase_caption(fa, main_out, ref, card)
     omni = {k: main_out[k] for k in ("step_ms", "step_times", "paths")}
     del main_out, ref
     free_cuda()
+    mark("main, cosine, caption")
     demo = phase_demo(fa, card)
     free_cuda()
+    mark("demo")
     bige = phase_bige(fa, card)
+    mark("bigE")
     clip = phase_clip(fa, card)
+    mark("CLIP")
+    eva_clip = phase_eva_clip(fa, card)
+    mark("eva_clip")
     eva02 = phase_eva02(fa, card)
+    mark("EVA02")
     swin = phase_swin(fa, card)
+    mark("swin")
     rows += phase_train_kernels(fa)
     rows += phase_cls_kernels(fa)
     train = phase_train_steps(fa, card)
     train["gradient_check"] = phase_train_grads(fa)
+    mark("train")
     rows += phase_long_kernels(fa)
     long = phase_long_train(fa, card)
+    mark("long-context")
     mlp_rows, mlp = phase_mlp(fa, card)
     rows += mlp_rows
+    mark("mlp")
     scst = phase_scst(fa, card)
+    mark("scst")
     run = phase_run(fa, card, train)
+    mark("run")
     dp = phase_dp(fa, card, run)
+    mark("dp")
     tp = phase_tp(fa, card)
+    mark("tp")
     pipe = phase_pp(fa, card)
+    mark("pp")
     captioner = phase_captioner(fa, card)
+    mark("captioner")
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
-             **clip["paths"], **eva02["paths"], **swin["paths"],
+             **clip["paths"], **eva_clip["paths"], **eva02["paths"],
+             **swin["paths"],
              "train step": train["launches_per_step"],
              "train gradient check (PACKED_CLS_SPLIT)":
                  train["gradient_check"]["bf16_k9"]["launches"],
@@ -6007,7 +6251,7 @@ def main() -> int:
         path = KERNEL_PATH[key]
         row.update(launches=paths[path][key], launches_path=path,
                    launches_by_path={p: c[key] for p, c in paths.items()})
-    print(json.dumps({"card": card, "build_s": build_s,
+    print(json.dumps({"card": card, "build_s": build_s, "wall_s": wall,
                       "omni_step_ms": omni["step_ms"],
                       "omni_step_times_ms": omni["step_times"],
                       "samples_per_s": 1e3 * S / omni["step_ms"],
@@ -6020,6 +6264,8 @@ def main() -> int:
                                if k != "paths"},
                       "clip": {k: v for k, v in clip.items()
                                if k != "paths"},
+                      "eva_clip": {k: v for k, v in eva_clip.items()
+                                   if k != "paths"},
                       "eva02": {k: v for k, v in eva02.items()
                                 if k != "paths"},
                       "swin": {k: v for k, v in swin.items()

@@ -7,7 +7,9 @@ RoPE, SwiGLU, sub-LN and relative-position bias, and the post-norm bigE),
 the OpenAI-CLIP ViTs of `models/clip_vit.py` and the Swin and VideoSwin
 towers of `models/swin.py`; for audio the shared route and the BEATs and
 AST towers of `models/audio.py`. Asking for another tower raises
-`NotImplementedError` naming the ROADMAP queue that ports it.
+`NotImplementedError`, as the JAX package does, naming the stand-alone
+encoders (`models/clip_text.py`, `models/modified_resnet.py`,
+`models/timm_adapter.py`).
 """
 
 from __future__ import annotations
@@ -18,8 +20,13 @@ from typing import Optional, Tuple
 
 import torch
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md, queue 1: other encoders and "
-               "tokenizers)")
+_NO_MICO_TOWER = (
+    "MiCo has no such vision tower, in the JAX package either "
+    "(its vision_tower_config and _init_vision_tower raise "
+    "NotImplementedError); the stand-alone "
+    "encoders are mico_tpu_torch.models.clip_text (the EVA-CLIP two-tower "
+    "model), models.modified_resnet (CLIP's ResNet) and models.timm_adapter "
+    "(timm backbones)")
 
 
 @dataclass(frozen=True)
@@ -157,7 +164,7 @@ def eva_config_for_encoder_type(
 ) -> EvaVitConfig:
     if vision_encoder_type not in VISION_ENCODER_TYPES:
         raise NotImplementedError(
-            f"vision tower {vision_encoder_type!r}: {_NOT_PORTED}"
+            f"vision tower {vision_encoder_type!r}: {_NO_MICO_TOWER}"
         )
     name, _ = VISION_ENCODER_TYPES[vision_encoder_type]
     cfg = EVA_VIT_CONFIGS[name]
@@ -260,12 +267,12 @@ class MiCoConfig:
                 return family
         if ov is not None:
             raise NotImplementedError(
-                f"vision_override {type(ov).__name__}: {_NOT_PORTED}")
+                f"vision_override {type(ov).__name__}: {_NO_MICO_TOWER}")
         t = self.vision_encoder_type
         for prefix in ("clip", "videoswin", "swin"):
             if t.startswith(prefix):
                 return prefix
-        raise NotImplementedError(f"vision tower {t!r}: {_NOT_PORTED}")
+        raise NotImplementedError(f"vision tower {t!r}: {_NO_MICO_TOWER}")
 
     @property
     def vision_dim(self) -> int:
@@ -323,7 +330,8 @@ class MiCoConfig:
             from mico_tpu_torch.models.clip_vit import CLIP_VIT_CONFIGS
 
             if t not in CLIP_TOWER_NAMES:
-                raise NotImplementedError(f"vision tower {t!r}: {_NOT_PORTED}")
+                raise NotImplementedError(
+                    f"vision tower {t!r}: {_NO_MICO_TOWER}")
             return CLIP_VIT_CONFIGS[CLIP_TOWER_NAMES[t]]
         from mico_tpu_torch.models.swin import SWIN_CONFIGS, VIDEOSWIN_CONFIGS
 

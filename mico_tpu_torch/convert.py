@@ -22,6 +22,12 @@ stacked on a depth axis, the positional embedding resized bilinearly and
 frame embeddings by nearest. The leaves are torch tensors in the
 checkpoint's dtype, mostly views of its tensors; `mico_from_jax` places
 each one on the model's device in the model's dtype with one copy.
+
+`clip_from_jax` and `modified_resnet_from_jax` place JAX's trees of the
+stand-alone towers (`init_clip`, `init_modified_resnet`, or the
+`clip_from_torch` / `modified_resnet_from_torch` conversions) in the
+port's `CLIP` and `ModifiedResNet` by the same keys, the EVA tower's
+blocks unstacked as in MiCo.
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import numpy as np
 import torch
 
 from mico_tpu_torch.config import BertConfig, EvaVitConfig, MiCoConfig
+from mico_tpu_torch.models.clip_text import CLIP
 from mico_tpu_torch.models.mico import MiCo, resolve_device, stage_or_shard
+from mico_tpu_torch.models.modified_resnet import ModifiedResNet
 from mico_tpu_torch.ops.interpolate import interp_bilinear_2d, interp_nearest_1d
 from mico_tpu_torch.parallel.partition import stage_range
 from mico_tpu_torch.parallel.pipeline_parallel import check_stages
@@ -97,6 +105,33 @@ def _part(key: str, leaf, cfg: MiCoConfig, axis):
     return shard(leaf, split, axis)
 
 
+def _keyed_leaves(params: Mapping, stacked):
+    """(state_dict key, block index or None, leaf) of each leaf of a JAX
+    tree: the path `a/b/c` as `a.b.c`, and a leaf of a `stacked` group (a
+    depth axis first) as one key per row, `group.i.name`."""
+    for path, leaf in _flatten(params).items():
+        group, _, name = path.rpartition("/")
+        if group in stacked:
+            for i in range(leaf.shape[0]):
+                yield f"{group.replace('/', '.')}.{i}.{name}", i, leaf[i]
+        else:
+            yield path.replace("/", "."), None, leaf
+
+
+def _check_fills(sd: Mapping[str, torch.Tensor], model: torch.nn.Module):
+    """Raise unless `sd` holds exactly `model`'s parameters, in its shapes."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    unplaced = sorted(set(sd) - set(want))
+    unfilled = sorted(set(want) - set(sd))
+    if unplaced or unfilled:
+        raise KeyError(f"tree leaves with no port parameter: {unplaced}; "
+                       f"port parameters with no tree leaf: {unfilled}")
+    bad = [k for k, shape in want.items() if tuple(sd[k].shape) != shape]
+    if bad:
+        raise ValueError("shape mismatch: " + ", ".join(
+            f"{k} {tuple(sd[k].shape)} vs {want[k]}" for k in bad))
+
+
 def _place(params: Mapping, cfg: MiCoConfig, device="cpu",
            dtype: torch.dtype = torch.float32, mesh=None):
     """(state_dict on `device` in `dtype`, the skeleton it fills) for the
@@ -111,29 +146,14 @@ def _place(params: Mapping, cfg: MiCoConfig, device="cpu",
         keep = range(*stage_range(cfg.vision_tower_config.layers, axis.size,
                                   axis.index))
     sd: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params).items():
-        group, _, name = path.rpartition("/")
-        if group in STACKED:
-            for i in range(leaf.shape[0]):
-                if keep and group == STACKED[0] and i not in keep:
-                    continue        # another pipeline stage's block
-                key = f"{group.replace('/', '.')}.{i}.{name}"
-                sd[key] = _placed(_part(key, leaf[i], cfg, axis), dev, dtype)
-        else:
-            key = path.replace("/", ".")
-            sd[key] = _placed(_part(key, leaf, cfg, axis), dev, dtype)
+    for key, i, leaf in _keyed_leaves(params, STACKED):
+        if keep and key.startswith("vision_encoder.blocks.") \
+                and i not in keep:
+            continue            # another pipeline stage's block
+        sd[key] = _placed(_part(key, leaf, cfg, axis), dev, dtype)
     skeleton = _skeleton(cfg, sd)
     model = skeleton if mesh is None else stage_or_shard(skeleton, mesh)
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    unplaced = sorted(set(sd) - set(want))
-    unfilled = sorted(set(want) - set(sd))
-    if unplaced or unfilled:
-        raise KeyError(f"tree leaves with no port parameter: {unplaced}; "
-                       f"port parameters with no tree leaf: {unfilled}")
-    bad = [k for k, shape in want.items() if tuple(sd[k].shape) != shape]
-    if bad:
-        raise ValueError("shape mismatch: " + ", ".join(
-            f"{k} {tuple(sd[k].shape)} vs {want[k]}" for k in bad))
+    _check_fills(sd, model)
     return sd, model
 
 
@@ -214,6 +234,37 @@ def mico_from_jax(params: Mapping, cfg: MiCoConfig, *, device="cuda",
     sd, model = _place(params, cfg, dev, dtype, mesh)
     model.load_state_dict(sd, strict=True, assign=True)
     return model
+
+
+def _filled(skeleton: torch.nn.Module, params: Mapping, stacked,
+            dev: torch.device) -> torch.nn.Module:
+    """`skeleton` (made with `init_weights=False`) holding the leaves of a
+    JAX tree in fp32, placed as `mico_from_jax` places them; raises as it
+    does on a leaf it does not place, a parameter it does not fill or a
+    shape."""
+    sd = {key: _placed(leaf, dev, torch.float32)
+          for key, _, leaf in _keyed_leaves(params, stacked)}
+    _check_fills(sd, skeleton)
+    skeleton.load_state_dict(sd, strict=True, assign=True)
+    return skeleton
+
+
+def clip_from_jax(params: Mapping, vision_cfg: EvaVitConfig, text_cfg, *,
+                  device="cuda"):
+    """A `models.clip_text.CLIP` holding JAX's CLIP tree (`init_clip`'s, or
+    `clip_from_torch`'s): `visual` the EVA tower's tree with its blocks
+    stacked, `text` with its `layers` list, the 0-d `logit_scale`."""
+    dev = resolve_device(device)
+    skeleton = CLIP(vision_cfg, text_cfg, device=dev, init_weights=False)
+    return _filled(skeleton, params, ("visual/blocks",), dev)
+
+
+def modified_resnet_from_jax(params: Mapping, cfg, *, device="cuda"):
+    """A `models.modified_resnet.ModifiedResNet` holding JAX's tree
+    (`init_modified_resnet`'s, or `modified_resnet_from_torch`'s)."""
+    dev = resolve_device(device)
+    skeleton = ModifiedResNet(cfg, device=dev, init_weights=False)
+    return _filled(skeleton, params, (), dev)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""Utilities of the port: the layered run config and `hps.json`, logging
-and the running loss meters."""
+"""Utilities of the port: the layered run config and `hps.json`, logging,
+the running loss meters and the pretrained checkpoint registry."""

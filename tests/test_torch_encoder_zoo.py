@@ -296,13 +296,13 @@ def test_every_vision_encoder_type_builds(vtype):
 
 
 def test_unknown_tower_override_raises():
-    """An override of a tower the port does not build raises, naming the
-    ROADMAP queue."""
+    """An override of a tower MiCo does not build raises, as in the JAX
+    package, naming the stand-alone encoders."""
     @dataclasses.dataclass(frozen=True)
     class ResNetConfig:
         width: int = 64
 
     cfg = tconfig.MiCoConfig(vision_encoder_type="resnet50",
                              vision_override=ResNetConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="JAX package either"):
         cfg.vision_tower_config

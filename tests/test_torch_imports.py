@@ -40,7 +40,9 @@ def test_sources_found():
             "chip_smoke.py", "run.py", "pipeline.py", "loader.py",
             "mappers.py", "anno_dataset.py", "metrics.py",
             "config_io.py", "logger.py", "checkpoints.py",
-            "scst.py", "mesh.py", "tensor_parallel.py"} <= names
+            "scst.py", "mesh.py", "tensor_parallel.py", "clip_text.py",
+            "modified_resnet.py", "timm_adapter.py", "bpe.py",
+            "hf_adapter.py", "pretrained.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -48,6 +50,33 @@ def test_no_jax_or_mico_tpu_import(path):
     bad = [m for m in imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_optional_packages_gated():
+    """`timm` and `transformers` (on neither machine for certain) are
+    imported only inside the function that needs them, never when a module
+    is imported; the BPE tokenizer imports no `regex` at all."""
+    for path in SOURCES:
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+        bad = [m for m in import_time_modules(tree)
+               if m.split(".")[0] in ("timm", "transformers")]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad} at import"
+    bpe = ROOT / "mico_tpu_torch" / "text" / "bpe.py"
+    assert "regex" not in {m.split(".")[0] for m in imported_modules(bpe)}
+
+
+def import_time_modules(node):
+    """The modules imported by statements that run when the module is
+    imported: any depth but a function's body."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.Lambda)):
+            continue
+        if isinstance(child, ast.Import):
+            yield from (alias.name for alias in child.names)
+        elif isinstance(child, ast.ImportFrom) and child.level == 0:
+            yield child.module
+        yield from import_time_modules(child)
 
 
 def test_scan_catches_forbidden_imports(tmp_path):

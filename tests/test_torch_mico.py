@@ -278,7 +278,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     (dict(vision_encoder_type="clip_vit_huge_14"), "vision_tower_config"),
 ])
 def test_unported_towers_raise(kw, attr):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="JAX package either"):
         getattr(tconfig.MiCoConfig(**kw), attr)
 
 
