@@ -6,6 +6,14 @@
 Phases, run in order (any failure exits non-zero):
   1. device: the card's name and power limit, and the kernels' build time
      (nvcc over `mico_tpu_torch/csrc/*.cu`, at first use, into `build/`);
+  1b. audio_decode: the host's audio decoder (g++ over
+     `mico_tpu_torch/csrc/audio_decode.cpp`, into `build/`): 10 s 44.1 kHz
+     stereo FLACs at 16 and 24 bits (all four channel assignments, LPC and
+     FIXED subframes) decoded equal to the PCM they were written from, bit
+     for bit; the C++ resampler held to its numpy plain version
+     (`audio_io.resample_plain`: the same length, max |d| <= 1e-6) from
+     22050, 44100, 48000 and 16001 Hz to 16 kHz; the host's decode,
+     resample and decode + resample rates in seconds of audio a second;
   2. kernels: K1, K2 and K7 against their plain PyTorch versions on the card
      in bf16, at the main paths' shapes and layouts (the tensors that are
      then timed) and at smaller and biased cases, with their times beside
@@ -90,7 +98,8 @@ Phases, run in order (any failure exits non-zero):
      drawn from seed 0: LN weights 1, biases 0, the rest N(0, 0.02); an
      older `model_step_600.pt` and an unfinished `model_step_2400-tmp`
      beside it) and media files written beside it (a 320 x 240 PPM image,
-     8 PPM frames, a 10 s 16 kHz WAV): on the card in bf16, each stage
+     8 PPM frames, a 10 s 44.1 kHz stereo 16-bit FLAC, which the demo
+     decodes and resamples to 16 kHz): on the card in bf16, each stage
      counted from 0 (K1 40 for each of the image, video and audio ViT
      passes, K2 12 for ITM, K7 0; text and the beam-3 caption launch
      none), every manifest entry but the three non-weights read, then the
@@ -271,13 +280,17 @@ Phases, run in order (any failure exits non-zero):
      for the backward, peak, K3/K4 launches, ms; gradient cosine >= 0.99
      per group against the run without remat, max |d|);
  10. run: `mico_tpu_torch.run.main` (the entry of `python -m
-     mico_tpu_torch.run`) on `configs/pretrain-omni.json` at full width
-     over an `annoindexed` corpus written to a temporary directory (32
+     mico_tpu_torch.run`) on `configs/pretrain-omni.json` at full width,
+     ViT-g cut to 10 of its 40 blocks (`model_cfg.eva_override`), over an
+     `annoindexed` corpus written to a temporary directory (32
      clips of 8 cv2 JPEG frames of 256 x 320 and a 5 s 16 kHz WAV, with
      captions, questions and answers, and one clip of corrupt JPEGs that
      the dataset resamples past), with CLI overrides: the data paths,
-     `video_frame`, B 8, a `ret%tva` val set with the ITM re-rank on and a
-     `cap%tv` one, the shared tower's audio at 224 x 224. It trains 4 steps
+     `video_frame`, B 8, a `ret%tva` val set with the ITM re-rank on (its
+     clips without the corrupt one: a dataset draws a corrupt clip's
+     stand-in from its seeded RNG, so a run's later evaluations and a fresh
+     testing run would score different galleries) and a `cap%tv` one (the
+     corrupt clip kept), the shared tower's audio at 224 x 224. It trains 4 steps
      (`valid_freq` 1: evaluations and saves at steps 3 and 4), tests from
      that directory (`mode=testing`, `--pretrain_dir`: the same retrieval
      metrics as the step-4 evaluation within 1e-6), then checks resume at
@@ -364,6 +377,8 @@ Phases, run in order (any failure exits non-zero):
      rank's step seconds, the hops' seconds (gloo through the host, the
      wait for the other stage included: not an NCCL figure) and the
      bubble (S - 1) / (S + M - 1).
+Each phase prints its wall time and the running total as it ends ([wall]
+lines), and the total at the end.
 The line before them is a JSON summary of the run, the second-to-last line
 is {"kernels": [...]} with per-kernel numbers, and the last is
 {"ok": true, "device": {...}}. Without CUDA it exits with code 2 and prints
@@ -1744,6 +1759,103 @@ def phase_caption(fa, main: dict, ref, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 1b: the host's audio decoder (FLAC, WAV, resampling)
+# ---------------------------------------------------------------------------
+
+AUDIO_SECONDS = 10
+AUDIO_RATES = (22050, 44100, 48000, 16001)    # each resampled to 16 kHz
+RESAMPLE_PLAIN_TOL = 1e-6
+
+
+def flac_writer():
+    """`tests/torch_flac_writer.write_flac`, loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_flac_writer.py"
+    spec = importlib.util.spec_from_file_location("torch_flac_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.write_flac
+
+
+def phase_audio_decode(card: str) -> dict:
+    import os
+    import tempfile
+
+    from mico_tpu_torch.media import audio_io
+    from mico_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build_host("audio_decode")
+    build_s = time.perf_counter() - t0
+    log(f"phase audio_decode: {lib.name} built by g++ in {build_s:.1f} s")
+    rng = np.random.default_rng(0)
+    write = flac_writer()
+    result = {"build_s": build_s, "flac": {}, "resample": {}}
+    t = np.arange(AUDIO_SECONDS * 44100) / 44100
+    x = np.stack([0.4 * np.sin(2 * np.pi * (200 + 300 * t) * t),
+                  0.3 * np.sin(2 * np.pi * 440 * t)], 1)
+    x = x + 0.05 * rng.standard_normal(x.shape)
+    with tempfile.TemporaryDirectory() as tmp:
+        for bps in (16, 24):
+            pcm = np.round(x * ((1 << (bps - 1)) - 1)).astype(np.int64)
+            path = f"{tmp}/a{bps}.flac"
+            write(path, pcm, 44100, bps, subframes=[("lpc", 12), ("fixed", 2)],
+                  assignments=["independent", "left_side", "side_right",
+                               "mid_side"])
+            got, sr = audio_io.load_waveform(path, target_sr=0)
+            dec_s = min(timed_runs(
+                lambda: audio_io.load_waveform(path, target_sr=0), 3)) / 1e3
+            want = (pcm[:, 0] / 2.0 ** (bps - 1)).astype(np.float32)
+            if sr != 44100 or not np.array_equal(got, want):
+                raise AssertionError(f"audio_decode: the {bps}-bit FLAC "
+                                     f"decoded unequal to its PCM (sr {sr})")
+            res, _ = audio_io.load_waveform(path, target_sr=16000)
+            both_s = min(timed_runs(
+                lambda: audio_io.load_waveform(path, target_sr=16000),
+                3)) / 1e3
+            if res.shape != (AUDIO_SECONDS * 16000,):
+                raise AssertionError(f"audio_decode: {res.shape} at 16 kHz")
+            result["flac"][bps] = dict(
+                bytes=os.path.getsize(path),
+                decode_s=dec_s, decode_resample_s=both_s,
+                decode_audio_s_per_s=AUDIO_SECONDS / dec_s,
+                decode_resample_audio_s_per_s=AUDIO_SECONDS / both_s)
+            log(f"  {bps}-bit stereo FLAC of {AUDIO_SECONDS} s "
+                f"({result['flac'][bps]['bytes']} bytes): equal to its PCM "
+                f"bit for bit; decode {AUDIO_SECONDS / dec_s:.1f} s of audio "
+                f"a second, decode + resample to 16 kHz "
+                f"{AUDIO_SECONDS / both_s:.1f} (best of 3 after a warm-up, "
+                f"one host thread of the card's machine)")
+    for rate in AUDIO_RATES:
+        n = AUDIO_SECONDS * rate
+        tt = np.arange(n) / rate
+        sig = (0.5 * np.sin(2 * np.pi * (100 + 0.2 * rate * tt / AUDIO_SECONDS)
+                            * tt) + 0.3 * rng.uniform(-1, 1, n)).astype(
+                                np.float32)
+        got = audio_io.resample(sig, rate, 16000)
+        res_s = min(timed_runs(
+            lambda: audio_io.resample(sig, rate, 16000), 3)) / 1e3
+        plain = audio_io.resample_plain(sig, rate, 16000)
+        if got.shape != plain.shape:
+            raise AssertionError(f"resample {rate}: {got.shape} vs the plain "
+                                 f"version's {plain.shape}")
+        err = float(np.abs(got - plain).max())
+        if not err <= RESAMPLE_PLAIN_TOL:
+            raise AssertionError(f"resample {rate} -> 16000: max |d| {err} "
+                                 f"> {RESAMPLE_PLAIN_TOL}")
+        result["resample"][rate] = dict(
+            out_samples=int(got.size), max_abs_err=err, seconds=res_s,
+            audio_s_per_s=AUDIO_SECONDS / res_s)
+        log(f"  resample {rate} -> 16000 Hz: {got.size} samples, max |d| "
+            f"{err:.3e} to the plain version; {AUDIO_SECONDS / res_s:.1f} s "
+            f"of audio a second")
+    log(f"  (host rates: the CPU of the card's machine [{card}])")
+    return result
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: the demo entry from a released-layout checkpoint directory
 # ---------------------------------------------------------------------------
 
@@ -1825,9 +1937,9 @@ def write_demo_inputs(root, seed: int, manifest: dict,
     `ckpt/model_step_N.pt` with every `manifest` entry, an older
     `model_step_M.pt` and an unfinished `-tmp` save beside it) and the
     demo's media: a 320x240 PPM image, a directory of 8 PPM frames and a
-    10 s 16 kHz 16-bit WAV (a chirp plus noise), all drawn from `seed`."""
+    10 s 44.1 kHz stereo 16-bit FLAC (a chirp and a tone plus noise; the
+    demo decodes it and resamples it to 16 kHz), all drawn from `seed`."""
     import os
-    import wave
     from pathlib import Path
 
     root = Path(root)
@@ -1861,17 +1973,14 @@ def write_demo_inputs(root, seed: int, manifest: dict,
     frames.mkdir()
     for i in range(8):
         ppm(frames / f"{i:04d}.ppm")
-    t = np.arange(10 * 16000) / 16000
-    x = 0.4 * np.sin(2 * np.pi * (200 + 300 * t) * t) \
-        + 0.05 * rng.standard_normal(t.shape)
-    with wave.open(str(root / "audio.wav"), "wb") as f:
-        f.setnchannels(1)
-        f.setsampwidth(2)
-        f.setframerate(16000)
-        f.writeframes((x * 32767).clip(-32768, 32767).astype(np.int16)
-                      .tobytes())
+    t = np.arange(10 * 44100) / 44100
+    x = np.stack([0.4 * np.sin(2 * np.pi * (200 + 300 * t) * t),
+                  0.3 * np.sin(2 * np.pi * 440 * t)], 1)
+    x = x + 0.05 * rng.standard_normal(x.shape)
+    flac_writer()(root / "audio.flac", np.round(x * 32767).astype(np.int64),
+                  44100, 16, assignments=["mid_side", "left_side"])
     return dict(pretrain_dir=str(pre), image=str(root / "image.ppm"),
-                video=str(frames), audio=str(root / "audio.wav"),
+                video=str(frames), audio=str(root / "audio.flac"),
                 write_s=write_s,
                 ckpt_bytes=os.path.getsize(ckpt / f"model_step_{DEMO_STEP}.pt"))
 
@@ -1889,7 +1998,7 @@ def phase_demo(fa, card: str) -> dict:
         log(f"phase demo: wrote {len(manifest)} fp16 entries "
             f"({files['ckpt_bytes'] / 2**30:.2f} GiB) in "
             f"{files['write_s']:.1f} s, a 320x240 PPM, 8 PPM frames and a "
-            f"10 s WAV")
+            f"10 s 44.1 kHz stereo FLAC")
         args = (files["pretrain_dir"], files["image"], files["video"],
                 files["audio"])
         paths = {}
@@ -1982,8 +2091,9 @@ def phase_bige(fa, card: str) -> dict:
     eva = cfg.eva_config
     nlayers, nbert = eva.layers, cfg.bert_config.num_hidden_layers
     t0 = time.perf_counter()
-    # one draw of the fp32 weights; the bf16 model is a copy of them
-    model32 = MiCo(cfg, device="cuda", seed=0)
+    # one draw of the fp32 weights, by the card's generator; the bf16 model
+    # is a copy of them
+    model32 = MiCo(cfg, device="cuda", seed=0, init_device="cuda")
     model = copy.deepcopy(model32).to(dtype=torch.bfloat16)
     build_s = time.perf_counter() - t0
     n_vit = sum(p.numel() for p in model.vision_encoder.parameters())
@@ -2146,8 +2256,9 @@ def phase_clip(fa, card: str) -> dict:
     tower = cfg.vision_tower_config
     nlayers, nbert = tower.layers, cfg.bert_config.num_hidden_layers
     t0 = time.perf_counter()
-    # one draw of the fp32 weights; the bf16 model is a copy of them
-    model32 = MiCo(cfg, device="cuda", seed=0)
+    # one draw of the fp32 weights, by the card's generator; the bf16 model
+    # is a copy of them
+    model32 = MiCo(cfg, device="cuda", seed=0, init_device="cuda")
     model = copy.deepcopy(model32).to(dtype=torch.bfloat16)
     build_s = time.perf_counter() - t0
     n_vit = sum(p.numel() for p in model.vision_encoder.parameters())
@@ -2457,8 +2568,9 @@ def phase_eva02(fa, card: str) -> dict:
     eva = cfg.eva_config
     nlayers, nbert = eva.layers, cfg.bert_config.num_hidden_layers
     t0 = time.perf_counter()
-    # one draw of the fp32 weights; the bf16 model is a copy of them
-    model32 = MiCo(cfg, device="cuda", seed=0)
+    # one draw of the fp32 weights, by the card's generator; the bf16 model
+    # is a copy of them
+    model32 = MiCo(cfg, device="cuda", seed=0, init_device="cuda")
     model = copy.deepcopy(model32).to(dtype=torch.bfloat16)
     build_s = time.perf_counter() - t0
     n_vit = sum(p.numel() for p in model.vision_encoder.parameters())
@@ -3659,6 +3771,10 @@ RUN_ITEMS = 32              # clips of the synthetic corpus (and one corrupt)
 RUN_FRAMES = 8              # JPEG frames written per clip; 4 are sampled
 RUN_B = 8
 RUN_STEPS, RUN_RESUME_STEPS = 4, 6
+# the run trains and tests at ViT-g width with this many of its 40 blocks,
+# as phases dp, tp, pp and captioner (the testing run's 1e-6 hold passes
+# there since its retrieval val set has no corrupt clip; PR 22)
+RUN_LAYERS = 10
 # the resume check runs at ViT-g width with this many blocks: a full-depth
 # model and optimizer file is 14.4 GB, and saving and loading it again
 # would take the phase well past 150 s on an H100 (PERF.md)
@@ -3681,7 +3797,10 @@ def write_run_corpus(root, seed: int, items: int = RUN_ITEMS,
     with a caption (with `refs`, a list of 2 or 3 reference captions), a
     question and answers (a list for every other clip), and one clip whose
     frames are corrupt JPEGs (the dataset resamples past it); all drawn
-    from `seed`."""
+    from `seed`. `val_txt` lists the clips without the corrupt one: a
+    dataset draws a corrupt clip's stand-in from its seeded RNG (JAX's
+    `_resample` too), so a run's later evaluations and a fresh testing run
+    would score different galleries (ROADMAP.md queue 3, PR 22)."""
     import os
     import wave
 
@@ -3730,14 +3849,19 @@ def write_run_corpus(root, seed: int, items: int = RUN_ITEMS,
     txt = os.path.join(root, "annos.json")
     with open(txt, "w") as f:
         json.dump(annos, f)
-    return dict(txt=txt, vision=frames_dir, audio=wav_dir)
+    val_txt = os.path.join(root, "annos_val.json")
+    with open(val_txt, "w") as f:
+        json.dump([a for a in annos if a["video_id"] != "corrupt"], f)
+    return dict(txt=txt, val_txt=val_txt, vision=frames_dir, audio=wav_dir)
 
 
 def run_argv(corpus: dict, out: str) -> list:
     """`python -m mico_tpu_torch.run`'s arguments for
     configs/pretrain-omni.json on the synthetic corpus: the data paths, `video_frame`, B 8, and a
-    `ret%tva` (ITM re-rank on) and a `cap%tv` val set; the shared tower's
-    audio at the ViT's 224 x 224."""
+    `ret%tva` (ITM re-rank on; its clips without the corrupt one, so the
+    testing run scores the gallery of the run's last evaluation) and a
+    `cap%tv` val set (the corrupt clip kept: evaluation resamples past it);
+    the shared tower's audio at the ViT's 224 x 224."""
     clip = {"type": "annoindexed", "txt": corpus["txt"],
             "vision": corpus["vision"], "vision_format": "video_frame",
             "vision_sample_num": 4, "n_workers": 4, "batch_size": RUN_B}
@@ -3745,7 +3869,7 @@ def run_argv(corpus: dict, out: str) -> list:
     train = [{**clip, **audio, "training": True, "name": "synthetic",
               "task": "ret%tva_cap%tva"}]
     val = [{**clip, **audio, "training": False, "name": "synthetic",
-            "task": "ret%tva"},
+            "task": "ret%tva", "txt": corpus.get("val_txt", corpus["txt"])},
            {**clip, "training": False, "name": "synthcap", "task": "cap%tv"}]
     return ["--config", "configs/pretrain-omni.json", "--output_dir", out,
             "--device", "cuda", "--data_cfg.train", json.dumps(train),
@@ -3947,8 +4071,9 @@ class RunProbe:
 
 def phase_run(fa, card: str, train_step: dict) -> dict:
     """`mico_tpu_torch.run.main` on configs/pretrain-omni.json at full
-    width over a corpus on disk: train 4 steps with evaluations and saves,
-    resume to step 6, then test from the run directory."""
+    width (ViT-g cut to RUN_LAYERS blocks) over a corpus on disk: train 4
+    steps with evaluations and saves, resume to step 6, then test from the
+    run directory."""
     import os
     import shutil
     import tempfile
@@ -3956,7 +4081,8 @@ def phase_run(fa, card: str, train_step: dict) -> dict:
     from mico_tpu_torch.config import MiCoConfig
     from mico_tpu_torch.run import main as run_main
 
-    layers = MiCoConfig().eva_config.layers
+    layers = RUN_LAYERS
+    cut = dict(MiCoConfig().eva_config.__dict__, layers=layers)
     root = tempfile.mkdtemp(prefix="mico_run_")
     try:
         t0 = time.perf_counter()
@@ -3965,7 +4091,8 @@ def phase_run(fa, card: str, train_step: dict) -> dict:
             f"JPEG frames of 256x320 and a 5 s WAV each) in "
             f"{time.perf_counter() - t0:.1f} s")
         out = os.path.join(root, "out")
-        argv = run_argv(corpus, out)
+        argv = run_argv(corpus, out) + [
+            f"model_cfg.eva_override={json.dumps(cut)}"]
         probe = RunProbe(fa, layers)
         probe.profile_step = RUN_PROFILED_STEP
         try:
@@ -4048,13 +4175,13 @@ def run_entry(probe, run_main, argv, out, layers, card, train_step) -> dict:
     free_cuda()
 
     # -- resume: a run of 4 steps and its resume to 6, at ViT-g width with
-    # RUN_RESUME_LAYERS blocks (full-depth saves and loads are timed above)
+    # RUN_RESUME_LAYERS blocks (the run's saves and loads are timed above)
     cut = dict(MiCoConfig().eva_config.__dict__, layers=RUN_RESUME_LAYERS)
     out_cut = out + "_resume"
     argv_cut = [a if a != out else out_cut for a in argv] + [
         f"model_cfg.eva_override={json.dumps(cut)}"]
-    log(f"  resume check: cut to ViT-g width with {RUN_RESUME_LAYERS} of "
-        f"{layers} blocks (full-depth saves and loads above)")
+    log(f"  resume check: cut to ViT-g width with {RUN_RESUME_LAYERS} "
+        f"blocks (the {layers}-block run's saves and loads above)")
     probe.layers = RUN_RESUME_LAYERS
     probe.profile_step = None
     probe.stages.clear()
@@ -5165,7 +5292,7 @@ def dp_torchrun(fa, run: dict, card: str) -> dict:
     try:
         corpus = write_run_corpus(root, seed=0)
         out = os.path.join(root, "out")
-        # the arguments of phase run's resume check (its depth: full-depth
+        # the arguments of phase run's resume check (its depth: the run's
         # saves and loads are phase run's to time) with the retrieval val
         # set alone (the ITM re-rank on); the resume takes none
         argv = run_argv(corpus, out)
@@ -6181,6 +6308,8 @@ def main() -> int:
     build_s = time.perf_counter() - t_start
     log(f"kernels built in {build_s:.1f} s into {_build.BUILD_DIR}")
     mark("build")
+    audio = phase_audio_decode(card)
+    mark("audio_decode")
 
     rows = phase_kernels(fa)
     rows += phase_fused_qkv_kernels(fa)
@@ -6228,6 +6357,9 @@ def main() -> int:
     mark("pp")
     captioner = phase_captioner(fa, card)
     mark("captioner")
+    total_s = time.perf_counter() - t_start
+    log(f"[wall] total: {total_s:.1f} s, by phase "
+        f"{ {k: round(v, 1) for k, v in wall.items()} } [{card}]")
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
              **bige["paths"],
              **clip["paths"], **eva_clip["paths"], **eva02["paths"],
@@ -6252,6 +6384,7 @@ def main() -> int:
         row.update(launches=paths[path][key], launches_path=path,
                    launches_by_path={p: c[key] for p, c in paths.items()})
     print(json.dumps({"card": card, "build_s": build_s, "wall_s": wall,
+                      "total_s": total_s, "audio_decode": audio,
                       "omni_step_ms": omni["step_ms"],
                       "omni_step_times_ms": omni["step_times"],
                       "samples_per_s": 1e3 * S / omni["step_ms"],

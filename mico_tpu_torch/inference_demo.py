@@ -4,15 +4,16 @@ native `.npz` one), embed an image, a video and an audio clip and two
 texts, score retrieval and ITM, and write a beam-search caption.
 
     python -m mico_tpu_torch.inference_demo --pretrain_dir MiCo-g \
-        [--image example/test.jpeg] [--video FRAME_DIR] \
-        [--audio example/test.wav] [--device cuda]
+        [--image example/test.jpeg] [--video example/test.mp4] \
+        [--audio example/test.flac] [--device cuda]
 
 The port decodes images through OpenCV or PIL where they are installed
-and binary PPM/PGM with its own reader, audio from 16 kHz 16-bit PCM WAV,
-and a video given as a directory of frame images; container files (mp4,
-flac) wait for the native decoders (ROADMAP.md, queue 1). The video and
-audio branches run when their paths exist. It runs on CUDA and raises
-without a card unless `--device cpu` is given.
+and binary PPM/PGM with its own reader; a video from a container through
+OpenCV or from a directory of frame images; audio from FLAC or WAV at
+any rate through its own decoder (`media/audio_io.py`, resampled to
+16 kHz as libswresample does). The video and audio branches run when their
+paths exist. It runs on CUDA and raises without a card unless `--device
+cpu` is given.
 """
 
 from __future__ import annotations
@@ -180,10 +181,10 @@ def main(argv=None):
     ap.add_argument("--pretrain_dir", default="MiCo-g")
     ap.add_argument("--image", default="example/test.jpeg")
     ap.add_argument("--video", default="example/test.mp4",
-                    help="a directory of frame images (a container file "
-                         "needs the native decoders)")
-    ap.add_argument("--audio", default="example/test.wav",
-                    help="16 kHz 16-bit PCM WAV")
+                    help="a container OpenCV reads, or a directory of frame "
+                         "images")
+    ap.add_argument("--audio", default="example/test.flac",
+                    help="FLAC or WAV, at any sample rate")
     ap.add_argument("--vocab", default=None,
                     help="WordPiece vocab (default: the package's)")
     ap.add_argument("--resolution", type=int, default=224)

@@ -6,10 +6,10 @@ JAX module's `cv2.VideoCapture` route (`video_num_frames`,
 `_read_frames_cv2`): only the sampled frames are decoded, seeking only
 across a gap, and they come back as float32 RGB CHW in [0, 1] in the order
 of the indices. A file cv2 cannot open raises `IOError`. The JAX module's
-primary route, its native libav decoder, is not ported yet (ROADMAP.md,
-queue 1: native media decoders and .orbax loading). A video given as a
-directory of frame images (the processors' `data_format="frame"`) is read
-through `image_io`.
+primary route, its native libav decoder, is not ported: it needs libav's
+headers, which neither machine has (ROADMAP.md, queue 1: libav codecs). A
+video given as a directory of frame images (the processors'
+`data_format="frame"`) is read through `image_io`.
 """
 
 from __future__ import annotations

@@ -39,13 +39,15 @@ class ParamGroup(nn.Module):
 
 class Init:
     """Seeded draws for a fresh model: trunc-normal and normal 0.02 from one
-    `torch.Generator`, in fp32 on the CPU (so the same seed gives the same
-    weights whatever device the model then moves to). On the meta device it
-    only allocates shapes."""
+    `torch.Generator`, in fp32 on the generator's device: the CPU by
+    default, so the same seed gives the same weights whatever device the
+    model then moves to (a card's generator draws other numbers, at the
+    card's speed). On the meta device it only allocates shapes."""
 
     def __init__(self, generator: Optional[torch.Generator], meta: bool = False):
         self.gen = generator
-        self.device = torch.device("meta" if meta else "cpu")
+        self.device = torch.device("meta" if meta else (
+            generator.device if generator is not None else "cpu"))
 
     def _empty(self, shape) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.float32, device=self.device)
@@ -61,8 +63,8 @@ class Init:
         flat.normal_(0.0, 1.0, generator=self.gen)
         idx = (flat.abs() > 2.0).nonzero().squeeze(1)
         while idx.numel():
-            redraw = torch.empty(idx.numel()).normal_(0.0, 1.0,
-                                                      generator=self.gen)
+            redraw = torch.empty(idx.numel(), device=self.device).normal_(
+                0.0, 1.0, generator=self.gen)
             flat[idx] = redraw
             idx = idx[redraw.abs() > 2.0]
         return t.mul_(std)

@@ -77,19 +77,21 @@ class MiCo(nn.Module):
     biases, unit LN weights, all from one `torch.Generator` seeded with
     `seed`. Weights are drawn on the CPU in fp32, so one seed gives one
     model on any device, then moved to `device` in `dtype` (default
-    `cfg.param_dtype`). Under a `mesh` with a model axis the whole model is
-    drawn, then each rank keeps its part of the sharded leaves
+    `cfg.param_dtype`); `init_device="cuda"` draws them on the card instead
+    (other numbers, seconds instead of a minute at bigE's size). Under a
+    `mesh` with a model axis the whole model is drawn, then each rank keeps
+    its part of the sharded leaves
     (`parallel.tensor_parallel.shard_module`), or at `cfg.pipeline_stages`
     > 1 its stage's EVA blocks (`parallel.pipeline_parallel.stage_module`),
     and moves only that."""
 
     def __init__(self, cfg: MiCoConfig = MiCoConfig(), *, device="cuda",
                  seed: int = 0, dtype: Optional[torch.dtype] = None,
-                 init_weights: bool = True, mesh=None):
+                 init_weights: bool = True, mesh=None, init_device="cpu"):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator(device=init_device).manual_seed(seed)
         init = Init(gen, meta=not init_weights)
         vd, md, cd = cfg.vision_dim, cfg.multimodal_dim, cfg.contra_dim
 

@@ -7,6 +7,11 @@ carries a hash of all sources in `csrc/` (headers included) and of the
 flags, so an edited source is rebuilt and a stale library is never loaded.
 All sources compile in parallel, one `nvcc` each. The libraries are loaded
 with `ctypes`; each C entry returns `cudaGetLastError()` after its launches.
+
+Host code (`csrc/*.cpp`, the audio decoder) is built apart by `g++`
+(`build_host`), one library per source whose name carries a hash of that
+source and the flags alone: neither joins the `*.cu` set or its hash, so a
+host edit rebuilds no kernel. Nothing compiles at import.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
 
 
 def _nvcc() -> str:
@@ -86,3 +92,39 @@ def build_all() -> Dict[str, Path]:
 def load(stem: str) -> ctypes.CDLL:
     """The loaded library built from `csrc/<stem>.cu`."""
     return ctypes.CDLL(str(build_all()[stem]))
+
+
+@functools.lru_cache(maxsize=None)
+def build_host(stem: str) -> Path:
+    """Compile `csrc/<stem>.cpp` with `g++` unless its library exists;
+    returns the library's path. The library is written to a temporary file
+    and renamed into place, so processes that build at once each load a
+    whole one. Raises with g++'s output on failure, or when there is no
+    g++."""
+    src = CSRC / f"{stem}.cpp"
+    tag = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes())
+    lib = BUILD_DIR / f"lib{stem}-{tag.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {src.name} is host C++ built at "
+                           f"first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed for {src.name} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(stem: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<stem>.cpp`."""
+    return ctypes.CDLL(str(build_host(stem)))

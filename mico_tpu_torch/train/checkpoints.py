@@ -64,7 +64,7 @@ from mico_tpu_torch.utils.logger import LOGGER
 
 SEP = "/"
 _ORBAX = ("loading .orbax checkpoints needs a JAX library: not ported yet "
-          "(ROADMAP.md, queue 1: native media decoders and .orbax loading)")
+          "(ROADMAP.md, queue 1: .orbax loading)")
 
 
 def unflatten_pytree(flat: Dict[str, Any]):
@@ -259,7 +259,7 @@ def load_from_pretrained_dir(
 # ---------------------------------------------------------------------------
 
 _ORBAX_SAVE = ("checkpoint_backend orbax: not ported yet (ROADMAP.md, queue "
-               "1: native media decoders and .orbax loading)")
+               "1: .orbax loading)")
 
 
 def _host_dtype(t: torch.Tensor) -> np.dtype:

@@ -187,6 +187,32 @@ def test_val_loader_batches_match_jax(corpus, workers):
     assert got[1]["question_ids_raw"][0] != 99
 
 
+def test_val_passes_draw_the_corrupt_items_stand_in_as_jax(corpus):
+    """Each pass over one eval dataset draws the corrupt item's stand-in
+    anew from the dataset's seeded RNG, in JAX's package as in the port:
+    a run's later evaluations and a fresh dataset's first pass score
+    different galleries (ROADMAP.md queue 3, PR 22), and both packages
+    draw the same sequence."""
+    cfg = d_cfg(corpus, "image_rawimage", training=False)
+
+    def passes(pkg, model_cfg, n=3):
+        ds = pkg.AnnoIndexedDataset(cfg, model_cfg, seed=0)
+        out = []
+        for _ in range(n):
+            loader = pkg.DataLoader(
+                ds, sampler=pkg.ShardedSampler(len(ds), shuffle=False,
+                                               pad=False, seed=0),
+                batch_size=3, num_workers=1, drop_last=False)
+            out.append([i for b in loader for i in b["ids"]])
+        return out
+
+    got = passes(tdata, PORT_MODEL_CFG)
+    assert got == passes(jdata, JAX_MODEL_CFG)
+    fresh = passes(tdata, PORT_MODEL_CFG, n=1)[0]
+    assert fresh == got[0]
+    assert "bad" not in got[0] and len({tuple(p) for p in got}) > 1
+
+
 def args_for(corpus, accum=1, n_workers=2):
     return {
         "run_cfg": {"gradient_accumulation_steps": accum, "seed": 0,

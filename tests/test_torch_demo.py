@@ -2,7 +2,8 @@
 JAX functions that the root `inference_demo.py` calls, in its order, on
 one released-layout directory (`log/hps.json` + `ckpt/model_step_N.pt` at
 the tiny config) and the same media files: a PPM image, a directory of PPM
-frames and a 16 kHz WAV (fp32 on the CPU)."""
+frames and a 44.1 kHz stereo FLAC, as JAX's demo defaults to
+`test.flac` (fp32 on the CPU)."""
 
 import os
 
@@ -19,6 +20,7 @@ from mico_tpu.text import BertWordPieceTokenizer
 from mico_tpu.train.checkpoints import load_from_pretrained_dir
 from mico_tpu_torch import inference_demo
 
+from torch_flac_writer import write_flac
 from torch_port_common import (configs, media_files, perturbed_params,
                                reference_state_dict, tiny_model_cfg,
                                torch_state_dict, write_hps)
@@ -37,7 +39,16 @@ def demo_dir(tmp_path_factory):
     write_hps(pre, tiny_model_cfg())
     os.makedirs(pre / "ckpt")
     torch.save(torch_state_dict(sd), pre / "ckpt" / "model_step_7.pt")
-    return str(pre), media_files(str(root), seed=4)
+    media = media_files(str(root), seed=4)
+    rng = np.random.default_rng(4)
+    t = np.arange(int(1.2 * 44100)) / 44100
+    pcm = np.stack([0.4 * np.sin(2 * np.pi * (300 + 200 * t) * t),
+                    0.3 * np.sin(2 * np.pi * 523 * t)], 1)
+    pcm = pcm + 0.05 * rng.standard_normal(pcm.shape)
+    media["audio"] = str(root / "audio.flac")
+    write_flac(media["audio"], np.round(pcm * 32767).astype(np.int64),
+               44100, 16, assignments=["mid_side", "left_side"])
+    return str(pre), media
 
 
 def jax_demo(pretrain_dir, image, video, audio, texts):

@@ -199,13 +199,31 @@ def test_wav_read_matches_jax(tmp_path, channels):
 
 
 def test_unported_containers_raise(tmp_path):
+    """MP3, Ogg and a junk file raise naming what was found and the libav
+    item of ROADMAP.md; a FLAC and an 8 kHz WAV now decode (as JAX's libav
+    route: the FLAC exactly, the resampled WAV to its length and 1e-4)."""
+    from torch_flac_writer import write_flac
+
+    for name, head, said in (
+            ("a.mp3", b"\xff\xfb\x90\x64" + bytes(60), "MP3"),
+            ("a.ogg", b"OggS\x00\x02" + bytes(60), "Ogg"),
+            ("a.bin", b"\x00 not audio", "unknown container")):
+        path = tmp_path / name
+        path.write_bytes(head)
+        with pytest.raises(IOError, match=f"{said}.*ROADMAP.*libav codecs"):
+            audio_io.load_waveform(str(path))
     flac, wav8k = tmp_path / "a.flac", tmp_path / "b.wav"
-    flac.write_bytes(b"fLaC\x00\x00\x00\x22")
+    pcm = np.random.default_rng(0).integers(-3000, 3000, (5000, 2))
+    write_flac(flac, pcm, 44100, 16)
+    got, sr = audio_io.load_waveform(str(flac), target_sr=0)
+    want, jsr = jax_audio_io.load_waveform(str(flac), target_sr=0)
+    assert sr == jsr == 44100
+    np.testing.assert_array_equal(got, want)
     chirp_wav(wav8k, 0.5, sr=8000)
-    with pytest.raises(IOError, match="not a PCM WAV.*ROADMAP"):
-        audio_io.load_waveform(str(flac))
-    with pytest.raises(IOError, match="8000 Hz.*resampling.*ROADMAP"):
-        audio_io.load_waveform(str(wav8k))
+    got, sr = audio_io.load_waveform(str(wav8k))
+    want, _ = jax_audio_io.load_waveform(str(wav8k))
+    assert sr == 8000 and got.shape == want.shape == (8000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     # containers go through cv2 now: a file it cannot open raises IOError
     junk = tmp_path / "clip.mp4"
     junk.write_bytes(b"\x00 not a video")
@@ -254,15 +272,17 @@ def test_cv2_video_route_matches_jax(tmp_path, indices):
 
 def test_ast_reads_the_files_own_rate(tmp_path):
     """`target_sr=0` (JAX's AST branch) keeps the file's rate; another
-    rate than the file's still raises (resampling is not ported)."""
+    rate than the file's resamples as JAX's libswresample route does."""
     path = tmp_path / "a.wav"
     chirp_wav(path, 0.5, sr=8000)
     got, sr = audio_io.load_waveform(str(path), target_sr=0)
     want, jsr = jax_audio_io.load_waveform(str(path), target_sr=0)
     assert sr == jsr == 8000 and got.shape == want.shape == (4000,)
     np.testing.assert_allclose(got, want, rtol=0, atol=1 / 32768)
-    with pytest.raises(IOError, match="resampling"):
-        audio_io.load_waveform(str(path), target_sr=16000)
+    got, sr = audio_io.load_waveform(str(path), target_sr=16000)
+    want, _ = jax_audio_io.load_waveform(str(path), target_sr=16000)
+    assert sr == 8000 and got.shape == want.shape == (8000,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -342,13 +362,13 @@ def test_failure_contracts(tmp_path, capsys):
         "clip.mp4") is None
     kw = dict(melbins=28, target_length=28, sample_num=2, training=False)
     flac = tmp_path / "a.flac"
-    flac.write_bytes(b"fLaC")
+    flac.write_bytes(b"fLaC")           # no metadata: a truncated FLAC
     assert processors.AudioProcessor(**kw)(str(flac)) is None
     missing = str(tmp_path / "none.wav")
     got = processors.AudioProcessor(**kw)(missing)
     np.testing.assert_array_equal(got, jax_proc.AudioProcessor(**kw)(missing))
     assert got.shape == (2, 28, 28) and not got.any()
-    assert "ROADMAP" in capsys.readouterr().out
+    assert "FLAC: truncated metadata" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
@@ -408,8 +428,15 @@ def test_pipeline_media_match_jax(pipes, items, method, kind):
 
 def test_media_sources_stand_alone():
     """The media modules read no file of the JAX package (its libav
-    library included)."""
+    library included): the one library they load is the port's own
+    decoder, built from `mico_tpu_torch/csrc/audio_decode.cpp`."""
+    from mico_tpu_torch.ops import _build
+
     root = Path(processors.__file__).resolve().parent
     for path in root.glob("*.py"):
         text = path.read_text()
-        assert "libmico_media" not in text and "ctypes" not in text, path
+        assert "libmico_media" not in text, path
+        assert "CDLL(" not in text and "cdll" not in text, path
+    lib = Path(audio_io._lib()._name).resolve()
+    assert lib.parent == _build.BUILD_DIR.resolve()
+    assert lib.name.startswith("libaudio_decode-")
