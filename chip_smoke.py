@@ -108,6 +108,20 @@ Phases, run in order (any failure exits non-zero):
      tokens in the vocabulary; it prints the wall time split into load,
      decode + preprocess and device work, and the host RSS before, at the
      end of the load and over the run;
+  5c. orbax: `.orbax` checkpoints without JAX: the host zstd decoder
+     (g++ over `mico_tpu_torch/csrc/zstd_decode.cpp`, its seconds); the
+     committed fixtures `tests/fixtures/orbax/` (JAX's one-process save
+     with a 4-device leaf, and its two-process merged save, model and
+     optimizer) held bit for bit to their numpy recipe
+     (`tests/torch_orbax_recipe.py`); MiCo-ViT-g's fp32 weights drawn on
+     the card, saved by `ModelSaver(backend="orbax")`, loaded by
+     `load_from_pretrained_dir` and placed in bf16: the
+     `EmbeddingPipeline` image (K1 40) and text embeddings bit for bit
+     those of the live model's bf16 copy, with write and read seconds and
+     GB/s and the host's peak RSS; then `mico_tpu_torch.run` at ViT-g width
+     with RUN_RESUME_LAYERS blocks and `checkpoint_backend=orbax`: 2 steps,
+     and a resume to step 4 whose loaded weights and moments equal the
+     saved ones bit for bit (K3, K4 counted over the resumed steps);
   6. bigE: MiCo on EVA02-CLIP-bigE-14-plus (`vision_encoder_type=
      "evaclip02_bige"`: 64 post-norm blocks, width 1792, 16 heads of 112,
      MLP 15360; 4.35 B tower parameters) at full width and depth, fp32
@@ -2063,6 +2077,294 @@ def phase_demo(fa, card: str) -> dict:
     for key in ("sim_t2v", "video_sim", "audio_sim"):
         result[key] = card_out[key].tolist()
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: .orbax checkpoints without JAX
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURES = "tests/fixtures/orbax"
+ORBAX_PHASE_S = 60          # the phase's budget inside the script's 1200 s
+ORBAX_RUN_ITEMS = 8         # one batch of RUN_B: the resume run's corpus
+
+
+def orbax_recipe():
+    """`tests/torch_orbax_recipe.py` (numpy alone), loaded by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = (Path(__file__).resolve().parent / "tests"
+            / "torch_orbax_recipe.py")
+    spec = importlib.util.spec_from_file_location("torch_orbax_recipe", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_bits(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def hold_fixtures(checkpoints) -> int:
+    """Every leaf of the committed fixtures, model and optimizer, bit for
+    bit against the recipe; → the leaves held."""
+    import os
+
+    rc = orbax_recipe()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ORBAX_FIXTURES)
+    held = 0
+    for kind in ("single", "multi"):
+        files = [(f"model_step_{rc.MODEL_STEP}", rc.model_leaves(kind))]
+        if kind == "single":
+            files.append((f"optimizer_step_{rc.MODEL_STEP}",
+                          rc.optimizer_leaves(kind)))
+        for name, leaves in files:
+            tree = checkpoints.load_checkpoint_path(
+                os.path.join(root, kind, "ckpt", f"{name}.orbax"))
+            for keys, dtype, want in leaves:
+                node = tree
+                for k in keys:
+                    node = node[k]
+                got = host_bits(node)
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    raise AssertionError(f"orbax fixture {kind}/{name} "
+                                         f"{keys}: not the recipe's bits")
+                held += 1
+    return held
+
+
+def dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def phase_orbax(fa, card: str) -> dict:
+    import os
+    import shutil
+    import tempfile
+
+    import mico_tpu_torch.run as run_mod
+    from mico_tpu_torch.config import MiCoConfig
+    from mico_tpu_torch.convert import mico_from_jax
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.ops import _build
+    from mico_tpu_torch.run import main as run_main
+    from mico_tpu_torch.serve import EmbeddingPipeline
+    from mico_tpu_torch.text import BertWordPieceTokenizer
+    from mico_tpu_torch.train import checkpoints
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    _build.build_host("zstd_decode")
+    build_s = time.perf_counter() - t0
+    log(f"phase orbax: zstd decoder built by g++ in {build_s:.1f} s")
+    t0 = time.perf_counter()
+    held = hold_fixtures(checkpoints)
+    log(f"  fixtures: {held} leaves of JAX's one-process and two-process "
+        f"saves bit for bit in {time.perf_counter() - t0:.2f} s")
+
+    # -- ViT-g at full width: save, load, embed --
+    cfg = MiCoConfig(max_vision_sample_num=4, max_audio_sample_num=2)
+    nlayers = cfg.eva_config.layers
+    paths = {}
+    root = tempfile.mkdtemp(prefix="mico_orbax_")
+    try:
+        t0 = time.perf_counter()
+        model32 = MiCo(cfg, device="cuda", seed=0, init_device="cuda")
+        live = copy.deepcopy(model32).to(dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model32.parameters())
+        pretrain = os.path.join(root, "vit_g")
+        os.makedirs(os.path.join(pretrain, "log"))
+        with open(os.path.join(pretrain, "log", "hps.json"), "w") as f:
+            json.dump({"model_cfg": {"max_vision_sample_num": 4,
+                                     "max_audio_sample_num": 2}}, f)
+        rss = RssPeak()
+        t0 = time.perf_counter()
+        checkpoints.ModelSaver(pretrain, backend="orbax").save(1, model32)
+        write_s = time.perf_counter() - t0
+        nbytes = dir_bytes(os.path.join(pretrain, "ckpt"))
+        rss_write = rss.peak
+        del model32
+        free_cuda()
+        t0 = time.perf_counter()
+        params, lcfg = checkpoints.load_from_pretrained_dir(pretrain)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = mico_from_jax(params, lcfg, device="cuda",
+                               dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        del params
+        gc.collect()
+        rss_peak = rss.close()
+        log(f"  MiCo-ViT-g ({n_params / 1e9:.3f} B parameters, fp32) drawn "
+            f"on the card in {draw_s:.1f} s; .orbax written in {write_s:.2f} "
+            f"s ({nbytes / 1e9:.3f} GB, {nbytes / 1e9 / write_s:.3f} GB/s), "
+            f"read by load_from_pretrained_dir in {read_s:.2f} s "
+            f"({nbytes / 1e9 / read_s:.3f} GB/s), placed in bf16 in "
+            f"{place_s:.2f} s; host RSS {rss.start / 2**30:.2f} GiB before, "
+            f"peak {rss_write / 2**30:.2f} GiB over the write and "
+            f"{rss_peak / 2**30:.2f} GiB over the write and the load "
+            f"[{card}]")
+        for k, v in live.state_dict().items():
+            if not torch.equal(loaded.state_dict()[k], v):
+                raise AssertionError(f"orbax round trip: {k} differs")
+        inp = omni_inputs()
+        tok = BertWordPieceTokenizer()
+        feats = {}
+        for name, m in (("live", live), ("loaded", loaded)):
+            pipe = EmbeddingPipeline(m, cfg, tok, batch_size=8, io_workers=1)
+            try:
+                img = run_counted(
+                    fa, paths, f"orbax {name} ViT-g image embed",
+                    lambda: pipe._run(
+                        [inp["image"][0]], lambda a: a,
+                        lambda mm, x: pipe._embed_pixels(mm, x, head="v")),
+                    K1=nlayers)
+                txt = run_counted(fa, paths, f"orbax {name} text embed",
+                                  lambda: pipe.embed_texts(CAPTIONS))
+            finally:
+                pipe.close()
+            feats[name] = (img, txt)
+        for i, what in enumerate(("image", "text")):
+            a, b = feats["live"][i], feats["loaded"][i]
+            check_unit(f"orbax {what}", torch.from_numpy(b))
+            if not np.array_equal(a, b):
+                raise AssertionError(f"orbax {what} embedding: the loaded "
+                                     f"model's differs from the live one's")
+        log(f"  the loaded model's image and text embeddings equal the live "
+            f"model's bit for bit; launches {paths}")
+        del live, loaded, feats
+        free_cuda()
+
+        # -- the run entry: 2 steps saved as .orbax, resumed to 4 --
+        resume = orbax_resume_run(fa, run_mod, run_main, root, paths)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_cuda()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase orbax: {phase_s:.1f} s (budget {ORBAX_PHASE_S} s)")
+    if phase_s > ORBAX_PHASE_S:
+        raise AssertionError(f"phase orbax took {phase_s:.1f} s, over its "
+                             f"budget of {ORBAX_PHASE_S} s")
+    return dict(build_s=build_s, fixture_leaves=held, params=n_params,
+                checkpoint_bytes=nbytes, write_s=write_s, read_s=read_s,
+                place_s=place_s, write_gb_s=nbytes / 1e9 / write_s,
+                read_gb_s=nbytes / 1e9 / read_s, rss_before_bytes=rss.start,
+                rss_peak_write_bytes=rss_write, rss_peak_bytes=rss_peak,
+                resume=resume, phase_s=phase_s, paths=paths)
+
+
+def orbax_resume_run(fa, run_mod, run_main, root: str, paths: dict) -> dict:
+    """`mico_tpu_torch.run` at ViT-g width with RUN_RESUME_LAYERS blocks and
+    `checkpoint_backend=orbax`: 2 steps, then a resume to step 4 whose
+    loaded weights and moments are the saved ones, bit for bit."""
+    import os
+
+    from mico_tpu_torch.config import MiCoConfig
+
+    corpus = write_run_corpus(os.path.join(root, "corpus"), seed=0,
+                              items=ORBAX_RUN_ITEMS)
+    out = os.path.join(root, "run")
+    cut = dict(MiCoConfig().eva_config.__dict__, layers=RUN_RESUME_LAYERS)
+    argv = run_argv(corpus, out)
+    argv[argv.index("--data_cfg.val") + 1] = "[]"   # saves, no evaluation
+    argv += [f"model_cfg.eva_override={json.dumps(cut)}",
+             "run_cfg.checkpoint_backend=orbax", "run_cfg.valid_freq=1"]
+    seen = {}
+    train = run_mod.train
+
+    def spy(cfg, model, optimizer, *a, **kw):
+        seen.update(model=model, optimizer=optimizer)
+        return train(cfg, model, optimizer, *a, **kw)
+
+    def moments(opt):
+        st = opt.torch_optimizer.state
+        return [(st[o]["exp_avg"].detach().clone(),
+                 st[o]["exp_avg_sq"].detach().clone()) for o in opt.owned]
+
+    loaded = {}
+    load_opt, load_model = run_mod.load_latest_opt_state, run_mod.resume_latest
+
+    def load_and_keep(output_dir, optimizer, step=None):
+        ok = load_opt(output_dir, optimizer, step=step)
+        loaded.update(ok=ok, moments=moments(optimizer),
+                      count=optimizer.count)
+        return ok
+
+    def resume_and_compare(output_dir, m):
+        step = load_model(output_dir, m)
+        loaded["weights_equal"] = all(torch.equal(v, saved[k]) for k, v in
+                                      m.state_dict().items())
+        return step
+    run_mod.train = spy
+    run_mod.load_latest_opt_state = load_and_keep
+    run_mod.resume_latest = resume_and_compare
+    try:
+        t0 = time.perf_counter()
+        rec = run_main(argv + ["run_cfg.num_train_steps=2"])
+        first_s = time.perf_counter() - t0
+        saved = {k: v.detach().clone()
+                 for k, v in seen["model"].state_dict().items()}
+        saved_moments = moments(seen["optimizer"])
+        files = sorted(os.listdir(os.path.join(out, "ckpt")))
+        seen.clear()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec2 = run_main(argv + ["run_cfg.num_train_steps=4",
+                                "run_cfg.resume=true"])
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        counts = fa.launch_counts()
+    finally:
+        run_mod.train = train
+        run_mod.load_latest_opt_state = load_opt
+        run_mod.resume_latest = load_model
+    paths["orbax resume run (2 steps)"] = counts
+    per_step = 2 * RUN_RESUME_LAYERS        # ret%tva_cap%tva: 2 a block
+    want = {k: (2 * per_step if k in ("K3", "K4") else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"orbax resume run: launches {counts}, "
+                             f"expected {want}")
+    if files != ["model_step_2.orbax", "optimizer_step_2.orbax"]:
+        raise AssertionError(f"orbax run: ckpt/ {files}")
+    files2 = sorted(os.listdir(os.path.join(out, "ckpt")))
+    if files2 != ["model_step_4.orbax", "optimizer_step_4.orbax"]:
+        raise AssertionError(f"orbax resume: ckpt/ {files2}")
+    if rec2["start_step"] != 2 or rec2["end_step"] != 4:
+        raise AssertionError(f"orbax resume: steps {rec2['start_step']} -> "
+                             f"{rec2['end_step']}")
+    if (not loaded.get("ok") or loaded["count"] != 2
+            or not loaded.get("weights_equal")):
+        raise AssertionError(f"orbax resume: optimizer loaded "
+                             f"{loaded.get('ok')}, count {loaded.get('count')}"
+                             f", weights equal {loaded.get('weights_equal')}")
+    for (m, v), (m0, v0) in zip(loaded["moments"], saved_moments):
+        if not (torch.equal(m, m0) and torch.equal(v, v0)):
+            raise AssertionError("orbax resume: moments differ from saved")
+    steps = rec["steps"] + rec2["steps"]
+    for s in steps:
+        bad = [k for k, v in s["losses"].items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"orbax run step {s['step']}: non-finite "
+                                 f"{bad}")
+    log(f"  run entry at ViT-g width, {RUN_RESUME_LAYERS} blocks, "
+        f"checkpoint_backend=orbax: 2 steps in {first_s:.1f} s, resume to "
+        f"step 4 in {second_s:.1f} s; loaded weights and moments (update "
+        f"count 2) equal the saved ones bit for bit; losses "
+        f"{[{k: round(v, 5) for k, v in s['losses'].items()} for s in steps]}"
+        f"; launches over the resumed steps {counts}")
+    del saved
+    return dict(first_s=first_s, second_s=second_s,
+                losses=[s["losses"] for s in steps], launches=counts)
 
 
 # ---------------------------------------------------------------------------
@@ -6324,6 +6626,8 @@ def main() -> int:
     demo = phase_demo(fa, card)
     free_cuda()
     mark("demo")
+    orbax = phase_orbax(fa, card)
+    mark("orbax")
     bige = phase_bige(fa, card)
     mark("bigE")
     clip = phase_clip(fa, card)
@@ -6361,6 +6665,7 @@ def main() -> int:
     log(f"[wall] total: {total_s:.1f} s, by phase "
         f"{ {k: round(v, 1) for k, v in wall.items()} } [{card}]")
     paths = {**omni["paths"], **caption["paths"], **demo["paths"],
+             **orbax["paths"],
              **bige["paths"],
              **clip["paths"], **eva_clip["paths"], **eva02["paths"],
              **swin["paths"],
@@ -6393,6 +6698,8 @@ def main() -> int:
                                   if k != "paths"},
                       "demo": {k: v for k, v in demo.items()
                                if k != "paths"},
+                      "orbax": {k: v for k, v in orbax.items()
+                                if k != "paths"},
                       "bige": {k: v for k, v in bige.items()
                                if k != "paths"},
                       "clip": {k: v for k, v in clip.items()

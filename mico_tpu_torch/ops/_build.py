@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-GXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+GXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 
 def _nvcc() -> str:

@@ -164,14 +164,20 @@ def build_model(cfg, run_cfg, model_cfg, device, dtype, mesh=None):
     """The run's model, sharded over the mesh's model axis: resume >
     pretrain_dir > fresh init (reference build_model.py:65-124). A resumed
     checkpoint is JAX's full layout, so a run resumes at any (data,
-    model). → (model, cfg, the resumed step or 0)."""
+    model); from `.orbax` each rank reads only its region (JAX's sharded
+    resume, run.py:138-149, 226-245). → (model, cfg, the resumed step or
+    0)."""
     if run_cfg.get("resume"):
-        _, latest = _latest_step(os.path.join(run_cfg["output_dir"], "ckpt"),
-                                 "model")
+        ckpt = os.path.join(run_cfg["output_dir"], "ckpt")
+        _, latest = _latest_step(ckpt, "model")
         if latest:
             model = MiCo(cfg, device="cpu", init_weights=False, mesh=mesh)
             model = model.to_empty(device=device).to(dtype)
-            return model, cfg, resume_latest(run_cfg["output_dir"], model)
+            step = resume_latest(run_cfg["output_dir"], model)
+            if not step and latest.endswith(".orbax"):
+                raise FileNotFoundError(
+                    f"resume requested but no orbax checkpoint under {ckpt}")
+            return model, cfg, step
     if run_cfg.get("pretrain_dir"):
         params, cfg = load_from_pretrained_dir(
             run_cfg["pretrain_dir"],

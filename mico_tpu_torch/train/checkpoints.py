@@ -9,10 +9,15 @@ snapshots, and resume from the newest committed step.
     `a/b/c` keys, the depth axis stacked, fp32), so either package reads
     the other's model files. It is written leaf by leaf from the card (one
     block's rows at a time), never as a whole host copy.
-  - A save writes `<name>-tmp`, renames it into place to commit, and only
-    then deletes the previous step's files; the JAX package deletes first
-    (`checkpoints.py:142-151`), which can lose every committed checkpoint
-    when a save is killed.
+  - `backend="orbax"` writes `.orbax` directories instead, as JAX's orbax
+    backend does (`orbax_format.py`: zarr arrays on an OCDBT store, each
+    leaf in its own dtype), which JAX's `load_checkpoint_path`,
+    `load_latest_opt_state` and `resume_latest_sharded` read.
+  - A save writes `<name>-tmp` (a `.orbax` directory
+    `<name>.orbax-checkpoint-tmp`, orbax's name), renames it into place to
+    commit, and only then deletes the previous step's files; the JAX
+    package deletes first (`checkpoints.py:142-151`), which can lose every
+    committed checkpoint when a save is killed.
   - The optimizer file is the JAX package's layout too: the optax
     state's leaves by position (`{str(i): leaf}`, checkpoints.py:165-172;
     `jax_optimizer_leaves` rebuilds their order from the parameter names):
@@ -20,7 +25,8 @@ snapshots, and resume from the newest committed step.
     stacked, and under `accum_steps` > 1 `optax.MultiSteps`' window (its
     running mean of the gradients). JAX's `load_latest_opt_state` reads
     it, and the port reads JAX's.
-  - Across processes every rank calls `save` and rank 0 alone writes:
+  - Across processes every rank calls `save` and rank 0 alone writes (also
+    for `.orbax`, where JAX's ranks write their own shards):
     ZeRO-1's slices of the moments are gathered over the data group, a
     tensor-parallel leaf's parts over the model group, a pipeline stage's
     blocks broadcast from their stage in depth order, and an open window's
@@ -36,7 +42,10 @@ for the config, then the newest HF-trainer `checkpoint-N/pytorch_model*.bin`,
 or else the newest `ckpt/model_step_N`: a PyTorch `.pt` state_dict
 (converted by `models.mico.mico_from_torch`, with the legacy-key surgery,
 the embedding resizes and an audit of the keys it did not read) or a
-native `.npz` tree. `.orbax` checkpoints need a JAX library and raise.
+native `.npz` or `.orbax` tree. Resume fills a built model leaf by leaf
+(`load_model_npz`, `load_model_orbax`); from `.orbax` each rank decodes only
+the chunks of its own region: its tensor-parallel part, its ZeRO-1 slice of
+the moments and its pipeline stage's blocks.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import os
 import pickle
 import queue
 import re
+import shutil
 import threading
 import zipfile
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -58,13 +68,15 @@ from mico_tpu_torch.config import MiCoConfig, mico_config_from_dict
 from mico_tpu_torch.parallel import collectives
 from mico_tpu_torch.parallel import pipeline_parallel as pp
 from mico_tpu_torch.parallel.tensor_parallel import (gather_leaf, local_part,
-                                                     shard, whole_state_dict)
+                                                     model_axis_of, shard,
+                                                     splits_of,
+                                                     whole_state_dict)
+from mico_tpu_torch.train import orbax_format
 from mico_tpu_torch.utils.config_io import load_hps
 from mico_tpu_torch.utils.logger import LOGGER
 
 SEP = "/"
-_ORBAX = ("loading .orbax checkpoints needs a JAX library: not ported yet "
-          "(ROADMAP.md, queue 1: .orbax loading)")
+BACKENDS = ("npz", "orbax")
 
 
 def unflatten_pytree(flat: Dict[str, Any]):
@@ -125,9 +137,10 @@ def load_pytree_npz(path: str):
 
 
 def load_checkpoint_path(path: str):
-    """A native model checkpoint by extension: `.npz` (a `.orbax` raises)."""
+    """A native model checkpoint by extension: a `.orbax` directory (its
+    leaves CPU tensors, bf16 as bf16, lists as lists) or a `.npz`."""
     if path.endswith(".orbax"):
-        raise NotImplementedError(f"{path}: {_ORBAX}")
+        return orbax_format.load_tree(path)
     return load_pytree_npz(path)
 
 
@@ -258,10 +271,6 @@ def load_from_pretrained_dir(
 # save side: streamed npz files, ModelSaver, resume
 # ---------------------------------------------------------------------------
 
-_ORBAX_SAVE = ("checkpoint_backend orbax: not ported yet (ROADMAP.md, queue "
-               "1: .orbax loading)")
-
-
 def _host_dtype(t: torch.Tensor) -> np.dtype:
     """The npz dtype of a tensor: fp32 for every floating dtype (numpy has
     no bfloat16; the widening is exact), the tensor's own otherwise."""
@@ -383,8 +392,7 @@ def load_model_npz(path: str, model) -> None:
         for key in z.files:
             arr = npz_member(z, key)
             group, _, name = key.rpartition(SEP)
-            stacked = group == "bert/layers" or (
-                group == "vision_encoder/blocks" and model.cfg.is_eva)
+            stacked = _block_rows(key, model)
             if isinstance(arr, list):    # JAX's pickled list of blocks
                 targets = list(_list_leaves(key.replace(SEP, "."), arr))
             elif stacked:
@@ -410,35 +418,140 @@ def load_model_npz(path: str, model) -> None:
         raise KeyError(f"{path}: parameters with no leaf: {missing[:8]}")
 
 
+def _block_rows(key: str, model) -> bool:
+    """Whether a JAX flat key is a leaf stacked over depth."""
+    group = key.rpartition(SEP)[0]
+    return group == "bert/layers" or (group == "vision_encoder/blocks"
+                                      and model.cfg.is_eva)
+
+
+def _part_select(split, axis, length: int) -> Optional[torch.Tensor]:
+    """The indices along its split dimension of a model-axis rank's part
+    of a leaf `length` long there (None: the whole leaf)."""
+    if split is None or axis is None or axis.size == 1:
+        return None
+    return shard(torch.arange(length), (split[0], 0), axis)
+
+
+def _read_rows(ckpt, name: str, rows: Optional[list], select: dict):
+    """(row or None, tensor) of a leaf of `ckpt`: the rows `rows` of a
+    stacked leaf (None: the leaf is not stacked), each cut to `select`
+    ({dimension of the row: indices}). One region read covers every row
+    and index asked for, so only the chunks under it are decoded."""
+    shape = ckpt.shape(name)
+    inner = shape[1:] if rows is not None else shape
+    region = [slice(min(rows), max(rows) + 1)] if rows is not None else []
+    for d, n in enumerate(inner):
+        idx = select.get(d)
+        region.append(slice(0, n) if idx is None
+                      else slice(int(idx.min()), int(idx.max()) + 1))
+    got = ckpt.read(name, tuple(region))
+    for d, idx in select.items():
+        if idx is None:
+            continue
+        dim = d + (rows is not None)
+        rel = idx - int(idx.min())
+        if not torch.equal(rel, torch.arange(len(rel))):
+            got = got.index_select(dim, rel)
+    if rows is None:
+        yield None, got
+        return
+    for r in rows:
+        yield r, got[r - min(rows)]
+
+
+def load_model_orbax(path: str, model) -> None:
+    """Copy a `.orbax` model checkpoint (JAX's or the port's) into the
+    parameters of `model`, leaf by leaf, as `load_model_npz` does: a stacked
+    leaf is split into its blocks and a list of blocks taken by index. Each
+    rank reads only its region: a tensor-parallel rank its part of each
+    split leaf, a pipeline stage its own blocks (another stage's are never
+    decoded). Raises as `load_model_npz` does."""
+    sd = model.state_dict()
+    remote = pp.remote_names(model)
+    splits, axis = splits_of(model), model_axis_of(model)
+    ckpt = orbax_format.Checkpoint(path)
+    filled = set()
+    for name in ckpt.names():
+        key = SEP.join(str(k) for k, _ in ckpt.keys_of(name))
+        group, _, leaf = key.rpartition(SEP)
+        stacked = _block_rows(key, model)
+        if stacked:
+            targets = {i: f"{group.replace(SEP, '.')}.{i}.{leaf}"
+                       for i in range(ckpt.shape(name)[0])}
+        else:
+            targets = {None: key.replace(SEP, ".")}
+        targets = {i: k for i, k in targets.items() if k not in remote}
+        if not targets:
+            continue                    # another pipeline stage's blocks
+        for k in targets.values():
+            if k not in sd:
+                raise KeyError(f"{path}: leaf {key} has no parameter {k}")
+        first = next(iter(targets.values()))
+        select = {}
+        if first in splits:
+            (kind, dim), length = splits[first]
+            select[dim] = _part_select((kind, dim), axis, length)
+        rows = sorted(targets) if stacked else None
+        for i, a in _read_rows(ckpt, name, rows, select):
+            k = targets[i]
+            if tuple(sd[k].shape) != tuple(a.shape):
+                raise ValueError(f"{path}: {k} {tuple(a.shape)} vs "
+                                 f"{tuple(sd[k].shape)}")
+            with torch.no_grad():
+                sd[k].copy_(a)
+            filled.add(k)
+    missing = sorted(set(sd) - filled)
+    if missing:
+        raise KeyError(f"{path}: parameters with no leaf: {missing[:8]}")
+
+
 def _commit(tmp: str, final: str) -> None:
+    if os.path.isdir(final):                # a best `.orbax` replaced
+        shutil.rmtree(final)
     os.replace(tmp, final)
     LOGGER.info("checkpoint committed: %s", final)
 
 
 def _remove(path: str) -> None:
-    os.remove(path)
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    else:
+        os.remove(path)
     LOGGER.info("checkpoint removed: %s", path)
 
 
+def orbax_keys(path: str, lists: bool) -> tuple:
+    """orbax's key path of a JAX flat key: a number is a list index
+    (key_type 1) in a model tree (`lists`), a dict key (2) otherwise."""
+    return tuple((int(p), 1) if lists and p.isdigit() else (p, 2)
+                 for p in path.split(SEP))
+
+
 class ModelSaver:
-    """npz checkpoints of a port model and its optimizer under
-    `<output_dir>/ckpt`, each written to `<name>-tmp` and renamed into
-    place; the previous step's files go only after the new ones are
-    committed (`remove_before_ckpt`). The orbax backend is not ported."""
+    """Checkpoints of a port model and its optimizer under
+    `<output_dir>/ckpt`: `.npz` files, or `.orbax` directories with
+    `backend="orbax"`. Each is written to a temporary name and renamed into
+    place; the previous steps' files, of either backend, go only after the
+    new ones are committed (`remove_before_ckpt`). Saves are synchronous (`wait` is
+    there for the JAX package's callers)."""
 
     def __init__(self, output_dir: str, remove_before_ckpt: bool = True,
                  backend: str = "npz"):
-        if backend == "orbax":
-            raise NotImplementedError(_ORBAX_SAVE)
-        if backend != "npz":
+        if backend not in BACKENDS:
             raise ValueError(f"unknown checkpoint_backend {backend!r}")
         self.ckpt_dir = os.path.join(output_dir, "ckpt")
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.remove_before_ckpt = remove_before_ckpt
         self.backend = backend
+        self.ext = "." + backend
 
-    def _write(self, name: str, leaves) -> str:
+    def _write(self, name: str, leaves, model_tree: bool) -> str:
         final = os.path.join(self.ckpt_dir, name)
+        if self.backend == "orbax":
+            return orbax_format.write_tree(final, (
+                (orbax_keys(k, model_tree), rows, stacked)
+                for k, rows, stacked in leaves)), final
         tmp = final + "-tmp"
         try:
             write_npz(tmp, leaves)
@@ -448,6 +561,9 @@ class ModelSaver:
             raise
         return tmp, final
 
+    def wait(self) -> None:
+        """Nothing to flush: every save has committed when it returns."""
+
     def save(self, step: int, model, optimizer=None) -> None:
         """Write model_step_<step> (and optimizer_step_<step>), commit the
         optimizer's file then the model's, then delete older steps. Every
@@ -455,15 +571,15 @@ class ModelSaver:
         model's, are gathered); rank 0 writes."""
         writer = collectives.process_index() == 0
         writes = []
-        files = [(f"model_step_{step}.npz", model_leaves(model))]
+        files = [(f"model_step_{step}{self.ext}", model_leaves(model), True)]
         if optimizer is not None:
-            files.append((f"optimizer_step_{step}.npz",
-                          optimizer_leaves(optimizer)))
-        for name, leaves in files:
+            files.append((f"optimizer_step_{step}{self.ext}",
+                          optimizer_leaves(optimizer), False))
+        for name, leaves, model_tree in files:
             leaves = iter(leaves)
             try:
                 if writer:
-                    writes.append(self._write(name, leaves))
+                    writes.append(self._write(name, leaves, model_tree))
             finally:
                 for _ in leaves:        # the other ranks' gathers
                     pass
@@ -471,21 +587,24 @@ class ModelSaver:
             _commit(tmp, final)
         collectives.barrier()
         if self.remove_before_ckpt and writer:
-            for prefix in ("model", "optimizer"):
-                for p in glob.glob(os.path.join(self.ckpt_dir,
-                                                f"{prefix}_step_*.npz")):
-                    m = re.fullmatch(rf"{prefix}_step_(\d+)\.npz",
-                                     os.path.basename(p))
-                    if m and int(m.group(1)) != step:
-                        _remove(p)
+            # either backend's older steps: a run resumed from one backend
+            # and saving through the other leaves none behind
+            exts = "|".join(re.escape("." + b) for b in BACKENDS)
+            for p in glob.glob(os.path.join(self.ckpt_dir, "*_step_*")):
+                m = re.fullmatch(rf"(?:model|optimizer)_step_(\d+)(?:{exts})",
+                                 os.path.basename(p))
+                if m and int(m.group(1)) != step:
+                    _remove(p)
 
     def save_best(self, metric: str, model) -> None:
         """Best-metric snapshot (reference save.py:33-41), replaced in one
-        rename; rank 0 writes it (every rank calls it)."""
+        rename (a `.orbax` one in place, as JAX's `force=True`); rank 0
+        writes it (every rank calls it)."""
         leaves = iter(model_leaves(model))
         try:
             if collectives.process_index() == 0:
-                _commit(*self._write(f"best_{metric}.npz", leaves))
+                _commit(*self._write(f"best_{metric}{self.ext}", leaves,
+                                     True))
         finally:
             for _ in leaves:            # the other ranks' gathers
                 pass
@@ -603,15 +722,19 @@ def jax_optimizer_leaves(optimizer) -> list:
             + [("acc", rows) for _, rows in leaves])
 
 
-def _load_jax_optimizer(path: str, z, optimizer) -> None:
+def _load_jax_optimizer(path: str, n_leaves: int, scalar, parts,
+                        optimizer) -> None:
     """The JAX package's positional optimizer leaves (`{str(i): leaf}`,
     checkpoints.py:165-172) into the port's AdamW: μ, ν and the count per
     parameter, the update count, and an open MultiSteps window as summed
-    gradients (its running mean times mini_step)."""
+    gradients (its running mean times mini_step). `scalar(i)` is leaf i's
+    value; `parts(i, kind, wanted)` gives (row, tensor) for the rows
+    `wanted` ((row or None, parameter name) pairs) of leaf i: the model-axis
+    part, and for μ and ν this rank's ZeRO-1 slice of it."""
     leaves = jax_optimizer_leaves(optimizer)
-    if len(z.files) != len(leaves):
+    if n_leaves != len(leaves):
         raise ValueError(
-            f"{path} holds {len(z.files)} leaves; the JAX optimizer state of "
+            f"{path} holds {n_leaves} leaves; the JAX optimizer state of "
             f"this model and optimizer (accum_steps {optimizer.accum_steps}) "
             f"has {len(leaves)}")
     params = dict(zip(optimizer.names, optimizer.params))
@@ -619,32 +742,34 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
     state: Dict[int, Dict[str, torch.Tensor]] = {}
     counts, acc, mini_step = set(), {}, 0
     for i, (kind, rows) in enumerate(leaves):
-        leaf = z[str(i)]
         if kind in ("count", "schedule", "gradient_step"):
-            counts.add(int(leaf))
+            counts.add(scalar(i))
             continue
         if kind == "mini_step":
-            mini_step = int(leaf)
+            mini_step = scalar(i)
             continue
-        rows = [(rows, leaf)] if isinstance(rows, str) else zip(rows, leaf)
-        for name, a in rows:
-            if name in optimizer.remote or (kind == "acc"
-                                            and name not in params):
-                continue    # another stage's block; a frozen parameter's
-            p = params[name]
-            # np.array, not ascontiguousarray: a 0-d leaf stays 0-d
-            a = _model_part(optimizer, name, torch.from_numpy(np.array(a)))
-            if tuple(a.shape) != tuple(p.shape):
+        rows = [(None, rows)] if isinstance(rows, str) else enumerate(rows)
+        wanted = [(r, name) for r, name in rows
+                  if not (name in optimizer.remote
+                          or (kind == "acc" and name not in params))]
+        # (another stage's block; a frozen parameter's window)
+        names = dict(wanted)
+        for r, t in parts(i, kind, wanted):
+            name = names[r]
+            p, j = params[name], index[name]
+            want = tuple(p.shape) if kind == "acc" else tuple(
+                optimizer.owned[j].shape)
+            if tuple(t.shape) != want:
                 raise ValueError(f"{path}: leaf {i} ({kind} of {name}) has "
-                                 f"shape {tuple(a.shape)}, the parameter "
-                                 f"{tuple(p.shape)}")
-            t = a.to(p.device, p.dtype)
+                                 f"shape {tuple(t.shape)}, the parameter's "
+                                 f"{'' if kind == 'acc' else 'slice '}"
+                                 f"{want}")
+            t = t.to(p.device, p.dtype).contiguous()
             if kind == "acc":
                 acc[name] = t
             else:
                 field = "exp_avg" if kind == "mu" else "exp_avg_sq"
-                state.setdefault(index[name], {})[field] = _owned(
-                    optimizer, index[name], t)
+                state.setdefault(j, {})[field] = t
     count = max(counts)
     for s in state.values():
         s["step"] = torch.tensor(float(count), dtype=torch.float32)
@@ -659,12 +784,6 @@ def _load_jax_optimizer(path: str, z, optimizer) -> None:
             else None)
 
 
-def _owned(optimizer, i: int, full: torch.Tensor) -> torch.Tensor:
-    """A file's moment of parameter i (this model-axis rank's part) → the
-    slice this rank keeps (ZeRO-1), or the whole part."""
-    return optimizer.own(i, full).contiguous()
-
-
 def _model_part(optimizer, name: str, full: torch.Tensor) -> torch.Tensor:
     """This model-axis rank's part of a file's whole leaf of parameter
     `name` (the leaf itself when the parameter is whole)."""
@@ -677,11 +796,60 @@ def load_optimizer_npz(path: str, optimizer) -> None:
     """Restore an optimizer file, the JAX package's positional layout (the
     port's or JAX's), into `optimizer` (its parameters already hold the
     checkpoint's weights)."""
+    index = {name: i for i, name in enumerate(optimizer.names)}
+
+    def parts(i, kind, wanted):
+        leaf = z[str(i)]
+        for r, name in wanted:
+            # np.array, not ascontiguousarray: a 0-d leaf stays 0-d
+            a = torch.from_numpy(np.array(leaf if r is None else leaf[r]))
+            a = _model_part(optimizer, name, a)
+            yield r, (a if kind == "acc" or tuple(a.shape) != tuple(
+                optimizer.params[index[name]].shape)
+                else optimizer.own(index[name], a))
+
     with np.load(path) as z:
         if not z.files or not all(k.isdigit() for k in z.files):
             raise ValueError(f"{path} is not an optimizer file in the JAX "
                              f"package's positional layout")
-        _load_jax_optimizer(path, z, optimizer)
+        _load_jax_optimizer(path, len(z.files), lambda i: int(z[str(i)]),
+                            parts, optimizer)
+
+
+def load_optimizer_orbax(path: str, optimizer) -> None:
+    """`load_optimizer_npz` for a `.orbax` optimizer file (JAX's or the
+    port's): each rank reads only its region of each leaf, its model-axis
+    part and, for the moments, its ZeRO-1 slice of that part."""
+    ckpt = orbax_format.Checkpoint(path)
+    names = ckpt.names()
+    if not names or not all(n.isdigit() for n in names):
+        raise ValueError(f"{path} is not an optimizer file in the JAX "
+                         f"package's positional layout")
+    index = {name: i for i, name in enumerate(optimizer.names)}
+
+    def parts(i, kind, wanted):
+        if not wanted:
+            return
+        first = wanted[0][1]
+        j = index[first]
+        inner = tuple(optimizer.params[j].shape)
+        select = {}
+        if first in optimizer.tp_splits:
+            (split, dim), length = optimizer.tp_splits[first]
+            select[dim] = _part_select((split, dim), optimizer.model_axis,
+                                       length)
+        d = optimizer.split_dims[j]
+        if kind != "acc" and d is not None:
+            base = (select[d] if d in select
+                    else torch.arange(inner[d]))
+            select[d] = base[torch.arange(len(base)).chunk(
+                optimizer.world)[optimizer.rank]]
+        rows = None if wanted[0][0] is None else sorted(
+            r for r, _ in wanted)
+        yield from _read_rows(ckpt, str(i), rows, select)
+
+    _load_jax_optimizer(path, len(names),
+                        lambda i: int(ckpt.read(str(i))), parts, optimizer)
 
 
 def resume_latest(output_dir: str, model) -> int:
@@ -691,8 +859,9 @@ def resume_latest(output_dir: str, model) -> int:
     if step is None:
         return 0
     if path.endswith(".orbax"):
-        raise NotImplementedError(f"{path}: {_ORBAX}")
-    load_model_npz(path, model)
+        load_model_orbax(path, model)
+    else:
+        load_model_npz(path, model)
     LOGGER.info("resumed from %s (step %d)", path, step)
     return step
 
@@ -707,9 +876,14 @@ def load_latest_opt_state(output_dir: str, optimizer,
     if step is None:
         _, path = _latest_step(ckpt_dir, "optimizer")
     else:
-        path = os.path.join(ckpt_dir, f"optimizer_step_{step}.npz")
+        path = next((p for p in (os.path.join(ckpt_dir, f"optimizer_step_"
+                                              f"{step}.{b}") for b in BACKENDS)
+                     if os.path.exists(p)), None)
     if not path or not os.path.exists(path):
         return False
-    load_optimizer_npz(path, optimizer)
+    if path.endswith(".orbax"):
+        load_optimizer_orbax(path, optimizer)
+    else:
+        load_optimizer_npz(path, optimizer)
     LOGGER.info("optimizer state from %s (update %d)", path, optimizer.count)
     return True

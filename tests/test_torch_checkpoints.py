@@ -289,6 +289,9 @@ def test_latest_step_skips_tmp(tmp_path):
     for name in ("model_step_2.npz", "model_step_10.npz", "model_step_30-tmp",
                  "optimizer_step_50.npz"):
         (tmp_path / name).write_bytes(b"")
+    # orbax's uncommitted save (atomicity.TMP_DIR_SUFFIX), which the port's
+    # `.orbax` writer also builds before its rename
+    os.makedirs(tmp_path / "model_step_40.orbax.orbax-checkpoint-tmp")
     assert checkpoints._latest_step(str(tmp_path), "model") == \
         jax_ckpt._latest_step(str(tmp_path), "model") == \
         (10, str(tmp_path / "model_step_10.npz"))
@@ -297,12 +300,31 @@ def test_latest_step_skips_tmp(tmp_path):
 
 
 def test_orbax_and_missing_checkpoints_raise(tmp_path):
+    """A pretrained directory without a checkpoint raises; one whose newest
+    checkpoint is the port's `.orbax` (saved over an npz step, which it
+    removes) loads its tree bit for bit (it was refused before `.orbax` was
+    ported)."""
     write_hps(tmp_path, tiny_model_cfg())
     with pytest.raises(FileNotFoundError, match="model_step"):
         checkpoints.load_from_pretrained_dir(str(tmp_path))
-    os.makedirs(tmp_path / "ckpt" / "model_step_4.orbax")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkpoints.load_from_pretrained_dir(str(tmp_path))
+    _, tcfg = configs(max_vision_sample_num=4, max_audio_sample_num=2,
+                      max_depth_sample_num=2)
+    model = MiCo(tcfg, device="cpu", seed=3)
+    checkpoints.ModelSaver(str(tmp_path)).save(2, model)
+    checkpoints.ModelSaver(str(tmp_path), backend="orbax").save(4, model)
+    # the `.orbax` save removed the npz step before it
+    assert os.listdir(tmp_path / "ckpt") == ["model_step_4.orbax"]
+    params, cfg = checkpoints.load_from_pretrained_dir(str(tmp_path))
+    assert cfg.max_vision_sample_num == 4
+    got = convert._flatten(params)
+    want = convert._flatten(convert.params_to_jax(model.state_dict(), tcfg))
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == torch.float32, k
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    back = convert.mico_from_jax(params, cfg, device="cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
 
 
 def test_hps_reader_matches_jax(tmp_path):

@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = (sorted((ROOT / "mico_tpu_torch").rglob("*.py"))
            + sorted((ROOT / "scripts").glob("torch_*.py"))
            + [ROOT / "chip_smoke.py"])
-FORBIDDEN = ("jax", "jaxlib", "mico_tpu", "flax", "optax")
+FORBIDDEN = ("jax", "jaxlib", "mico_tpu", "flax", "optax", "orbax",
+             "tensorstore", "zstandard")
 
 
 def imported_modules(path: Path):
@@ -42,7 +43,8 @@ def test_sources_found():
             "config_io.py", "logger.py", "checkpoints.py",
             "scst.py", "mesh.py", "tensor_parallel.py", "clip_text.py",
             "modified_resnet.py", "timm_adapter.py", "bpe.py",
-            "hf_adapter.py", "pretrained.py"} <= names
+            "hf_adapter.py", "pretrained.py", "zstd.py", "ocdbt.py",
+            "orbax_format.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -13,7 +13,8 @@ test (cv2 JPEGs, 16 kHz WAVs, captions, questions and answers):
   - gradient accumulation (k = 2 over two micro-batches) equals one step on
     their union (rates 0, draws injected);
   - the caption-generation config's testing shape, `param_dtype`, and what
-    the port refuses (no card, parallelism, orbax).
+    the port refuses (no card, parallelism), and the orbax backend's save
+    and resume.
 """
 
 import json
@@ -402,8 +403,20 @@ def test_refusals(corpus, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trun.main(base)             # the default device is the card
     cpu = base + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="orbax"):
-        trun.main(cpu + ["run_cfg.checkpoint_backend=orbax"])
+    # checkpoint_backend=orbax is no longer refused: it saves `.orbax`
+    # directories and resumes from them (model, moments and update count)
+    orbax = cpu + ["run_cfg.checkpoint_backend=orbax", "--data_cfg.val", "[]"]
+    trun.main(orbax)
+    assert ckpt_files(str(tmp_path)) == ["model_step_2.orbax",
+                                         "optimizer_step_2.orbax"]
+    seen = spy_train(monkeypatch)
+    rec = trun.main(orbax + ["run_cfg.resume=true",
+                             "run_cfg.num_train_steps=3"])
+    assert rec["start_step"] == 2 and rec["end_step"] == 3
+    assert seen["optimizer"].count == 3
+    assert ckpt_files(str(tmp_path)) == ["model_step_3.orbax",
+                                         "optimizer_step_3.orbax"]
+    monkeypatch.undo()
     # tensor and pipeline parallelism are ported: model 2 and 2 stages take
     # two processes, and one process cannot hold their mesh
     for over in ("run_cfg.model_parallel=2", "run_cfg.pipeline_stages=2"):

@@ -441,3 +441,40 @@ def pp_schedule_checks(rank: int, world: int, toy: dict, meshes: list,
                    for k, p in net.named_parameters()
                    if k.startswith("vision_encoder.")}))
     return out
+
+
+def zero1_orbax_resume(rank: int, world: int, out: str, tcfg, oc: dict
+                       ) -> dict:
+    """A ZeRO-1 resume of the `.orbax` checkpoint under `out` on this rank
+    (the model whole, the moments sliced over the world). → the moments it
+    holds by parameter name, each parameter's split dimension, the update
+    count, and the chunk keys its optimizer read decoded."""
+    from mico_tpu_torch.models.mico import MiCo
+    from mico_tpu_torch.parallel.mesh import create_mesh
+    from mico_tpu_torch.train import checkpoints, orbax_format
+    from mico_tpu_torch.train.optim import OptimConfig, build_optimizer
+
+    opened = []
+
+    class Counted(orbax_format.Checkpoint):
+        def __init__(self, path):
+            super().__init__(path)
+            opened.append(self)
+
+    orbax_format.Checkpoint = Counted
+    mesh = create_mesh()
+    model = MiCo(tcfg, device="cpu", init_weights=False).to_empty(
+        device="cpu")
+    step = checkpoints.resume_latest(out, model)
+    opt = build_optimizer(model, OptimConfig(**oc), group=mesh.group,
+                          zero1=True)
+    assert checkpoints.load_latest_opt_state(out, opt, step=step)
+    state = opt.torch_optimizer.state
+    decoded = [k for c in opened if "optimizer_step" in c.path
+               for k in c.decoded]
+    return dict(
+        moments={n: (state[o]["exp_avg"].numpy().copy(),
+                     state[o]["exp_avg_sq"].numpy().copy())
+                 for n, o in zip(opt.names, opt.owned) if o in state},
+        split_dims=dict(zip(opt.names, opt.split_dims)), count=opt.count,
+        decoded=decoded)
